@@ -1,0 +1,58 @@
+"""blendjax_torch.btt — consumer-side package (training host, PyTorch).
+
+The DataLoader role is played by :class:`blendjax_torch.btt.loader.BatchLoader`
+plus the pinned-memory device feed in :mod:`blendjax_torch.btt.prefetch`.
+Attribute access is lazy so importing the package drags in neither torch
+nor zmq (only the device feed needs torch, only the sockets need zmq).
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "BlenderLauncher": ("blendjax_torch.btt.launcher", "BlenderLauncher"),
+    "discover_blender": ("blendjax_torch.btt.finder", "discover_blender"),
+    "LaunchInfo": ("blendjax_torch.btt.launch_info", "LaunchInfo"),
+    "RemoteIterableDataset": ("blendjax_torch.btt.dataset", "RemoteIterableDataset"),
+    "SingleFileDataset": ("blendjax_torch.btt.dataset", "SingleFileDataset"),
+    "FileDataset": ("blendjax_torch.btt.dataset", "FileDataset"),
+    "FileRecorder": ("blendjax_torch.btt.file", "FileRecorder"),
+    "FileReader": ("blendjax_torch.btt.file", "FileReader"),
+    "BatchLoader": ("blendjax_torch.btt.loader", "BatchLoader"),
+    "collate": ("blendjax_torch.btt.collate", "collate"),
+    "TransferGate": ("blendjax_torch.btt.prefetch", "TransferGate"),
+    "device_prefetch": ("blendjax_torch.btt.prefetch", "device_prefetch"),
+    "TorchStream": ("blendjax_torch.btt.prefetch", "TorchStream"),
+    "get_primary_ip": ("blendjax_torch.btt.utils", "get_primary_ip"),
+}
+
+_LAZY_MODULES = (
+    "launcher",
+    "finder",
+    "launch_info",
+    "dataset",
+    "file",
+    "loader",
+    "collate",
+    "prefetch",
+    "utils",
+    "constants",
+)
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY:
+        module, attr = _LAZY[name]
+        value = getattr(importlib.import_module(module), attr)
+        globals()[name] = value
+        return value
+    if name in _LAZY_MODULES:
+        mod = importlib.import_module(f"blendjax_torch.btt.{name}")
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'blendjax_torch.btt' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(list(globals()) + list(_LAZY) + list(_LAZY_MODULES)))

@@ -1,0 +1,180 @@
+"""Threaded batch loader — the torch-DataLoader role in the feed.
+
+Why threads instead of worker processes: the stream's hot path is ZMQ
+``recv`` (GIL released in C) plus numpy buffer handling, so threads overlap
+IO without the serialization tax of moving tensors between worker
+processes.  Each worker thread runs its own PULL socket via
+``RemoteIterableDataset.stream(worker_id, num_workers)``.  Batches are
+assembled inside the worker threads (DataLoader semantics: each worker
+emits whole batches), one queue element per batch.
+"""
+
+from __future__ import annotations
+
+import queue
+import sys
+import threading
+
+from blendjax_torch.btt.collate import collate
+from blendjax_torch.utils.timing import StageTimer
+
+_SENTINEL = object()
+
+
+class BatchLoader:
+    """Iterates collated batches pulled by ``num_workers`` stream threads.
+
+    Params
+    ------
+    dataset: RemoteIterableDataset (or anything with ``.stream(...)``)
+    batch_size: int
+    num_workers: int
+        Stream threads; each takes ``1/num_workers`` of ``max_items``.
+    drop_last: bool
+        Drop the final partial batch.
+    gate: TransferGate | None
+        When set, workers pause at batch boundaries while a host->device
+        transfer holds the gate closed (see ``prefetch.TransferGate``).
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size,
+        num_workers=1,
+        drop_last=True,
+        gate=None,
+    ):
+        if num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+        self.drop_last = drop_last
+        self.gate = gate
+        self.timer = StageTimer()
+        self._queue = queue.Queue(maxsize=2)
+        self._stop = threading.Event()
+        self._threads = []
+        self._started = False
+
+        # Batching happens per worker: a worker that never accumulates a full
+        # batch yields nothing under drop_last, which silently drops the whole
+        # stream when batch_size exceeds the per-worker item count.
+        max_items = getattr(dataset, "max_items", None)
+        if drop_last and max_items is not None:
+            per_worker = max_items // num_workers
+            if per_worker < batch_size:
+                raise ValueError(
+                    f"batch_size={batch_size} exceeds the per-worker item "
+                    f"count {per_worker} ({max_items} items / {num_workers} "
+                    f"workers); every batch would be "
+                    "dropped. Lower batch_size/num_workers or pass "
+                    "drop_last=False."
+                )
+
+    # -- worker machinery ---------------------------------------------------
+
+    def _put(self, item):
+        """Blocking put that aborts when the loader is being closed, so
+        workers can never deadlock on a full queue nobody drains."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self, worker_id):
+        try:
+            batch = []
+            for item in self.dataset.stream(
+                worker_id=worker_id,
+                num_workers=self.num_workers,
+                stop_event=self._stop,
+            ):
+                batch.append(item)
+                if len(batch) == self.batch_size:
+                    if self.gate is not None:
+                        self.gate.wait(stop=self._stop)
+                    with self.timer.stage("collate"):
+                        out = collate(batch)
+                    batch = []
+                    if not self._put(out):
+                        return
+                if self._stop.is_set():
+                    return
+            if batch and not self.drop_last:
+                with self.timer.stage("collate"):
+                    out = collate(batch)
+                if not self._put(out):
+                    return
+            self._put(_SENTINEL)
+        except BaseException as exc:  # propagate to the consumer thread
+            self._put(exc)
+
+    def _start(self):
+        self._started = True
+        for w in range(self.num_workers):
+            t = threading.Thread(
+                target=self._worker, args=(w,), daemon=True, name=f"bjx-loader-{w}"
+            )
+            t.start()
+            self._threads.append(t)
+
+    def close(self):
+        """Stop worker threads promptly (idempotent)."""
+        self._stop.set()
+        if sys.is_finalizing():
+            # close() can run from generator finalization during interpreter
+            # shutdown: the daemon workers are dead, nothing to drain or join
+            return
+        # drain so blocked put() calls can observe the stop flag
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        for t in self._threads:
+            t.join(timeout=5)
+        # keep hung workers visible instead of masking a leak
+        self._threads = [t for t in self._threads if t.is_alive()]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # -- consumer side ------------------------------------------------------
+
+    def __iter__(self):
+        if self._started:
+            raise RuntimeError(
+                "BatchLoader is single-use; create a new one per epoch/stream"
+            )
+        self._start()
+        finished = 0
+        try:
+            while finished < self.num_workers:
+                # timed get so a cross-thread close() (which stops workers
+                # before their sentinels land) can't strand this consumer
+                with self.timer.stage("recv"):
+                    while True:
+                        if self._stop.is_set():
+                            return
+                        try:
+                            item = self._queue.get(timeout=0.1)
+                            break
+                        except queue.Empty:
+                            continue
+                if item is _SENTINEL:
+                    finished += 1
+                    continue
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            self.close()

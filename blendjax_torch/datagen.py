@@ -1,0 +1,131 @@
+"""Supervised data generation + training on the card: producers stream
+frames, the port's feed stages them onto the GPU, the CUDA kernel decodes
+them inside the loss and a TinyDetector trains on them.  The counterpart
+of ``examples/datagen/generate.py``.
+
+Modes::
+
+    python -m blendjax_torch.datagen                  # live stream -> train
+    python -m blendjax_torch.datagen --record prefix  # ... and record .btr
+    python -m blendjax_torch.datagen --replay prefix  # no Blender: replay
+
+The producer is :file:`btb/frames.blend.py` (seeded synthetic frames in
+the datagen schema); point ``$BLENDJAX_BLENDER`` at a Blender, or at
+``tests/helpers/fake_blender.py``.  The training loop is
+:func:`train_on_stream`, usable with any iterator of device batches.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from blendjax_torch.models import detector
+from blendjax_torch.models.train import TrainState, make_train_step
+from blendjax_torch.ops.image import decode_frames
+from blendjax_torch.utils.device import resolve_device
+
+SCRIPT = Path(__file__).parent / "btb" / "frames.blend.py"
+IMAGE_HW = (480, 640)
+
+
+def item_transform(item):
+    """Producer message -> training sample: keep the image uint8 (the
+    decode happens on the card) and normalize keypoints to [0,1]."""
+    h, w = IMAGE_HW
+    return {
+        "image": item["image"],
+        "xy": (item["xy"] / np.array([w, h], np.float32)).astype(np.float32),
+    }
+
+
+def make_state(generator, num_keypoints=8, in_channels=3, device="cuda", **kwargs):
+    """Fresh TinyDetector params from ``generator`` under Adam(1e-3)."""
+    params = detector.init(generator, num_keypoints=num_keypoints,
+                           in_channels=in_channels, device=device, **kwargs)
+    return TrainState.create(params)
+
+
+def make_loss(dtype=torch.bfloat16):
+    """The detector loss with the uint8 decode inside it: the train step's
+    input is the uint8 batch.  ``dtype`` is both the decode's output and
+    the compute dtype (bf16 on the main path, float32 for parity runs)."""
+
+    def loss_with_decode(params, batch):
+        images = decode_frames(batch["image"], dtype=dtype)
+        return detector.loss_fn(params, {"image": images, "xy": batch["xy"]},
+                                compute_dtype=dtype)
+
+    return loss_with_decode
+
+
+def train_on_stream(batches, state=None, log_every=8, dtype=torch.bfloat16,
+                    device="cuda"):
+    """Train TinyDetector over an iterator of device batches; returns
+    ``(state, losses)``.  Without ``state``, params come from a generator
+    seeded 0 on ``device``."""
+    if state is None:
+        device = resolve_device(device)
+        state = make_state(torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    step = make_train_step(make_loss(dtype))
+    losses = []
+    for i, batch in enumerate(batches):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        if log_every and (i + 1) % log_every == 0:
+            print(f"batch {i + 1}: loss {np.mean(losses[-log_every:]):.5f}")
+    return state, losses
+
+
+def main():
+    from blendjax_torch import btt
+    from blendjax_torch.btt.collate import collate
+    from blendjax_torch.btt.prefetch import device_prefetch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--record", metavar="PREFIX", help="record while streaming")
+    ap.add_argument("--replay", metavar="PREFIX", help="replay recordings (no Blender)")
+    ap.add_argument("--instances", type=int, default=4)
+    ap.add_argument("--items", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--background", action="store_true",
+                    help="run Blender headless")
+    args = ap.parse_args()
+
+    if args.replay:
+        ds = btt.FileDataset(args.replay, item_transform=item_transform)
+
+        def batches():
+            idx = np.random.default_rng(0).permutation(len(ds))
+            for s in range(0, len(ds) - args.batch + 1, args.batch):
+                yield collate([ds[int(i)] for i in idx[s : s + args.batch]])
+
+        train_on_stream(device_prefetch(batches()))
+        return
+
+    with btt.BlenderLauncher(
+        scene="",
+        script=str(SCRIPT),
+        num_instances=args.instances,
+        named_sockets=["DATA"],
+        background=args.background,
+    ) as bl:
+        ds = btt.RemoteIterableDataset(
+            bl.launch_info.addresses["DATA"],
+            max_items=args.items,
+            item_transform=item_transform,
+            record_path_prefix=args.record,
+        )
+        with btt.TorchStream(ds, batch_size=args.batch,
+                             num_workers=args.workers) as stream:
+            train_on_stream(stream)
+        print("stage timing:", stream.timer.summary())
+
+
+if __name__ == "__main__":
+    main()
