@@ -13,9 +13,14 @@ Subpackages
   record/replay, threaded loader, the pinned-memory CUDA device feed.
 - ``blendjax_torch.btb``    producer side (runs inside Blender's Python);
   needs neither torch nor a GPU.
-- ``blendjax_torch.ops``    image ops, incl. the hand-written CUDA decode
-  kernel for the uint8 -> bf16/f32 frame path.
-- ``blendjax_torch.models`` TinyDetector, its layers and the train step.
+- ``blendjax_torch.ops``    image ops and flash attention, with the
+  hand-written CUDA kernels: the uint8 -> bf16/f32 frame decode and the
+  flash-attention forward, dQ and dK/dV passes.
+- ``blendjax_torch.models`` TinyDetector, the SeqFormer world model, their
+  layers and the train step.
+- ``blendjax_torch.parallel`` the single-device reference attention.
+- ``blendjax_torch.datagen`` / ``blendjax_torch.worldmodel``  the two
+  trainers on streamed data (frames -> TinyDetector, episodes -> SeqFormer).
 - ``blendjax_torch.obs`` / ``blendjax_torch.utils``  stage timing and
   latency histograms.
 
@@ -25,7 +30,8 @@ attributes), so the same tree serves Blender's embedded Python.
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("btt", "btb", "datagen", "models", "obs", "ops", "utils", "wire")
+_SUBMODULES = ("btt", "btb", "datagen", "models", "obs", "ops", "parallel", "utils",
+               "wire", "worldmodel")
 
 
 def __getattr__(name):  # PEP 562 lazy subpackage access

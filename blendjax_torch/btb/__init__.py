@@ -1,7 +1,8 @@
 """blendjax_torch.btb — producer-side package, runs inside Blender's Python.
 
-The port's copy of the part of ``blendjax.btb`` its datagen slice uses:
-the launcher argument protocol and the data publisher.  Attribute access
+The port's copy of the part of ``blendjax.btb`` its slices use: the
+launcher argument protocol and the data publisher, plus the pendulum
+dynamics the world-model producer integrates (``pendulum``).  Attribute access
 is lazy (PEP 562), and nothing here imports torch, so producer scripts run
 under Blender's bundled interpreter.  The camera, offscreen and animation
 modules are not ported yet.

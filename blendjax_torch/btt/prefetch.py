@@ -209,7 +209,8 @@ def _hand_over(dev_batch, event, device):
     return dev_batch
 
 
-def device_prefetch(iterator, size=2, device="cuda", timer=None, gate=None):
+def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
+                    gate=None):
     """Wrap ``iterator`` (host batches) into an iterator of device batches.
 
     Params
@@ -220,6 +221,9 @@ def device_prefetch(iterator, size=2, device="cuda", timer=None, gate=None):
     device: str | torch.device
         Placement for every array leaf; CUDA unless the caller asks for
         the CPU.  Raises when CUDA is asked for and absent.
+    transform: callable | None
+        Host-side hook applied to each host batch before it is staged
+        (key selection, dtype cast, layout).
     timer: StageTimer | None
         Records ``device_put`` stage times (staging + copy issue).
     gate: TransferGate | None
@@ -253,6 +257,8 @@ def device_prefetch(iterator, size=2, device="cuda", timer=None, gate=None):
             for batch in iterator:
                 if stop.is_set():
                     return
+                if transform is not None:
+                    batch = transform(batch)
                 with timer.stage("device_put"):
                     item = _place(batch)
                 while True:
@@ -299,8 +305,10 @@ class TorchStream:
 
     The counterpart of ``blendjax.btt.prefetch.JaxStream``: ``device=``
     takes the place of ``sharding=`` (one device; multi-device placement
-    is not ported).  ``stream.timer.summary()`` exposes the per-stage feed
-    times (recv / collate / device_put).
+    is not ported).  ``transform`` is applied to each collated host batch
+    before it is staged (e.g. a cast to float16 that halves the copy).
+    ``stream.timer.summary()`` exposes the per-stage feed times (recv /
+    collate / device_put).
     """
 
     def __init__(
@@ -312,6 +320,7 @@ class TorchStream:
         prefetch=2,
         drop_last=True,
         transfer_gate="auto",
+        transform=None,
     ):
         from blendjax_torch.btt.loader import BatchLoader
 
@@ -325,6 +334,7 @@ class TorchStream:
             gate=self.gate,
         )
         self.prefetch = prefetch
+        self.transform = transform
         self.timer = self.loader.timer
 
     def __iter__(self):
@@ -332,6 +342,7 @@ class TorchStream:
             iter(self.loader),
             size=self.prefetch,
             device=self.device,
+            transform=self.transform,
             timer=self.timer,
             gate=self.gate,
         )

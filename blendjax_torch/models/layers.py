@@ -66,3 +66,29 @@ def dense_apply(p, x, dtype=None):
 def gelu(x):
     """GELU with the tanh approximation, ``jax.nn.gelu``'s default."""
     return F.gelu(x, approximate="tanh")
+
+
+def rope_table(positions, dh, base=10000.0):
+    """Rotary-embedding cos/sin tables, each ``(len(positions), dh // 2)``
+    f32, for integer ``positions`` at per-head dim ``dh`` (even)."""
+    half = dh // 2
+    exponent = -torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(base, dtype=torch.float32, device=positions.device),
+                      exponent)
+    ang = positions.to(torch.float32)[:, None] * freqs[None]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Rotate (B, T, H, Dh) (or (B, H, Dh) single-position) q/k by the
+    tables from :func:`rope_table`: the head dim splits into two halves
+    (not interleaved pairs), rotated in f32 and cast back."""
+    single = x.ndim == 3
+    if single:
+        x = x[:, None]
+    x32 = x.to(torch.float32)
+    x1, x2 = torch.chunk(x32, 2, dim=-1)
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+    return out[:, 0] if single else out

@@ -3,6 +3,7 @@
 The port of ``blendjax.models.train``::
 
     state = TrainState.create(params)            # torch.optim.Adam(lr=1e-3)
+    state = TrainState.create(params, lr=3e-4)   # another rate
     step = make_train_step(loss_fn)
     state, loss = step(state, batch)
 
@@ -29,9 +30,9 @@ class TrainState:
     step: int = 0
 
     @classmethod
-    def create(cls, params):
+    def create(cls, params, lr=1e-3):
         params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        return cls(params=params, optimizer=torch.optim.Adam(params.values(), lr=1e-3))
+        return cls(params=params, optimizer=torch.optim.Adam(params.values(), lr=lr))
 
 
 def make_train_step(loss_fn):

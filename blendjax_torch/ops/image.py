@@ -60,7 +60,7 @@ def decode_frames_plain(frames_u8, dtype=torch.float32, linearize=False):
 def _kernel():
     from blendjax_torch.ops._build import load_library
 
-    lib = load_library("blendjax_torch_decode", ["decode.cu"])
+    lib = load_library()
     fn = lib.bjx_decode_u8
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,

@@ -7,26 +7,48 @@ check it end to end.
 Phases, each printing JSON lines:
 
 1. card     — ``nvidia-smi``'s name and power limit.
-2. kernels  — the hand-written kernels the port has.
-3. kernel   — every kernel against its plain PyTorch version on the card,
-              with its max abs error, and its time at the main path's shape
-              beside the bytes it moves and the card's bandwidth bound.
+2. kernels  — the hand-written kernels the port has; their library is
+              built from ``blendjax_torch/ops/csrc`` into ``build/``, one
+              ``nvcc`` per source in parallel (``build`` line).
+3. kernel   — the decode kernel against its plain PyTorch version on the
+              card, with its max abs error, and its time at the main
+              path's shape beside the bytes it moves and the card's
+              bandwidth bound.
 4. train    — a full-width TinyDetector (channels 32/64/128, hidden 256,
               K=8) takes 8 Adam steps on seeded 8x480x640x3 uint8 batches
               decoded by the kernel inside the loss; the model path is also
               held against the CPU on a small input.
-5. stream   — the main path through its entry points: 2 producers started
-              by ``BlenderLauncher`` (with ``tests/helpers/fake_blender.py``
-              as the Blender executable) -> ``RemoteIterableDataset`` ->
-              ``TorchStream`` -> decode kernel -> train steps.  Every
-              kernel's launch count is zeroed just before and read just
-              after; a kernel the path never launched fails the run.
+5. stream   — the datagen path through its entry points: 2 producers
+              started by ``BlenderLauncher`` (with
+              ``tests/helpers/fake_blender.py`` as the Blender executable)
+              -> ``RemoteIterableDataset`` -> ``TorchStream`` -> decode
+              kernel -> train steps.
+6. flash    — the flash-attention forward, dQ and dK/dV kernels against
+              their plain passes on the card, case by case (the flagship
+              shape in bf16, f32 causal and not, f32 at head dim 128 and
+              T=512, GQA, a window, ragged lengths, a q offset), each with
+              its max abs error and limit.
+7. flash_time — each flash kernel, its plain pass and the library call
+              (``scaled_dot_product_attention`` on the fastest of its
+              backends, timed as a CUDA graph's replay, for comparison
+              only) at the flagship shape, beside its FLOPs, bytes and
+              bound.
+8. seqformer — the flagship SeqFormer (8 layers, d_model 1024, 8 heads,
+              T=512, batch 8) takes 8 Adam(1e-4) steps through the flash
+              kernels on seeded float16 episodes on the card; a small f32
+              model is held between card (kernels) and CPU (plain passes).
+9. worldmodel — the world-model path through its entry points: 2
+              ``btb/episodes.blend.py`` producers -> ``RemoteIterableDataset``
+              -> ``TorchStream(transform=episode_transform)`` ->
+              ``worldmodel.train_on_episodes`` at the flagship sizing.
 
-The line before the last holds every kernel's numbers; the last line is
-``{"ok": true, "device": {...}}``.  Any failed check exits nonzero without
-printing it, as does a host without CUDA or a directory without the
-``blendjax_torch`` package beside this file.  The kernels are built from
-``blendjax_torch/ops/csrc`` into ``build/`` at first use.
+Every kernel's launch count is zeroed just before the path that runs it
+(the datagen stream for the decode kernel, the world-model stream for the
+flash kernels) and read just after; a kernel the path never launched fails
+the run.  The line before the last holds every kernel's numbers; the last
+line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
+without printing it, as does a host without CUDA or a directory without
+the ``blendjax_torch`` package beside this file.
 """
 
 from __future__ import annotations
@@ -48,8 +70,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_PEAK = {
     "NVIDIA H100 80GB HBM3": 3.35e12,
 }
+#: Published dense bf16 tensor-core rate, FLOP/s, by the same names: H100
+#: SXM5 80GB, 989.4 TFLOP/s (NVIDIA H100 Tensor Core GPU data sheet).
+BF16_PEAK = {
+    "NVIDIA H100 80GB HBM3": 989.4e12,
+}
 
 MAIN_SHAPE = (8, 480, 640, 3)  # examples/datagen: batch 8 of 480x640 RGB
+# benchmarks/suite_device.py's flagship SeqFormer: batch 8, 513-step
+# episodes (T = 512) of 32 channels, d_model 1024, 8 heads, 8 layers
+SEQ = dict(batch=8, seq_len=512, obs_dim=32, d_model=1024, n_heads=8, n_layers=8, lr=1e-4)
+FLASH_SHAPE = (SEQ["batch"], SEQ["seq_len"], SEQ["n_heads"],
+               SEQ["d_model"] // SEQ["n_heads"])  # (B, T, H, Dh)
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def emit(obj):
@@ -61,10 +94,10 @@ def check(cond, what):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def hbm_peak(name):
-    if name not in HBM_PEAK:
-        raise SystemExit(f"chip_smoke: no HBM bandwidth on record for {name!r}")
-    return HBM_PEAK[name]
+def peak_rate(table, name):
+    if name not in table:
+        raise SystemExit(f"chip_smoke: no peak rate on record for {name!r}")
+    return table[name]
 
 
 def time_ms(torch, fn, reps=50, flush=None):
@@ -86,6 +119,20 @@ def time_ms(torch, fn, reps=50, flush=None):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def graph_replay(torch, fn, stream):
+    """``fn`` captured in a CUDA graph on ``stream`` after a warm-up there;
+    returns the graph's replay: the same device work, with no host dispatch
+    between its kernels."""
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return graph.replay
 
 
 def bf16_ulp(torch, ref):
@@ -209,21 +256,31 @@ def _port_pair():
     raise SystemExit("chip_smoke: no free port pair")
 
 
-def stream_phase(torch, btt, datagen, image):
+def _fake_blender():
     os.environ["BLENDJAX_BLENDER"] = os.path.join(REPO, "tests", "helpers",
                                                   "fake_blender.py")
+
+
+def _stamped(stream, arrivals, check_batch):
+    """Pass the stream's batches through, checking each and recording its
+    arrival and the time the train loop spent on it ("step")."""
+    for batch in stream:
+        check_batch(batch)
+        arrivals.append(time.perf_counter())
+        t0 = time.perf_counter()
+        yield batch  # the train step runs while this generator waits
+        stream.timer.add("step", time.perf_counter() - t0)
+
+
+def stream_phase(torch, btt, datagen, image):
+    _fake_blender()
     max_items, batch_size = 64, 8
     state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
     arrivals = []
 
-    def stamped(stream):
-        for batch in stream:
-            check(batch["image"].is_cuda and batch["image"].dtype == torch.uint8
-                  and tuple(batch["image"].shape) == MAIN_SHAPE, "stream batch")
-            arrivals.append(time.perf_counter())
-            t0 = time.perf_counter()
-            yield batch  # the train step runs while this generator waits
-            stream.timer.add("step", time.perf_counter() - t0)
+    def check_batch(batch):
+        check(batch["image"].is_cuda and batch["image"].dtype == torch.uint8
+              and tuple(batch["image"].shape) == MAIN_SHAPE, "stream batch")
 
     with btt.BlenderLauncher(scene="", script=str(datagen.SCRIPT), num_instances=2,
                              named_sockets=["DATA"], start_port=_port_pair(),
@@ -234,8 +291,8 @@ def stream_phase(torch, btt, datagen, image):
         with btt.TorchStream(ds, batch_size=batch_size, num_workers=2,
                              device="cuda") as stream:
             image.decode_frames_cuda.launches = 0
-            _, losses = datagen.train_on_stream(stamped(stream), state=state,
-                                                log_every=0)
+            _, losses = datagen.train_on_stream(
+                _stamped(stream, arrivals, check_batch), state=state, log_every=0)
             torch.cuda.synchronize()
             end = time.perf_counter()
             launches = image.decode_frames_cuda.launches
@@ -252,6 +309,310 @@ def stream_phase(torch, btt, datagen, image):
     return launches
 
 
+# -- flash attention -----------------------------------------------------------
+
+# (label, (B, Tq, H, Dh), h_kv, Tk, dtype, causal, window, q_offset)
+FLASH_CASES = [
+    ("flagship", FLASH_SHAPE, FLASH_SHAPE[2], FLASH_SHAPE[1], "bfloat16", True, None, 0),
+    ("f32 causal", (2, 128, 4, 32), 4, 128, "float32", True, None, 0),
+    ("f32 non-causal", (2, 128, 4, 32), 4, 128, "float32", False, None, 0),
+    ("gqa 8q/2kv", (2, 128, 8, 32), 2, 128, "float32", True, None, 0),
+    ("gqa 8q/2kv bf16 dh128", (2, 128, 8, 128), 2, 128, "bfloat16", True, None, 0),
+    ("f32 dh128 T 512", (2, 512, 8, 128), 8, 512, "float32", True, None, 0),
+    ("gqa 8q/2kv f32 dh128 T 512", (2, 512, 8, 128), 2, 512, "float32", True, None, 0),
+    ("window 48", (2, 128, 4, 32), 4, 128, "float32", True, 48, 0),
+    ("T 96", (2, 96, 4, 32), 4, 96, "float32", True, None, 0),
+    ("T 17", (2, 17, 4, 32), 4, 17, "float32", True, None, 0),
+    ("T 17 non-causal dh16", (2, 17, 4, 16), 4, 17, "float32", False, None, 0),
+    ("dh64 bf16 non-causal", (2, 128, 4, 64), 4, 128, "bfloat16", False, None, 0),
+    ("q_offset 64, Tk 128", (2, 64, 4, 32), 4, 128, "float32", True, None, 64),
+    ("q_offset 128, window 160", (2, 128, 4, 32), 4, 128, "float32", True, 160, 128),
+    ("q_offset 256, window 48: no row sees a column", (1, 128, 2, 32), 2, 128,
+     "float32", True, 48, 256),
+]
+
+
+#: absolute slack of a bf16 output beside its two ulps (below)
+BF16_ATOL = 1e-4
+
+
+def _compare(torch, got, want, grad, gqa):
+    """Max abs error of a kernel output against its plain pass, whether it
+    is within its limit, and the limit.  Kernel and plain pass share f32
+    arithmetic and differ only in the order of their f32 sums, so an f32
+    output (including lse, and dK/dV partials under GQA, from bf16 inputs
+    too) is held to tests/test_flash_attention.py's f32 limits (atol =
+    rtol: forward 2e-5, gradients 5e-5, GQA gradients 1e-4), and a bf16
+    output to BF16_ATOL plus two bf16 ulps of the plain value: one for a
+    rounding that falls the other way, one for a binade crossed."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        allowed, limit = BF16_ATOL + 2 * bf16_ulp(torch, want), f"{BF16_ATOL} + 2 bf16 ulps"
+    else:
+        tol = (1e-4 if gqa else 5e-5) if grad else 2e-5
+        allowed, limit = tol + tol * want.float().abs(), f"atol=rtol={tol}"
+    ok = bool((err <= allowed).all()) and bool(torch.isfinite(got).all())
+    return err.max().item(), ok, limit
+
+
+def _flash_inputs(torch, g, shape, h_kv, tk, dtype):
+    b, t, h, d = shape
+    dt = getattr(torch, dtype)
+
+    def rnd(rows, length):
+        return torch.randn((rows, length, d), generator=g, device="cuda").to(dt)
+
+    return rnd(b * h, t), rnd(b * h_kv, tk), rnd(b * h_kv, tk), rnd(b * h, t)
+
+
+def flash_phase(torch, flash):
+    """Each kernel against its plain pass on the same card inputs."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    errs = {}
+    for label, shape, h_kv, tk, dtype, causal, window, q_offset in FLASH_CASES:
+        b, t, h, d = shape
+        qf, kf, vf, dof = _flash_inputs(torch, g, shape, h_kv, tk, dtype)
+        heads = (h, h_kv) if h != h_kv else None
+        kw = dict(window=window, q_offset=q_offset, heads=heads)
+        scale = 1.0 / math.sqrt(d)
+        of, lse = flash.flash_fwd_plain(qf, kf, vf, causal, scale, **kw)
+        delta = (dof.float() * of.float()).sum(-1, keepdim=True)
+        gkw = dict(kw, out_dtype=torch.float32 if heads else None)
+        bwd = (qf, kf, vf, dof, lse, delta, causal, scale)
+        pairs = {  # kernel outputs, plain outputs, gradient?
+            "flash_fwd": (flash.flash_fwd_cuda(qf, kf, vf, causal, scale, **kw), (of, lse),
+                          False),
+            "flash_dq": ((flash.flash_dq_cuda(*bwd, **kw),),
+                         (flash.flash_dq_plain(*bwd, **kw),), True),
+            "flash_dkv": (flash.flash_dkv_cuda(*bwd, **gkw),
+                          flash.flash_dkv_plain(*bwd, **gkw), True),
+        }
+        torch.cuda.synchronize()
+        for name, (got, want, grad) in pairs.items():
+            results = [_compare(torch, a, w, grad, heads is not None)
+                       for a, w in zip(got, want)]
+            max_err = max(r[0] for r in results)
+            ok = all(r[1] for r in results)
+            emit({"phase": "flash", "kernel": name, "case": label, "shape": list(shape),
+                  "h_kv": h_kv, "tk": tk, "dtype": dtype, "causal": causal,
+                  "window": window, "q_offset": q_offset, "max_abs_err": max_err,
+                  "limit": " / ".join(r[2] for r in results), "ok": ok})
+            check(ok, f"{name} {label}")
+            if label == "flagship":
+                errs[name] = max_err
+    return errs
+
+
+def _flash_work(b, t, h, d, elt):
+    """FLOPs over the causal pairs and the least bytes of each flash kernel
+    at (B, T, H, Dh) causal, no window, elt-byte inputs and outputs."""
+    pairs = b * h * t * (t + 1) // 2
+    tile = b * h * t * d * elt  # one q, k, v, O or dO tensor
+    rows = b * h * t * 4  # one f32 lse or delta vector
+    return {
+        "flash_fwd": (2 * 2 * pairs * d, 3 * tile + tile + rows),  # QK^T, PV
+        "flash_dq": (3 * 2 * pairs * d, 4 * tile + 2 * rows + tile),  # QK^T, dOV^T, dSK
+        "flash_dkv": (4 * 2 * pairs * d, 4 * tile + 2 * rows + 2 * tile),  # + P^T dO, dS^T Q
+    }
+
+
+LIBRARY_CALLS = {
+    "fwd": "F.scaled_dot_product_attention(q, k, v, is_causal=True)",
+    "bwd": "torch.autograd.grad of that call (dQ, dK and dV together)",
+}
+#: SDPA's backends tried for the library call; the fastest one's time is kept
+LIBRARY_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def _library_times(torch, qf, kf, vf, dof, flush):
+    """The library calls of :data:`LIBRARY_CALLS` on (B, H, T, Dh) views of
+    the flat flagship inputs, on each of :data:`LIBRARY_BACKENDS` in turn:
+    ``{backend: {"fwd": {"ms", "eager_ms"}, "bwd": {...}}}``, or
+    ``{backend: {"error": ...}}`` where it has no kernel for these inputs.
+    ``ms`` is a CUDA graph's replay, so host dispatch (autograd's above
+    all) falls outside the window; ``eager_ms`` times the call itself.
+    Timed for comparison only: the port never calls them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, t, h, d = FLASH_SHAPE
+    q4, k4, v4, do4 = (x.view(b, h, t, d) for x in (qf, kf, vf, dof))
+    times = {}
+    for name in LIBRARY_BACKENDS:
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q4, k4, v4))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                with torch.cuda.stream(side):  # the backward runs on its forward's stream
+                    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+                calls = {
+                    "fwd": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+                    "bwd": lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
+                                                       retain_graph=True),
+                }
+                eager = {k: time_ms(torch, fn, reps=20, flush=flush) for k, fn in calls.items()}
+                replays = {k: graph_replay(torch, fn, side) for k, fn in calls.items()}
+        except RuntimeError as exc:  # no kernel of this backend for these inputs
+            times[name] = {"error": (str(exc) or type(exc).__name__).splitlines()[0][:200]}
+            continue
+        torch.cuda.current_stream().wait_stream(side)
+        times[name] = {k: {"ms": time_ms(torch, replays[k], reps=20, flush=flush),
+                           "eager_ms": eager[k]} for k in calls}
+    return times
+
+
+def flash_time_phase(torch, flash, hbm, flops_peak):
+    b, t, h, d = FLASH_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qf, kf, vf, dof = _flash_inputs(torch, g, FLASH_SHAPE, h, t, "bfloat16")
+    scale = 1.0 / math.sqrt(d)
+    of, lse = flash.flash_fwd_cuda(qf, kf, vf, True, scale)
+    delta = (dof.float() * of.float()).sum(-1, keepdim=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    bwd_args = (qf, kf, vf, dof, lse, delta, True, scale)
+    runs = {
+        "flash_fwd": (lambda: flash.flash_fwd_cuda(qf, kf, vf, True, scale),
+                      lambda: flash.flash_fwd_plain(qf, kf, vf, True, scale)),
+        "flash_dq": (lambda: flash.flash_dq_cuda(*bwd_args),
+                     lambda: flash.flash_dq_plain(*bwd_args)),
+        "flash_dkv": (lambda: flash.flash_dkv_cuda(*bwd_args),
+                      lambda: flash.flash_dkv_plain(*bwd_args)),
+    }
+    library = _library_times(torch, qf, kf, vf, dof, flush)
+    ran = {n: r for n, r in library.items() if "error" not in r}
+    check(ran, "scaled_dot_product_attention ran on some backend")
+    work = _flash_work(b, t, h, d, 2)
+    timing = {}
+    for name, (kernel, plain) in runs.items():
+        ms = time_ms(torch, kernel, reps=20, flush=flush)
+        plain_ms = time_ms(torch, plain, reps=10, flush=flush)
+        flops, nbytes = work[name]
+        by_ops, by_bytes = flops / flops_peak * 1e3, nbytes / hbm * 1e3
+        lib = "fwd" if name == "flash_fwd" else "bwd"
+        best = min(ran, key=lambda n: ran[n][lib]["ms"])
+        rec = {"phase": "flash_time", "kernel": name, "shape": list(FLASH_SHAPE),
+               "dtype": "bfloat16", "causal": True, "flops": flops, "bytes": nbytes,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": ran[best][lib]["ms"],
+               "library_call": LIBRARY_CALLS[lib], "library_backend": best,
+               "library_backends": {n: r.get(lib, r) for n, r in library.items()},
+               "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+               "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+        rec["bound_share"] = rec["bound_ms"] / ms
+        emit(rec)
+        timing[name] = rec
+    del flush
+    return timing
+
+
+def _episodes(torch, pendulum, rng, batch):
+    """Seeded float16 pendulum episodes on the card, (batch, T+1, obs_dim)."""
+    ep = pendulum.simulate_episode(rng, batch, SEQ["seq_len"], SEQ["obs_dim"])
+    return {"episode": torch.from_numpy(ep).to(torch.float16).cuda()}
+
+
+def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_step,
+                    TrainState):
+    import functools
+
+    import numpy as np
+
+    # the model path on the card (kernels) against the CPU (plain passes),
+    # float32 compute, on a small model: head dim 32, T = 128
+    attn = flash.make_flash_attention(causal=True, block_q="auto", block_kv="auto")
+    params = seqformer.init(torch.Generator().manual_seed(0), obs_dim=8, d_model=64,
+                            n_heads=2, n_layers=2, max_len=128, device="cpu")
+    ep = {"episode": torch.from_numpy(pendulum.simulate_episode(
+        np.random.default_rng(0), 2, 128)).to(torch.float16)}
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        losses[dev] = seqformer.episode_loss_fn(
+            p, {"episode": ep["episode"].to(dev)}, attn_fn=attn,
+            compute_dtype=torch.float32).item()
+    emit({"phase": "seqformer_reference", "cpu_loss": losses["cpu"],
+          "cuda_loss": losses["cuda"], "rtol": 2e-4})
+    check(math.isclose(losses["cpu"], losses["cuda"], rel_tol=2e-4),
+          "small SeqFormer loss: card vs CPU")
+
+    cfg = {k: SEQ[k] for k in ("obs_dim", "d_model", "n_heads", "n_layers")}
+    params = seqformer.init(torch.Generator(device="cuda").manual_seed(0),
+                            max_len=SEQ["seq_len"], device="cuda", **cfg)
+    state = TrainState.create(params, lr=SEQ["lr"])
+    step = make_train_step(functools.partial(
+        seqformer.episode_loss_fn, attn_fn=worldmodel.make_attn("flash", SEQ["seq_len"])))
+    rng = np.random.default_rng(0)
+    batches = [_episodes(torch, pendulum, rng, SEQ["batch"]) for _ in range(8)]
+    for name in FLASH_KERNELS:
+        getattr(flash, name + "_cuda").launches = 0
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))  # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: getattr(flash, n + "_cuda").launches / len(batches)
+                for n in FLASH_KERNELS}
+    med = statistics.median(times)
+    flops = seqformer.train_flops(SEQ["batch"], SEQ["seq_len"], **cfg)
+    emit({"phase": "seqformer", "config": SEQ, "params": sum(v.numel() for v in params.values()),
+          "steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
+          "losses": losses, "median_step_ms": med, "step_ms": times,
+          "train_flops": flops,
+          "model_tflop_per_s": flops / (med * 1e-3) / 1e12,
+          "model_tflop_per_s_note": "train_flops counts attention over the full T^2",
+          "launches_per_step": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check(all(math.isfinite(v) for v in losses), "seqformer losses finite")
+    check(losses[-1] < losses[0], "seqformer loss fell")
+    check(all(n == SEQ["n_layers"] for n in launches.values()),
+          "one launch of each flash kernel per layer and step")
+
+
+def worldmodel_phase(torch, btt, worldmodel, flash):
+    _fake_blender()
+    batches, batch_size = 16, SEQ["batch"]
+    args = ["--seq-len", str(SEQ["seq_len"] + 1), "--obs-dim", str(SEQ["obs_dim"])]
+    shape = (batch_size, SEQ["seq_len"] + 1, SEQ["obs_dim"])
+    arrivals = []
+
+    def check_batch(batch):
+        check(batch["episode"].is_cuda and batch["episode"].dtype == torch.float16
+              and tuple(batch["episode"].shape) == shape, "episode batch")
+
+    attn = worldmodel.make_attn("flash", SEQ["seq_len"])
+    sizing = {k: SEQ[k] for k in ("d_model", "n_heads", "n_layers", "obs_dim", "seq_len",
+                                  "lr")}
+    with btt.BlenderLauncher(scene="", script=str(worldmodel.SCRIPT), num_instances=2,
+                             named_sockets=["DATA"], start_port=_port_pair(),
+                             background=True, seed=0, instance_args=[args, args]) as bl:
+        ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
+                                       max_items=batches * batch_size)
+        with btt.TorchStream(ds, batch_size=batch_size, num_workers=2, device="cuda",
+                             transform=worldmodel.episode_transform) as stream:
+            for name in FLASH_KERNELS:
+                getattr(flash, name + "_cuda").launches = 0
+            _, losses = worldmodel.train_on_episodes(
+                _stamped(stream, arrivals, check_batch), attn=attn, log_every=0,
+                **sizing)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            launches = {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}
+    items_after_first = (len(arrivals) - 1) * batch_size
+    emit({"phase": "worldmodel", "batches": len(losses), "items": len(losses) * batch_size,
+          "items_per_s": items_after_first / (end - arrivals[0]),
+          "median_step_ms": stream.timer.percentiles("step")["p50_ms"],
+          "first_loss": losses[0], "last_loss": losses[-1],
+          "launches": launches, "timer": stream.timer.summary()})
+    check(len(losses) == batches, "worldmodel stream delivered every batch")
+    check(all(math.isfinite(v) for v in losses), "worldmodel losses finite")
+    for name, n in launches.items():
+        check(n >= 1, f"the world-model path launched {name}")
+    return launches
+
+
 def main():
     import torch
 
@@ -259,10 +620,12 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from blendjax_torch import btt, datagen
-    from blendjax_torch.models import detector
-    from blendjax_torch.models.train import make_train_step
-    from blendjax_torch.ops import image
+    from blendjax_torch import btt, datagen, worldmodel
+    from blendjax_torch.btb import pendulum
+    from blendjax_torch.models import detector, seqformer
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.ops import _build, image
+    from blendjax_torch.ops import flash_attention as flash
 
     # full float32 for the float32 checks (cuDNN would take TF32 by default)
     torch.backends.cudnn.allow_tf32 = False
@@ -274,21 +637,43 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     emit({"card": card})
-    emit({"kernels": ["decode_u8"]})
+    emit({"kernels": ["decode_u8"] + list(FLASH_KERNELS)})
+    name = card.split(",")[0]
+    hbm, flops_peak = peak_rate(HBM_PEAK, name), peak_rate(BF16_PEAK, name)
+    t0 = time.perf_counter()
+    _build.load_library()
+    emit({"phase": "build", "sources": _build.SOURCES, "seconds": time.perf_counter() - t0})
 
-    timing = kernel_phase(torch, image, hbm_peak(card.split(",")[0]))
+    timing = kernel_phase(torch, image, hbm)
     train_phase(torch, datagen, detector, make_train_step)
-    launches = stream_phase(torch, btt, datagen, image)
+    decode_launches = stream_phase(torch, btt, datagen, image)
+    flash_errs = flash_phase(torch, flash)
+    flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
+    seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_step,
+                    TrainState)
+    flash_launches = worldmodel_phase(torch, btt, worldmodel, flash)
 
-    emit({"kernels": [{
+    kernels = [{
         "name": "decode_u8", "route": "cuda",
         "source": "blendjax_torch/ops/csrc/decode.cu",
         "replaces": "blendjax/ops/image.py:69",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
+        "launches": decode_launches, "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
         "library_ms": timing["library_ms"],
-    }]})
+    }]
+    replaces = {"flash_fwd": ("flash_fwd.cu", 203), "flash_dq": ("flash_bwd.cu", 257),
+                "flash_dkv": ("flash_bwd.cu", 296)}
+    for kname, (src, line) in replaces.items():
+        rec = flash_timing[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"blendjax_torch/ops/csrc/{src}",
+            "replaces": f"blendjax/ops/flash_attention.py:{line}",
+            "launches": flash_launches[kname], "max_abs_err": flash_errs[kname],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -69,6 +69,7 @@ def test_producer_side_imports_without_torch():
         "import blendjax_torch, blendjax_torch.btb as btb\n"
         "btb.parse_blendtorch_args, btb.DataPublisher, btb.constants\n"
         "import blendjax_torch.wire, blendjax_torch.btt.dataset, blendjax_torch.btt.launcher\n"
+        "import blendjax_torch.btb.pendulum\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
     )
     assert _run(code) == []
