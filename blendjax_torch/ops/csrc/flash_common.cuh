@@ -1,12 +1,13 @@
 // Shared pieces of the flash-attention kernels for Hopper (sm_90a):
-// flash_fwd.cu (forward), flash_bwd.cu (dQ and dK/dV).
+// flash_fwd.cu (forward), flash_bwd.cu (dQ and dK/dV on the CUDA cores)
+// and flash_bwd_tc.cu (dQ and dK/dV on the tensor cores, bf16 inputs).
 //
 // Layout: every tensor is flat (batch*heads, T, D), row-major, D
 // contiguous, as blendjax/ops/flash_attention.py's _flat gives it; lse
 // and delta are (batch*heads, T) f32.  Grouped-query attention goes
 // through kv_head(), the flat map of _kv_head_map.
 //
-// Every kernel works on 64 x 64 tiles with 256 threads laid out as a
+// The CUDA-core kernels work on 64 x 64 tiles with 256 threads laid out as a
 // 16 x 16 grid (ty = tid / 16, tx = tid % 16).  A thread owns the 4 x 4
 // entries (ty*4 + i, tx + 16*j) of a tile's score matrix and the D/16
 // output columns tx + 16*jj of its 4 rows.  The 16 threads of one row
@@ -15,9 +16,11 @@
 // leading dimension is D + 1 are read down a column by 16 threads at
 // once and the pad keeps those reads on 16 different banks.
 //
-// All arithmetic is f32 FMAs on the CUDA cores: f32 inputs must not go
+// Their arithmetic is f32 FMAs on the CUDA cores: f32 inputs must not go
 // through TF32, and bf16 inputs are widened on load, so P and dS stay
-// f32 as in the reference.
+// f32 as in the reference.  flash_bwd_tc.cu keeps its own layout (one
+// warpgroup of 128 threads per block) and shares the problem, the masks
+// and the dispatch below.
 
 #pragma once
 
@@ -115,13 +118,14 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-// Raises a kernel's dynamic shared memory limit once, then launches it.
-template <typename Kernel, typename... Args>
+// Raises a kernel's dynamic shared memory limit, then launches it with
+// Threads threads per block.
+template <int Threads = kThreads, typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, Threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -6,8 +6,13 @@ plain PyTorch version (what a CPU tensor gets) and a hand-written CUDA
 kernel for Hopper (what a CUDA tensor gets):
 
 - forward: :func:`flash_fwd_plain`, :func:`flash_fwd_cuda` (``csrc/flash_fwd.cu``);
-- dQ: :func:`flash_dq_plain`, :func:`flash_dq_cuda` (``csrc/flash_bwd.cu``);
-- dK/dV: :func:`flash_dkv_plain`, :func:`flash_dkv_cuda` (``csrc/flash_bwd.cu``).
+- dQ: :func:`flash_dq_plain`, :func:`flash_dq_cuda`;
+- dK/dV: :func:`flash_dkv_plain`, :func:`flash_dkv_cuda`.
+
+The backward wrappers choose their kernel by the inputs' dtype
+(:func:`backward_route`): bf16 goes to the tensor-core kernels of
+``csrc/flash_bwd_tc.cu`` (wgmma, TMA, P and dS as bf16 hi + lo pairs),
+f32 to the exact-f32 CUDA-core kernels of ``csrc/flash_bwd.cu``.
 
 They replace the Pallas TPU kernels ``_kernel``, ``_dq_kernel`` and
 ``_dkv_kernel``.  The dispatchers :func:`_flash_fwd_impl`, :func:`_dq_pass`
@@ -41,6 +46,9 @@ _NEG = -1e30
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernels are instantiated for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: the backward kernels' route by input dtype: "tc" = tensor cores
+#: (``csrc/flash_bwd_tc.cu``), "f32" = f32 FMAs (``csrc/flash_bwd.cu``)
+BWD_ROUTES = {torch.bfloat16: "tc", torch.float32: "f32"}
 
 
 def _default_scale(scale, d):
@@ -238,7 +246,10 @@ def _library():
         lib.bjx_flash_fwd.argtypes = [p] * 5 + shape
         lib.bjx_flash_dq.argtypes = [p] * 7 + shape
         lib.bjx_flash_dkv.argtypes = [p] * 8 + shape
-        for fn in (lib.bjx_flash_fwd, lib.bjx_flash_dq, lib.bjx_flash_dkv):
+        lib.bjx_flash_dq_tc.argtypes = [p] * 7 + shape
+        lib.bjx_flash_dkv_tc.argtypes = [p] * 8 + shape
+        for fn in (lib.bjx_flash_fwd, lib.bjx_flash_dq, lib.bjx_flash_dkv,
+                   lib.bjx_flash_dq_tc, lib.bjx_flash_dkv_tc):
             fn.restype = ctypes.c_int
         lib._bjx_typed = True
     return lib
@@ -289,6 +300,30 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
+def backward_route(dtype, d, route=None):
+    """The kernel route the backward wrappers take for inputs of ``dtype``
+    at head dim ``d``: by default "tc" for bfloat16 and "f32" for float32,
+    a dispatch on the dtype, not a fallback (what has no kernel raises).
+    ``route="f32"`` asks for the CUDA-core kernels with bf16 inputs too
+    (they widen them on load), so that one process can time both."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no kernel (one of {KERNEL_HEAD_DIMS})")
+    if dtype not in BWD_ROUTES:
+        raise ValueError(f"the backward kernels take float32 or bfloat16, not {dtype}")
+    route = route or BWD_ROUTES[dtype]
+    if route not in ("tc", "f32"):
+        raise ValueError(f"backward route {route!r} is not 'tc' or 'f32'")
+    if route == "tc" and dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core route takes bfloat16 inputs, not {dtype}")
+    return route
+
+
+def _tma_ready(t):
+    """``t`` with a 16-byte aligned base, as TMA reads it: a copy where a
+    view starts off the allocation's alignment."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _rows_f32(x, like):
     """lse/delta as contiguous f32 (BH, T) on q's device for the kernels."""
     bh, t, _ = like.shape
@@ -317,31 +352,46 @@ def flash_fwd_cuda(qf, kf, vf, causal, scale, out_dtype=None, window=None,
     return of, lse
 
 
+def _bwd_launch(name, qf, kf, vf, dof, route):
+    """The C entry point of backward pass ``name`` ("dq" or "dkv"), its
+    route and the inputs as it reads them."""
+    route = backward_route(qf.dtype, qf.shape[-1], route)
+    if route == "f32":
+        return getattr(_library(), f"bjx_flash_{name}"), route, (qf, kf, vf, dof)
+    tensors = tuple(_tma_ready(t) for t in (qf, kf, vf, dof))
+    return getattr(_library(), f"bjx_flash_{name}_tc"), route, tensors
+
+
 def flash_dq_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
-                  window=None, q_offset=0, heads=None):
-    """Launch K3 (``csrc/flash_bwd.cu``, dQ); same contract as
-    :func:`flash_dq_plain`.  :attr:`launches` counts launches."""
+                  window=None, q_offset=0, heads=None, route=None):
+    """Launch K3 (dQ) on the route of :func:`backward_route` (``route``
+    None: by dtype); same contract as :func:`flash_dq_plain`.
+    :attr:`launches` counts launches, and :attr:`launches_by_route` each
+    route's."""
     out_dtype = out_dtype or qf.dtype
     kin, kout, h_q, h_kv = _kernel_args("flash_dq_cuda", qf, kf, vf, out_dtype, heads,
                                         (dof,))
     lse, delta = _rows_f32(lse, qf), _rows_f32(delta, qf)
     dq = torch.empty(qf.shape, dtype=out_dtype, device=qf.device)
-    lib = _library()
+    entry, route, (qf, kf, vf, dof) = _bwd_launch("dq", qf, kf, vf, dof, route)
     with torch.cuda.device(qf.device):
-        err = lib.bjx_flash_dq(
+        err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(),
             *_problem(qf, kf, h_q, h_kv, causal, scale, window, q_offset),
             kin, kout, _stream(qf))
     _raise_on(err, "flash_dq")
     flash_dq_cuda.launches += 1
+    flash_dq_cuda.launches_by_route[route] += 1
     return dq
 
 
 def flash_dkv_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
-                   window=None, q_offset=0, heads=None):
-    """Launch K4 (``csrc/flash_bwd.cu``, dK/dV); same contract as
-    :func:`flash_dkv_plain`.  :attr:`launches` counts launches."""
+                   window=None, q_offset=0, heads=None, route=None):
+    """Launch K4 (dK/dV) on the route of :func:`backward_route` (``route``
+    None: by dtype); same contract as :func:`flash_dkv_plain`.
+    :attr:`launches` counts launches, and :attr:`launches_by_route` each
+    route's."""
     out_dtype = out_dtype or kf.dtype
     kin, kout, h_q, h_kv = _kernel_args("flash_dkv_cuda", qf, kf, vf, out_dtype, heads,
                                         (dof,))
@@ -349,21 +399,24 @@ def flash_dkv_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
     lse, delta = _rows_f32(lse, qf), _rows_f32(delta, qf)
     dk = torch.empty((bh, kf.shape[1], d), dtype=out_dtype, device=qf.device)
     dv = torch.empty_like(dk)
-    lib = _library()
+    entry, route, (qf, kf, vf, dof) = _bwd_launch("dkv", qf, kf, vf, dof, route)
     with torch.cuda.device(qf.device):
-        err = lib.bjx_flash_dkv(
+        err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_problem(qf, kf, h_q, h_kv, causal, scale, window, q_offset),
             kin, kout, _stream(qf))
     _raise_on(err, "flash_dkv")
     flash_dkv_cuda.launches += 1
+    flash_dkv_cuda.launches_by_route[route] += 1
     return dk, dv
 
 
 flash_fwd_cuda.launches = 0
 flash_dq_cuda.launches = 0
 flash_dkv_cuda.launches = 0
+flash_dq_cuda.launches_by_route = {route: 0 for route in BWD_ROUTES.values()}
+flash_dkv_cuda.launches_by_route = {route: 0 for route in BWD_ROUTES.values()}
 
 
 # -- dispatchers (the reference's entry points) -----------------------------------

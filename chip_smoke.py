@@ -26,17 +26,24 @@ Phases, each printing JSON lines:
 6. flash    — the flash-attention forward, dQ and dK/dV kernels against
               their plain passes on the card, case by case (the flagship
               shape in bf16, f32 causal and not, f32 at head dim 128 and
-              T=512, GQA, a window, ragged lengths, a q offset), each with
-              its max abs error and limit.
+              T=512, GQA, a window, ragged lengths, a q offset, and a bf16
+              twin of every f32 case), each with its max abs error, limit
+              and backward route: bf16 takes the tensor-core kernels
+              ("tc"), f32 the CUDA-core ones ("f32").
 7. flash_time — each flash kernel, its plain pass and the library call
               (``scaled_dot_product_attention`` on the fastest of its
               backends, timed as a CUDA graph's replay, for comparison
               only) at the flagship shape, beside its FLOPs, bytes and
-              bound.
+              bound; dQ and dK/dV also on the CUDA-core route
+              (``previous_ms``).  nvidia-smi samples the SM clock, power
+              and temperature beside this window and the decode timing.
 8. seqformer — the flagship SeqFormer (8 layers, d_model 1024, 8 heads,
               T=512, batch 8) takes 8 Adam(1e-4) steps through the flash
-              kernels on seeded float16 episodes on the card; a small f32
-              model is held between card (kernels) and CPU (plain passes).
+              kernels on seeded float16 episodes on the card, every dQ and
+              dK/dV launch on the tensor-core route, then 3 more under
+              ``torch.profiler`` for the device's busy time and idle share
+              per step; a small f32 model is held between card (kernels)
+              and CPU (plain passes).
 9. worldmodel — the world-model path through its entry points: 2
               ``btb/episodes.blend.py`` producers -> ``RemoteIterableDataset``
               -> ``TorchStream(transform=episode_transform)`` ->
@@ -53,6 +60,7 @@ the ``blendjax_torch`` package beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -60,6 +68,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -83,6 +92,7 @@ SEQ = dict(batch=8, seq_len=512, obs_dim=32, d_model=1024, n_heads=8, n_layers=8
 FLASH_SHAPE = (SEQ["batch"], SEQ["seq_len"], SEQ["n_heads"],
                SEQ["d_model"] // SEQ["n_heads"])  # (B, T, H, Dh)
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+BWD_KERNELS = ("flash_dq", "flash_dkv")  # counted by route too
 
 
 def emit(obj):
@@ -100,10 +110,18 @@ def peak_rate(table, name):
     return table[name]
 
 
+#: device cycles (about 0.5 ms) the stream spins before each timed window,
+#: so the host has enqueued the timed work before the window opens
+HOST_LEAD_CYCLES = 1_000_000
+
+
 def time_ms(torch, fn, reps=50, flush=None):
     """Median CUDA-event time of ``fn`` in ms after warm-up.  ``flush``
     (a large tensor) is rewritten before each launch so the 50 MB L2
-    holds none of the inputs, as for a batch just copied in."""
+    holds none of the inputs, as for a batch just copied in.  A device-side
+    spin of :data:`HOST_LEAD_CYCLES` precedes each start event, so the
+    window holds the device's time for ``fn`` and not the host's path to
+    its launches, up to about 0.5 ms of host work."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -111,6 +129,7 @@ def time_ms(torch, fn, reps=50, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -133,6 +152,41 @@ def graph_replay(torch, fn, stream):
     with torch.cuda.graph(graph, stream=stream):
         fn()
     return graph.replay
+
+
+SMI_FIELDS = ("clocks.sm", "power.draw", "power.limit", "temperature.gpu")
+
+
+@contextlib.contextmanager
+def smi_window(label):
+    """Samples the card's SM clock, power and temperature with nvidia-smi
+    about every 0.25 s in a thread while the block runs, then emits each
+    field's range over the window."""
+    samples, stop = [], threading.Event()
+    cmd = ["nvidia-smi", "--query-gpu=" + ",".join(SMI_FIELDS),
+           "--format=csv,noheader,nounits"]
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(cmd, capture_output=True, text=True)
+            row = out.stdout.strip().splitlines()[:1]
+            if out.returncode == 0 and row:
+                samples.append([v.strip() for v in row[0].split(",")])
+            stop.wait(0.25)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
+    ranges = {}
+    for i, field in enumerate(SMI_FIELDS):
+        vals = [float(s[i]) for s in samples
+                if len(s) > i and s[i].replace(".", "", 1).isdigit()]
+        ranges[field] = [min(vals), max(vals)] if vals else None
+    emit({"phase": "smi", "window": label, "samples": len(samples), "ranges": ranges})
 
 
 def bf16_ulp(torch, ref):
@@ -330,6 +384,10 @@ FLASH_CASES = [
     ("q_offset 256, window 48: no row sees a column", (1, 128, 2, 32), 2, 128,
      "float32", True, 48, 256),
 ]
+# a bf16 twin of every f32 case: the backward's tensor-core route ("tc")
+# takes bf16 inputs, its CUDA-core route ("f32") float32 ones
+FLASH_CASES += [("bf16 " + c[0].replace("f32 ", ""), *c[1:4], "bfloat16", *c[5:])
+                for c in FLASH_CASES if c[4] == "float32"]
 
 
 #: absolute slack of a bf16 output beside its two ulps (below)
@@ -388,6 +446,7 @@ def flash_phase(torch, flash):
                           flash.flash_dkv_plain(*bwd, **gkw), True),
         }
         torch.cuda.synchronize()
+        route = flash.backward_route(qf.dtype, d)
         for name, (got, want, grad) in pairs.items():
             results = [_compare(torch, a, w, grad, heads is not None)
                        for a, w in zip(got, want)]
@@ -395,12 +454,38 @@ def flash_phase(torch, flash):
             ok = all(r[1] for r in results)
             emit({"phase": "flash", "kernel": name, "case": label, "shape": list(shape),
                   "h_kv": h_kv, "tk": tk, "dtype": dtype, "causal": causal,
-                  "window": window, "q_offset": q_offset, "max_abs_err": max_err,
+                  "window": window, "q_offset": q_offset,
+                  "route": route if name != "flash_fwd" else None, "max_abs_err": max_err,
                   "limit": " / ".join(r[2] for r in results), "ok": ok})
             check(ok, f"{name} {label}")
             if label == "flagship":
                 errs[name] = max_err
+    _misaligned_check(torch, flash, g)
     return errs
+
+
+def _misaligned_check(torch, flash, g):
+    """bf16 views whose bases sit off TMA's 16-byte alignment give the
+    tensor-core kernels' answer for aligned copies of the same values."""
+    qf, kf, vf, dof = _flash_inputs(torch, g, (2, 128, 4, 32), 4, 128, "bfloat16")
+    of, lse = flash.flash_fwd_plain(qf, kf, vf, True, 0.25)
+    delta = (dof.float() * of.float()).sum(-1, keepdim=True)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+        return buf[1:x.numel() + 1].view(x.shape).copy_(x)
+
+    rest = (lse, delta, True, 0.25)
+    views = [shifted(x) for x in (qf, kf, vf, dof)]
+    check(all(x.data_ptr() % 16 for x in views), "misaligned views")
+    got = [flash.flash_dq_cuda(*views, *rest), *flash.flash_dkv_cuda(*views, *rest)]
+    want = [flash.flash_dq_cuda(qf, kf, vf, dof, *rest),
+            *flash.flash_dkv_cuda(qf, kf, vf, dof, *rest)]
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, w) for a, w in zip(got, want))
+    emit({"phase": "flash", "kernel": "flash_dq, flash_dkv", "case": "bf16 misaligned bases",
+          "route": "tc", "limit": "bit-equal to the aligned inputs", "ok": ok})
+    check(ok, "tensor-core backward on misaligned bases")
 
 
 def _flash_work(b, t, h, d, elt):
@@ -482,18 +567,28 @@ def flash_time_phase(torch, flash, hbm, flops_peak):
     library = _library_times(torch, qf, kf, vf, dof, flush)
     ran = {n: r for n, r in library.items() if "error" not in r}
     check(ran, "scaled_dot_product_attention ran on some backend")
+    # the backward's earlier kernels, the CUDA-core route, on the same bf16
+    # inputs: the change's baseline on this card in this run
+    previous = {"flash_dq": lambda: flash.flash_dq_cuda(*bwd_args, route="f32"),
+                "flash_dkv": lambda: flash.flash_dkv_cuda(*bwd_args, route="f32")}
     work = _flash_work(b, t, h, d, 2)
     timing = {}
     for name, (kernel, plain) in runs.items():
         ms = time_ms(torch, kernel, reps=20, flush=flush)
         plain_ms = time_ms(torch, plain, reps=10, flush=flush)
+        previous_ms = (time_ms(torch, previous[name], reps=10, flush=flush)
+                       if name in previous else None)
         flops, nbytes = work[name]
         by_ops, by_bytes = flops / flops_peak * 1e3, nbytes / hbm * 1e3
         lib = "fwd" if name == "flash_fwd" else "bwd"
         best = min(ran, key=lambda n: ran[n][lib]["ms"])
         rec = {"phase": "flash_time", "kernel": name, "shape": list(FLASH_SHAPE),
                "dtype": "bfloat16", "causal": True, "flops": flops, "bytes": nbytes,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": ran[best][lib]["ms"],
+               "route": (flash.backward_route(qf.dtype, d) if name in previous
+                         else None),
+               "ms": ms, "previous_ms": previous_ms,
+               "previous_route": "f32" if name in previous else None,
+               "plain_ms": plain_ms, "library_ms": ran[best][lib]["ms"],
                "library_call": LIBRARY_CALLS[lib], "library_backend": best,
                "library_backends": {n: r.get(lib, r) for n, r in library.items()},
                "tflop_per_s": flops / (ms * 1e-3) / 1e12,
@@ -504,6 +599,53 @@ def flash_time_phase(torch, flash, hbm, flops_peak):
         timing[name] = rec
     del flush
     return timing
+
+
+def _zero_flash_counts(flash):
+    for name in FLASH_KERNELS:
+        fn = getattr(flash, name + "_cuda")
+        fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
+
+
+def _route_counts(flash):
+    """The backward kernels' launches by route ("tc", "f32")."""
+    return {n: dict(getattr(flash, n + "_cuda").launches_by_route) for n in BWD_KERNELS}
+
+
+def _device_profile(torch, run_step, steps, median_ms):
+    """``steps`` more train steps under torch.profiler (CUDA activity): the
+    device's busy time per step (the sum of its kernel, copy and set
+    durations), its idle share of the profiled step and of the median
+    unprofiled step, and the flash kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name, events = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            events += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    busy = sum(by_name.values())
+    flash_ms = sum(v for n, v in by_name.items() if "bjx_flash" in n)  # K2-K4
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    rec = {"phase": "seqformer_profile", "steps": steps, "device_events": events,
+           "wall_ms_per_step": wall_ms, "median_step_ms": median_ms,
+           "busy_ms_per_step": busy if events else "not measured",
+           "idle_share": 1 - busy / wall_ms if events else None,
+           "idle_share_of_median_step": 1 - busy / median_ms if events else None,
+           "flash_ms_per_step": flash_ms,
+           "flash_share_of_busy": flash_ms / busy if events else None,
+           "flash_share_of_step": flash_ms / wall_ms,
+           "top_ms_per_step": [[k[:120], v] for k, v in top]}
+    emit(rec)
 
 
 def _episodes(torch, pendulum, rng, batch):
@@ -544,8 +686,7 @@ def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_st
         seqformer.episode_loss_fn, attn_fn=worldmodel.make_attn("flash", SEQ["seq_len"])))
     rng = np.random.default_rng(0)
     batches = [_episodes(torch, pendulum, rng, SEQ["batch"]) for _ in range(8)]
-    for name in FLASH_KERNELS:
-        getattr(flash, name + "_cuda").launches = 0
+    _zero_flash_counts(flash)
     losses, times = [], []
     for batch in batches:
         torch.cuda.synchronize()
@@ -555,7 +696,17 @@ def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_st
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {n: getattr(flash, n + "_cuda").launches / len(batches)
                 for n in FLASH_KERNELS}
+    routes = _route_counts(flash)
     med = statistics.median(times)
+
+    more = iter(batches)
+
+    def profiled_step():
+        nonlocal state
+        state, loss = step(state, next(more))
+        float(loss)  # waits for the step, as in the timed steps
+
+    _device_profile(torch, profiled_step, 3, med)
     flops = seqformer.train_flops(SEQ["batch"], SEQ["seq_len"], **cfg)
     emit({"phase": "seqformer", "config": SEQ, "params": sum(v.numel() for v in params.values()),
           "steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
@@ -563,12 +714,14 @@ def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_st
           "train_flops": flops,
           "model_tflop_per_s": flops / (med * 1e-3) / 1e12,
           "model_tflop_per_s_note": "train_flops counts attention over the full T^2",
-          "launches_per_step": launches,
+          "launches_per_step": launches, "launches_by_route": routes,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     check(all(math.isfinite(v) for v in losses), "seqformer losses finite")
     check(losses[-1] < losses[0], "seqformer loss fell")
     check(all(n == SEQ["n_layers"] for n in launches.values()),
           "one launch of each flash kernel per layer and step")
+    check(all(r == {"tc": SEQ["n_layers"] * len(batches), "f32": 0} for r in routes.values()),
+          "every flagship dQ and dK/dV launch took the tensor-core route")
 
 
 def worldmodel_phase(torch, btt, worldmodel, flash):
@@ -592,25 +745,29 @@ def worldmodel_phase(torch, btt, worldmodel, flash):
                                        max_items=batches * batch_size)
         with btt.TorchStream(ds, batch_size=batch_size, num_workers=2, device="cuda",
                              transform=worldmodel.episode_transform) as stream:
-            for name in FLASH_KERNELS:
-                getattr(flash, name + "_cuda").launches = 0
+            _zero_flash_counts(flash)
             _, losses = worldmodel.train_on_episodes(
                 _stamped(stream, arrivals, check_batch), attn=attn, log_every=0,
                 **sizing)
             torch.cuda.synchronize()
             end = time.perf_counter()
             launches = {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}
+            routes = _route_counts(flash)
     items_after_first = (len(arrivals) - 1) * batch_size
     emit({"phase": "worldmodel", "batches": len(losses), "items": len(losses) * batch_size,
           "items_per_s": items_after_first / (end - arrivals[0]),
           "median_step_ms": stream.timer.percentiles("step")["p50_ms"],
           "first_loss": losses[0], "last_loss": losses[-1],
-          "launches": launches, "timer": stream.timer.summary()})
+          "launches": launches, "launches_by_route": routes,
+          "timer": stream.timer.summary()})
     check(len(losses) == batches, "worldmodel stream delivered every batch")
     check(all(math.isfinite(v) for v in losses), "worldmodel losses finite")
     for name, n in launches.items():
         check(n >= 1, f"the world-model path launched {name}")
-    return launches
+    for name, r in routes.items():
+        check(r == {"tc": launches[name], "f32": 0},
+              f"every world-model {name} launch took the tensor-core route")
+    return launches, routes
 
 
 def main():
@@ -644,14 +801,16 @@ def main():
     _build.load_library()
     emit({"phase": "build", "sources": _build.SOURCES, "seconds": time.perf_counter() - t0})
 
-    timing = kernel_phase(torch, image, hbm)
+    with smi_window("kernel"):
+        timing = kernel_phase(torch, image, hbm)
     train_phase(torch, datagen, detector, make_train_step)
     decode_launches = stream_phase(torch, btt, datagen, image)
     flash_errs = flash_phase(torch, flash)
-    flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
+    with smi_window("flash_time"):
+        flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
     seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_step,
                     TrainState)
-    flash_launches = worldmodel_phase(torch, btt, worldmodel, flash)
+    flash_launches, flash_routes = worldmodel_phase(torch, btt, worldmodel, flash)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",
@@ -662,8 +821,10 @@ def main():
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
         "library_ms": timing["library_ms"],
     }]
-    replaces = {"flash_fwd": ("flash_fwd.cu", 203), "flash_dq": ("flash_bwd.cu", 257),
-                "flash_dkv": ("flash_bwd.cu", 296)}
+    # the flagship's bf16 backward runs the tensor-core kernels; f32 inputs
+    # take flash_bwd.cu's, whose time on these bf16 inputs is previous_ms
+    replaces = {"flash_fwd": ("flash_fwd.cu", 203), "flash_dq": ("flash_bwd_tc.cu", 257),
+                "flash_dkv": ("flash_bwd_tc.cu", 296)}
     for kname, (src, line) in replaces.items():
         rec = flash_timing[kname]
         kernels.append({
@@ -673,6 +834,10 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
+        if kname in BWD_KERNELS:
+            kernels[-1].update(launches_by_route=flash_routes[kname],
+                               previous_ms=rec["previous_ms"],
+                               previous_source="blendjax_torch/ops/csrc/flash_bwd.cu")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -113,6 +113,101 @@ def test_plain_passes_match_the_pallas_passes(case):
     _close(tdv, jdv, grad_tol, "dV")
 
 
+LOG2E = 1.4426950408889634
+
+
+def _split(x):
+    """x = hi + lo in bf16 terms, as f32: hi = bf16_rn(x), lo = bf16_rn(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_backward(qf, kf, vf, dof, lse, delta, causal, scale, window, q_offset,
+                          heads):
+    """(dQ, dK, dV) as csrc/flash_bwd_tc.cu computes them, in plain PyTorch:
+    bf16 operands, whose products are exact in f32; S and dP as one f32
+    product each; P = exp2((S * scale - lse) * log2 e); P and dS split into
+    bf16 hi + lo, both into one f32 sum."""
+    bh, tq, _ = qf.shape
+    q, do = qf.float(), dof.float()
+    k = tflash._expand_kv(kf, bh, heads).float()
+    v = tflash._expand_kv(vf, bh, heads).float()
+    for x in (q, do, k, v):
+        assert torch.equal(x, x.to(torch.bfloat16).float()), "inputs must be bf16-exact"
+    keep = tflash._visible(tq, kf.shape[1], causal, window, q_offset, qf.device)
+    p = torch.exp2((torch.matmul(q, k.transpose(-1, -2)) * scale - lse) * LOG2E)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta) * scale
+    (p_hi, p_lo), (ds_hi, ds_lo) = _split(p), _split(ds)
+    dq = torch.matmul(ds_hi, k) + torch.matmul(ds_lo, k)
+    dk = torch.matmul(ds_hi.transpose(-1, -2), q) + torch.matmul(ds_lo.transpose(-1, -2), q)
+    dv = torch.matmul(p_hi.transpose(-1, -2), do) + torch.matmul(p_lo.transpose(-1, -2), do)
+    return dq, dk, dv
+
+
+# the cases of the tensor-core route: CASES' f32 ones, their inputs rounded
+# to bf16 values, and a ragged T = 17
+TC_CASES = dict({k: v for k, v in CASES.items() if v[6] == "float32"},
+                t17=(2, 17, 17, 2, 2, 32, "float32", True, None, 0, None, 17, 17))
+
+
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_arithmetic_matches_the_pallas_passes(case):
+    """The bf16 hi + lo split keeps the gradients within the reference's
+    f32 limits: the emulation on bf16-exact inputs against ``_dq_pass`` and
+    ``_dkv_pass`` with f32 outputs, atol = rtol 5e-5 (1e-4 under GQA)."""
+    b, tq, tk, h, h_kv, d, _, causal, window, q_offset, _, bq, bkv = TC_CASES[case]
+    rng = np.random.default_rng(7 + len(case))
+    q, do = _randn(rng, (b, tq, h, d), "bfloat16"), _randn(rng, (b, tq, h, d), "bfloat16")
+    k = _randn(rng, (b, tk, h_kv, d), "bfloat16")
+    v = _randn(rng, (b, tk, h_kv, d), "bfloat16")
+    scale = 1.0 / d ** 0.5
+    heads = (h, h_kv) if h != h_kv else None
+    kw = dict(window=window, q_offset=q_offset)
+    _, (jqf, jkf, jvf, jof, jlse) = jflash._flash_fwd_impl(
+        _j(q), _j(k), _j(v), causal, scale, bq, bkv, True, **kw)
+    jdof = jflash._flat(_j(do))
+    jdelta = (jdof * jof).sum(-1, keepdims=True)
+    jdq = jflash._dq_pass(jqf, jkf, jvf, jdof, jlse, jdelta, causal, scale, bq, bkv, True,
+                          heads=heads, **kw)
+    jdk, jdv = jflash._dkv_pass(jqf, jkf, jvf, jdof, jlse, jdelta, causal, scale, bq, bkv,
+                                True, heads=heads, out_dtype=jnp.float32, **kw)
+    tdq, tdk, tdv = _tensor_core_backward(
+        *(tflash._flat(_t(x, "bfloat16")) for x in (q, k, v, do)), _t(jlse), _t(jdelta),
+        causal, scale, window, q_offset, heads)
+    tol = GQA_GRAD if heads else F32_GRAD
+    _close(tdq, jdq, tol, "dQ")
+    _close(tdk, jdk, tol, "dK")
+    _close(tdv, jdv, tol, "dV")
+
+
+@pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
+def test_backward_route_by_dtype_and_head_dim(d):
+    assert tflash.backward_route(torch.bfloat16, d) == "tc"
+    assert tflash.backward_route(torch.float32, d) == "f32"
+    # asked for explicitly: bf16 may take the CUDA-core kernels, f32 never the tensor cores
+    assert tflash.backward_route(torch.bfloat16, d, "f32") == "f32"
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        tflash.backward_route(torch.float32, d, "tc")
+    with pytest.raises(ValueError, match="is not 'tc' or 'f32'"):
+        tflash.backward_route(torch.bfloat16, d, "tf32")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tflash.backward_route(torch.float16, d)
+    for bad in (d // 2 + 1, d * 2 + 1):
+        with pytest.raises(ValueError, match="has no kernel"):
+            tflash.backward_route(torch.bfloat16, bad)
+
+
+def test_tma_staging_copies_only_a_misaligned_base():
+    buf = torch.arange(2 * 64 * 16 + 8, dtype=torch.bfloat16)
+    aligned, shifted = buf[:2048].view(2, 64, 16), buf[1:2049].view(2, 64, 16)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 != 0
+    assert tflash._tma_ready(aligned) is aligned
+    staged = tflash._tma_ready(shifted)
+    assert staged.data_ptr() % 16 == 0 and torch.equal(staged, shifted)
+
+
 def test_a_row_that_sees_no_column_gives_zero_and_minus_1e30():
     rng = np.random.default_rng(0)
     q, k, v = (_t(_randn(rng, (1, 128, 2, 16), "float32")) for _ in range(3))
@@ -236,15 +331,20 @@ def test_same_value_errors_as_the_reference(case):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
-    x = torch.zeros(2, 64, 16)
     lse = torch.zeros(2, 64, 1)
-    calls = (
-        (tflash.flash_fwd_cuda, (x, x, x, True, 0.25)),
-        (tflash.flash_dq_cuda, (x, x, x, x, lse, lse, True, 0.25)),
-        (tflash.flash_dkv_cuda, (x, x, x, x, lse, lse, True, 0.25)),
-    )
-    for fn, args in calls:
-        before = fn.launches
-        with pytest.raises(ValueError, match="needs CUDA tensors"):
-            fn(*args)
-        assert fn.launches == before
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(2, 64, 16, dtype=dtype)
+        calls = (
+            (tflash.flash_fwd_cuda, (x, x, x, True, 0.25)),
+            (tflash.flash_dq_cuda, (x, x, x, x, lse, lse, True, 0.25)),
+            (tflash.flash_dkv_cuda, (x, x, x, x, lse, lse, True, 0.25)),
+        )
+        for fn, args in calls:
+            before = fn.launches
+            by_route = dict(getattr(fn, "launches_by_route", {}))
+            with pytest.raises(ValueError, match="needs CUDA tensors"):
+                fn(*args)
+            assert fn.launches == before
+            assert getattr(fn, "launches_by_route", {}) == by_route
+    for fn in (tflash.flash_dq_cuda, tflash.flash_dkv_cuda):
+        assert set(fn.launches_by_route) == {"tc", "f32"}
