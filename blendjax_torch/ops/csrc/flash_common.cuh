@@ -1,6 +1,7 @@
 // Shared pieces of the flash-attention kernels for Hopper (sm_90a):
-// flash_fwd.cu (forward), flash_bwd.cu (dQ and dK/dV on the CUDA cores)
-// and flash_bwd_tc.cu (dQ and dK/dV on the tensor cores, bf16 inputs).
+// flash_fwd.cu (forward) and flash_bwd.cu (dQ and dK/dV) on the CUDA
+// cores, flash_fwd_tc.cu and flash_bwd_tc.cu on the tensor cores (bf16
+// inputs).
 //
 // Layout: every tensor is flat (batch*heads, T, D), row-major, D
 // contiguous, as blendjax/ops/flash_attention.py's _flat gives it; lse
@@ -18,9 +19,9 @@
 //
 // Their arithmetic is f32 FMAs on the CUDA cores: f32 inputs must not go
 // through TF32, and bf16 inputs are widened on load, so P and dS stay
-// f32 as in the reference.  flash_bwd_tc.cu keeps its own layout (one
-// warpgroup of 128 threads per block) and shares the problem, the masks
-// and the dispatch below.
+// f32 as in the reference.  The tensor-core kernels keep their own layout
+// (one warpgroup of 128 threads per block, flash_tc_common.cuh) and share
+// the problem, the masks and the dispatch below.
 
 #pragma once
 

@@ -5,14 +5,15 @@ The port of ``blendjax.ops.flash_attention``.  Three passes, each with a
 plain PyTorch version (what a CPU tensor gets) and a hand-written CUDA
 kernel for Hopper (what a CUDA tensor gets):
 
-- forward: :func:`flash_fwd_plain`, :func:`flash_fwd_cuda` (``csrc/flash_fwd.cu``);
+- forward: :func:`flash_fwd_plain`, :func:`flash_fwd_cuda`;
 - dQ: :func:`flash_dq_plain`, :func:`flash_dq_cuda`;
 - dK/dV: :func:`flash_dkv_plain`, :func:`flash_dkv_cuda`.
 
-The backward wrappers choose their kernel by the inputs' dtype
-(:func:`backward_route`): bf16 goes to the tensor-core kernels of
-``csrc/flash_bwd_tc.cu`` (wgmma, TMA, P and dS as bf16 hi + lo pairs),
-f32 to the exact-f32 CUDA-core kernels of ``csrc/flash_bwd.cu``.
+Each wrapper chooses its kernel by the inputs' dtype (:func:`kernel_route`):
+bf16 goes to the tensor-core kernels of ``csrc/flash_fwd_tc.cu`` and
+``csrc/flash_bwd_tc.cu`` (wgmma, TMA, P and dS as bf16 hi + lo pairs), f32
+to the exact-f32 CUDA-core kernels of ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``.
 
 They replace the Pallas TPU kernels ``_kernel``, ``_dq_kernel`` and
 ``_dkv_kernel``.  The dispatchers :func:`_flash_fwd_impl`, :func:`_dq_pass`
@@ -46,9 +47,10 @@ _NEG = -1e30
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernels are instantiated for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: the backward kernels' route by input dtype: "tc" = tensor cores
-#: (``csrc/flash_bwd_tc.cu``), "f32" = f32 FMAs (``csrc/flash_bwd.cu``)
-BWD_ROUTES = {torch.bfloat16: "tc", torch.float32: "f32"}
+#: the kernels' route by input dtype: "tc" = tensor cores
+#: (``csrc/flash_{fwd,bwd}_tc.cu``), "f32" = f32 FMAs
+#: (``csrc/flash_{fwd,bwd}.cu``)
+ROUTES = {torch.bfloat16: "tc", torch.float32: "f32"}
 
 
 def _default_scale(scale, d):
@@ -244,12 +246,13 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         shape = [i, i, i, i, i, i, f, i, i, i, i, i, p]
         lib.bjx_flash_fwd.argtypes = [p] * 5 + shape
+        lib.bjx_flash_fwd_tc.argtypes = [p] * 5 + shape
         lib.bjx_flash_dq.argtypes = [p] * 7 + shape
         lib.bjx_flash_dkv.argtypes = [p] * 8 + shape
         lib.bjx_flash_dq_tc.argtypes = [p] * 7 + shape
         lib.bjx_flash_dkv_tc.argtypes = [p] * 8 + shape
         for fn in (lib.bjx_flash_fwd, lib.bjx_flash_dq, lib.bjx_flash_dkv,
-                   lib.bjx_flash_dq_tc, lib.bjx_flash_dkv_tc):
+                   lib.bjx_flash_fwd_tc, lib.bjx_flash_dq_tc, lib.bjx_flash_dkv_tc):
             fn.restype = ctypes.c_int
         lib._bjx_typed = True
     return lib
@@ -300,19 +303,20 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
-def backward_route(dtype, d, route=None):
-    """The kernel route the backward wrappers take for inputs of ``dtype``
-    at head dim ``d``: by default "tc" for bfloat16 and "f32" for float32,
-    a dispatch on the dtype, not a fallback (what has no kernel raises).
-    ``route="f32"`` asks for the CUDA-core kernels with bf16 inputs too
-    (they widen them on load), so that one process can time both."""
+def kernel_route(dtype, d, route=None):
+    """The kernel route the forward, dQ and dK/dV wrappers take for inputs
+    of ``dtype`` at head dim ``d``: by default "tc" for bfloat16 and "f32"
+    for float32, a dispatch on the dtype, not a fallback (what has no
+    kernel raises).  ``route="f32"`` asks for the CUDA-core kernels with
+    bf16 inputs too (they widen them on load), so that one process can time
+    both."""
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} has no kernel (one of {KERNEL_HEAD_DIMS})")
-    if dtype not in BWD_ROUTES:
-        raise ValueError(f"the backward kernels take float32 or bfloat16, not {dtype}")
-    route = route or BWD_ROUTES[dtype]
+    if dtype not in ROUTES:
+        raise ValueError(f"the flash kernels take float32 or bfloat16, not {dtype}")
+    route = route or ROUTES[dtype]
     if route not in ("tc", "f32"):
-        raise ValueError(f"backward route {route!r} is not 'tc' or 'f32'")
+        raise ValueError(f"kernel route {route!r} is not 'tc' or 'f32'")
     if route == "tc" and dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core route takes bfloat16 inputs, not {dtype}")
     return route
@@ -332,39 +336,44 @@ def _rows_f32(x, like):
     return x.reshape(bh, t).contiguous()
 
 
+def _entry(name, tensors, route):
+    """The C entry point of pass ``name`` ("fwd", "dq" or "dkv") on the
+    route of :func:`kernel_route`, the route, and the input ``tensors`` (q
+    first) as it reads them."""
+    qf = tensors[0]
+    route = kernel_route(qf.dtype, qf.shape[-1], route)
+    if route == "f32":
+        return getattr(_library(), f"bjx_flash_{name}"), route, tensors
+    tensors = tuple(_tma_ready(t) for t in tensors)
+    return getattr(_library(), f"bjx_flash_{name}_tc"), route, tensors
+
+
 def flash_fwd_cuda(qf, kf, vf, causal, scale, out_dtype=None, window=None,
-                   q_offset=0, heads=None):
-    """Launch K2 (``csrc/flash_fwd.cu``); same contract as
-    :func:`flash_fwd_plain`.  :attr:`launches` counts launches."""
+                   q_offset=0, heads=None, route=None):
+    """Launch K2 (the forward) on the route of :func:`kernel_route`
+    (``route`` None: by dtype); same contract as :func:`flash_fwd_plain`.
+    :attr:`launches` counts launches, and :attr:`launches_by_route` each
+    route's."""
     out_dtype = out_dtype or qf.dtype
     kin, kout, h_q, h_kv = _kernel_args("flash_fwd_cuda", qf, kf, vf, out_dtype, heads)
     bh, tq, d = qf.shape
     of = torch.empty((bh, tq, d), dtype=out_dtype, device=qf.device)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=qf.device)
-    lib = _library()
+    entry, route, (qf, kf, vf) = _entry("fwd", (qf, kf, vf), route)
     with torch.cuda.device(qf.device):
-        err = lib.bjx_flash_fwd(
+        err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(), lse.data_ptr(),
             *_problem(qf, kf, h_q, h_kv, causal, scale, window, q_offset),
             kin, kout, _stream(qf))
     _raise_on(err, "flash_fwd")
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.launches_by_route[route] += 1
     return of, lse
-
-
-def _bwd_launch(name, qf, kf, vf, dof, route):
-    """The C entry point of backward pass ``name`` ("dq" or "dkv"), its
-    route and the inputs as it reads them."""
-    route = backward_route(qf.dtype, qf.shape[-1], route)
-    if route == "f32":
-        return getattr(_library(), f"bjx_flash_{name}"), route, (qf, kf, vf, dof)
-    tensors = tuple(_tma_ready(t) for t in (qf, kf, vf, dof))
-    return getattr(_library(), f"bjx_flash_{name}_tc"), route, tensors
 
 
 def flash_dq_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
                   window=None, q_offset=0, heads=None, route=None):
-    """Launch K3 (dQ) on the route of :func:`backward_route` (``route``
+    """Launch K3 (dQ) on the route of :func:`kernel_route` (``route``
     None: by dtype); same contract as :func:`flash_dq_plain`.
     :attr:`launches` counts launches, and :attr:`launches_by_route` each
     route's."""
@@ -373,7 +382,7 @@ def flash_dq_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
                                         (dof,))
     lse, delta = _rows_f32(lse, qf), _rows_f32(delta, qf)
     dq = torch.empty(qf.shape, dtype=out_dtype, device=qf.device)
-    entry, route, (qf, kf, vf, dof) = _bwd_launch("dq", qf, kf, vf, dof, route)
+    entry, route, (qf, kf, vf, dof) = _entry("dq", (qf, kf, vf, dof), route)
     with torch.cuda.device(qf.device):
         err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), lse.data_ptr(),
@@ -388,7 +397,7 @@ def flash_dq_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
 
 def flash_dkv_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
                    window=None, q_offset=0, heads=None, route=None):
-    """Launch K4 (dK/dV) on the route of :func:`backward_route` (``route``
+    """Launch K4 (dK/dV) on the route of :func:`kernel_route` (``route``
     None: by dtype); same contract as :func:`flash_dkv_plain`.
     :attr:`launches` counts launches, and :attr:`launches_by_route` each
     route's."""
@@ -399,7 +408,7 @@ def flash_dkv_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
     lse, delta = _rows_f32(lse, qf), _rows_f32(delta, qf)
     dk = torch.empty((bh, kf.shape[1], d), dtype=out_dtype, device=qf.device)
     dv = torch.empty_like(dk)
-    entry, route, (qf, kf, vf, dof) = _bwd_launch("dkv", qf, kf, vf, dof, route)
+    entry, route, (qf, kf, vf, dof) = _entry("dkv", (qf, kf, vf, dof), route)
     with torch.cuda.device(qf.device):
         err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), lse.data_ptr(),
@@ -412,11 +421,10 @@ def flash_dkv_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
     return dk, dv
 
 
-flash_fwd_cuda.launches = 0
-flash_dq_cuda.launches = 0
-flash_dkv_cuda.launches = 0
-flash_dq_cuda.launches_by_route = {route: 0 for route in BWD_ROUTES.values()}
-flash_dkv_cuda.launches_by_route = {route: 0 for route in BWD_ROUTES.values()}
+for _fn in (flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda):
+    _fn.launches = 0
+    _fn.launches_by_route = {route: 0 for route in ROUTES.values()}
+del _fn
 
 
 # -- dispatchers (the reference's entry points) -----------------------------------

@@ -28,19 +28,20 @@ Phases, each printing JSON lines:
               shape in bf16, f32 causal and not, f32 at head dim 128 and
               T=512, GQA, a window, ragged lengths, a q offset, and a bf16
               twin of every f32 case), each with its max abs error, limit
-              and backward route: bf16 takes the tensor-core kernels
-              ("tc"), f32 the CUDA-core ones ("f32").
+              and route: bf16 takes the tensor-core kernels ("tc"), f32
+              the CUDA-core ones ("f32").
 7. flash_time — each flash kernel, its plain pass and the library call
               (``scaled_dot_product_attention`` on the fastest of its
               backends, timed as a CUDA graph's replay, for comparison
               only) at the flagship shape, beside its FLOPs, bytes and
-              bound; dQ and dK/dV also on the CUDA-core route
-              (``previous_ms``).  nvidia-smi samples the SM clock, power
-              and temperature beside this window and the decode timing.
+              bound; each also on the CUDA-core route (``previous_ms``).
+              nvidia-smi samples the SM clock, power and temperature
+              beside this window and the decode timing.
 8. seqformer — the flagship SeqFormer (8 layers, d_model 1024, 8 heads,
               T=512, batch 8) takes 8 Adam(1e-4) steps through the flash
-              kernels on seeded float16 episodes on the card, every dQ and
-              dK/dV launch on the tensor-core route, then 3 more under
+              kernels on seeded float16 episodes on the card, every
+              forward, dQ and dK/dV launch on the tensor-core route, then
+              3 more under
               ``torch.profiler`` for the device's busy time and idle share
               per step; a small f32 model is held between card (kernels)
               and CPU (plain passes).
@@ -56,6 +57,12 @@ the run.  The line before the last holds every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 without printing it, as does a host without CUDA or a directory without
 the ``blendjax_torch`` package beside this file.
+
+Kernel times are medians of CUDA-event windows with the L2 flushed before
+each (``ms``: the flush buffer zeroed, so up to the L2's 50 MB of dirty
+lines are written back inside the window; ``ms_clean_l2``: the buffer then
+read once, so the L2 holds clean lines and the window only the kernel's
+own traffic).
 """
 
 from __future__ import annotations
@@ -91,8 +98,7 @@ MAIN_SHAPE = (8, 480, 640, 3)  # examples/datagen: batch 8 of 480x640 RGB
 SEQ = dict(batch=8, seq_len=512, obs_dim=32, d_model=1024, n_heads=8, n_layers=8, lr=1e-4)
 FLASH_SHAPE = (SEQ["batch"], SEQ["seq_len"], SEQ["n_heads"],
                SEQ["d_model"] // SEQ["n_heads"])  # (B, T, H, Dh)
-FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-BWD_KERNELS = ("flash_dq", "flash_dkv")  # counted by route too
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")  # each counted by route too
 
 
 def emit(obj):
@@ -115,13 +121,16 @@ def peak_rate(table, name):
 HOST_LEAD_CYCLES = 1_000_000
 
 
-def time_ms(torch, fn, reps=50, flush=None):
+def time_ms(torch, fn, reps=50, flush=None, clean=False):
     """Median CUDA-event time of ``fn`` in ms after warm-up.  ``flush``
     (a large tensor) is rewritten before each launch so the 50 MB L2
-    holds none of the inputs, as for a batch just copied in.  A device-side
-    spin of :data:`HOST_LEAD_CYCLES` precedes each start event, so the
-    window holds the device's time for ``fn`` and not the host's path to
-    its launches, up to about 0.5 ms of host work."""
+    holds none of the inputs, as for a batch just copied in.  The rewrite
+    leaves the L2 full of dirty lines, which ``fn`` then writes back inside
+    its window; with ``clean`` the buffer is also read once after it is
+    zeroed, so the L2 holds clean lines and the window only ``fn``'s own
+    traffic.  A device-side spin of :data:`HOST_LEAD_CYCLES` precedes each
+    start event, so the window holds the device's time for ``fn`` and not
+    the host's path to its launches, up to about 0.5 ms of host work."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -129,6 +138,8 @@ def time_ms(torch, fn, reps=50, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+            if clean:
+                flush.sum()
         torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -227,7 +238,12 @@ def kernel_phase(torch, image, peak):
 
     x = torch.randint(0, 256, MAIN_SHAPE, dtype=torch.uint8, device="cuda", generator=g)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    ms = time_ms(torch, lambda: image.decode_frames_cuda(x, torch.bfloat16), flush=flush)
+
+    def decode():
+        return image.decode_frames_cuda(x, torch.bfloat16)
+
+    ms = time_ms(torch, decode, flush=flush)
+    ms_clean = time_ms(torch, decode, flush=flush, clean=True)
     plain_ms = time_ms(torch, lambda: image.decode_frames_plain(x, torch.bfloat16),
                        flush=flush)
 
@@ -242,17 +258,20 @@ def kernel_phase(torch, image, peak):
                       image.decode_frames_plain(x, torch.bfloat16).view(torch.int16)),
           "torch.mul library call bit-equal to the plain decode")
     library_ms = time_ms(torch, library, flush=flush)
+    library_ms_clean = time_ms(torch, library, flush=flush, clean=True)
     del flush
     nbytes = x.numel() * (1 + 2)  # uint8 read once, bf16 written once
     bound_ms = nbytes / peak * 1e3
     rec = {"phase": "kernel_time", "kernel": "decode_u8", "shape": list(MAIN_SHAPE),
            "out": "bfloat16", "bytes_in": x.numel(), "bytes_out": 2 * x.numel(),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "ms": ms, "ms_clean_l2": ms_clean, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_ms_clean_l2": library_ms_clean,
            "library_call": "torch.mul(x, 1/255, out=bf16)",
            "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
-           "bound_ms": bound_ms, "hbm_peak_share": bound_ms / ms}
+           "bound_ms": bound_ms, "hbm_peak_share": bound_ms / ms,
+           "hbm_peak_share_clean_l2": bound_ms / ms_clean}
     emit(rec)
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": main_err, "ms": ms, "ms_clean_l2": ms_clean, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "library_ms": library_ms}
 
 
@@ -446,7 +465,7 @@ def flash_phase(torch, flash):
                           flash.flash_dkv_plain(*bwd, **gkw), True),
         }
         torch.cuda.synchronize()
-        route = flash.backward_route(qf.dtype, d)
+        route = flash.kernel_route(qf.dtype, d)
         for name, (got, want, grad) in pairs.items():
             results = [_compare(torch, a, w, grad, heads is not None)
                        for a, w in zip(got, want)]
@@ -455,7 +474,7 @@ def flash_phase(torch, flash):
             emit({"phase": "flash", "kernel": name, "case": label, "shape": list(shape),
                   "h_kv": h_kv, "tk": tk, "dtype": dtype, "causal": causal,
                   "window": window, "q_offset": q_offset,
-                  "route": route if name != "flash_fwd" else None, "max_abs_err": max_err,
+                  "route": route, "max_abs_err": max_err,
                   "limit": " / ".join(r[2] for r in results), "ok": ok})
             check(ok, f"{name} {label}")
             if label == "flagship":
@@ -466,7 +485,8 @@ def flash_phase(torch, flash):
 
 def _misaligned_check(torch, flash, g):
     """bf16 views whose bases sit off TMA's 16-byte alignment give the
-    tensor-core kernels' answer for aligned copies of the same values."""
+    tensor-core kernels' answer (forward, dQ, dK/dV) for aligned copies of
+    the same values."""
     qf, kf, vf, dof = _flash_inputs(torch, g, (2, 128, 4, 32), 4, 128, "bfloat16")
     of, lse = flash.flash_fwd_plain(qf, kf, vf, True, 0.25)
     delta = (dof.float() * of.float()).sum(-1, keepdim=True)
@@ -478,14 +498,17 @@ def _misaligned_check(torch, flash, g):
     rest = (lse, delta, True, 0.25)
     views = [shifted(x) for x in (qf, kf, vf, dof)]
     check(all(x.data_ptr() % 16 for x in views), "misaligned views")
-    got = [flash.flash_dq_cuda(*views, *rest), *flash.flash_dkv_cuda(*views, *rest)]
-    want = [flash.flash_dq_cuda(qf, kf, vf, dof, *rest),
+    got = [*flash.flash_fwd_cuda(*views[:3], True, 0.25), flash.flash_dq_cuda(*views, *rest),
+           *flash.flash_dkv_cuda(*views, *rest)]
+    want = [*flash.flash_fwd_cuda(qf, kf, vf, True, 0.25),
+            flash.flash_dq_cuda(qf, kf, vf, dof, *rest),
             *flash.flash_dkv_cuda(qf, kf, vf, dof, *rest)]
     torch.cuda.synchronize()
     ok = all(torch.equal(a, w) for a, w in zip(got, want))
-    emit({"phase": "flash", "kernel": "flash_dq, flash_dkv", "case": "bf16 misaligned bases",
-          "route": "tc", "limit": "bit-equal to the aligned inputs", "ok": ok})
-    check(ok, "tensor-core backward on misaligned bases")
+    emit({"phase": "flash", "kernel": "flash_fwd, flash_dq, flash_dkv",
+          "case": "bf16 misaligned bases", "route": "tc",
+          "limit": "bit-equal to the aligned inputs", "ok": ok})
+    check(ok, "tensor-core forward and backward on misaligned bases")
 
 
 def _flash_work(b, t, h, d, elt):
@@ -515,7 +538,8 @@ def _library_times(torch, qf, kf, vf, dof, flush):
     ``{backend: {"fwd": {"ms", "eager_ms"}, "bwd": {...}}}``, or
     ``{backend: {"error": ...}}`` where it has no kernel for these inputs.
     ``ms`` is a CUDA graph's replay, so host dispatch (autograd's above
-    all) falls outside the window; ``eager_ms`` times the call itself.
+    all) falls outside the window, and ``ms_clean_l2`` the same after a
+    clean flush (:func:`time_ms`); ``eager_ms`` times the call itself.
     Timed for comparison only: the port never calls them."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -543,6 +567,8 @@ def _library_times(torch, qf, kf, vf, dof, flush):
             continue
         torch.cuda.current_stream().wait_stream(side)
         times[name] = {k: {"ms": time_ms(torch, replays[k], reps=20, flush=flush),
+                           "ms_clean_l2": time_ms(torch, replays[k], reps=20, flush=flush,
+                                                  clean=True),
                            "eager_ms": eager[k]} for k in calls}
     return times
 
@@ -567,28 +593,29 @@ def flash_time_phase(torch, flash, hbm, flops_peak):
     library = _library_times(torch, qf, kf, vf, dof, flush)
     ran = {n: r for n, r in library.items() if "error" not in r}
     check(ran, "scaled_dot_product_attention ran on some backend")
-    # the backward's earlier kernels, the CUDA-core route, on the same bf16
-    # inputs: the change's baseline on this card in this run
-    previous = {"flash_dq": lambda: flash.flash_dq_cuda(*bwd_args, route="f32"),
+    # the earlier kernels, the CUDA-core route, on the same bf16 inputs: the
+    # tensor-core kernels' baseline on this card in this run
+    previous = {"flash_fwd": lambda: flash.flash_fwd_cuda(qf, kf, vf, True, scale, route="f32"),
+                "flash_dq": lambda: flash.flash_dq_cuda(*bwd_args, route="f32"),
                 "flash_dkv": lambda: flash.flash_dkv_cuda(*bwd_args, route="f32")}
     work = _flash_work(b, t, h, d, 2)
     timing = {}
     for name, (kernel, plain) in runs.items():
         ms = time_ms(torch, kernel, reps=20, flush=flush)
+        ms_clean = time_ms(torch, kernel, reps=20, flush=flush, clean=True)
         plain_ms = time_ms(torch, plain, reps=10, flush=flush)
-        previous_ms = (time_ms(torch, previous[name], reps=10, flush=flush)
-                       if name in previous else None)
+        previous_ms = time_ms(torch, previous[name], reps=10, flush=flush)
         flops, nbytes = work[name]
         by_ops, by_bytes = flops / flops_peak * 1e3, nbytes / hbm * 1e3
         lib = "fwd" if name == "flash_fwd" else "bwd"
         best = min(ran, key=lambda n: ran[n][lib]["ms"])
         rec = {"phase": "flash_time", "kernel": name, "shape": list(FLASH_SHAPE),
                "dtype": "bfloat16", "causal": True, "flops": flops, "bytes": nbytes,
-               "route": (flash.backward_route(qf.dtype, d) if name in previous
-                         else None),
-               "ms": ms, "previous_ms": previous_ms,
-               "previous_route": "f32" if name in previous else None,
+               "route": flash.kernel_route(qf.dtype, d),
+               "ms": ms, "ms_clean_l2": ms_clean, "previous_ms": previous_ms,
+               "previous_route": "f32",
                "plain_ms": plain_ms, "library_ms": ran[best][lib]["ms"],
+               "library_ms_clean_l2": ran[best][lib]["ms_clean_l2"],
                "library_call": LIBRARY_CALLS[lib], "library_backend": best,
                "library_backends": {n: r.get(lib, r) for n, r in library.items()},
                "tflop_per_s": flops / (ms * 1e-3) / 1e12,
@@ -610,8 +637,8 @@ def _zero_flash_counts(flash):
 
 
 def _route_counts(flash):
-    """The backward kernels' launches by route ("tc", "f32")."""
-    return {n: dict(getattr(flash, n + "_cuda").launches_by_route) for n in BWD_KERNELS}
+    """The flash kernels' launches by route ("tc", "f32")."""
+    return {n: dict(getattr(flash, n + "_cuda").launches_by_route) for n in FLASH_KERNELS}
 
 
 def _device_profile(torch, run_step, steps, median_ms):
@@ -721,7 +748,7 @@ def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_st
     check(all(n == SEQ["n_layers"] for n in launches.values()),
           "one launch of each flash kernel per layer and step")
     check(all(r == {"tc": SEQ["n_layers"] * len(batches), "f32": 0} for r in routes.values()),
-          "every flagship dQ and dK/dV launch took the tensor-core route")
+          "every flagship forward, dQ and dK/dV launch took the tensor-core route")
 
 
 def worldmodel_phase(torch, btt, worldmodel, flash):
@@ -819,13 +846,14 @@ def main():
         "launches": decode_launches, "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
-        "library_ms": timing["library_ms"],
+        "library_ms": timing["library_ms"], "ms_clean_l2": timing["ms_clean_l2"],
     }]
-    # the flagship's bf16 backward runs the tensor-core kernels; f32 inputs
-    # take flash_bwd.cu's, whose time on these bf16 inputs is previous_ms
-    replaces = {"flash_fwd": ("flash_fwd.cu", 203), "flash_dq": ("flash_bwd_tc.cu", 257),
-                "flash_dkv": ("flash_bwd_tc.cu", 296)}
-    for kname, (src, line) in replaces.items():
+    # the flagship's bf16 inputs run the tensor-core kernels; f32 inputs
+    # take the CUDA-core ones, whose time on these bf16 inputs is previous_ms
+    replaces = {"flash_fwd": ("flash_fwd_tc.cu", "flash_fwd.cu", 203),
+                "flash_dq": ("flash_bwd_tc.cu", "flash_bwd.cu", 257),
+                "flash_dkv": ("flash_bwd_tc.cu", "flash_bwd.cu", 296)}
+    for kname, (src, previous_src, line) in replaces.items():
         rec = flash_timing[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": f"blendjax_torch/ops/csrc/{src}",
@@ -833,11 +861,10 @@ def main():
             "launches": flash_launches[kname], "max_abs_err": flash_errs[kname],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "ms_clean_l2": rec["ms_clean_l2"], "launches_by_route": flash_routes[kname],
+            "previous_ms": rec["previous_ms"],
+            "previous_source": f"blendjax_torch/ops/csrc/{previous_src}",
         })
-        if kname in BWD_KERNELS:
-            kernels[-1].update(launches_by_route=flash_routes[kname],
-                               previous_ms=rec["previous_ms"],
-                               previous_source="blendjax_torch/ops/csrc/flash_bwd.cu")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,14 @@ seeded numpy inputs go to both.
 Tolerances (atol = rtol) are tests/test_flash_attention.py's: float32
 forward and lse 2e-5, gradients 5e-5, GQA gradients 1e-4; bfloat16
 forward 2e-2 and gradients 5e-2.  The CUDA kernels are held against these
-plain passes on the card by chip_smoke.py."""
+plain passes on the card by chip_smoke.py; the arithmetic of the
+tensor-core kernels (bf16 operands, P and dS as bf16 hi + lo pairs) is
+emulated here in plain PyTorch and held against the Pallas passes at the
+f32 limits."""
 
 import importlib
+import inspect
+import types
 
 import jax
 import jax.numpy as jnp
@@ -151,6 +156,69 @@ def _tensor_core_backward(qf, kf, vf, dof, lse, delta, causal, scale, window, q_
 TC_CASES = dict({k: v for k, v in CASES.items() if v[6] == "float32"},
                 t17=(2, 17, 17, 2, 2, 32, "float32", True, None, 0, None, 17, 17))
 
+#: the forward kernel's kv tile (csrc/flash_fwd_tc.cu's kRows)
+TC_TILE = 64
+
+
+def _tensor_core_forward(qf, kf, vf, causal, scale, window, q_offset, heads):
+    """(O in f32, lse) as csrc/flash_fwd_tc.cu computes them, in plain
+    PyTorch: bf16 operands, whose products are exact in f32; S one f32
+    product per 64-column kv tile, scaled, masked to -1e30; the running max
+    from -1e30, P = exp2((s - m) log2 e) with masked entries 0, alpha =
+    exp2((m_old - m_new) log2 e) rescaling O and l; l the sum of the f32 P;
+    P V as bf16 hi + lo into one f32 sum.  A kv tile no row of a q tile
+    sees changes nothing (alpha = 1, P = 0), so every tile is visited."""
+    bh, tq, d = qf.shape
+    tk = kf.shape[1]
+    q = qf.float()
+    k = tflash._expand_kv(kf, bh, heads).float()
+    v = tflash._expand_kv(vf, bh, heads).float()
+    for x in (q, k, v):
+        assert torch.equal(x, x.to(torch.bfloat16).float()), "inputs must be bf16-exact"
+    keep = tflash._visible(tq, tk, causal, window, q_offset, qf.device)
+    m = torch.full((bh, tq, 1), -1e30)
+    l = torch.zeros((bh, tq, 1))
+    acc = torch.zeros((bh, tq, d))
+    for c0 in range(0, tk, TC_TILE):
+        kt, vt = k[:, c0:c0 + TC_TILE], v[:, c0:c0 + TC_TILE]
+        s = torch.matmul(q, kt.transpose(-1, -2)) * scale
+        if keep is not None:
+            s = torch.where(keep[:, c0:c0 + TC_TILE], s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2((s - m_new) * LOG2E)
+        if keep is not None:
+            p = torch.where(keep[:, c0:c0 + TC_TILE], p, torch.zeros_like(p))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi, p_lo = _split(p)
+        acc = acc * alpha + torch.matmul(p_hi, vt) + torch.matmul(p_lo, vt)
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / safe, m + torch.log(safe)
+
+
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_forward_matches_the_pallas_forward(case):
+    """The forward's 64-column tiles, running max, exp2 and bf16 hi + lo
+    P V keep O and lse within the reference's f32 forward limit: the
+    emulation on bf16 inputs against ``_flash_fwd_impl`` with f32 outputs,
+    atol = rtol 2e-5."""
+    b, tq, tk, h, h_kv, d, _, causal, window, q_offset, _, bq, bkv = TC_CASES[case]
+    rng = np.random.default_rng(11 + len(case))
+    q = _randn(rng, (b, tq, h, d), "bfloat16")
+    k, v = (_randn(rng, (b, tk, h_kv, d), "bfloat16") for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    heads = (h, h_kv) if h != h_kv else None
+    kw = dict(window=window, q_offset=q_offset)
+    jo, (*_, jlse) = jflash._flash_fwd_impl(
+        _j(q, "bfloat16"), _j(k, "bfloat16"), _j(v, "bfloat16"), causal, scale, bq, bkv,
+        True, out_dtype=jnp.float32, **kw)
+    to, tlse = _tensor_core_forward(
+        *(tflash._flat(_t(x, "bfloat16")) for x in (q, k, v)), causal, scale, window,
+        q_offset, heads)
+    _close(tflash._unflat(to, b, h), jo, F32_FWD, "O")
+    _close(tlse, jlse, F32_FWD, "lse")
+
 
 @pytest.mark.parametrize("case", list(TC_CASES))
 def test_tensor_core_arithmetic_matches_the_pallas_passes(case):
@@ -184,19 +252,51 @@ def test_tensor_core_arithmetic_matches_the_pallas_passes(case):
 
 @pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
 def test_backward_route_by_dtype_and_head_dim(d):
-    assert tflash.backward_route(torch.bfloat16, d) == "tc"
-    assert tflash.backward_route(torch.float32, d) == "f32"
+    assert tflash.kernel_route(torch.bfloat16, d) == "tc"
+    assert tflash.kernel_route(torch.float32, d) == "f32"
     # asked for explicitly: bf16 may take the CUDA-core kernels, f32 never the tensor cores
-    assert tflash.backward_route(torch.bfloat16, d, "f32") == "f32"
+    assert tflash.kernel_route(torch.bfloat16, d, "f32") == "f32"
     with pytest.raises(ValueError, match="takes bfloat16"):
-        tflash.backward_route(torch.float32, d, "tc")
+        tflash.kernel_route(torch.float32, d, "tc")
     with pytest.raises(ValueError, match="is not 'tc' or 'f32'"):
-        tflash.backward_route(torch.bfloat16, d, "tf32")
+        tflash.kernel_route(torch.bfloat16, d, "tf32")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        tflash.backward_route(torch.float16, d)
+        tflash.kernel_route(torch.float16, d)
     for bad in (d // 2 + 1, d * 2 + 1):
         with pytest.raises(ValueError, match="has no kernel"):
-            tflash.backward_route(torch.bfloat16, bad)
+            tflash.kernel_route(torch.bfloat16, bad)
+
+
+# pass -> the number of input tensors its C entry point reads (q first)
+PASSES = {"fwd": 3, "dq": 4, "dkv": 4}
+
+
+@pytest.mark.parametrize("name", list(PASSES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_every_pass_takes_its_entry_point_by_route(monkeypatch, name, dtype):
+    """The forward, dQ and dK/dV wrappers share one route: bf16 inputs
+    reach ``bjx_flash_<pass>_tc`` with TMA-ready (16-byte aligned) copies,
+    f32 inputs and ``route="f32"`` the CUDA-core ``bjx_flash_<pass>``
+    untouched, and ``route="tc"`` with f32 inputs raises.  The kernel
+    library is a stand-in: nothing is built or launched."""
+    lib = types.SimpleNamespace(**{f"bjx_flash_{name}{sfx}": sfx or "f32"
+                                   for sfx in ("", "_tc")})
+    monkeypatch.setattr(tflash, "_library", lambda: lib)
+    dt = getattr(torch, dtype)
+    buf = torch.zeros(2 * 64 * 16 + 8, dtype=dt)
+    shifted = buf[1:2049].view(2, 64, 16)
+    tensors = (shifted,) * PASSES[name]
+    assert "route" in inspect.signature(getattr(tflash, f"flash_{name}_cuda")).parameters
+    entry, route, staged = tflash._entry(name, tensors, None)
+    if dtype == "bfloat16":
+        assert (entry, route) == ("_tc", "tc")
+        assert all(t.data_ptr() % 16 == 0 and torch.equal(t, shifted) for t in staged)
+        entry, route, staged = tflash._entry(name, tensors, "f32")
+    else:
+        with pytest.raises(ValueError, match="takes bfloat16"):
+            tflash._entry(name, tensors, "tc")
+    assert (entry, route) == ("f32", "f32")
+    assert all(t is shifted for t in staged)
 
 
 def test_tma_staging_copies_only_a_misaligned_base():
@@ -346,5 +446,5 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
                 fn(*args)
             assert fn.launches == before
             assert getattr(fn, "launches_by_route", {}) == by_route
-    for fn in (tflash.flash_dq_cuda, tflash.flash_dkv_cuda):
+    for fn in (tflash.flash_fwd_cuda, tflash.flash_dq_cuda, tflash.flash_dkv_cuda):
         assert set(fn.launches_by_route) == {"tc", "f32"}
