@@ -12,48 +12,22 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
+#include "async_copy.cuh"
 #include "flash_common.cuh"
 
 namespace bjx_flash {
 
 using bf16 = __nv_bfloat16;
+using bjx::mbar_expect_tx;
+using bjx::mbar_init;
+using bjx::mbar_wait;
+using bjx::smem_u32;
 
 constexpr int kWG = 128;          // threads: one warpgroup
 constexpr int kRows = 64;         // rows of every tile
 constexpr int kChunk = kRows * 64;  // bf16 elements of one 64 x 64 swizzled chunk (8 KB)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// -- mbarrier and TMA ----------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the barrier's phase differs from `parity`; a copy that never
-// lands (about a second of spinning) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n\t.reg .pred P;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n\t"
-        "selp.b32 %0, 1, 0, P;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
+// -- TMA ------------------------------------------------------------------------
 
 // One 64 x 64 box of a (BH, T, D) bf16 map at (col, row, head) -> smem.
 __device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, uint64_t* bar,

@@ -11,9 +11,14 @@ Phases, each printing JSON lines:
               built from ``blendjax_torch/ops/csrc`` into ``build/``, one
               ``nvcc`` per source in parallel (``build`` line).
 3. kernel   — the decode kernel against its plain PyTorch version on the
-              card, with its max abs error, and its time at the main
-              path's shape beside the bytes it moves and the card's
-              bandwidth bound.
+              card (``decode_cases``: the main shape, unaligned bases
+              1-15, sizes around the plan's chunk; f32 and bf16, with and
+              without ``linearize``), with its max abs error, and
+              bit-equal to it wherever ``linearize`` is off; its time at
+              the main path's shape in bf16 and f32 beside the bytes it
+              moves and the card's bandwidth bound, the timing window's
+              own floor, and the kernel's own duration from
+              torch.profiler (``kernel_us``).
 4. train    — a full-width TinyDetector (channels 32/64/128, hidden 256,
               K=8) takes 8 Adam steps on seeded 8x480x640x3 uint8 batches
               decoded by the kernel inside the loss; the model path is also
@@ -151,6 +156,29 @@ def time_ms(torch, fn, reps=50, flush=None, clean=False):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def profiled_us(torch, fn, flush, reps=20):
+    """Median device duration in us of the kernels ``fn`` launches, from
+    torch.profiler (CUDA activity), with the L2 flushed clean before each
+    call as for ``time_ms(clean=True)``: the kernel's own time,
+    without the event window's floor.  The flush's own kernels (fill and
+    reduce) are left out by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            flush.sum()
+            fn()
+            torch.cuda.synchronize()
+    flush_names = {"zero", "fill", "reduce", "sum"}
+    times = sorted(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not any(k in e.name.lower() for k in flush_names))
+    return times[len(times) // 2] if times else float("nan")
+
+
 def graph_replay(torch, fn, stream):
     """``fn`` captured in a CUDA graph on ``stream`` after a warm-up there;
     returns the graph's replay: the same device work, with no host dispatch
@@ -206,35 +234,57 @@ def bf16_ulp(torch, ref):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def decode_cases(torch, image, g):
+    """The decode kernel's checked inputs as ``(label, uint8 tensor)``: the
+    main shape and a small odd one, the main shape's flat buffer from each
+    base offset 1-15 (unaligned input; the small one's from 1), and flat
+    sizes around the plan's chunk (``image.DECODE_CHUNK``)."""
+    chunk = image.DECODE_CHUNK
+    cases = []
+    for shape in (MAIN_SHAPE, (2, 13, 17, 3)):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
+        cases.append((str(shape), x))
+        for k in range(1, 16) if shape == MAIN_SHAPE else (1,):
+            cases.append((f"{shape}[{k}:]", x.reshape(-1)[k:]))
+    flat = torch.randint(0, 256, (132 * chunk + 7,), dtype=torch.uint8, device="cuda",
+                         generator=g)
+    for size in (1, 17, chunk - 1, chunk + 1, 132 * chunk + 7):
+        cases.append((f"n={size}", flat[:size]))
+    return cases
+
+
 def kernel_phase(torch, image, peak):
     g = torch.Generator(device="cuda").manual_seed(0)
     main_err = None
-    for shape in (MAIN_SHAPE, (2, 13, 17, 3)):
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
-        # the flat buffer from byte 1 on: base pointer not 16-byte aligned
-        for inp, label in ((x, str(shape)), (x.reshape(-1)[1:], f"{shape}[1:]")):
-            for dtype in (torch.float32, torch.bfloat16):
-                for linearize in (False, True):
-                    out = image.decode_frames_cuda(inp, dtype, linearize)
-                    ref = image.decode_frames_plain(inp, dtype, linearize)
-                    torch.cuda.synchronize()
-                    check(out.shape == ref.shape and out.dtype == dtype,
-                          f"decode {label} shape/dtype")
-                    err = (out.float() - ref.float()).abs()
-                    max_err = err.max().item()
-                    if dtype == torch.float32:
-                        limit = 1e-6 if linearize else 1e-7
-                        ok = max_err <= limit
-                    else:
-                        limit = "1 bf16 ulp"
-                        ok = bool((err <= bf16_ulp(torch, ref)).all())
-                    emit({"phase": "kernel", "kernel": "decode_u8", "case": label,
-                          "dtype": str(dtype), "linearize": linearize,
-                          "max_abs_err": max_err, "limit": limit, "ok": ok})
-                    check(ok, f"decode_u8 {label} {dtype} linearize={linearize}")
-                    if (label == str(MAIN_SHAPE) and dtype == torch.bfloat16
-                            and not linearize):
-                        main_err = max_err
+    for label, inp in decode_cases(torch, image, g):
+        results = []
+        for dtype in (torch.float32, torch.bfloat16):
+            for linearize in (False, True):
+                out = image.decode_frames_cuda(inp, dtype, linearize)
+                ref = image.decode_frames_plain(inp, dtype, linearize)
+                torch.cuda.synchronize()
+                check(out.shape == ref.shape and out.dtype == dtype,
+                      f"decode {label} shape/dtype")
+                err = (out.float() - ref.float()).abs()
+                max_err = err.max().item()
+                if dtype == torch.float32:
+                    limit = 1e-6 if linearize else 1e-7
+                    ok = max_err <= limit
+                else:
+                    limit = "1 bf16 ulp"
+                    ok = bool((err <= bf16_ulp(torch, ref)).all())
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                results.append({"dtype": str(dtype), "linearize": linearize,
+                                "max_abs_err": max_err, "limit": limit, "ok": ok,
+                                "bit_equal": torch.equal(out.view(bits), ref.view(bits))})
+                check(ok, f"decode_u8 {label} {dtype} linearize={linearize}")
+                # without linearize every step is exact or correctly rounded
+                check(linearize or results[-1]["bit_equal"],
+                      f"decode_u8 {label} {dtype} bit-equal to the plain decode")
+                if label == str(MAIN_SHAPE) and dtype == torch.bfloat16 and not linearize:
+                    main_err = max_err
+        emit({"phase": "kernel", "kernel": "decode_u8", "case": label,
+              "numel": inp.numel(), "results": results})
 
     x = torch.randint(0, 256, MAIN_SHAPE, dtype=torch.uint8, device="cuda", generator=g)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -246,6 +296,9 @@ def kernel_phase(torch, image, peak):
     ms_clean = time_ms(torch, decode, flush=flush, clean=True)
     plain_ms = time_ms(torch, lambda: image.decode_frames_plain(x, torch.bfloat16),
                        flush=flush)
+    # the window's own floor: no work between the events, the same flush
+    window_floor_ms = time_ms(torch, lambda: None, flush=flush, clean=True)
+    kernel_us = profiled_us(torch, decode, flush)
 
     # The one library call that computes the same function: uint8 promoted
     # to f32, times f32(1/255), rounded to nearest-even bf16 on the store.
@@ -259,18 +312,31 @@ def kernel_phase(torch, image, peak):
           "torch.mul library call bit-equal to the plain decode")
     library_ms = time_ms(torch, library, flush=flush)
     library_ms_clean = time_ms(torch, library, flush=flush, clean=True)
+    f32_ms = time_ms(torch, lambda: image.decode_frames_cuda(x, torch.float32), flush=flush)
+    f32_ms_clean = time_ms(torch, lambda: image.decode_frames_cuda(x, torch.float32),
+                           flush=flush, clean=True)
+    f32_kernel_us = profiled_us(torch, lambda: image.decode_frames_cuda(x, torch.float32),
+                                flush)
     del flush
     nbytes = x.numel() * (1 + 2)  # uint8 read once, bf16 written once
     bound_ms = nbytes / peak * 1e3
+    f32_bound_ms = x.numel() * (1 + 4) / peak * 1e3
     rec = {"phase": "kernel_time", "kernel": "decode_u8", "shape": list(MAIN_SHAPE),
            "out": "bfloat16", "bytes_in": x.numel(), "bytes_out": 2 * x.numel(),
-           "ms": ms, "ms_clean_l2": ms_clean, "plain_ms": plain_ms,
+           "ms": ms, "ms_clean_l2": ms_clean, "window_floor_ms": window_floor_ms,
+           "kernel_us": kernel_us, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_ms_clean_l2": library_ms_clean,
            "library_call": "torch.mul(x, 1/255, out=bf16)",
            "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
            "bound_ms": bound_ms, "hbm_peak_share": bound_ms / ms,
            "hbm_peak_share_clean_l2": bound_ms / ms_clean}
     emit(rec)
+    emit({"phase": "kernel_time", "kernel": "decode_u8", "shape": list(MAIN_SHAPE),
+          "out": "float32", "ms": f32_ms, "ms_clean_l2": f32_ms_clean,
+          "window_floor_ms": window_floor_ms, "kernel_us": f32_kernel_us,
+          "bound_ms": f32_bound_ms,
+          "hbm_peak_share": f32_bound_ms / f32_ms,
+          "hbm_peak_share_clean_l2": f32_bound_ms / f32_ms_clean})
     return {"max_abs_err": main_err, "ms": ms, "ms_clean_l2": ms_clean, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "library_ms": library_ms}
 

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Probe the tensor-core flash kernels (``blendjax_torch/ops/csrc/
-flash_fwd_tc.cu``, the forward, and ``flash_bwd_tc.cu``, dQ and dK/dV) on
-one NVIDIA GPU: what the compiler gave each kernel, whether every bf16 case
-agrees with the plain passes at both output dtypes, the flagship timings,
-and where a forward, dQ or dK/dV tile's cycles go.
+"""Probe the port's hand-written kernels on one NVIDIA GPU: the
+tensor-core flash kernels (``blendjax_torch/ops/csrc/flash_fwd_tc.cu``,
+the forward, and ``flash_bwd_tc.cu``, dQ and dK/dV) and the uint8 decode
+(``decode.cu``): what the compiler gave each kernel, whether every bf16
+flash case agrees with the plain passes at both output dtypes, the
+flagship timings, where a forward, dQ or dK/dV tile's cycles go, and the
+decode against the card's own copy rate and against other forms of it.
 
-    python3 flash_bwd_probe.py                  # ptxas, check, phases
+    python3 flash_bwd_probe.py                  # ptxas, check, phases, decode
     python3 flash_bwd_probe.py ptxas phases     # any subset, in that order
     python3 flash_bwd_probe.py ab=OTHER.cu      # another forward against the port's
+    python3 flash_bwd_probe.py decode_ab=OTHER.cu   # another decode against the port's
 
 ptxas  — ``nvcc -Xptxas -v`` on each source: registers and spill bytes of
          each kernel instance.
@@ -21,12 +24,30 @@ phases — an instrumented copy of each source (``clock64`` at the phase
          one flagship launch) built beside the port's library and checked
          bit-equal to it; prints cycles per tile iteration by phase and the
          blocks per SM the occupancy calculator allows.
+decode — ``nvcc -Xptxas -v`` on ``decode.cu`` (registers, spill and shared
+         memory of each instance); at ``chip_smoke.MAIN_SHAPE`` the time of
+         a device-to-device ``copy_`` that moves the decode's bytes (half
+         of them read, half written: the card's practical rate for this
+         traffic), the timing window's floor (no work between the events),
+         the decode under other plans (chunk size, blocks per SM), each
+         checked bit-equal to the plain decode, and the decode of the
+         buffer from byte 1 (the unaligned path); each by
+         ``chip_smoke.time_ms`` with the clean flush and by its kernels'
+         own duration (``chip_smoke.profiled_us``).
 ab     — another form of ``flash_fwd_tc.cu`` (any path, with the same C
          entry point) built beside the port's library: whether the two
          forwards agree bit for bit at the flagship shape, and their times
          there in turns (port, other, other, port, port, other) with
          ``chip_smoke.time_ms``, so that two designs are compared in one
          call on one card.
+decode_ab — another form of ``decode.cu`` (the same C entry point, for
+         example ``probes/decode_v1.cu`` or ``probes/decode_regs.cu``) built
+         beside the port's library: its ptxas figures, whether it is
+         bit-equal to the port's decode on every case of
+         ``chip_smoke.decode_cases`` at both output dtypes and both
+         ``linearize``, and the two times at the main shape in bf16 in
+         turns (port, other, other, port, port, other) with the clean
+         flush, then each kernel's own duration.
 
 Builds go to ``build/probe``; a failed build or check exits nonzero.  The
 instrumentation edits the sources at fixed lines of their loops and stops
@@ -53,17 +74,7 @@ NVCC = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvc
 def ptxas():
     os.makedirs(OUT, exist_ok=True)
     for stem, source in SOURCES.items():
-        r = subprocess.run(NVCC + ["-Xptxas", "-v", "-c", source,
-                                   "-o", os.path.join(OUT, f"{stem}.o")],
-                           capture_output=True, text=True)
-        kernel = None
-        for line in (r.stdout + r.stderr).splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1]
-            elif "spill" in line or "Used" in line or "error" in line or "warning" in line:
-                print(kernel, line.strip())
-        if r.returncode:
-            raise SystemExit(f"flash_bwd_probe: nvcc exited {r.returncode} on {source}")
+        _nvcc_report(source, ["-c", "-o", os.path.join(OUT, f"{stem}.o")])
 
 
 def check():
@@ -361,14 +372,168 @@ def ab(other):
     print(f"flagship forward, us in turns: {times}")
 
 
+def _nvcc_report(source, obj):
+    """Compiles ``source`` with ``-Xptxas -v`` and prints each kernel
+    instance's registers, spill and shared memory; a failed build exits."""
+    r = subprocess.run(NVCC + ["-Xptxas", "-v", "-I" + CSRC] + obj + [source],
+                       capture_output=True, text=True)
+    kernel = None
+    for line in (r.stdout + r.stderr).splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "spill" in line or "Used" in line or "error" in line or "warning" in line:
+            print(kernel, line.strip())
+    if r.returncode:
+        raise SystemExit(f"flash_bwd_probe: nvcc exited {r.returncode} on {source}")
+
+
+def _decode_fn(lib):
+    from blendjax_torch.ops import image
+
+    fn = lib.bjx_decode_u8
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.POINTER(image.DecodePlan), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _decode_with(torch, fn, x, dtype, linearize=False, **plan_kw):
+    """``fn`` (a form of ``bjx_decode_u8``) on ``x`` under the port's plan
+    for these buffers, or the plan ``plan_kw`` asks for."""
+    from blendjax_torch.ops import image
+
+    out = torch.empty(x.shape, dtype=dtype, device="cuda")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = image.decode_plan(x.numel(), x.data_ptr(), out.data_ptr(), dtype, sms, **plan_kw)
+    err = fn(x.data_ptr(), out.data_ptr(), x.numel(), 0 if dtype == torch.float32 else 1,
+             int(linearize), ctypes.byref(plan), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit(f"flash_bwd_probe: decode launch failed: cudaError_t {err}")
+    return out
+
+
+def _bits(torch, t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def decode():
+    import torch
+
+    import chip_smoke as cs
+    from blendjax_torch.ops import _build, image
+
+    os.makedirs(OUT, exist_ok=True)
+    _nvcc_report(os.path.join(CSRC, "decode.cu"), ["-c", "-o", os.path.join(OUT, "decode.o")])
+    fn = _decode_fn(_build.load_library())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, cs.MAIN_SHAPE, dtype=torch.uint8, device="cuda", generator=g)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    n = x.numel()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    src = torch.empty(3 * n // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+
+    def copy():
+        return dst.copy_(src)
+
+    copy_ms = cs.time_ms(torch, copy, flush=flush, clean=True)
+    floor_ms = cs.time_ms(torch, lambda: None, flush=flush, clean=True)
+    print(f"copy_ of {src.numel()} bytes (moves {2 * src.numel()}): {copy_ms * 1e3:.2f} us "
+          f"window, {cs.profiled_us(torch, copy, flush):.2f} us kernel, "
+          f"{2 * src.numel() / copy_ms / 1e6:.1f} GB/s by the window; "
+          f"window_floor_ms {floor_ms:.5f}", flush=True)
+    configs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for chunk in (2048, 4096, 8192, 16384):
+            for blocks_per_sm in (1, 2, 3, 4, 6, 8):
+                try:
+                    plan = image.decode_plan(n, 0, 0, dtype, sms, chunk=chunk,
+                                             blocks_per_sm=blocks_per_sm)
+                except ValueError:
+                    continue  # too large for two stages
+                configs.append((dtype, chunk, blocks_per_sm, plan))
+    bad, window = 0, {}
+    for turn in (configs, configs[::-1]):  # two turns, the second in reverse
+        for dtype, chunk, blocks_per_sm, _ in turn:
+            kw = dict(chunk=chunk, blocks_per_sm=blocks_per_sm)
+            window.setdefault((dtype, chunk, blocks_per_sm), []).append(cs.time_ms(
+                torch, lambda: _decode_with(torch, fn, x, dtype, **kw), flush=flush,
+                clean=True) * 1e3)
+    for dtype, chunk, blocks_per_sm, plan in configs:
+        kw = dict(chunk=chunk, blocks_per_sm=blocks_per_sm)
+        want = _bits(torch, image.decode_frames_plain(x, dtype))
+        same = torch.equal(_bits(torch, _decode_with(torch, fn, x, dtype, **kw)), want)
+        bad += not same
+        kernel = cs.profiled_us(torch, lambda: _decode_with(torch, fn, x, dtype, **kw), flush)
+        w = window[(dtype, chunk, blocks_per_sm)]
+        print(f"decode {str(dtype)[6:]} chunk {chunk} blocks/SM {blocks_per_sm}: window "
+              f"{w[0]:.2f} / {w[1]:.2f} us, kernel {kernel:.2f} us; grid {plan.grid}, "
+              f"stages {plan.stages}, smem {plan.smem}, bit-equal {same}", flush=True)
+    # the unaligned path: the main shape's flat buffer from byte 1, port's plan
+    x1 = x.reshape(-1)[1:]
+    for dtype in (torch.bfloat16, torch.float32):
+        def unaligned():
+            return image.decode_frames_cuda(x1, dtype)
+
+        print(f"decode {str(dtype)[6:]} from byte 1 ({x1.numel()} elements): window "
+              f"{cs.time_ms(torch, unaligned, flush=flush, clean=True) * 1e3:.2f} us, "
+              f"kernel {cs.profiled_us(torch, unaligned, flush):.2f} us", flush=True)
+    if bad:
+        raise SystemExit(f"flash_bwd_probe: decode differs from the plain decode in {bad} plans")
+
+
+def decode_ab(other):
+    import torch
+
+    import chip_smoke as cs
+    from blendjax_torch.ops import image
+
+    os.makedirs(OUT, exist_ok=True)
+    so = os.path.join(OUT, "libother_decode.so")
+    _nvcc_report(other, ["-shared", "-Xcompiler", "-fPIC", "-o", so])
+    other_fn = _decode_fn(ctypes.CDLL(so))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    cases = cs.decode_cases(torch, image, g)
+    for label, inp in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for linearize in (False, True):
+                a = image.decode_frames_cuda(inp, dtype, linearize)
+                b = _decode_with(torch, other_fn, inp, dtype, linearize)
+                if not torch.equal(_bits(torch, a), _bits(torch, b)):
+                    bad += 1
+                    print(f"DIFFERS {label} {dtype} linearize={linearize}")
+    print(f"bit-equal to the port's decode on {4 * len(cases) - bad} of {4 * len(cases)} "
+          "cases", flush=True)
+    x = cases[0][1]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    times = {"port": [], "other": []}
+    for name in ("port", "other", "other", "port", "port", "other"):
+        if name == "port":
+            fn = lambda: image.decode_frames_cuda(x, torch.bfloat16)  # noqa: E731
+        else:
+            fn = lambda: _decode_with(torch, other_fn, x, torch.bfloat16)  # noqa: E731
+        times[name].append(cs.time_ms(torch, fn, flush=flush, clean=True) * 1e3)
+    kernel = {name: cs.profiled_us(torch, fn, flush) for name, fn in (
+        ("port", lambda: image.decode_frames_cuda(x, torch.bfloat16)),
+        ("other", lambda: _decode_with(torch, other_fn, x, torch.bfloat16)))}
+    print(f"decode {list(cs.MAIN_SHAPE)} -> bf16, us clean in turns: {times}; medians "
+          f"port {sorted(times['port'])[1]:.2f}, other {sorted(times['other'])[1]:.2f}; "
+          f"kernel (profiler) port {kernel['port']:.2f}, other {kernel['other']:.2f}")
+    if bad:
+        raise SystemExit(f"flash_bwd_probe: {other} differs on {bad} cases")
+
+
 def main(argv):
-    steps = {"ptxas": ptxas, "check": check, "phases": phases}
+    steps = {"ptxas": ptxas, "check": check, "phases": phases, "decode": decode}
     others = [a[3:] for a in argv if a.startswith("ab=")]
-    wanted = [a for a in argv if not a.startswith("ab=")] or ([] if others else list(steps))
+    decode_others = [a[10:] for a in argv if a.startswith("decode_ab=")]
+    wanted = [a for a in argv if not a.startswith(("ab=", "decode_ab="))] or (
+        [] if others or decode_others else list(steps))
     unknown = [a for a in wanted if a not in steps]
     if unknown:
         raise SystemExit(f"flash_bwd_probe: unknown step(s) {unknown}; choose from "
-                         f"{list(steps)} or ab=SOURCE")
+                         f"{list(steps)}, ab=SOURCE or decode_ab=SOURCE")
     if wanted != ["ptxas"]:
         import torch
 
@@ -383,6 +548,9 @@ def main(argv):
     for other in others:
         print(f"== ab {other}", flush=True)
         ab(other)
+    for other in decode_others:
+        print(f"== decode_ab {other}", flush=True)
+        decode_ab(other)
     return 0
 
 

@@ -97,3 +97,117 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     before = timage.decode_frames_cuda.launches
     timage.decode_frames(u8)  # CPU dispatch: plain version, no launch
     assert timage.decode_frames_cuda.launches == before
+
+
+# The CUDA kernel's launch plan (``decode_plan``), walked on the CPU as the
+# kernel walks it: every element once, every bulk copy 16-byte aligned and
+# inside its buffer, and each chunk decoded from the bytes its load brings.
+
+_IN_BASE = 0x7F00_0000_0000  # 16-byte aligned; a case adds its offset
+_OUT_BASE = 0x7F40_0000_0000
+_C = timage.DECODE_CHUNK
+_SIZES = {"1": 1, "15": 15, "16": 16, "17": 17, "1326": 1326, "chunk-1": _C - 1,
+          "chunk": _C, "chunk+1": _C + 1, "132chunk+7": 132 * _C + 7,
+          "7372800": 7_372_800}
+_plan_grid = pytest.mark.parametrize("offset", range(16))
+_plan_sizes = pytest.mark.parametrize("size", list(_SIZES))
+_plan_dtypes = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+_plan_sms = pytest.mark.parametrize("sms", [1, 132])
+
+
+def _plan(size, offset, dtype, sms):
+    n = _SIZES[size]
+    return n, timage.decode_plan(n, _IN_BASE + offset, _OUT_BASE, dtype, sms)
+
+
+@_plan_grid
+@_plan_sizes
+@_plan_dtypes
+@_plan_sms
+def test_decode_plan_covers_each_element_once_with_aligned_bulk_copies(offset, size,
+                                                                       dtype, sms):
+    n, plan = _plan(size, offset, dtype, sms)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    counts = np.zeros(n, dtype=np.int16)
+    counts[:plan.lo] += 1
+    counts[plan.hi:] += 1
+    per_block = {}
+    for (b, _, start, length, _, _, in_off, in_bytes, out_off,
+         out_bytes) in timage.plan_copies(plan, dtype):
+        counts[start:start + length] += 1
+        per_block[b] = per_block.get(b, 0) + 1
+        assert (_IN_BASE + offset + in_off) % 16 == 0 and in_bytes % 16 == 0
+        assert (_OUT_BASE + out_off) % 16 == 0 and out_bytes % 16 == 0
+        assert 0 <= in_off <= start and start + length <= in_off + in_bytes <= n
+        assert in_bytes <= plan.chunk + 16 and out_bytes <= plan.chunk * esize
+        assert out_off == start * esize and out_bytes == length * esize
+    np.testing.assert_array_equal(counts, 1)
+    assert plan.lo <= 31 and n - plan.hi <= 31  # the scalar head and tail stay short
+    assert plan.grid <= sms and plan.smem <= timage.SMEM_PER_BLOCK
+    if plan.chunks:
+        assert sorted(per_block) == list(range(plan.grid))
+        assert max(per_block.values()) - min(per_block.values()) <= 1
+        assert 1 <= plan.stages <= max(per_block.values())
+        assert plan.stages >= 2 or max(per_block.values()) == 1
+
+
+@_plan_grid
+@_plan_sizes
+@_plan_dtypes
+@_plan_sms
+def test_decode_plan_emulated_chunk_by_chunk_equals_plain(offset, size, dtype, sms):
+    """The kernel's dataflow on the CPU: each stage of the ring is loaded
+    with a chunk's aligned input bytes and completes one barrier phase;
+    the chunk waits for its stage's phase, decodes its bytes from
+    ``shift`` on with the plain decode, and is stored at its output
+    offset.  The head and tail go plain.  Bit-equal to the plain decode
+    of the whole buffer."""
+    n, plan = _plan(size, offset, dtype, sms)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    x = np.random.default_rng(n + offset).integers(0, 256, size=n, dtype=np.uint8)
+
+    def plain(a):
+        return timage.decode_frames_plain(torch.from_numpy(a), dtype)
+
+    out = torch.full((n,), float("nan"), dtype=dtype)
+    out[:plan.lo] = plain(x[:plan.lo])
+    out[plan.hi:] = plain(x[plan.hi:])
+    copies = {}
+    for c in timage.plan_copies(plan, dtype):
+        copies.setdefault(c[0], []).append(c)
+    for chunks in copies.values():
+        ring, phases = [None] * plan.stages, [0] * plan.stages
+
+        def load(c):
+            ring[c[4]] = (c[1], x[c[6]:c[6] + c[7]])
+            phases[c[4]] += 1
+
+        for c in chunks[:plan.stages]:
+            load(c)
+        for j, (_, _, _, length, stage, parity, _, _, out_off, _) in enumerate(chunks):
+            held, smem = ring[stage]
+            assert held == j and (phases[stage] - 1) & 1 == parity
+            out[out_off // esize:out_off // esize + length] = plain(
+                smem[plan.shift:plan.shift + length])
+            if j + plan.stages < len(chunks):
+                load(chunks[j + plan.stages])
+    want = plain(x)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+def test_decode_plan_fits_shared_memory_and_refuses_what_the_kernel_cannot_take(
+        dtype, blocks_per_sm):
+    plan = timage.decode_plan(7_372_800, _IN_BASE, _OUT_BASE, dtype, 132,
+                              blocks_per_sm=blocks_per_sm)
+    budget = timage.SMEM_PER_SM // blocks_per_sm - timage.SMEM_RESERVED
+    assert plan.smem <= min(budget, timage.SMEM_PER_BLOCK) and plan.stages >= 2
+    assert plan.grid == 132 * blocks_per_sm
+    with pytest.raises(ValueError, match="aligned"):
+        timage.decode_plan(100, _IN_BASE, _OUT_BASE + 1, dtype, 132)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        timage.decode_plan(100, _IN_BASE, _OUT_BASE, dtype, 132, chunk=48)
+    with pytest.raises(ValueError, match="stages"):
+        timage.decode_plan(100, _IN_BASE, _OUT_BASE, dtype, 132, chunk=1 << 16)
