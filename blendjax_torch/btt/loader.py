@@ -4,9 +4,12 @@ Why threads instead of worker processes: the stream's hot path is ZMQ
 ``recv`` (GIL released in C) plus numpy buffer handling, so threads overlap
 IO without the serialization tax of moving tensors between worker
 processes.  Each worker thread runs its own PULL socket via
-``RemoteIterableDataset.stream(worker_id, num_workers)``.  Batches are
-assembled inside the worker threads (DataLoader semantics: each worker
-emits whole batches), one queue element per batch.
+``RemoteIterableDataset.stream_batches(batch_size, worker_id,
+num_workers)``.  Batches are assembled inside the worker threads
+(DataLoader semantics: each worker emits whole batches), one queue element
+per batch: straight from the wire frames (into recycled arenas with
+``arena_pool``), or by ``stream()`` + collate where a per-item transform or
+recording is set.
 """
 
 from __future__ import annotations
@@ -15,7 +18,6 @@ import queue
 import sys
 import threading
 
-from blendjax_torch.btt.collate import collate
 from blendjax_torch.utils.timing import StageTimer
 
 _SENTINEL = object()
@@ -26,7 +28,7 @@ class BatchLoader:
 
     Params
     ------
-    dataset: RemoteIterableDataset (or anything with ``.stream(...)``)
+    dataset: RemoteIterableDataset (or anything with ``.stream_batches(...)``)
     batch_size: int
     num_workers: int
         Stream threads; each takes ``1/num_workers`` of ``max_items``.
@@ -35,6 +37,13 @@ class BatchLoader:
     gate: TransferGate | None
         When set, workers pause at batch boundaries while a host->device
         transfer holds the gate closed (see ``prefetch.TransferGate``).
+    arena_pool: blendjax_torch.btt.arena.ArenaPool | None
+        When set (and the dataset takes the batched path), batches
+        assemble into recycled arena buffers and come out as
+        ``ArenaBatch`` objects; the consumer must recycle each one after
+        its bytes are consumed (the device feed does this once the copy
+        to the card has completed).  Pool exhaustion backpressures the
+        workers.
     """
 
     def __init__(
@@ -44,6 +53,7 @@ class BatchLoader:
         num_workers=1,
         drop_last=True,
         gate=None,
+        arena_pool=None,
     ):
         if num_workers < 1:
             raise ValueError("num_workers must be >= 1")
@@ -52,6 +62,7 @@ class BatchLoader:
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.gate = gate
+        self.arena_pool = arena_pool
         self.timer = StageTimer()
         self._queue = queue.Queue(maxsize=2)
         self._stop = threading.Event()
@@ -87,28 +98,37 @@ class BatchLoader:
         return False
 
     def _worker(self, worker_id):
+        """One stream thread: the dataset assembles its batches (from the
+        wire frames, or by its own ``stream()`` + collate fallback)."""
         try:
-            batch = []
-            for item in self.dataset.stream(
+            batches = self.dataset.stream_batches(
+                self.batch_size,
                 worker_id=worker_id,
                 num_workers=self.num_workers,
                 stop_event=self._stop,
-            ):
-                batch.append(item)
-                if len(batch) == self.batch_size:
-                    if self.gate is not None:
-                        self.gate.wait(stop=self._stop)
-                    with self.timer.stage("collate"):
-                        out = collate(batch)
-                    batch = []
-                    if not self._put(out):
-                        return
-                if self._stop.is_set():
-                    return
-            if batch and not self.drop_last:
-                with self.timer.stage("collate"):
-                    out = collate(batch)
+                drop_last=self.drop_last,
+                timer=self.timer,
+                arena_pool=self.arena_pool,
+            )
+            while True:
+                if self.gate is not None:
+                    # next() does this worker's heavy lifting (recv + batch
+                    # assembly): hold it at the boundary while a transfer
+                    # owns the core; stop-aware so close() never waits out
+                    # the gate
+                    self.gate.wait(stop=self._stop)
+                try:
+                    out = next(batches)
+                except StopIteration:
+                    break
                 if not self._put(out):
+                    # stop raced the enqueue: the batch is already detached
+                    # from the stream generator, so recycle its arena here
+                    # or nobody will
+                    if hasattr(out, "recycle"):
+                        out.recycle()
+                    return
+                if self._stop.is_set():
                     return
             self._put(_SENTINEL)
         except BaseException as exc:  # propagate to the consumer thread
@@ -130,10 +150,14 @@ class BatchLoader:
             # close() can run from generator finalization during interpreter
             # shutdown: the daemon workers are dead, nothing to drain or join
             return
-        # drain so blocked put() calls can observe the stop flag
+        # drain so blocked put() calls can observe the stop flag; recycle
+        # any arena batches stranded in the queue so a shared pool is not
+        # starved by an early close
         try:
             while True:
-                self._queue.get_nowait()
+                item = self._queue.get_nowait()
+                if hasattr(item, "recycle"):
+                    item.recycle()
         except queue.Empty:
             pass
         for t in self._threads:

@@ -9,12 +9,18 @@ on that event before it touches the batch, and every tensor of the batch is
 marked with ``record_stream`` so the caching allocator does not hand its
 memory back to the side stream while the consumer's kernels still read it.
 A staging buffer is refilled only after the event of the copy that last
-read it has completed — the counterpart of ``block_until_ready`` before an
-arena recycle in ``blendjax.btt.prefetch``.
+read it has completed.
+
+Arena batches (:mod:`blendjax_torch.btt.arena`, ``TorchStream(arena=)``)
+go through the same ring.  The arena goes back to its pool only once the
+batch's copy event has completed — the counterpart of
+``block_until_ready`` before an arena recycle in
+``blendjax.btt.prefetch`` — never on dispatch alone.
 
 On the CPU, ``torch.from_numpy`` would alias the host batch, so a producer
-that reuses its buffers would rewrite batches already handed out; CPU
-batches are therefore copied into memory they own.
+that reuses its buffers (a recycled arena) would rewrite batches already
+handed out; CPU batches are therefore copied into memory they own, and an
+arena is recycled as soon as that copy is made.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from blendjax_torch.btt.arena import ArenaBatch, ArenaPool
 from blendjax_torch.utils.device import resolve_device
 from blendjax_torch.utils.timing import StageTimer
 
@@ -135,6 +142,44 @@ def _resolve_gate(transfer_gate, num_workers, device):
     )
 
 
+def _resolve_arena(arena, dataset, num_workers, prefetch):
+    """Resolve TorchStream's ``arena`` option to an ArenaPool (or None).
+
+    'auto' (the default) enables arena-pooled batch assembly whenever the
+    dataset supports the batched stream path (no recording, no per-item
+    transform): fixed-shape raw-buffer streams get recycled batch buffers
+    out of the box, with the collate fallback applying per key for ragged
+    or compat traffic.  Pool depth covers every place a batch can be in
+    flight at once (loader queue + device queue + one in transfer + one
+    building per worker).
+    """
+    # identity checks: `0 in (False, None)` is True, and arena=0 must hit
+    # ArenaPool's pool_size validation below, not silently disable
+    if arena is False or arena is None:
+        return None
+    if isinstance(arena, ArenaPool):
+        return arena
+    supported = (hasattr(dataset, "supports_batched_stream")
+                 and dataset.supports_batched_stream())
+    if arena == "auto":
+        if not supported:
+            return None
+        return ArenaPool(pool_size=num_workers + prefetch + 3)
+    if arena is True:
+        if not supported:
+            raise ValueError(
+                "arena=True requires a dataset whose batched stream path "
+                "is available (no recording/per-item transform)"
+            )
+        return ArenaPool(pool_size=num_workers + prefetch + 3)
+    if isinstance(arena, int):
+        return ArenaPool(pool_size=arena)
+    raise ValueError(
+        f"arena must be 'auto', a bool, None, an int pool size, or an "
+        f"ArenaPool; got {arena!r}"
+    )
+
+
 def _map_leaves(fn, tree, leaf_type):
     """Apply ``fn`` to every ``leaf_type`` leaf of a dict/list/tuple tree;
     other leaves (strings, ragged lists' elements of other types) pass
@@ -222,10 +267,11 @@ def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
         Placement for every array leaf; CUDA unless the caller asks for
         the CPU.  Raises when CUDA is asked for and absent.
     transform: callable | None
-        Host-side hook applied to each host batch before it is staged
-        (key selection, dtype cast, layout).
+        Host-side hook applied to each host batch (an ``ArenaBatch``'s
+        ``data``) before it is staged (key selection, dtype cast, layout).
     timer: StageTimer | None
-        Records ``device_put`` stage times (staging + copy issue).
+        Records ``device_put`` stage times (staging + copy issue) and, for
+        arena batches, ``recycle``.
     gate: TransferGate | None
         When set, the gate is held closed for each transfer, including its
         completion — see :class:`TransferGate`.
@@ -236,8 +282,9 @@ def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
     timer = timer or StageTimer()
     q: queue.Queue = queue.Queue(maxsize=size)
     stop = threading.Event()
-    if device.type == "cuda":
-        put = _PinnedStager(device).put
+    stager = _PinnedStager(device) if device.type == "cuda" else None
+    if stager is not None:
+        put = stager.put
     else:
         def put(host_batch):
             return _owned_cpu_batch(host_batch), None
@@ -253,14 +300,27 @@ def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
         return dev_batch, event
 
     def _producer():
+        batch = None
         try:
             for batch in iterator:
+                arena_batch = batch if isinstance(batch, ArenaBatch) else None
                 if stop.is_set():
+                    if arena_batch is not None:
+                        arena_batch.recycle()
                     return
+                host_batch = batch if arena_batch is None else batch.data
                 if transform is not None:
-                    batch = transform(batch)
+                    host_batch = transform(host_batch)
                 with timer.stage("device_put"):
-                    item = _place(batch)
+                    item = _place(host_batch)
+                if arena_batch is not None:
+                    # the arena returns to the freelist only once its batch's
+                    # copy has COMPLETED, never on dispatch alone; a slow
+                    # trainer therefore backpressures into the pool
+                    with timer.stage("recycle"):
+                        if item[1] is not None:
+                            item[1].synchronize()
+                        arena_batch.recycle()
                 while True:
                     try:
                         q.put(item, timeout=0.5)
@@ -270,6 +330,12 @@ def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
                             return
             q.put(_SENTINEL)
         except BaseException as exc:  # noqa: BLE001 - forwarded to consumer
+            # a transform/put failure must not strand the in-hand arena;
+            # copies it may have issued land first (recycle is idempotent)
+            if isinstance(batch, ArenaBatch):
+                if stager is not None:
+                    stager.stream.synchronize()
+                batch.recycle()
             q.put(exc)
 
     thread = threading.Thread(target=_producer, daemon=True, name="bjx-prefetch")
@@ -308,7 +374,15 @@ class TorchStream:
     is not ported).  ``transform`` is applied to each collated host batch
     before it is staged (e.g. a cast to float16 that halves the copy).
     ``stream.timer.summary()`` exposes the per-stage feed times (recv /
-    collate / device_put).
+    scatter / arena_wait / device_put / recycle on the arena path, recv /
+    collate / device_put on the collate path).
+
+    ``arena='auto'`` (default) assembles batches into recycled arena
+    buffers (:mod:`blendjax_torch.btt.arena`) whenever the dataset
+    supports the batched stream path, each arena recycled only after its
+    batch's copy to the card has completed.  Pass False to build each
+    batch in fresh buffers instead, an int to size the pool, or a shared
+    ``ArenaPool``.
     """
 
     def __init__(
@@ -321,17 +395,20 @@ class TorchStream:
         drop_last=True,
         transfer_gate="auto",
         transform=None,
+        arena="auto",
     ):
         from blendjax_torch.btt.loader import BatchLoader
 
         self.device = resolve_device(device)
         self.gate = _resolve_gate(transfer_gate, num_workers, self.device)
+        self.arena_pool = _resolve_arena(arena, dataset, num_workers, prefetch)
         self.loader = BatchLoader(
             dataset,
             batch_size,
             num_workers=num_workers,
             drop_last=drop_last,
             gate=self.gate,
+            arena_pool=self.arena_pool,
         )
         self.prefetch = prefetch
         self.transform = transform

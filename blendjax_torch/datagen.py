@@ -34,7 +34,10 @@ IMAGE_HW = (480, 640)
 
 def item_transform(item):
     """Producer message -> training sample: keep the image uint8 (the
-    decode happens on the card) and normalize keypoints to [0,1]."""
+    decode happens on the card) and normalize keypoints to [0,1].  Works
+    on a collated batch too (the batch axis broadcasts): as a stream's
+    batch-level ``transform=`` it leaves the dataset without a per-item
+    transform, so the arena path stays engaged."""
     h, w = IMAGE_HW
     return {
         "image": item["image"],

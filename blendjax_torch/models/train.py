@@ -1,4 +1,4 @@
-"""Training-step builder: ``step(state, batch) -> (state, loss)``.
+"""Training- and eval-step builders.
 
 The port of ``blendjax.models.train``::
 
@@ -6,12 +6,38 @@ The port of ``blendjax.models.train``::
     state = TrainState.create(params, lr=3e-4)   # another rate
     step = make_train_step(loss_fn)
     state, loss = step(state, batch)
+    evaluate = make_eval_step(loss_fn)
+    loss = evaluate(state.params, batch)
 
 ``torch.optim.Adam``'s defaults (betas (0.9, 0.999), eps 1e-8, eps inside
 the square root 0) are ``optax.adam``'s, and its update ``m_hat /
-(sqrt(v_hat) + eps)`` is the same formula.  Where the reference donates
-the state so XLA updates it in place, the port updates the parameter
-tensors in place: the state passed in is the state returned.
+(sqrt(v_hat) + eps)`` is the same formula.
+
+**On the card the step is one captured program**, the counterpart of the
+reference's ``jax.jit(step, donate_argnums=(0,))``.  For a batch signature
+(tree structure, shapes, dtypes) it has not seen, the step first runs
+:data:`WARMUP_STEPS` real eager steps on a side stream, then captures one
+whole step — zero-grad, forward, backward, Adam — in a
+``torch.cuda.CUDAGraph``; every later call copies the batch into the
+graph's static inputs, replays the graph and returns a fresh copy of the
+loss.  A new signature gets its own capture (and its own graph memory
+pool), as a jit retraces.  Parameters and Adam's state are updated in
+place, the counterpart of donation: the state passed in is the state
+returned, and Adam is built ``capturable=True`` for CUDA parameters.  If
+``state.params`` no longer holds the tensors that were captured (the caller
+rebound them, e.g. to load weights), ``state.optimizer`` is another object,
+or the optimizer's state tensors were replaced (``load_state_dict``), the
+step drops its graphs and captures anew (after new warm-up steps): it
+never replays against stale addresses.  A failed capture
+raises; nothing falls back to the eager step.  The kernels' launch
+counters (:mod:`blendjax_torch.utils.launches`) go on counting at every
+replay.  The eval step is captured the same way, under ``torch.no_grad()``.
+
+With parameters on the CPU both steps run eagerly: that is the device the
+caller asked for, and there is no CUDA graph on a CPU.  ``capture=False``
+runs them eagerly on the card too (an explicit choice, used to hold the
+captured step against the eager one); ``capture=True`` raises unless the
+parameters are on a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,6 +45,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from blendjax_torch.utils import launches
+
+#: eager steps a batch signature runs (on a side stream) before its capture:
+#: they create Adam's state and the libraries' handles and workspaces, and
+#: load every kernel, none of which may happen inside a capture
+WARMUP_STEPS = 2
 
 
 @dataclass
@@ -32,19 +65,213 @@ class TrainState:
     @classmethod
     def create(cls, params, lr=1e-3):
         params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        return cls(params=params, optimizer=torch.optim.Adam(params.values(), lr=lr))
+        on_cuda = bool(params) and all(v.is_cuda for v in params.values())
+        return cls(params=params,
+                   optimizer=torch.optim.Adam(params.values(), lr=lr, capturable=on_cuda))
 
 
-def make_train_step(loss_fn):
+def _captures(capture, tensors):
+    """Whether a step over ``tensors`` (its parameters) runs captured."""
+    if capture is False:
+        return False
+    tensors = list(tensors)
+    if tensors and all(t.is_cuda for t in tensors):
+        return True
+    if capture:
+        if not torch.cuda.is_available():
+            raise RuntimeError("capture=True needs a CUDA device, and CUDA is not available")
+        raise RuntimeError("capture=True needs the parameters on a CUDA device")
+    return False
+
+
+def _leaves(tree, path=()):
+    """``(path, tensor)`` for every leaf of a dict/list/tuple tree; a
+    captured step takes tensor leaves only (any other value would be baked
+    into the graph)."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        raise TypeError(f"a captured step takes tensor leaves only; batch{list(path)} is "
+                        f"a {type(tree).__name__} (drop it in the stream's transform, or "
+                        "pass capture=False)")
+
+
+def _rebuild(tree, tensors):
+    """``tree`` with its tensor leaves replaced, in order, from ``tensors``."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, tensors) for k, v in tree.items()}
+    seq = [_rebuild(v, tensors) for v in tree]
+    return seq if isinstance(tree, list) else tuple(seq)
+
+
+class _Graph:
+    """One captured step: the graph, its static inputs (in leaf order), its
+    static output, and the kernel launches each replay makes."""
+
+    __slots__ = ("graph", "inputs", "output", "launches")
+
+    def __init__(self, graph, inputs, output, launches):
+        self.graph, self.inputs, self.output, self.launches = graph, inputs, output, launches
+
+
+def _pinned_down(objects):
+    """``{key: (object, data_ptr or None)}``: what a graph's addresses
+    depend on."""
+    return {k: (x, x.data_ptr() if isinstance(x, torch.Tensor) else None)
+            for k, x in objects.items()}
+
+
+def _moved(old, now):
+    """Keys of ``old`` that ``now`` lacks or holds as another object or at
+    another address."""
+    return [k for k, (x, ptr) in old.items()
+            if k not in now or now[k][0] is not x or now[k][1] != ptr]
+
+
+def _optimizer_tensors(optimizer):
+    """Every tensor the optimizer keeps (its per-parameter state, and any
+    tensor hyperparameter), keyed by parameter group and position."""
+    out = {}
+    for g, group in enumerate(optimizer.param_groups):
+        for name, v in group.items():
+            if isinstance(v, torch.Tensor):
+                out[(g, name)] = v
+        for i, p in enumerate(group["params"]):
+            for name, v in optimizer.state.get(p, {}).items():
+                if isinstance(v, torch.Tensor):
+                    out[(g, i, name)] = v
+    return out
+
+
+class _Captured:
+    """The captured graphs of one step function, keyed by batch signature."""
+
+    def __init__(self):
+        self.graphs = {}  # signature -> _Graph
+        self._warm = {}  # signature -> eager warm-up steps run
+        self._bound = None  # (bound, made) as _pinned_down at the last call
+
+    def __call__(self, run, batch, bound, made=None):
+        """``run(batch) -> tensor`` does one step's device work on the
+        current stream.  ``bound`` maps a key to each object it works on
+        besides the batch (the optimizer, the parameters); ``made`` maps a
+        key to each tensor the step creates on its first run (Adam's
+        state), which may appear between calls but, once there, must stay
+        the tensor the graphs were captured over."""
+        now, created = _pinned_down(bound), _pinned_down(made or {})
+        if self._bound is not None:
+            old, old_made = self._bound
+            if now.keys() != old.keys() or _moved(old, now) or _moved(old_made, created):
+                # rebound state: the graphs hold the old addresses
+                self.graphs.clear()
+                self._warm.clear()
+        self._bound = now, created
+        device = next(x for x in bound.values() if isinstance(x, torch.Tensor)).device
+        leaves = list(_leaves(batch))
+        sig = tuple((p, tuple(t.shape), t.dtype) for p, t in leaves)
+        entry = self.graphs.get(sig)
+        if entry is None:
+            done = self._warm.get(sig, 0)
+            if done < WARMUP_STEPS:
+                self._warm[sig] = done + 1
+                return _on_side_stream(run, batch, leaves, device)
+            entry = self.graphs[sig] = _capture(run, batch, leaves, device)
+        for (_, src), dst in zip(leaves, entry.inputs):
+            dst.copy_(src, non_blocking=True)
+        entry.graph.replay()
+        launches.add(entry.launches)
+        # the next replay overwrites the static output
+        return entry.output.clone()
+
+
+def _on_side_stream(run, batch, leaves, device):
+    """One eager warm-up step on a side stream (as CUDA graph capture asks
+    of the steps before it), ordered after and before the current stream."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = run(batch)
+    for _, t in leaves:
+        if t.is_cuda:
+            t.record_stream(side)
+    current.wait_stream(side)
+    out.record_stream(current)
+    return out
+
+
+def _capture(run, batch, leaves, device):
+    """Capture ``run`` over static copies of ``batch``'s leaves."""
+    inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for _, t in leaves]
+    for (_, t), dst in zip(leaves, inputs):
+        dst.copy_(t)
+    static = _rebuild(batch, iter(inputs))
+    graph = torch.cuda.CUDAGraph()
+    before = launches.snapshot()
+    # "thread_local": the feed's threads keep running while the step is
+    # captured (the loader's recv and arena writes, the device feed's
+    # pinned staging allocations, event waits and side-stream copies);
+    # under the default "global" mode any of those calls, made by
+    # another thread during the capture, would invalidate it.  They touch
+    # no tensor of the captured stream, so only this thread's calls are
+    # held to the capture's rules.
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        output = run(static)
+    per_replay = launches.since(before)
+    launches.add(per_replay, times=-1)  # the capture itself launched nothing
+    return _Graph(graph, inputs, output.detach(), per_replay)
+
+
+def make_train_step(loss_fn, capture=None):
     """Build ``step(state, batch) -> (state, loss)`` for
-    ``loss_fn(params, batch) -> scalar``; ``loss`` is detached."""
+    ``loss_fn(params, batch) -> scalar``; ``loss`` is detached.  Captured
+    on the card, eager on the CPU (see the module docstring); the step's
+    graphs, by batch signature, are in ``step.graphs``."""
+    graphs = _Captured()
 
     def step(state, batch):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.params, batch)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, loss.detach()
+        def run(b):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(state.params, b)
+            loss.backward()
+            state.optimizer.step()
+            return loss.detach()
 
+        if _captures(capture, state.params.values()):
+            bound = {("param", k): v for k, v in state.params.items()}
+            bound["optimizer"] = state.optimizer
+            loss = graphs(run, batch, bound, made=_optimizer_tensors(state.optimizer))
+        else:
+            loss = run(batch)
+        state.step += 1
+        return state, loss
+
+    step.graphs = graphs.graphs
     return step
+
+
+def make_eval_step(loss_fn, capture=None):
+    """Build ``evaluate(params, batch) -> loss``: ``loss_fn`` under
+    ``torch.no_grad()``, captured on the card as the train step is, eager
+    on the CPU.  The counterpart of the reference's ``jax.jit(loss_fn)``."""
+    graphs = _Captured()
+
+    def evaluate(params, batch):
+        def run(b):
+            with torch.no_grad():
+                return loss_fn(params, b)
+
+        if _captures(capture, params.values()):
+            return graphs(run, batch, params)
+        return run(batch)
+
+    evaluate.graphs = graphs.graphs
+    return evaluate

@@ -43,6 +43,8 @@ import ctypes
 
 import torch
 
+from blendjax_torch.utils import launches
+
 _NEG = -1e30
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernels are instantiated for
@@ -422,8 +424,7 @@ def flash_dkv_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
 
 
 for _fn in (flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda):
-    _fn.launches = 0
-    _fn.launches_by_route = {route: 0 for route in ROUTES.values()}
+    launches.counted(_fn, ROUTES.values())
 del _fn
 
 

@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from blendjax_torch.utils import launches
+
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _ELEMENT_SIZE = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -188,7 +190,7 @@ def decode_frames_cuda(frames_u8, dtype=torch.bfloat16, linearize=False):
     return out
 
 
-decode_frames_cuda.launches = 0
+launches.counted(decode_frames_cuda)
 
 
 def decode_frames(frames_u8, dtype=torch.float32, linearize=False, mean=None,

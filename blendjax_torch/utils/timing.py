@@ -13,8 +13,11 @@ Usage::
 Every ``add`` also lands in a fixed-memory log-bucketed latency histogram
 (:class:`blendjax_torch.obs.histogram.LatencyHistogram`), so the summary
 carries per-stage percentiles.  The feed records ``recv`` (loader queue
-wait), ``collate`` (batch assembly in a worker) and ``device_put``
-(staging + host->device copy issue).  The chrome-trace export of
+wait), ``collate`` (batch assembly in a worker, collate path),
+``arena_wait`` (a worker blocked on an exhausted arena pool), ``scatter``
+(wire frames copied into an arena batch), ``device_put`` (staging +
+host->device copy issue) and ``recycle`` (the wait for an arena's copy to
+complete, and its return to the pool), under the reference's names.  The chrome-trace export of
 ``blendjax.utils.timing`` is not ported.
 """
 

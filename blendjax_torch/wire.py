@@ -44,6 +44,11 @@ BTID_KEY = "btid"
 ARRAY_PLACEHOLDER = "__bjx_nd__"
 
 
+def is_array_placeholder(obj) -> bool:
+    """True for a raw-buffer header's stand-in for an ndarray leaf."""
+    return isinstance(obj, dict) and ARRAY_PLACEHOLDER in obj
+
+
 def dumps(obj) -> bytes:
     return pickle.dumps(obj, protocol=PICKLE_PROTOCOL)
 

@@ -21,13 +21,25 @@ Phases, each printing JSON lines:
               torch.profiler (``kernel_us``).
 4. train    — a full-width TinyDetector (channels 32/64/128, hidden 256,
               K=8) takes 8 Adam steps on seeded 8x480x640x3 uint8 batches
-              decoded by the kernel inside the loss; the model path is also
-              held against the CPU on a small input.
+              decoded by the kernel inside the loss, in turns with the step
+              eager and captured as a CUDA graph (eager, captured, captured,
+              eager: ``FORMS``), each turn from the same seeded state; the
+              captured losses and parameters must equal the eager ones bit
+              for bit, and 3 more steps of each form under torch.profiler
+              give the device's busy time and must show the decode kernel
+              inside the replays.  The model path is also held against the
+              CPU on a small input.
 5. stream   — the datagen path through its entry points: 2 producers
               started by ``BlenderLauncher`` (with
               ``tests/helpers/fake_blender.py`` as the Blender executable)
-              -> ``RemoteIterableDataset`` -> ``TorchStream`` -> decode
-              kernel -> train steps.
+              -> ``RemoteIterableDataset`` (the example's per-item
+              transform) -> ``TorchStream`` -> decode kernel -> train steps.
+5b. stream_ab — the same producers with no per-item transform and a
+              batch-level one, so batches assemble from the wire frames:
+              ``TorchStream(arena=False)`` and ``arena='auto'`` (recycled
+              arenas, staged through the feed's pinned ring) in turns of
+              ``AB_ITEMS`` items, each batch held on the card to what its
+              producers published, the arena checked engaged.
 6. flash    — the flash-attention forward, dQ and dK/dV kernels against
               their plain passes on the card, case by case (the flagship
               shape in bf16, f32 causal and not, f32 at head dim 128 and
@@ -44,16 +56,17 @@ Phases, each printing JSON lines:
               beside this window and the decode timing.
 8. seqformer — the flagship SeqFormer (8 layers, d_model 1024, 8 heads,
               T=512, batch 8) takes 8 Adam(1e-4) steps through the flash
-              kernels on seeded float16 episodes on the card, every
-              forward, dQ and dK/dV launch on the tensor-core route, then
-              3 more under
-              ``torch.profiler`` for the device's busy time and idle share
-              per step; a small f32 model is held between card (kernels)
-              and CPU (plain passes).
+              kernels on seeded float16 episodes on the card, eager and
+              captured in turns as the train phase, every forward, dQ and
+              dK/dV launch on the tensor-core route (counted per replay),
+              then 3 more of each form under ``torch.profiler`` for the
+              device's busy time and idle share per step; a small f32 model
+              is held between card (kernels) and CPU (plain passes).
 9. worldmodel — the world-model path through its entry points: 2
               ``btb/episodes.blend.py`` producers -> ``RemoteIterableDataset``
-              -> ``TorchStream(transform=episode_transform)`` ->
-              ``worldmodel.train_on_episodes`` at the flagship sizing.
+              -> ``TorchStream(transform=episode_transform)`` on the arena
+              -> ``worldmodel.train_on_episodes`` (captured) at the flagship
+              sizing.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream for the decode kernel, the world-model stream for the
@@ -341,7 +354,136 @@ def kernel_phase(torch, image, peak):
             "bound_ms": bound_ms, "library_ms": library_ms}
 
 
-def train_phase(torch, datagen, detector, make_train_step):
+#: the train step's two forms, run in turns, each turn from the same seeded
+#: state over the same batches: eager, captured, captured, eager
+FORMS = ("eager", "captured", "captured", "eager")
+#: how the captured step is held to the eager one (losses and parameters
+#: after every turn's steps): "exact" is bit-equality
+CAPTURED_MATCH = "exact"
+
+
+def _timed_steps(torch, step, state, batches):
+    """``step`` over ``batches``, each timed to its completion (the loss
+    read back, as the trainers do); returns (state, losses, step ms)."""
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))  # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, times
+
+
+def _max_param_diff(torch, params, ref):
+    return max((params[k].float() - ref[k].float()).abs().max().item() for k in ref)
+
+
+def _forms(torch, phase, make_state, loss, batches, counts, profile_kernels):
+    """The train step in both forms, in :data:`FORMS` turns, each from
+    ``make_state()`` over ``batches``: step times, losses, launch counts
+    (``counts()``, zeroed by ``counts(zero=True)`` before each turn), peak
+    memory, and the losses' and parameters' largest difference from the
+    first eager turn.  The first turn of each form is followed by 3 more
+    steps under torch.profiler (:func:`_device_profile`).  For every kernel
+    in ``profile_kernels`` (its name in the profiler -> its wrapper), the
+    profiler's count of its runs on the card in those steps must equal what
+    its wrapper's launch counter added for them; in the captured form,
+    both must equal 3 times the launches the graph recorded per replay.
+    Emits one line per turn; returns the turns."""
+    from blendjax_torch.models.train import WARMUP_STEPS, make_train_step
+
+    turns, ref, profiled = [], None, set()
+    for turn, form in enumerate(FORMS):
+        state = make_state()
+        step = make_train_step(loss, capture=form == "captured")
+        counts(zero=True)
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, times = _timed_steps(torch, step, state, batches)
+        launched = counts()
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        if ref is None:
+            ref = (losses, params)
+        # the captured form's first WARMUP_STEPS are eager and the next one
+        # captures: its replays are the steps after those
+        replays = times[WARMUP_STEPS + 1:] if form == "captured" else times
+        rec = {"phase": phase + "_turn", "turn": turn, "form": form, "losses": losses,
+               "step_ms": times, "median_step_ms": statistics.median(times),
+               "median_replay_ms": statistics.median(replays) if form == "captured" else None,
+               "launches": launched, "graphs": len(step.graphs),
+               "params": sum(v.numel() for v in state.params.values()),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss_max_abs_diff": max(abs(a - b) for a, b in zip(losses, ref[0])),
+               "param_max_abs_diff": _max_param_diff(torch, params, ref[1])}
+        del params
+        if form not in profiled:
+            profiled.add(form)
+            more = iter(batches)
+            counted = {name: fn.launches for name, fn in profile_kernels.items()}
+
+            def profiled_step():
+                nonlocal state
+                state, loss = step(state, next(more))
+                float(loss)  # waits for the step, as in the timed steps
+
+            prof = _device_profile(torch, profiled_step, PROFILED_STEPS,
+                                   rec["median_step_ms"], phase + "_profile", form)
+            rec["profile"] = {k: prof[k] for k in ("busy_ms_per_step", "idle_share",
+                                                   "idle_share_of_median_step")}
+            per_replay = {fn: n for g in step.graphs.values() for fn, n, _ in g.launches}
+            rec["profiled_launches"] = {}
+            for name, fn in profile_kernels.items():
+                ran = sum(n for k, n in prof["runs"].items() if name in k)
+                added = fn.launches - counted[name]
+                rec["profiled_launches"][name] = {
+                    "profiler": ran, "counter": added,
+                    "per_replay": per_replay.get(fn) if form == "captured" else None}
+                check(ran > 0, f"{phase} {form}: the profiler found {name} in the steps")
+                check(ran == added, f"{phase} {form}: the profiler's {ran} runs of {name} "
+                      f"match the {added} launches its counter added")
+                if form == "captured":
+                    check(ran == PROFILED_STEPS * per_replay.get(fn, 0),
+                          f"{phase} captured: {name} ran {PROFILED_STEPS} x the launches "
+                          "the graph recorded per replay")
+        emit(rec)
+        turns.append(rec)
+        del state, step
+    torch.cuda.empty_cache()
+    return turns
+
+
+#: steps of each form under torch.profiler
+PROFILED_STEPS = 3
+
+
+def _check_forms(phase, turns):
+    for rec in turns:
+        check(all(math.isfinite(v) for v in rec["losses"]), f"{phase} losses finite")
+        check(rec["losses"][-1] < rec["losses"][0], f"{phase} loss fell")
+        check(rec["graphs"] == (1 if rec["form"] == "captured" else 0),
+              f"{phase} {rec['form']}: one captured graph for one batch signature")
+        check(rec["loss_max_abs_diff"] == 0 and rec["param_max_abs_diff"] == 0,
+              f"{phase} {rec['form']} turn {rec['turn']}: losses and parameters "
+              f"{CAPTURED_MATCH} to the first eager turn")
+
+
+def _form_summary(turns):
+    """Per form: the median of its turns' step times (and replay times)."""
+    out = {}
+    for form in ("eager", "captured"):
+        recs = [r for r in turns if r["form"] == form]
+        out[form] = {
+            "median_step_ms": statistics.median(t for r in recs for t in r["step_ms"]),
+            "turn_medians_ms": [r["median_step_ms"] for r in recs],
+            "peak_memory_gb": max(r["peak_memory_gb"] for r in recs),
+            "profile": recs[0]["profile"]}
+        if form == "captured":
+            out[form]["median_replay_ms"] = statistics.median(r["median_replay_ms"]
+                                                               for r in recs)
+    return out
+
+
+def train_phase(torch, datagen, detector, image):
     # the model path on the card against the CPU on a small input (float32
     # compute; TF32 is off for this, see main)
     cfg = dict(num_keypoints=2, channels=(8, 16), hidden=32)
@@ -357,28 +499,32 @@ def train_phase(torch, datagen, detector, make_train_step):
           "rtol": 1e-4})
     check(math.isclose(cpu_loss, gpu_loss, rel_tol=1e-4), "small-input loss vs CPU")
 
-    state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
     dg = torch.Generator(device="cuda").manual_seed(1)
     # fixed targets: the loss must fall within 8 steps
     target = torch.rand((MAIN_SHAPE[0], 8, 2), generator=dg, device="cuda")
-    step = make_train_step(datagen.make_loss())
-    losses, times = [], []
-    for _ in range(8):
-        batch = {"image": torch.randint(0, 256, MAIN_SHAPE, dtype=torch.uint8,
-                                        device="cuda", generator=dg),
-                 "xy": target}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss = step(state, batch)
-        losses.append(float(loss))  # waits for the step
-        times.append((time.perf_counter() - t0) * 1e3)
-    med = statistics.median(times)
-    emit({"phase": "train", "steps": len(losses), "first_loss": losses[0],
-          "last_loss": losses[-1], "losses": losses, "median_step_ms": med,
-          "step_ms": times,
+    batches = [{"image": torch.randint(0, 256, MAIN_SHAPE, dtype=torch.uint8,
+                                       device="cuda", generator=dg),
+                "xy": target} for _ in range(8)]
+
+    def counts(zero=False):
+        if zero:
+            image.decode_frames_cuda.launches = 0
+        return {"decode_u8": image.decode_frames_cuda.launches}
+
+    turns = _forms(torch, "train",
+                   lambda: datagen.make_state(torch.Generator(device="cuda").manual_seed(0)),
+                   datagen.make_loss(), batches, counts,
+                   {"decode_u8_kernel": image.decode_frames_cuda})
+    forms = _form_summary(turns)
+    med = forms["captured"]["median_step_ms"]
+    emit({"phase": "train", "steps": len(batches), "first_loss": turns[1]["losses"][0],
+          "last_loss": turns[1]["losses"][-1], "median_step_ms": med, "forms": forms,
+          "captured_match": CAPTURED_MATCH,
           "model_tflop_per_s": detector.train_flops(*MAIN_SHAPE[:3]) / (med * 1e-3) / 1e12})
-    check(all(math.isfinite(v) for v in losses), "train losses finite")
-    check(losses[-1] < losses[0], "train loss fell")
+    _check_forms("train", turns)
+    for rec in turns:
+        check(rec["launches"]["decode_u8"] == len(batches),
+              f"train {rec['form']}: one decode_u8 launch per step")
 
 
 def _port_pair():
@@ -401,14 +547,22 @@ def _fake_blender():
 
 
 def _stamped(stream, arrivals, check_batch):
-    """Pass the stream's batches through, checking each and recording its
-    arrival and the time the train loop spent on it ("step")."""
+    """Pass the stream's batches through, checking each ("check") and
+    recording its arrival, the time the train loop spent on it ("step") and
+    the time the loop then waited for the next batch ("wait": the feed's
+    share)."""
+    done = None
     for batch in stream:
+        t0 = time.perf_counter()
+        if done is not None:
+            stream.timer.add("wait", t0 - done)
         check_batch(batch)
         arrivals.append(time.perf_counter())
+        stream.timer.add("check", arrivals[-1] - t0)
         t0 = time.perf_counter()
         yield batch  # the train step runs while this generator waits
-        stream.timer.add("step", time.perf_counter() - t0)
+        done = time.perf_counter()
+        stream.timer.add("step", done - t0)
 
 
 def stream_phase(torch, btt, datagen, image):
@@ -446,6 +600,116 @@ def stream_phase(torch, btt, datagen, image):
     check(all(math.isfinite(v) for v in losses), "stream losses finite")
     check(launches >= 1, "the main path launched decode_u8")
     return launches
+
+
+#: items per turn of the stream A/B, and its arms in turns (the collate
+#: path's fresh buffers, then the arena), two turns of each
+AB_ITEMS = 512
+AB_ARMS = (False, "auto", "auto", False)
+#: per-stage p50s reported for each turn
+AB_STAGES = ("recv", "scatter", "collate", "arena_wait", "device_put", "recycle", "check",
+             "step", "wait")
+
+
+def stream_ab_phase(torch, btt, datagen, image):
+    """The datagen stream with the arena off and on (:data:`AB_ARMS`: values
+    of ``TorchStream(arena=)``), in turns, through its entry points: 2
+    ``frames.blend.py`` producers -> ``RemoteIterableDataset``
+    with no per-item transform -> ``TorchStream(transform=<batch-level>,
+    arena=...)`` -> the captured train step.  Every batch is held on the card
+    to what its producers published (each producer publishes a pool of 8
+    seeded frames, rebuilt here from ``make_frame``), so an arena recycled
+    before its copy landed would show.  An untimed turn first runs the
+    step's warm-up and capture."""
+    import runpy
+
+    import numpy as np
+
+    from blendjax_torch.models.train import make_train_step
+
+    _fake_blender()
+    batch_size, producers = 8, 2
+    script = runpy.run_path(str(datagen.SCRIPT), run_name="frames")
+    frames = [script["make_frame"](seed, i, MAIN_SHAPE[1], MAIN_SHAPE[2], 8)
+              for seed in range(producers) for i in range(script["POOL"])]
+    ref_image = torch.from_numpy(np.stack([f[0] for f in frames])).cuda()
+    ref_xy = torch.from_numpy(np.stack([
+        datagen.item_transform({"image": f[0], "xy": f[1]})["xy"] for f in frames])).cuda()
+
+    def transform(batch):  # batch-level: the dataset keeps no per-item transform
+        return {**datagen.item_transform(batch), "btid": batch["btid"],
+                "frameid": batch["frameid"]}
+
+    state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(datagen.make_loss())
+    with btt.BlenderLauncher(scene="", script=str(datagen.SCRIPT), num_instances=producers,
+                             named_sockets=["DATA"], start_port=_port_pair(),
+                             background=True, seed=0) as bl:
+        addresses = bl.launch_info.addresses["DATA"]
+
+        def turn(arena, items):
+            ds = btt.RemoteIterableDataset(addresses, max_items=items)
+            check(ds.supports_batched_stream(), "the A/B stream takes the batched path")
+            arrivals = []
+            wrong = torch.zeros((), dtype=torch.int64, device="cuda")
+
+            def check_batch(batch):
+                nonlocal wrong
+                check(batch["image"].is_cuda and batch["image"].dtype == torch.uint8
+                      and tuple(batch["image"].shape) == MAIN_SHAPE, "A/B stream batch")
+                idx = batch["btid"].long() * script["POOL"] + batch["frameid"].long() % \
+                    script["POOL"]
+                wrong = wrong + (batch["image"] != ref_image[idx]).sum() + \
+                    (batch["xy"] != ref_xy[idx]).sum()
+
+            with btt.TorchStream(ds, batch_size=batch_size, num_workers=producers,
+                                 device="cuda", transform=transform, arena=arena) as stream:
+                image.decode_frames_cuda.launches = 0
+                losses = []  # the trainer's loop, over one step kept across turns
+                for batch in _stamped(stream, arrivals, check_batch):
+                    _, loss = step(state, batch)
+                    losses.append(float(loss))
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+                launches = image.decode_frames_cuda.launches
+            pool = stream.arena_pool
+            summary = stream.timer.summary()
+            rec = {"phase": "stream_ab", "arena": arena, "batches": len(losses),
+                   "items": len(losses) * batch_size,
+                   "items_per_s": (len(arrivals) - 1) * batch_size / (end - arrivals[0]),
+                   "p50_ms": {k: stream.timer.percentiles(k)["p50_ms"] for k in AB_STAGES},
+                   "mean_ms": {k: summary[k]["mean_ms"] for k in AB_STAGES if k in summary},
+                   "counts": {k: stream.timer.count(k) for k in AB_STAGES},
+                   "median_step_ms": stream.timer.percentiles("step")["p50_ms"],
+                   "wrong_elements": int(wrong), "launches": {"decode_u8": launches},
+                   "arena_engaged": pool is not None, "first_loss": losses[0],
+                   "last_loss": losses[-1]}
+            check(len(losses) == items // batch_size, "A/B stream delivered every batch")
+            check(rec["wrong_elements"] == 0,
+                  "every A/B batch reached the card as its producers published it")
+            check(all(math.isfinite(v) for v in losses), "A/B stream losses finite")
+            check(launches == len(losses), "one decode_u8 launch per A/B step")
+            if arena is False:
+                check(pool is None, "arena=False keeps the arena off")
+                return rec
+            check(pool is not None and pool.in_use == 0, "the arena pool drained")
+            check(stream.timer.count("recycle") == len(losses), "every arena recycled")
+            arenas = list(pool._free)  # every arena is back after the close
+            rec["arenas"] = len(arenas)
+            check(arenas and all(a.buffers[("image",)].shape == MAIN_SHAPE for a in arenas),
+                  "the A/B batches were built in the arenas")
+            return rec
+
+        emit({**turn("auto", 8 * batch_size), "phase": "stream_ab_warmup"})
+        turns = [turn(arena, AB_ITEMS) for arena in AB_ARMS]
+    for rec in turns:
+        emit(rec)
+    summary = {}
+    for rec in turns:
+        arm = summary.setdefault(rec["arena"], {"items_per_s": [], "median_step_ms": []})
+        arm["items_per_s"].append(rec["items_per_s"])
+        arm["median_step_ms"].append(rec["median_step_ms"])
+    emit({"phase": "stream_ab_summary", "items_per_turn": AB_ITEMS, "arms": summary})
 
 
 # -- flash attention -----------------------------------------------------------
@@ -707,11 +971,13 @@ def _route_counts(flash):
     return {n: dict(getattr(flash, n + "_cuda").launches_by_route) for n in FLASH_KERNELS}
 
 
-def _device_profile(torch, run_step, steps, median_ms):
+def _device_profile(torch, run_step, steps, median_ms, phase, form):
     """``steps`` more train steps under torch.profiler (CUDA activity): the
     device's busy time per step (the sum of its kernel, copy and set
     durations), its idle share of the profiled step and of the median
-    unprofiled step, and the flash kernels' share."""
+    unprofiled step, and the flash kernels' share.  Emits the record and
+    returns it, with every device event's name under ``kernels`` and the
+    number of its events under ``runs``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -721,15 +987,16 @@ def _device_profile(torch, run_step, steps, median_ms):
             run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    by_name, events = {}, 0
+    by_name, runs, events = {}, {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             events += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+            runs[e.name] = runs.get(e.name, 0) + 1
     busy = sum(by_name.values())
     flash_ms = sum(v for n, v in by_name.items() if "bjx_flash" in n)  # K2-K4
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    rec = {"phase": "seqformer_profile", "steps": steps, "device_events": events,
+    rec = {"phase": phase, "form": form, "steps": steps, "device_events": events,
            "wall_ms_per_step": wall_ms, "median_step_ms": median_ms,
            "busy_ms_per_step": busy if events else "not measured",
            "idle_share": 1 - busy / wall_ms if events else None,
@@ -739,6 +1006,7 @@ def _device_profile(torch, run_step, steps, median_ms):
            "flash_share_of_step": flash_ms / wall_ms,
            "top_ms_per_step": [[k[:120], v] for k, v in top]}
     emit(rec)
+    return {**rec, "kernels": sorted(by_name), "runs": runs}
 
 
 def _episodes(torch, pendulum, rng, batch):
@@ -747,8 +1015,7 @@ def _episodes(torch, pendulum, rng, batch):
     return {"episode": torch.from_numpy(ep).to(torch.float16).cuda()}
 
 
-def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_step,
-                    TrainState):
+def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState):
     import functools
 
     import numpy as np
@@ -772,49 +1039,49 @@ def seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_st
           "small SeqFormer loss: card vs CPU")
 
     cfg = {k: SEQ[k] for k in ("obs_dim", "d_model", "n_heads", "n_layers")}
-    params = seqformer.init(torch.Generator(device="cuda").manual_seed(0),
-                            max_len=SEQ["seq_len"], device="cuda", **cfg)
-    state = TrainState.create(params, lr=SEQ["lr"])
-    step = make_train_step(functools.partial(
-        seqformer.episode_loss_fn, attn_fn=worldmodel.make_attn("flash", SEQ["seq_len"])))
+
+    def make_state():
+        return TrainState.create(seqformer.init(
+            torch.Generator(device="cuda").manual_seed(0), max_len=SEQ["seq_len"],
+            device="cuda", **cfg), lr=SEQ["lr"])
+
     rng = np.random.default_rng(0)
     batches = [_episodes(torch, pendulum, rng, SEQ["batch"]) for _ in range(8)]
-    _zero_flash_counts(flash)
-    losses, times = [], []
-    for batch in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss = step(state, batch)
-        losses.append(float(loss))  # waits for the step
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {n: getattr(flash, n + "_cuda").launches / len(batches)
-                for n in FLASH_KERNELS}
-    routes = _route_counts(flash)
-    med = statistics.median(times)
 
-    more = iter(batches)
+    def counts(zero=False):
+        if zero:
+            _zero_flash_counts(flash)
+        return {"launches_per_step": {n: getattr(flash, n + "_cuda").launches / len(batches)
+                                      for n in FLASH_KERNELS},
+                "launches_by_route": _route_counts(flash)}
 
-    def profiled_step():
-        nonlocal state
-        state, loss = step(state, next(more))
-        float(loss)  # waits for the step, as in the timed steps
-
-    _device_profile(torch, profiled_step, 3, med)
+    loss = functools.partial(seqformer.episode_loss_fn,
+                             attn_fn=worldmodel.make_attn("flash", SEQ["seq_len"]))
+    turns = _forms(torch, "seqformer", make_state, loss, batches, counts,
+                   {f"{n}_tc_kernel": getattr(flash, n + "_cuda") for n in FLASH_KERNELS})
+    forms = _form_summary(turns)
+    med = forms["captured"]["median_step_ms"]
     flops = seqformer.train_flops(SEQ["batch"], SEQ["seq_len"], **cfg)
-    emit({"phase": "seqformer", "config": SEQ, "params": sum(v.numel() for v in params.values()),
-          "steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
-          "losses": losses, "median_step_ms": med, "step_ms": times,
+    captured = turns[1]
+    emit({"phase": "seqformer", "config": SEQ,
+          "params": turns[0]["params"],
+          "steps": len(batches), "first_loss": captured["losses"][0],
+          "last_loss": captured["losses"][-1], "losses": captured["losses"],
+          "median_step_ms": med, "forms": forms, "captured_match": CAPTURED_MATCH,
           "train_flops": flops,
           "model_tflop_per_s": flops / (med * 1e-3) / 1e12,
           "model_tflop_per_s_note": "train_flops counts attention over the full T^2",
-          "launches_per_step": launches, "launches_by_route": routes,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    check(all(math.isfinite(v) for v in losses), "seqformer losses finite")
-    check(losses[-1] < losses[0], "seqformer loss fell")
-    check(all(n == SEQ["n_layers"] for n in launches.values()),
-          "one launch of each flash kernel per layer and step")
-    check(all(r == {"tc": SEQ["n_layers"] * len(batches), "f32": 0} for r in routes.values()),
-          "every flagship forward, dQ and dK/dV launch took the tensor-core route")
+          "launches_per_step": captured["launches"]["launches_per_step"],
+          "launches_by_route": captured["launches"]["launches_by_route"],
+          "peak_memory_gb": forms["captured"]["peak_memory_gb"]})
+    _check_forms("seqformer", turns)
+    for rec in turns:
+        check(all(n == SEQ["n_layers"] for n in rec["launches"]["launches_per_step"].values()),
+              f"seqformer {rec['form']}: one launch of each flash kernel per layer and step")
+        check(all(r == {"tc": SEQ["n_layers"] * len(batches), "f32": 0}
+                  for r in rec["launches"]["launches_by_route"].values()),
+              f"seqformer {rec['form']}: every flagship forward, dQ and dK/dV launch took "
+              "the tensor-core route")
 
 
 def worldmodel_phase(torch, btt, worldmodel, flash):
@@ -836,8 +1103,10 @@ def worldmodel_phase(torch, btt, worldmodel, flash):
                              background=True, seed=0, instance_args=[args, args]) as bl:
         ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
                                        max_items=batches * batch_size)
+        # arena='auto' (the default): the episode stream has no per-item
+        # transform, so its batches assemble in arenas
         with btt.TorchStream(ds, batch_size=batch_size, num_workers=2, device="cuda",
-                             transform=worldmodel.episode_transform) as stream:
+                             transform=worldmodel.episode_transform, arena="auto") as stream:
             _zero_flash_counts(flash)
             _, losses = worldmodel.train_on_episodes(
                 _stamped(stream, arrivals, check_batch), attn=attn, log_every=0,
@@ -852,8 +1121,12 @@ def worldmodel_phase(torch, btt, worldmodel, flash):
           "median_step_ms": stream.timer.percentiles("step")["p50_ms"],
           "first_loss": losses[0], "last_loss": losses[-1],
           "launches": launches, "launches_by_route": routes,
+          "arena_engaged": stream.arena_pool is not None,
           "timer": stream.timer.summary()})
     check(len(losses) == batches, "worldmodel stream delivered every batch")
+    check(stream.arena_pool is not None and stream.timer.count("recycle") == batches
+          and stream.arena_pool.in_use == 0,
+          "the world-model stream ran on the arena and recycled every batch's arena")
     check(all(math.isfinite(v) for v in losses), "worldmodel losses finite")
     for name, n in launches.items():
         check(n >= 1, f"the world-model path launched {name}")
@@ -873,7 +1146,7 @@ def main():
     from blendjax_torch import btt, datagen, worldmodel
     from blendjax_torch.btb import pendulum
     from blendjax_torch.models import detector, seqformer
-    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.models.train import TrainState
     from blendjax_torch.ops import _build, image
     from blendjax_torch.ops import flash_attention as flash
 
@@ -896,13 +1169,13 @@ def main():
 
     with smi_window("kernel"):
         timing = kernel_phase(torch, image, hbm)
-    train_phase(torch, datagen, detector, make_train_step)
+    train_phase(torch, datagen, detector, image)
     decode_launches = stream_phase(torch, btt, datagen, image)
+    stream_ab_phase(torch, btt, datagen, image)
     flash_errs = flash_phase(torch, flash)
     with smi_window("flash_time"):
         flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
-    seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, make_train_step,
-                    TrainState)
+    seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
     flash_launches, flash_routes = worldmodel_phase(torch, btt, worldmodel, flash)
 
     kernels = [{
