@@ -1,11 +1,14 @@
 """blendjax_torch.btb — producer-side package, runs inside Blender's Python.
 
 The port's copy of the part of ``blendjax.btb`` its slices use: the
-launcher argument protocol and the data publisher, plus the pendulum
-dynamics the world-model producer integrates (``pendulum``).  Attribute access
-is lazy (PEP 562), and nothing here imports torch, so producer scripts run
-under Blender's bundled interpreter.  The camera, offscreen and animation
-modules are not ported yet.
+launcher argument protocol and the data publisher; the animation event
+loop and the env layer (``BaseEnv``, ``RemoteControlledAgent``); and the
+dynamics two producers integrate without a scene (``pendulum`` for the
+world model, ``cartpole`` for control).  Attribute access is lazy (PEP
+562), and nothing here imports torch, so producer scripts run under
+Blender's bundled interpreter; ``bpy`` is imported only where the
+animation loop runs.  The camera and offscreen modules are not ported
+yet (ROADMAP Queue 1, item 8).
 """
 
 __version__ = "0.1.0"
@@ -15,9 +18,14 @@ _LAZY = {
     "parse_blendtorch_args": ("blendjax_torch.btb.arguments", "parse_blendtorch_args"),
     "BlendJaxArgs": ("blendjax_torch.btb.arguments", "BlendJaxArgs"),
     "DataPublisher": ("blendjax_torch.btb.publisher", "DataPublisher"),
+    "BaseEnv": ("blendjax_torch.btb.env", "BaseEnv"),
+    "RemoteControlledAgent": ("blendjax_torch.btb.env", "RemoteControlledAgent"),
+    "AnimationController": ("blendjax_torch.btb.animation", "AnimationController"),
+    "Signal": ("blendjax_torch.btb.signal", "Signal"),
 }
 
-_LAZY_MODULES = ("arguments", "publisher", "constants")
+_LAZY_MODULES = ("arguments", "publisher", "constants", "env", "animation", "signal",
+                 "pendulum", "cartpole")
 
 
 def __getattr__(name):

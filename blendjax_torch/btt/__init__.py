@@ -1,7 +1,9 @@
 """blendjax_torch.btt — consumer-side package (training host, PyTorch).
 
 The DataLoader role is played by :class:`blendjax_torch.btt.loader.BatchLoader`
-plus the pinned-memory device feed in :mod:`blendjax_torch.btt.prefetch`.
+plus the pinned-memory device feed in :mod:`blendjax_torch.btt.prefetch`;
+the RL side by :class:`~blendjax_torch.btt.env.RemoteEnv` and the batched,
+pipelined :class:`~blendjax_torch.btt.envpool.EnvPool`.
 Attribute access is lazy so importing the package drags in neither torch
 nor zmq (only the device feed needs torch, only the sockets need zmq).
 """
@@ -23,6 +25,14 @@ _LAZY = {
     "device_prefetch": ("blendjax_torch.btt.prefetch", "device_prefetch"),
     "TorchStream": ("blendjax_torch.btt.prefetch", "TorchStream"),
     "get_primary_ip": ("blendjax_torch.btt.utils", "get_primary_ip"),
+    "RemoteEnv": ("blendjax_torch.btt.env", "RemoteEnv"),
+    "launch_env": ("blendjax_torch.btt.env", "launch_env"),
+    "OpenAIRemoteEnv": ("blendjax_torch.btt.env", "OpenAIRemoteEnv"),
+    "EnvPool": ("blendjax_torch.btt.envpool", "EnvPool"),
+    "launch_env_pool": ("blendjax_torch.btt.envpool", "launch_env_pool"),
+    "FaultPolicy": ("blendjax_torch.btt.faults", "FaultPolicy"),
+    "CircuitOpenError": ("blendjax_torch.btt.faults", "CircuitOpenError"),
+    "launch_vector_env": ("blendjax_torch.btt.vector_env", "launch_vector_env"),
 }
 
 _LAZY_MODULES = (
@@ -36,6 +46,10 @@ _LAZY_MODULES = (
     "prefetch",
     "utils",
     "constants",
+    "env",
+    "envpool",
+    "faults",
+    "vector_env",
 )
 
 

@@ -1,0 +1,186 @@
+"""Policies and policy-gradient losses for the control (cartpole) workload:
+the port of ``blendjax.models.policy``.
+
+An MLP policy (tanh hidden layers; categorical over discrete actions, or
+Gaussian with a state-independent log-std over continuous ones), its
+sampling and log-probs, discounted returns, REINFORCE, a critic of the
+same trunk, generalized advantage estimation and the clipped-surrogate PPO
+objective.  Parameters are a flat ``{path: tensor}`` dict whose keys follow
+the reference's pytree paths (``layers.0.w``, ``out.b``, ``log_std``), so
+:mod:`blendjax_torch.models.convert` maps one onto the other leaf by leaf.
+Randomness comes from an explicit ``torch.Generator`` on the parameters'
+device, in place of a JAX key.  The returns and GAE run a reverse loop over
+the rollout's T steps on the tensors' device, where the reference runs a
+``lax.scan``.  The int8 policy path (``quantize_policy``) is not ported
+(ROADMAP Queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from blendjax_torch.models.layers import dense_apply, dense_init
+from blendjax_torch.utils.device import resolve_device
+
+
+def _dense(prefix, d_in, d_out, generator, device):
+    layer = dense_init(d_in, d_out, generator=generator, device=device)
+    return {f"{prefix}.{k}": v for k, v in layer.items()}
+
+
+def init(generator, obs_dim, num_actions, hidden=(64, 64), continuous=False,
+         device="cuda"):
+    """MLP policy params drawn from ``generator`` (a ``torch.Generator`` on
+    ``device``).  ``continuous=True`` adds a state-independent log-std head
+    for a Gaussian policy."""
+    device = resolve_device(device)
+    dims = (obs_dim, *hidden)
+    params = {}
+    for i in range(len(dims) - 1):
+        params.update(_dense(f"layers.{i}", dims[i], dims[i + 1], generator, device))
+    params.update(_dense("out", dims[-1], num_actions, generator, device))
+    if continuous:
+        params["log_std"] = torch.zeros((num_actions,), device=device)
+    return params
+
+
+def _layer(params, prefix):
+    return {"w": params[f"{prefix}.w"], "b": params[f"{prefix}.b"]}
+
+
+def _depth(params):
+    n = 0
+    while f"layers.{n}.w" in params:
+        n += 1
+    return n
+
+
+def logits(params, obs):
+    x = obs.to(torch.float32)
+    for i in range(_depth(params)):
+        x = torch.tanh(dense_apply(_layer(params, f"layers.{i}"), x))
+    return dense_apply(_layer(params, "out"), x)
+
+
+def sample_action(params, generator, obs):
+    """Sample actions (and their log-probs) for a batch of observations.
+    Categorical draws take the Gumbel-max form, as ``jax.random.categorical``
+    does; Gaussian ones add ``exp(log_std)`` times a standard normal."""
+    out = logits(params, obs)
+    if "log_std" in params:
+        eps = torch.randn(out.shape, generator=generator, device=out.device)
+        action = out + torch.exp(params["log_std"]) * eps
+        return action, gaussian_log_prob(params, obs, action)
+    u = torch.rand(out.shape, generator=generator, device=out.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    action = torch.argmax(out + gumbel, dim=-1)
+    logp = torch.log_softmax(out, dim=-1).gather(-1, action[:, None])[:, 0]
+    return action, logp
+
+
+def categorical_log_prob(params, obs, actions):
+    lp = torch.log_softmax(logits(params, obs), dim=-1)
+    return lp.gather(-1, actions.long()[..., None])[..., 0]
+
+
+def gaussian_log_prob(params, obs, actions):
+    mean = logits(params, obs)
+    log_std = params["log_std"]
+    z = (actions - mean) / torch.exp(log_std)
+    return (-0.5 * z * z - log_std - 0.5 * math.log(2 * math.pi)).sum(-1)
+
+
+def discounted_returns(rewards, dones, gamma=0.99):
+    """Per-step discounted returns over a (T, N) rollout, resetting at
+    episode boundaries."""
+    not_done = 1.0 - dones.to(torch.float32)
+    out = torch.empty_like(rewards)
+    carry = torch.zeros_like(rewards[0])
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        carry = rewards[t] + gamma * carry * not_done[t]
+        out[t] = carry
+    return out
+
+
+def reinforce_loss(params, obs, actions, returns, continuous=False):
+    """-E[log pi(a|s) * (G - baseline)] with a batch-mean baseline, the
+    advantage scaled by the returns' (population) std and detached.
+
+    ``obs`` (T*N, obs_dim), ``actions`` (T*N,), ``returns`` (T*N,).
+    """
+    if continuous:
+        logp = gaussian_log_prob(params, obs, actions)
+    else:
+        logp = categorical_log_prob(params, obs, actions)
+    advantage = returns - returns.mean()
+    advantage = advantage / (returns.std(correction=0) + 1e-6)
+    return -torch.mean(logp * advantage.detach())
+
+
+def value_init(generator, obs_dim, hidden=(64, 64), device="cuda"):
+    """MLP state-value params (critic): the policy trunk with a 1-output
+    head."""
+    return init(generator, obs_dim, 1, hidden=hidden, device=device)
+
+
+def value_apply(params, obs):
+    return logits(params, obs)[..., 0]
+
+
+def gae(rewards, values, last_values, dones, gamma=0.99, lam=0.95):
+    """Generalized advantage estimation over a (T, N) rollout.
+
+    ``values`` (T, N) are V(s_t) along the rollout, ``last_values`` (N,)
+    is V(s_T) bootstrapping the tail; episode boundaries cut both the
+    bootstrap and the trace.  Returns (advantages, value_targets), each
+    (T, N)."""
+    nd = 1.0 - dones.to(torch.float32)
+    next_values = torch.cat([values[1:], last_values[None]], dim=0)
+    deltas = rewards + gamma * next_values * nd - values
+    adv = torch.empty_like(deltas)
+    carry = torch.zeros_like(deltas[0])
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        carry = deltas[t] + gamma * lam * nd[t] * carry
+        adv[t] = carry
+    return adv, adv + values
+
+
+def ppo_loss(actor, critic, batch, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01,
+             continuous=False):
+    """Clipped-surrogate PPO objective + value MSE + entropy bonus.
+
+    ``batch``: obs (B, D), actions (B,), logp_old (B,), advantages (B,)
+    (normalized here), targets (B,), optional mask (B,): zero weight for
+    fabricated transitions (an autoresetting pool's reset step records a
+    sampled action that never ran).  Returns the combined scalar.
+    """
+    obs, actions = batch["obs"], batch["actions"]
+    w = batch.get("mask")
+    if w is None:
+        w = torch.ones(actions.shape[0], dtype=torch.float32, device=actions.device)
+    wsum = torch.clamp_min(w.sum(), 1.0)
+
+    def wmean(x):
+        return (w * x).sum() / wsum
+
+    if continuous:
+        logp = gaussian_log_prob(actor, obs, actions)
+    else:
+        logp = categorical_log_prob(actor, obs, actions)
+    adv = batch["advantages"]
+    mu = wmean(adv)
+    std = torch.sqrt(wmean((adv - mu) ** 2))
+    adv = (adv - mu) / (std + 1e-6)
+    ratio = torch.exp(logp - batch["logp_old"])
+    clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
+    policy_loss = -wmean(torch.minimum(ratio * adv, clipped * adv))
+    v = value_apply(critic, obs)
+    value_loss = wmean((v - batch["targets"]) ** 2)
+    if continuous:
+        ent = torch.sum(actor["log_std"] + 0.5 * math.log(2 * math.pi * math.e))
+    else:
+        lp = torch.log_softmax(logits(actor, obs), dim=-1)
+        ent = -wmean(torch.sum(torch.exp(lp) * lp, dim=-1))
+    return policy_loss + vf_coef * value_loss - ent_coef * ent

@@ -33,7 +33,8 @@ from blendjax_torch.obs.histogram import LatencyHistogram
 
 class EventCounters:
     """Thread-safe named event counters (stream timeouts, recorder drops,
-    transfer-gate backstops).  :data:`fleet_counters` is the process-wide
+    transfer-gate backstops; the env layer's retries, timeouts,
+    quarantines and re-admissions).  :data:`fleet_counters` is the process-wide
     default; pass a fresh instance for isolated accounting."""
 
     def __init__(self):
@@ -47,6 +48,15 @@ class EventCounters:
     def get(self, name):
         with self._lock:
             return self._counts.get(name, 0)
+
+    def snapshot(self):
+        """Copy of all counters as a plain dict."""
+        with self._lock:
+            return dict(self._counts)
+
+    def reset(self):
+        with self._lock:
+            self._counts.clear()
 
 
 #: Process-wide default counter registry.  Component constructors take a

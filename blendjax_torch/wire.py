@@ -20,7 +20,9 @@ decodes without sockets) imports without pyzmq installed.
 
 from __future__ import annotations
 
+import os
 import pickle
+import random as _random
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -39,6 +41,30 @@ DEFAULT_HWM = 10
 #: Key stamped into every data-plane message identifying the producer.
 BTID_KEY = "btid"
 
+#: Key stamped into an RPC request: a random per-message correlation id,
+#: echoed in the reply.  The env layer matches pipelined replies by it, and
+#: a producer answers a re-sent request carrying an id it has served from
+#: its reply cache instead of simulating the frame twice.
+BTMID_KEY = "btmid"
+
+#: Key under which a tracing client stamps its span context into a request
+#: (``{"trace": <correlation id>}``): a server that sees it records its own
+#: recv->work->reply span and ships it back under :data:`SPANS_KEY`.
+SPAN_KEY = "btspan"
+
+#: Key under which a server piggybacks its recorded spans (a list of
+#: chrome-tracing event dicts) on a reply.  Clients pop it before the reply
+#: becomes user-visible data, whether or not they are tracing.
+SPANS_KEY = "btspans"
+
+#: Producer-side duplicate-suppression window, in replies: a retried
+#: request (same :data:`BTMID_KEY`) is answered from the producer's reply
+#: cache only while its reply is among the newest ``REPLY_CACHE_DEPTH``
+#: served.  A protocol constant: the consumer's ``pipeline_depth`` must
+#: stay within it, or a retry of the oldest in-flight request could
+#: simulate a frame twice.
+REPLY_CACHE_DEPTH = 8
+
 #: Key under which a raw-buffer header stores an ndarray leaf's payload
 #: frame index.  The same string as ``blendjax.wire`` — it is protocol.
 ARRAY_PLACEHOLDER = "__bjx_nd__"
@@ -49,8 +75,45 @@ def is_array_placeholder(obj) -> bool:
     return isinstance(obj, dict) and ARRAY_PLACEHOLDER in obj
 
 
+#: process-local generator seeded once from the OS: message ids are drawn
+#: without a syscall per message
+_MID_RNG = _random.Random(os.urandom(16))
+
+
+def new_message_id() -> str:
+    """Random 8-byte hex message id.  The ids key the producer's reply
+    cache, so the width keeps the chance that a fresh id collides with one
+    of the :data:`REPLY_CACHE_DEPTH` cached ones negligible."""
+    return f"{_MID_RNG.getrandbits(64):016x}"
+
+
+def stamp_message_id(data: dict) -> str:
+    """Stamp ``data`` with a fresh correlation id under :data:`BTMID_KEY`
+    and return it.  Receivers that ignore the key keep working."""
+    mid = new_message_id()
+    data[BTMID_KEY] = mid
+    return mid
+
+
+def stamp_span_context(data: dict, trace: str) -> None:
+    """Stamp a request with the span context that asks the server for a
+    piggybacked span tagged ``trace`` (by convention the request's
+    correlation id)."""
+    data[SPAN_KEY] = {"trace": trace}
+
+
+def pop_spans(reply: dict):
+    """Remove and return a reply's piggybacked span list (None when the
+    server attached none)."""
+    return reply.pop(SPANS_KEY, None)
+
+
 def dumps(obj) -> bytes:
     return pickle.dumps(obj, protocol=PICKLE_PROTOCOL)
+
+
+def loads(buf):
+    return pickle.loads(buf)
 
 
 # ---------------------------------------------------------------------------
@@ -134,3 +197,32 @@ def recv_message_raw(socket: zmq.Socket, flags: int = 0):
     """Receive without decoding; returns the raw frame list (bytes).  The
     stream recorder persists these verbatim."""
     return socket.recv_multipart(flags=flags, copy=True)
+
+
+# ---------------------------------------------------------------------------
+# DEALER <-> REP framing
+# ---------------------------------------------------------------------------
+#
+# A DEALER socket talking to a REP peer emulates the REQ envelope: an empty
+# delimiter frame ahead of the message body.  The REP socket strips it on
+# the way in and restores it on the way out, so REP-socket producers
+# (``btb.env.RemoteControlledAgent``) serve DEALER clients unmodified.
+# Unlike REQ, a DEALER has no strict send/recv alternation: the pipelined
+# EnvPool keeps several requests in flight per env over it.
+
+
+def send_message_dealer(socket: zmq.Socket, data: dict, raw_buffers: bool = False,
+                        flags: int = 0):
+    """Send ``data`` from a DEALER socket to a REP peer (empty-delimiter
+    framing)."""
+    frames = encode(data, raw_buffers=raw_buffers)
+    socket.send_multipart([b""] + frames, flags=flags, copy=not raw_buffers)
+
+
+def recv_message_dealer(socket: zmq.Socket, flags: int = 0) -> dict:
+    """Receive a REP peer's reply on a DEALER socket, stripping the empty
+    delimiter frame the REP socket re-attached."""
+    bufs = socket.recv_multipart(flags=flags, copy=True)
+    if bufs and len(bufs[0]) == 0:
+        bufs = bufs[1:]
+    return decode(bufs)

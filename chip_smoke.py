@@ -67,6 +67,19 @@ Phases, each printing JSON lines:
               -> ``TorchStream(transform=episode_transform)`` on the arena
               -> ``worldmodel.train_on_episodes`` (captured) at the flagship
               sizing.
+10. rl      — RL through its entry points: 4 ``btb/cartpole.blend.py``
+              producers (``BLENDJAX_FAKE_BPY=1``) -> ``launch_env_pool``;
+              random forces stepped lockstep and pipelined (4 requests in
+              flight per env) in turns, env-steps/s per turn and the ratio;
+              then ``control.train_reinforce`` and ``control.train_ppo`` for
+              a few iterations each at the examples' defaults, the policy
+              sampling on the card at every step, printing rollout and
+              update ms, the policy's per-step round trip (p50) and the
+              mean return per iteration.  On a fresh rollout of each trained
+              policy the logits, log-probs, returns or GAE, the loss and its
+              gradients must equal the CPU's within 1e-5, and the update
+              captured must equal it eager bit for bit (as the train
+              phase).  No kernel is on this path.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream for the decode kernel, the world-model stream for the
@@ -527,18 +540,20 @@ def train_phase(torch, datagen, detector, image):
               f"train {rec['form']}: one decode_u8 launch per step")
 
 
-def _port_pair():
+def _port_block(n=2):
+    """The first of ``n`` consecutive free ports."""
     for _ in range(50):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
         try:
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", port + 1))
+            for k in range(1, n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", port + k))
             return port
         except OSError:
             continue
-    raise SystemExit("chip_smoke: no free port pair")
+    raise SystemExit(f"chip_smoke: no {n} free consecutive ports")
 
 
 def _fake_blender():
@@ -576,7 +591,7 @@ def stream_phase(torch, btt, datagen, image):
               and tuple(batch["image"].shape) == MAIN_SHAPE, "stream batch")
 
     with btt.BlenderLauncher(scene="", script=str(datagen.SCRIPT), num_instances=2,
-                             named_sockets=["DATA"], start_port=_port_pair(),
+                             named_sockets=["DATA"], start_port=_port_block(),
                              background=True, seed=0) as bl:
         ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
                                        max_items=max_items,
@@ -643,7 +658,7 @@ def stream_ab_phase(torch, btt, datagen, image):
     state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
     step = make_train_step(datagen.make_loss())
     with btt.BlenderLauncher(scene="", script=str(datagen.SCRIPT), num_instances=producers,
-                             named_sockets=["DATA"], start_port=_port_pair(),
+                             named_sockets=["DATA"], start_port=_port_block(),
                              background=True, seed=0) as bl:
         addresses = bl.launch_info.addresses["DATA"]
 
@@ -1099,7 +1114,7 @@ def worldmodel_phase(torch, btt, worldmodel, flash):
     sizing = {k: SEQ[k] for k in ("d_model", "n_heads", "n_layers", "obs_dim", "seq_len",
                                   "lr")}
     with btt.BlenderLauncher(scene="", script=str(worldmodel.SCRIPT), num_instances=2,
-                             named_sockets=["DATA"], start_port=_port_pair(),
+                             named_sockets=["DATA"], start_port=_port_block(),
                              background=True, seed=0, instance_args=[args, args]) as bl:
         ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
                                        max_items=batches * batch_size)
@@ -1136,6 +1151,235 @@ def worldmodel_phase(torch, btt, worldmodel, flash):
     return launches, routes
 
 
+# -- RL: the env layer, the policy and the control twins -----------------------
+
+#: the control examples' fleet (``--instances 4``) and the pipelined arm's
+#: depth, as the reference's ``make rlbench`` comparison
+RL_INSTANCES = 4
+RL_DEPTH = 4
+#: env steps per turn of the lockstep/pipelined A/B, and its arms in turns
+RL_AB_STEPS = 4000
+RL_AB_ARMS = ("lockstep", "pipelined", "pipelined", "lockstep")
+#: iterations of each twin at the examples' defaults (REINFORCE: horizon 64;
+#: PPO: horizon 128, 4 epochs)
+RL_ITERATIONS = {"reinforce": 4, "ppo": 3}
+#: the card against the CPU on the same params and rollout (f32, TF32 off)
+RL_ATOL = 1e-5
+
+
+def _finite_transitions(obs, rewards):
+    import numpy as np
+
+    return bool(np.isfinite(np.asarray(obs)).all() and np.isfinite(rewards).all())
+
+
+def _rl_turn(pool, arm, steps, rng):
+    """``steps`` env steps with random forces, lockstep (``pool.step``) or
+    pipelined (``step_async``/``step_wait`` at :data:`RL_DEPTH` requests in
+    flight per env, collected ready-first and resubmitted to the envs that
+    answered, topped up for the frames dropped behind an episode's end).
+    Returns env steps per second and whether every transition was finite."""
+    n = pool.num_envs
+
+    def forces(k):
+        return list(rng.choice([-20.0, 20.0], size=k))
+
+    finite, done = True, 0
+    t0 = time.perf_counter()
+    if arm == "lockstep":
+        while done < steps:
+            obs, rew, _, _ = pool.step(forces(n))
+            finite &= _finite_transitions(obs, rew)
+            done += n
+    else:
+        for _ in range(RL_DEPTH):
+            pool.step_async(forces(n))
+        owed = n * RL_DEPTH  # transitions the pool owes
+        while owed:
+            idx, obs, rew, _, infos = pool.step_wait(min_ready=1)
+            finite &= _finite_transitions(obs, rew)
+            done += len(idx)
+            again = [int(i) for i in idx]
+            for i, info in zip(idx, infos):
+                # frames queued behind an episode's end are dropped unseen
+                dropped = info.get("inflight_discarded", 0)
+                owed -= dropped
+                again += [int(i)] * dropped
+            owed -= len(idx)
+            again = again[:max(0, steps - done - owed)]
+            if again:
+                pool.step_async(forces(len(again)), indices=again)
+                owed += len(again)
+        pool.step_wait()  # waits out the dropped frames: the pool quiesced
+    return done / (time.perf_counter() - t0), finite
+
+
+def _max_diff(torch, a, b):
+    return (a.detach().float().cpu() - b.detach().float().cpu()).abs().max().item()
+
+
+def _grads(torch, loss_fn, params):
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(params)
+    return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def _rl_vs_cpu(torch, policy, control, algo, params, rollout, last_obs, masks):
+    """The card against the CPU on the same params and rollout: logits,
+    log-probs, returns (REINFORCE) or values and GAE (PPO), the loss and
+    its gradients.  Returns {quantity: max abs difference}."""
+    cpu = {k: v.detach().cpu() for k, v in params.items()}
+    ro_cpu = control.Rollout("cpu")
+    for name in ("obs", "actions", "logp"):
+        setattr(ro_cpu, name, [t.cpu() for t in getattr(rollout, name)])
+    ro_cpu.rewards, ro_cpu.dones = rollout.rewards, rollout.dones
+    diffs = {}
+    if algo == "reinforce":
+        sides = []
+        for p, ro in ((params, rollout), (cpu, ro_cpu)):
+            obs, actions = torch.cat(ro.obs), torch.cat(ro.actions)
+            returns = policy.discounted_returns(*ro.tensors()).reshape(-1)
+            loss, grads = _grads(torch, lambda q: policy.reinforce_loss(
+                q, obs, actions, returns), p)
+            sides.append({"logits": policy.logits(p, obs),
+                          "log_prob": policy.categorical_log_prob(p, obs, actions),
+                          "returns": returns, "loss": loss, **grads})
+    else:
+        sides = []
+        for p, ro in ((params, rollout), (cpu, ro_cpu)):
+            actor, critic = control.actor_critic(p)
+            batch = control.ppo_batch(critic, ro, last_obs, masks)
+            loss, grads = _grads(torch, lambda q: control.make_ppo_loss()(q, batch), p)
+            sides.append({"logits": policy.logits(actor, batch["obs"]),
+                          "log_prob": policy.categorical_log_prob(actor, batch["obs"],
+                                                                  batch["actions"]),
+                          "values": policy.value_apply(critic, batch["obs"]),
+                          "gae": batch["advantages"], "targets": batch["targets"],
+                          "loss": loss, **grads})
+    for k in sides[0]:
+        diffs[k] = _max_diff(torch, sides[0][k], sides[1][k])
+    return diffs
+
+
+def rl_phase(torch, btt, control, policy):
+    """RL on the card through its entry points: :data:`RL_INSTANCES`
+    ``btb/cartpole.blend.py`` producers under the fake Blender
+    (``BLENDJAX_FAKE_BPY=1``) -> ``launch_env_pool`` -> lockstep against
+    pipelined stepping in turns, then the REINFORCE and PPO twins
+    (``control.train_reinforce``, ``control.train_ppo``) for a few
+    iterations each at the examples' defaults, their updates captured.
+    Then, on a fresh rollout of each trained policy: the card against the
+    CPU on the same params and rollout, and the update eager against
+    captured (:func:`_forms`) from the same seeded state over that rollout."""
+    import numpy as np
+
+    from blendjax_torch.models.train import TrainState
+    from blendjax_torch.utils.timing import EventCounters
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    t_phase = time.perf_counter()
+    counters = EventCounters()
+    rng = np.random.default_rng(0)
+    with btt.launch_env_pool(scene="", script=str(control.SCRIPT),
+                             num_instances=RL_INSTANCES, background=True,
+                             start_port=_port_block(RL_INSTANCES), seed=0, real_time=False,
+                             pipeline_depth=RL_DEPTH, counters=counters) as pool:
+        pool.reset()
+        _rl_turn(pool, "lockstep", 200, rng)  # untimed: the producers' first frames
+        rates = {arm: [] for arm in RL_AB_ARMS}
+        for turn, arm in enumerate(RL_AB_ARMS):
+            rate, finite = _rl_turn(pool, arm, RL_AB_STEPS, rng)
+            rates[arm].append(rate)
+            emit({"phase": "rl_ab", "turn": turn, "arm": arm, "env_steps": RL_AB_STEPS,
+                  "env_steps_per_s": rate, "pipeline_depth": RL_DEPTH if arm != "lockstep"
+                  else None, "instances": RL_INSTANCES})
+            check(finite, f"rl_ab {arm}: every transition finite")
+        lock, pipe = statistics.mean(rates["lockstep"]), statistics.mean(rates["pipelined"])
+        emit({"phase": "rl_ab_summary", "arms": rates, "lockstep_mean": lock,
+              "pipelined_mean": pipe, "pipelined_x": pipe / lock})
+
+        trained = {}
+        for algo, train in (("reinforce", control.train_reinforce),
+                            ("ppo", control.train_ppo)):
+            iters = []
+
+            def on_iteration(rec, algo=algo):
+                iters.append(rec)
+                emit({"phase": "rl_train", "algo": algo, **rec})
+
+            state, returns = train(pool, iterations=RL_ITERATIONS[algo], device="cuda",
+                                   on_iteration=on_iteration, log_every=0)
+            torch.cuda.synchronize()
+            trained[algo] = state
+            check(len(returns) == RL_ITERATIONS[algo]
+                  and all(math.isfinite(r) for r in returns)
+                  and all(math.isfinite(r["loss"]) for r in iters),
+                  f"rl {algo}: returns and losses finite")
+            check(all(torch.isfinite(v).all() for v in state.params.values()),
+                  f"rl {algo}: parameters finite")
+
+        # one fresh rollout of each trained policy, for the checks
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        batches = {}
+        for algo, state in trained.items():
+            params = state.params if algo == "reinforce" else control.actor_critic(
+                state.params)[0]
+            horizon = 64 if algo == "reinforce" else 128
+            ro, masks = control.Rollout(torch.device("cuda")), []
+            obs, _ = pool.reset()
+            prev = np.zeros(RL_INSTANCES, bool)
+            for _ in range(horizon):
+                obs, dones = ro.step(pool, params, gen, obs)
+                masks.append(1.0 - prev.astype(np.float32))
+                prev = np.asarray(dones, bool)
+            batches[algo] = (ro, obs, masks)
+        healthy = bool(pool.healthy.all())
+        faults = counters.snapshot()
+    emit({"phase": "rl_pool", "healthy": healthy, "counters": faults})
+    check(healthy and not faults.get("quarantines"), "the RL pool stayed all healthy")
+
+    for algo, state in trained.items():
+        ro, last_obs, masks = batches[algo]
+        check(all(bool(torch.isfinite(o).all()) for o in ro.obs)
+              and _finite_transitions(last_obs, np.stack(ro.rewards)),
+              f"rl {algo}: rollout finite")
+        diffs = _rl_vs_cpu(torch, policy, control, algo, state.params, ro, last_obs, masks)
+        emit({"phase": "rl_reference", "algo": algo, "atol": RL_ATOL, "max_abs_diff": diffs})
+        check(all(d <= RL_ATOL for d in diffs.values()),
+              f"rl {algo}: the card equals the CPU within {RL_ATOL}")
+
+        if algo == "reinforce":
+            batch = {"obs": torch.cat(ro.obs), "actions": torch.cat(ro.actions),
+                     "returns": policy.discounted_returns(*ro.tensors()).reshape(-1)}
+
+            def make_state():
+                return TrainState.create(policy.init(
+                    torch.Generator(device="cuda").manual_seed(1), 3, 2, device="cuda"),
+                    lr=3e-3)
+
+            def loss(p, b):
+                return policy.reinforce_loss(p, b["obs"], b["actions"], b["returns"])
+        else:
+            batch = control.ppo_batch(control.actor_critic(state.params)[1], ro, last_obs,
+                                      masks)
+
+            def make_state():
+                return TrainState.create(control.joint_params(
+                    policy.init(torch.Generator(device="cuda").manual_seed(1), 3, 2,
+                                device="cuda"),
+                    policy.value_init(torch.Generator(device="cuda").manual_seed(2), 3,
+                                      device="cuda")), lr=3e-3)
+
+            loss = control.make_ppo_loss()
+        turns = _forms(torch, f"rl_{algo}", make_state, loss, [batch] * 8,
+                       lambda zero=False: {}, {})
+        forms = _form_summary(turns)
+        emit({"phase": f"rl_{algo}_update", "forms": forms, "captured_match": CAPTURED_MATCH})
+        _check_forms(f"rl_{algo}", turns)
+    emit({"phase": "rl_seconds", "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     import torch
 
@@ -1143,9 +1387,9 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from blendjax_torch import btt, datagen, worldmodel
+    from blendjax_torch import btt, control, datagen, worldmodel
     from blendjax_torch.btb import pendulum
-    from blendjax_torch.models import detector, seqformer
+    from blendjax_torch.models import detector, policy, seqformer
     from blendjax_torch.models.train import TrainState
     from blendjax_torch.ops import _build, image
     from blendjax_torch.ops import flash_attention as flash
@@ -1177,6 +1421,7 @@ def main():
         flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
     seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
     flash_launches, flash_routes = worldmodel_phase(torch, btt, worldmodel, flash)
+    rl_phase(torch, btt, control, policy)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",

@@ -70,6 +70,10 @@ def test_producer_side_imports_without_torch():
         "btb.parse_blendtorch_args, btb.DataPublisher, btb.constants\n"
         "import blendjax_torch.wire, blendjax_torch.btt.dataset, blendjax_torch.btt.launcher\n"
         "import blendjax_torch.btb.pendulum\n"
+        "import blendjax_torch.btb.env, blendjax_torch.btb.animation, blendjax_torch.btb.signal\n"
+        "import blendjax_torch.btb.cartpole\n"
+        "btb.BaseEnv, btb.RemoteControlledAgent, btb.AnimationController\n"
+        "import blendjax_torch.btt.env, blendjax_torch.btt.envpool, blendjax_torch.btt.faults\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
     )
     assert _run(code) == []
