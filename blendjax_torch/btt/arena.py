@@ -124,13 +124,19 @@ class ArenaBatch:
     MUST only be called once the batch's bytes have been consumed — the
     device feed calls it after the batch's copy to the card has
     completed.  Idempotent: a double recycle is a no-op.
+
+    ``meta`` carries producer-side values that live outside the batch
+    pytree — e.g. the replay sampler's ``(indices, weights)`` pair.  The
+    device feed, which unwraps ``data``, ignores it; a direct consumer
+    reads it before recycling.
     """
 
-    __slots__ = ("data", "arena")
+    __slots__ = ("data", "arena", "meta")
 
-    def __init__(self, data, arena):
+    def __init__(self, data, arena, meta=None):
         self.data = data
         self.arena = arena
+        self.meta = meta
 
     def recycle(self):
         arena, self.arena = self.arena, None

@@ -1,0 +1,739 @@
+"""Sebulba-style decoupled actor/learner for remote Blender fleets: the port
+of ``blendjax.models.actor_learner``.
+
+Podracer architectures (arXiv:2104.06272) split RL into *actors* that step
+environments and a *learner* that updates parameters, running concurrently
+with a segment queue between them.  Env steps are host-bound RPCs
+(``EnvPool.step``) while the update is device work: here one actor thread
+per fleet keeps its fleet stepping, sampling on a snapshot of the
+parameters, while the learner consumes fixed-length segments and publishes
+fresh snapshots.  The actors' policy lags the learner by at most
+``queue_size`` updates.
+
+With more than one fleet (a list of pools), every fleet's segments fan
+into ONE env-major batch per update
+(:class:`~blendjax_torch.parallel.podracer.SegmentFanIn`); a fleet that
+dies entirely is zero-masked out of the batch instead of stalling the
+learner.  ``replay=`` adds the off-policy tail: the actors append every
+transition (quarantine-aware), the learner follows each on-policy update
+with ``replay_ratio`` sampled updates, and :meth:`ActorLearner.run_offline`
+trains from the buffer alone.
+
+What differs from the reference, and why:
+
+- **The actors' parameter snapshot is a copy.**  The captured step
+  (:mod:`blendjax_torch.models.train`) updates the parameters in place,
+  where JAX arrays are immutable and the reference's actors alias
+  ``state.params``.  After every update the learner clones the parameters
+  on its own stream, records an event and swaps ``(snapshot, event)`` in
+  as one attribute assignment; an actor takes the pair at the start of a
+  segment, makes its stream wait on the event and ties the snapshot's
+  memory to its stream (``record_stream``).
+- **Two captured steps over one Adam.**  The on-policy and the replay
+  update are two :func:`~blendjax_torch.models.train.make_train_step`
+  closures over the same ``TrainState``: each captures its own graph over
+  the same parameters and the same ``capturable=True`` optimizer state.
+- **Each actor samples on its own CUDA stream** with its own
+  ``torch.Generator``, seeded from the constructor seed and the fleet id
+  (the counterpart of ``fold_in(PRNGKey(seed), 0xAC708 + fid)``), so its
+  kernels never land on a stream the learner is capturing.  The sampling
+  runs eagerly, as ``control.Rollout.step``'s does.
+
+Not ported, each refused with the ROADMAP item it waits for: ``mesh=`` and
+``pipeline_stages=`` (item 7), ``weight_bus=`` (items 5 and 9), ``hub=``,
+``scenarios=``, ``curriculum=`` and ``fanin_min_ready=`` (item 9),
+``checkpointer=`` (item 6).  Pools come as one ``EnvPool`` or a list; the
+reference's ``FleetSet`` is item 9.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from blendjax_torch.models import policy
+from blendjax_torch.models.train import TrainState, make_train_step
+from blendjax_torch.obs.flight import flight_recorder
+from blendjax_torch.utils.device import resolve_device
+from blendjax_torch.utils.timing import StageTimer
+
+log = logging.getLogger("blendjax_torch")
+
+#: the reference's constructor arguments that the port refuses, with what
+#: each waits for
+_NOT_PORTED = {
+    "mesh": "the sharded learner waits for the parallel layer "
+            "(ROADMAP Queue 1, item 7)",
+    "pipeline_stages": "the MPMD pipeline learner waits for the parallel "
+                       "layer (ROADMAP Queue 1, item 7)",
+    "weight_bus": "live weight publication waits for the weight snapshots "
+                  "and the bus (ROADMAP Queue 1, items 5 and 9)",
+    "hub": "the telemetry hub waits for the control plane "
+           "(ROADMAP Queue 1, item 9)",
+    "scenarios": "the scenario plane waits for the control plane "
+                 "(ROADMAP Queue 1, item 9)",
+    "curriculum": "the scenario curriculum waits for the control plane "
+                  "(ROADMAP Queue 1, item 9)",
+    "fanin_min_ready": "the heterogeneous-fleet fan-in waits for the "
+                       "scenario plane (ROADMAP Queue 1, item 9)",
+    "checkpointer": "coordinated checkpoints wait for state and fences "
+                    "(ROADMAP Queue 1, item 6)",
+}
+
+
+def _as_pools(pool):
+    """One EnvPool, a sequence of them (one per fleet), or None
+    (fleet-less, for :meth:`ActorLearner.run_offline`)."""
+    if pool is None:
+        return []
+    if isinstance(pool, (list, tuple)):
+        return list(pool)
+    return [pool]
+
+
+def fleet_seed(seed, fid):
+    """The sampling seed of fleet ``fid``, derived from the constructor
+    seed: runs are reproducible, fleets decorrelated."""
+    state = np.random.SeedSequence([int(seed), 0xAC708 + int(fid)])
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+class ActorLearner:
+    """Overlapped actor/learner REINFORCE over one or more
+    :class:`~blendjax_torch.btt.envpool.EnvPool` fleets.
+
+    Params
+    ------
+    pool: EnvPool | sequence[EnvPool] | None
+        Connected fleet(s) (autoreset recommended); the caller owns them.
+        A sequence runs one actor thread per fleet with the segments
+        fanned into a single env-major batch per update.  None is allowed
+        for the pure off-policy path (:meth:`run_offline`).
+    obs_dim, num_actions: int
+        Policy sizes (``continuous=True`` for a Gaussian head).
+    rollout_len: int
+        Steps per trajectory segment (the queue's unit of work).
+    queue_size: int
+        Segments buffered between actor and learner — also the bound on
+        actor policy staleness, in updates.
+    lr: float
+        Adam's rate (the reference's default ``optax.adam(3e-3)``).
+    action_map: callable | None
+        Maps the sampled actions (a numpy array of shape (N,)) to the list
+        the producers expect (e.g. discrete index -> motor force).
+    pipeline: bool
+        Double-buffer rollout collection over each pool's async path
+        (``step_async``/``step_wait_full``): actions are submitted first
+        and the fleet simulates while the actor hands over the previous
+        segment.  False keeps the lock-step ``pool.step`` loop.
+    num_fleets: int | None
+        Validation marker for the multi-fleet configuration; when given
+        it must match the number of pools passed.
+    replay: blendjax_torch.replay.ReplayBuffer | None
+        Off-policy path: the actor threads append every transition —
+        quarantine-aware, so a degraded rollout's synthetic transitions
+        land flagged and are never sampled — and the learner follows each
+        on-policy update with ``replay_ratio`` sampled off-policy updates
+        (importance-weighted single-step policy gradient, priorities
+        refreshed from |advantage|).
+    replay_ratio: int
+        Off-policy updates per on-policy update (0 = append-only).
+    replay_batch: int
+        Transitions per off-policy update.
+    device: str | torch.device
+        Where the parameters live and the updates and sampling run; CUDA
+        unless the caller asks for the CPU.
+
+    The reference's other arguments raise ``NotImplementedError`` naming
+    their ROADMAP item (see the module docstring).
+    """
+
+    def __init__(self, pool, obs_dim, num_actions, *, rollout_len=32,
+                 queue_size=4, lr=3e-3, gamma=0.99, seed=0, continuous=False,
+                 action_map=None, pipeline=False, num_fleets=None,
+                 replay=None, replay_ratio=0, replay_batch=64, device="cuda",
+                 **not_ported):
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"ActorLearner got an unexpected keyword argument {name!r}")
+            if value is not None:
+                raise NotImplementedError(f"ActorLearner({name}=...): {_NOT_PORTED[name]}")
+        self.pools = _as_pools(pool)
+        if num_fleets is not None and self.pools and num_fleets != len(self.pools):
+            raise ValueError(
+                f"num_fleets={num_fleets} but {len(self.pools)} pools were "
+                "passed — pass one EnvPool per fleet"
+            )
+        self.num_fleets = len(self.pools) or (num_fleets or 0)
+        self.rollout_len = rollout_len
+        self.queue_size = queue_size
+        self.gamma = gamma
+        self.continuous = continuous
+        self.pipeline = bool(pipeline)
+        self.action_map = action_map or (lambda a: list(np.asarray(a)))
+        self.device = resolve_device(device)
+        #: env-major fan-in path: more than one fleet
+        self._use_fanin = len(self.pools) > 1
+        self._seed = seed
+        params = policy.init(torch.Generator(device=self.device).manual_seed(seed),
+                             obs_dim, num_actions, continuous=continuous,
+                             device=self.device)
+        self.state = TrainState.create(params, lr=lr)
+
+        if self._use_fanin:
+            from blendjax_torch.parallel.podracer import make_segment_loss
+
+            self.loss_fn = make_segment_loss(gamma, continuous=continuous)
+        else:
+            def loss_fn(p, batch):
+                returns = policy.discounted_returns(batch["rewards"], batch["dones"], gamma)
+                t, n = batch["rewards"].shape
+                return policy.reinforce_loss(
+                    p,
+                    batch["obs"].reshape(t * n, -1),
+                    batch["actions"].reshape(t * n, *batch["actions"].shape[2:]),
+                    returns.reshape(t * n),
+                    continuous=continuous,
+                )
+
+            self.loss_fn = loss_fn
+
+        def replay_loss_fn(p, batch):
+            # importance-weighted single-step policy gradient over sampled
+            # transitions: logp of the STORED action under the CURRENT
+            # policy, advantage = batch-normalized reward (population std),
+            # weighted by the sampler's IS weights
+            if continuous:
+                logp = policy.gaussian_log_prob(p, batch["obs"], batch["action"])
+            else:
+                logp = policy.categorical_log_prob(p, batch["obs"], batch["action"])
+            r = batch["reward"]
+            adv = (r - r.mean()) / (r.std(correction=0) + 1e-6)
+            return -torch.mean(batch["is_weight"] * logp * adv.detach())
+
+        self.replay_loss_fn = replay_loss_fn
+        # two captured steps over the one TrainState (and its one Adam)
+        self._step = make_train_step(self.loss_fn)
+        self.replay = replay
+        self.replay_ratio = int(replay_ratio)
+        self.replay_batch = int(replay_batch)
+        if replay_ratio and replay is None:
+            raise ValueError("replay_ratio > 0 requires a replay buffer")
+        self._replay_step = make_train_step(replay_loss_fn) if replay is not None else None
+        #: the actors' sampling parameters: (a copy of state.params, the
+        #: event after which the copy is complete, or None on the CPU)
+        self._actor_params = self._snapshot()
+        self._updates_done = 0
+        #: per-stage times of the last run: per env step the actors'
+        #: ``policy`` (obs to the device, sample, actions back) and
+        #: ``env_step`` (pipelined: submission to the wait's return, the
+        #: previous segment's hand-off inside it); per update the learner's
+        #: ``segment_wait`` (until the batch is on the device), ``update``
+        #: (to the loss on the host) and ``replay_update``
+        self.timer = StageTimer()
+        self._q: queue.Queue = queue.Queue(maxsize=queue_size)
+        self._fanin = None
+        self._pending_group_batches = []  # (ArenaBatch, segment reward)
+        self._stop = threading.Event()
+        self._threads = []
+        nf = max(1, self.num_fleets)
+        self._actor_errors = [None] * nf
+        self._env_steps_by_fleet = [0] * nf
+        self._unhealthy_by_fleet = [0] * nf
+        self._degraded_by_fleet = [False] * nf
+        #: fleet re-admission (multi-fleet only): once a dead fleet's pool
+        #: answers again, the learner restarts its actor thread; the
+        #: cooldown stops a hot respawn loop
+        self.fleet_restart_cooldown = 1.0
+        self._fleet_restarts = [0] * nf
+        self._fleet_restart_allowed = [0.0] * nf
+        self._fleet_restart_steps = [0] * nf
+
+    # -- aggregate views -----------------------------------------------------
+
+    def stats(self):
+        """Live training-loop accounting, readable mid-run."""
+        return {
+            "env_steps": self._env_steps,
+            "unhealthy_env_steps": self._unhealthy_env_steps,
+            "env_steps_by_fleet": list(self._env_steps_by_fleet),
+            "updates": self._updates_done,
+            "fleet_restarts": list(self._fleet_restarts),
+            "dead_fleets": [fid for fid, e in enumerate(self._actor_errors)
+                            if e is not None],
+        }
+
+    def checkpoint_state(self):
+        """The learner-side scalars a checkpoint records next to the
+        TrainState: the update counter and the seed."""
+        return {"updates": self._updates_done, "seed": self._seed}
+
+    def load_checkpoint_state(self, state, aux):
+        """Adopt a restored TrainState and :meth:`checkpoint_state` dict:
+        the update counter continues from the cut, the actors' snapshot is
+        rebuilt from the restored params, and the checkpoint's seed wins
+        (the actors' sampling streams derive from it)."""
+        self.state = state
+        self._actor_params = self._snapshot()
+        self._updates_done = int(aux.get("updates", 0))
+        seed = aux.get("seed")
+        if seed is not None and int(seed) != self._seed:
+            log.warning(
+                "restoring checkpoint cut under seed %d into a learner "
+                "constructed with seed %d; adopting the checkpoint's seed so "
+                "the actor sampling streams continue the checkpointed run",
+                int(seed), self._seed,
+            )
+            self._seed = int(seed)
+
+    @property
+    def _env_steps(self):
+        return sum(self._env_steps_by_fleet)
+
+    @property
+    def _unhealthy_env_steps(self):
+        return sum(self._unhealthy_by_fleet)
+
+    @property
+    def _actor_error(self):
+        return next((e for e in self._actor_errors if e is not None), None)
+
+    def _snapshot(self):
+        """A copy of the parameters, made on the learner's stream, and the
+        event it is complete at (None on the CPU)."""
+        params = {k: v.detach().clone() for k, v in self.state.params.items()}
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return params, event
+
+    def _publish_params(self):
+        """Swap the actors' sampling snapshot (one attribute assignment);
+        called once per completed update."""
+        self._actor_params = self._snapshot()
+        self._updates_done += 1
+
+    # -- actor side ----------------------------------------------------------
+
+    def _enqueue_segment(self, fid, seg_lists):
+        """Hand a finished segment to the learner (bounded put, re-checked
+        against stop).  Returns False once stop is set."""
+        if self._fanin is not None:
+            return self._fanin.put_segment(fid, seg_lists, self._stop)
+        seg = tuple(np.stack(col) for col in seg_lists)
+        while not self._stop.is_set():
+            try:
+                self._q.put(seg, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _take_params(self, stream):
+        """The current snapshot, ordered before ``stream``'s next work and
+        tied to it, so the allocator cannot reuse its memory while the
+        actor still reads it."""
+        params, event = self._actor_params
+        if stream is not None:
+            stream.wait_event(event)
+            for t in params.values():
+                t.record_stream(stream)
+        return params
+
+    def _sample(self, params, gen, obs):
+        """Actions for ``obs`` (numpy, (N, D)) sampled on the device; the
+        actions come back as numpy."""
+        obs_t = torch.as_tensor(obs, device=self.device)
+        with torch.no_grad():
+            action, _ = policy.sample_action(params, gen, obs_t)
+        return action.cpu().numpy()
+
+    def _actor(self, fid, pool):
+        try:
+            gen = torch.Generator(device=self.device).manual_seed(fleet_seed(self._seed, fid))
+            stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                self._act(fid, pool, gen, stream)
+        except BaseException as exc:  # noqa: BLE001 - surfaced by the learner
+            self._actor_errors[fid] = exc
+            if len(self.pools) <= 1:
+                self._stop.set()
+            else:
+                # multi-fleet: the OTHER fleets keep training — the fan-in
+                # zero-masks this fleet's rows from here on
+                flight_recorder.note("fleet_actor_failed", target=f"fleet{fid}",
+                                     error=f"{type(exc).__name__}: {exc}")
+                log.warning("actor fleet %d failed (%s: %s); remaining fleets "
+                            "continue", fid, type(exc).__name__, exc)
+
+    def _act(self, fid, pool, gen, stream):
+        """The actor loop of fleet ``fid`` (see :meth:`_actor`)."""
+        timer = self.timer
+        obs, _ = pool.reset()
+        obs = np.asarray(obs, np.float32)
+        if obs.ndim == 1:
+            obs = obs[:, None]
+        pending_seg = None  # finished segment owed to the learner
+        while not self._stop.is_set():
+            seg_obs, seg_act, seg_rew, seg_done = [], [], [], []
+            params = self._take_params(stream)  # snapshot for the whole segment
+            for _ in range(self.rollout_len):
+                t0 = time.perf_counter()
+                action = self._sample(params, gen, obs)
+                t1 = time.perf_counter()
+                if self.pipeline:
+                    # double-buffer: submit first, so the fleet simulates the
+                    # next frame while this thread hands over the previous
+                    # segment (even blocking on a full queue)
+                    pool.step_async(self.action_map(action))
+                    if pending_seg is not None:
+                        if not self._enqueue_segment(fid, pending_seg):
+                            # stop arrived with a batch in flight: drain it
+                            # so the pool is reusable by lock-step callers
+                            pool.step_wait()
+                            return
+                        pending_seg = None
+                    nobs, rew, done, infos = pool.step_wait_full()
+                else:
+                    nobs, rew, done, infos = pool.step(self.action_map(action))
+                timer.add("policy", t1 - t0)
+                timer.add("env_step", time.perf_counter() - t1)
+                # degraded-mode accounting: quarantined slots return
+                # synthetic zero-reward transitions
+                unhealthy = sum(1 for inf in infos if not inf.get("healthy", True))
+                if unhealthy:
+                    self._unhealthy_by_fleet[fid] += unhealthy
+                    if not self._degraded_by_fleet[fid]:
+                        self._degraded_by_fleet[fid] = True
+                        log.warning("actor rollout degraded (fleet %d): %d/%d envs "
+                                    "quarantined (synthetic transitions in the "
+                                    "batch)", fid, unhealthy, pool.num_envs)
+                elif self._degraded_by_fleet[fid]:
+                    self._degraded_by_fleet[fid] = False
+                    log.warning("actor rollout healthy again (fleet %d)", fid)
+                seg_obs.append(obs)
+                seg_act.append(action)
+                seg_rew.append(np.asarray(rew, np.float32))
+                seg_done.append(np.asarray(done, bool))
+                prev_obs = obs
+                obs = np.asarray(nobs, np.float32)
+                if obs.ndim == 1:
+                    obs = obs[:, None]
+                if self.replay is not None:
+                    # quarantine-aware appends: a synthetic transition from
+                    # a quarantined slot is stored flagged, never sampled
+                    self.replay.extend(
+                        ({"obs": prev_obs[i], "action": action[i],
+                          "reward": seg_rew[-1][i], "next_obs": obs[i],
+                          "done": seg_done[-1][i]}
+                         for i in range(pool.num_envs)),
+                        healthy=[inf.get("healthy", True) for inf in infos],
+                    )
+                self._env_steps_by_fleet[fid] += pool.num_envs
+            seg_lists = (seg_obs, seg_act, seg_rew, seg_done)
+            if self.pipeline:
+                pending_seg = seg_lists  # handed over in the next submission's window
+            elif not self._enqueue_segment(fid, seg_lists):
+                return
+
+    # -- learner side --------------------------------------------------------
+
+    def _to_device(self, arrays):
+        return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
+
+    def _replay_step_and_refresh(self, batch, idx, reward):
+        """The shared off-policy post-draw block (online tail AND
+        run_offline): one sampled update, the actors' snapshot, and the
+        sampled rows' priorities refreshed from |advantage| under the batch
+        baseline (the same signal the loss weights)."""
+        self.state, loss = self._replay_step(self.state, batch)
+        self._publish_params()
+        r = np.asarray(reward, np.float64)
+        self.replay.update_priorities(idx, np.abs(r - r.mean()))
+        return float(loss)
+
+    def _replay_update(self, data, idx, weights):
+        """One off-policy update from a host-side sampled batch."""
+        batch = self._to_device({"obs": data["obs"], "action": data["action"],
+                                 "reward": data["reward"], "is_weight": weights})
+        return self._replay_step_and_refresh(batch, idx, data["reward"])
+
+    def _drain_replay_ratio(self, replay_losses):
+        """The learner's off-policy tail: up to ``replay_ratio`` sampled
+        updates, skipped (not blocked on) while the buffer is short.
+        ``timeout=0`` makes the shortfall check and the draw one atomic
+        step."""
+        for _ in range(self.replay_ratio):
+            try:
+                data, idx, w = self.replay.sample(
+                    self.replay_batch, timeout=0.0, keys=("obs", "action", "reward"))
+            except TimeoutError:
+                self.replay.counters.incr("replay_sample_skips")
+                return
+            t0 = time.perf_counter()
+            replay_losses.append(self._replay_update(data, idx, w))
+            self.timer.add("replay_update", time.perf_counter() - t0)
+
+    def run_offline(self, num_updates, batch_size=64, *, arena_pool=None, prefetch=2):
+        """Train purely from the replay buffer — zero Blender processes.
+
+        Sampled batches are gathered straight into recycled
+        :class:`~blendjax_torch.btt.arena.ArenaPool` buffers and staged
+        onto the device through ``device_prefetch`` (the replay timer
+        records its ``device_put`` and ``recycle`` stages); sampling batch
+        t+1 overlaps the update on batch t.  A prioritized buffer's draws
+        therefore depend on how far the sampler runs ahead of the
+        priority refreshes; a uniform buffer's depend only on its seed and
+        appends.  Returns a stats dict.
+        """
+        from blendjax_torch.btt.arena import ArenaPool
+        from blendjax_torch.btt.prefetch import device_prefetch
+
+        if self.replay is None:
+            raise RuntimeError("run_offline requires a replay buffer")
+        pool = arena_pool or ArenaPool(pool_size=prefetch + 2)
+        stop = threading.Event()
+        # gather (and copy) only what the off-policy loss and the priority
+        # refresh read
+        gen = self.replay.sample_batches(batch_size, arena_pool=pool, stop_event=stop,
+                                         keys=("obs", "action", "reward"))
+        losses = []
+        t0 = time.perf_counter()
+        it = device_prefetch(gen, size=prefetch, device=self.device,
+                             timer=self.replay.timer)
+        try:
+            for dev_batch in it:
+                # the sampler's indices came back in-band (the prefetcher
+                # unwraps ArenaBatch), keying the priority refresh
+                losses.append(self._replay_step_and_refresh(
+                    {k: dev_batch[k] for k in ("obs", "action", "reward", "is_weight")},
+                    dev_batch["replay_idx"].cpu().numpy(),
+                    dev_batch["reward"].cpu().numpy(),
+                ))
+                if len(losses) >= num_updates:
+                    break
+        finally:
+            stop.set()
+            it.close()
+        elapsed = time.perf_counter() - t0
+        return {
+            "updates": len(losses),
+            "updates_per_sec": round(len(losses) / elapsed, 2),
+            "losses": losses,
+            "replay": self.replay.stats(),
+            "elapsed_s": round(elapsed, 3),
+        }
+
+    def _fleet_alive(self, fid):
+        return fid < len(self._threads) and self._threads[fid].is_alive()
+
+    def _maybe_restart_fleets(self):
+        """Fleet re-admission: a fleet whose actor thread died (every env
+        dead -> the pool raised) rejoins once its pool answers again.
+        Single-fleet runs keep the fail-fast contract (the error stops the
+        run)."""
+        if len(self.pools) <= 1 or self._stop.is_set():
+            return
+        now = time.monotonic()
+        for fid, pool in enumerate(self.pools):
+            if self._actor_errors[fid] is None or self._fleet_alive(fid):
+                continue
+            if now < self._fleet_restart_allowed[fid]:
+                continue
+            if (self._fleet_restarts[fid] > 0
+                    and self._env_steps_by_fleet[fid] <= self._fleet_restart_steps[fid]):
+                # the previous restart died without stepping a single env:
+                # the error is deterministic, not a pool death — leave the
+                # fleet in dead_fleets with its real exception
+                continue
+            healthy = getattr(pool, "healthy", None)
+            if healthy is not None and not np.asarray(healthy).any():
+                continue  # still dead
+            self._fleet_restart_allowed[fid] = now + self.fleet_restart_cooldown
+            self._fleet_restart_steps[fid] = self._env_steps_by_fleet[fid]
+            self._actor_errors[fid] = None
+            self._fleet_restarts[fid] += 1
+            t = threading.Thread(target=self._actor, args=(fid, pool), daemon=True,
+                                 name=f"bjx-actor-{fid}.{self._fleet_restarts[fid]}")
+            self._threads[fid] = t
+            flight_recorder.note("fleet_restart", target=f"fleet{fid}",
+                                 restart=self._fleet_restarts[fid])
+            log.warning("fleet %d healed: restarting its actor thread (restart %d); "
+                        "the fleet rejoins the fan-in", fid, self._fleet_restarts[fid])
+            t.start()
+
+    def _next_fanin_batch(self, deadline):
+        """One global batch on the device from the fan-in, or ``None`` on
+        deadline/stop, or raises once EVERY fleet has failed.  A collect
+        whose segments differ in shape yields one batch per shape group;
+        the rest queue for the following calls."""
+        while True:
+            if self._pending_group_batches:
+                batch, seg_reward = self._pending_group_batches.pop(0)
+                return self._fanin.to_device(batch), seg_reward
+            if deadline is not None and time.perf_counter() >= deadline:
+                return None
+            self._maybe_restart_fleets()
+            if self._stop.is_set():
+                errs = [e for e in self._actor_errors if e is not None]
+                if errs and len(errs) == len(self.pools):
+                    raise RuntimeError(
+                        f"all {len(self.pools)} actor fleets failed") from errs[0]
+                return None
+            mono_deadline = None
+            if deadline is not None:
+                mono_deadline = time.monotonic() + deadline - time.perf_counter()
+            segs = self._fanin.collect(self._fleet_alive, self._stop,
+                                       deadline=mono_deadline)
+            if deadline is not None and time.perf_counter() >= deadline:
+                self._fanin.recycle_segments(segs)
+                return None
+            if segs:
+                rewards = {f: (float(s.data["rewards"].sum()), s.data["rewards"].size)
+                           for f, s in segs.items()}
+                queued = []
+                for gid, group in self._fanin.split_groups(segs):
+                    batch = self._fanin.assemble(group, stop_event=self._stop, _group=gid)
+                    if batch is None:
+                        for b, _ in queued:
+                            b.recycle()
+                        return None
+                    rsum = sum(rewards[f][0] for f in group)
+                    rn = sum(rewards[f][1] for f in group)
+                    queued.append((batch, rsum / max(rn, 1)))
+                self._pending_group_batches.extend(queued)
+                continue
+            if all(not self._fleet_alive(f) for f in range(len(self.pools))):
+                errs = [e for e in self._actor_errors if e is not None]
+                if errs:
+                    raise RuntimeError(
+                        f"all {len(self.pools)} actor fleets failed") from errs[0]
+                return None
+
+    def _next_queue_batch(self, deadline):
+        """One segment from the single-fleet queue on the device, or
+        ``None`` on deadline; raises when the actor failed."""
+        while True:
+            if self._actor_error is not None:
+                raise RuntimeError("actor thread failed") from self._actor_error
+            try:
+                seg = self._q.get(timeout=0.5)
+                break
+            except queue.Empty:
+                if deadline is not None and time.perf_counter() >= deadline:
+                    return None
+        batch = self._to_device({"obs": seg[0], "actions": seg[1],
+                                 "rewards": seg[2], "dones": seg[3]})
+        return batch, float(seg[2].mean())
+
+    def run(self, num_updates=None, seconds=None):
+        """Run the overlapped loop for ``num_updates`` learner steps OR a
+        ``seconds`` wall-clock budget (both = either limit ends the run);
+        returns a stats dict.
+
+        Re-runnable: each call gets a fresh stop event, zeroed step
+        counters and stage timer, and an emptied queue (a previous run's
+        buffered segments carry a stale policy).
+        """
+        if not self.pools:
+            raise RuntimeError(
+                "no EnvPool attached; use run_offline() to train from the replay buffer")
+        if num_updates is None and seconds is None:
+            raise ValueError("pass num_updates and/or seconds")
+        if any(t.is_alive() for t in self._threads):
+            # a leaked actor sharing the pool's sockets with a fresh one
+            # would corrupt the protocol and double-count env steps
+            raise RuntimeError("previous run's actor thread is still alive; close "
+                               "the pool or wait before re-running")
+        n = len(self.pools)
+        self._stop = threading.Event()
+        self._actor_errors = [None] * n
+        self._env_steps_by_fleet = [0] * n
+        self._unhealthy_by_fleet = [0] * n
+        self._degraded_by_fleet = [False] * n
+        self._fleet_restarts = [0] * n
+        self._fleet_restart_allowed = [0.0] * n
+        self._fleet_restart_steps = [0] * n
+        self._pending_group_batches = []
+        self.timer = StageTimer()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        if self._use_fanin:
+            from blendjax_torch.parallel.podracer import SegmentFanIn
+
+            # fresh fan-in per run: empty queues, recycled arenas
+            self._fanin = SegmentFanIn([p.num_envs for p in self.pools],
+                                       queue_size=self.queue_size, device=self.device)
+        self._threads = [
+            threading.Thread(target=self._actor, args=(fid, p), daemon=True,
+                             name=f"bjx-actor-{fid}")
+            for fid, p in enumerate(self.pools)
+        ]
+        t0 = time.perf_counter()
+        deadline = t0 + seconds if seconds is not None else None
+        for t in self._threads:
+            t.start()
+        losses, seg_rewards, replay_losses = [], [], []
+        try:
+            while True:
+                if num_updates is not None and len(losses) >= num_updates:
+                    break
+                if deadline is not None and time.perf_counter() >= deadline:
+                    break
+                t1 = time.perf_counter()
+                got = (self._next_fanin_batch(deadline) if self._fanin is not None
+                       else self._next_queue_batch(deadline))
+                if got is None:
+                    break
+                batch, seg_reward = got
+                t2 = time.perf_counter()
+                self.state, loss = self._step(self.state, batch)
+                self._publish_params()
+                losses.append(float(loss))
+                self.timer.add("segment_wait", t2 - t1)
+                self.timer.add("update", time.perf_counter() - t2)
+                seg_rewards.append(seg_reward)
+                if self.replay is not None and self.replay_ratio > 0:
+                    self._drain_replay_ratio(replay_losses)
+        finally:
+            self._stop.set()
+            for t in self._threads:
+                t.join(timeout=10)
+            for b, _ in self._pending_group_batches:
+                b.recycle()  # stale-policy leftovers of this run
+            self._pending_group_batches = []
+        elapsed = time.perf_counter() - t0
+        stats = {
+            "updates": len(losses),
+            "env_steps": self._env_steps,
+            "unhealthy_env_steps": self._unhealthy_env_steps,
+            "env_steps_per_sec": round(self._env_steps / elapsed, 1),
+            "updates_per_sec": round(len(losses) / elapsed, 2),
+            "first_segment_reward": seg_rewards[0] if seg_rewards else None,
+            "last_segment_reward": seg_rewards[-1] if seg_rewards else None,
+            "segment_rewards": seg_rewards,
+            "losses": losses,
+            "elapsed_s": round(elapsed, 3),
+            "stages": self.timer.summary(),
+        }
+        if len(self.pools) > 1:
+            stats["num_fleets"] = len(self.pools)
+            stats["env_steps_by_fleet"] = list(self._env_steps_by_fleet)
+            stats["dead_fleets"] = [fid for fid, e in enumerate(self._actor_errors)
+                                    if e is not None]
+            stats["fleet_restarts"] = list(self._fleet_restarts)
+        if self.replay is not None:
+            stats["replay_updates"] = len(replay_losses)
+            stats["replay_losses"] = replay_losses
+            stats["replay"] = self.replay.stats()
+        return stats

@@ -80,6 +80,19 @@ Phases, each printing JSON lines:
               gradients must equal the CPU's within 1e-5, and the update
               captured must equal it eager bit for bit (as the train
               phase).  No kernel is on this path.
+11. al      — the actor-learner through its entry points: the RL phase's
+              fleet settings -> ``ActorLearner`` (rollout 32, queue 4, a
+              200,000-row prioritized ``ReplayBuffer`` at replay ratio 2,
+              batch 64): 3 untimed updates (each step's warm-ups and
+              capture), then ``run(seconds=3)`` turns lockstep and
+              pipelined (``al_turn``: env-steps/s with learning, updates/s,
+              the actor's policy and env-step p50, the learner's wait for
+              segments, the replay stages), then ``run_offline`` for 200
+              updates (``al_offline``: updates/s, the feed's stages).  On a
+              live segment and a sampled replay batch the losses and
+              gradients must equal the CPU's within 1e-5, and the on-policy
+              and replay steps alternated over one Adam must be bit-equal
+              captured and eager.  No kernel is on this path.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream for the decode kernel, the world-model stream for the
@@ -1273,7 +1286,7 @@ def rl_phase(torch, btt, control, policy):
     captured (:func:`_forms`) from the same seeded state over that rollout."""
     import numpy as np
 
-    from blendjax_torch.models.train import TrainState
+    from blendjax_torch.models.train import WARMUP_STEPS, TrainState
     from blendjax_torch.utils.timing import EventCounters
 
     _fake_blender()
@@ -1299,7 +1312,7 @@ def rl_phase(torch, btt, control, policy):
         emit({"phase": "rl_ab_summary", "arms": rates, "lockstep_mean": lock,
               "pipelined_mean": pipe, "pipelined_x": pipe / lock})
 
-        trained = {}
+        trained, twin_rates = {}, {}
         for algo, train in (("reinforce", control.train_reinforce),
                             ("ppo", control.train_ppo)):
             iters = []
@@ -1318,6 +1331,12 @@ def rl_phase(torch, btt, control, policy):
                   f"rl {algo}: returns and losses finite")
             check(all(torch.isfinite(v).all() for v in state.params.values()),
                   f"rl {algo}: parameters finite")
+            # env steps per second with learning (rollouts and updates in
+            # series) over the iterations after the update's capture
+            horizon, epochs = (64, 1) if algo == "reinforce" else (128, 4)
+            after = iters[math.ceil((WARMUP_STEPS + 1) / epochs):]
+            twin_rates[algo] = (len(after) * horizon * RL_INSTANCES * 1e3
+                                / sum(r["rollout_ms"] + r["update_ms"] for r in after))
 
         # one fresh rollout of each trained policy, for the checks
         gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1378,6 +1397,208 @@ def rl_phase(torch, btt, control, policy):
         emit({"phase": f"rl_{algo}_update", "forms": forms, "captured_match": CAPTURED_MATCH})
         _check_forms(f"rl_{algo}", turns)
     emit({"phase": "rl_seconds", "seconds": time.perf_counter() - t_phase})
+    return {"rl_ab_lockstep": lock, **{f"{a}_twin": r for a, r in twin_rates.items()}}
+
+
+# -- the actor-learner: overlapped actors and learner, replay, run_offline -----
+
+#: the actor-learner at ``benchmarks/rl_benchmark.py``'s rollout length
+#: (:239-241) with ``docs/replay.md``'s replay settings (:110-112)
+AL_ROLLOUT = 32
+AL_QUEUE = 4
+AL_REPLAY = dict(capacity=200_000, ratio=2, batch=64)
+#: seconds per timed turn, and the turns' arms
+AL_TURN_S = 3.0
+AL_ARMS = ("lockstep", "pipelined", "pipelined", "lockstep")
+#: updates of the offline run over the buffer the live turns filled
+AL_OFFLINE = 200
+#: rounds of (on-policy step, replay step) in the captured-vs-eager check
+AL_ROUNDS = 8
+
+
+def _stage_p50(stages, name):
+    return stages[name]["p50_ms"] if name in stages else None
+
+
+def _al_segment(torch, buf, device):
+    """The live run's last :data:`AL_ROLLOUT` env steps, read back from the
+    buffer (appended step by step, env by env), as a time-major segment."""
+    import numpy as np
+
+    n = len(buf)
+    rows = [buf.get(i) for i in range(n - AL_ROLLOUT * RL_INSTANCES, n)]
+
+    def col(key):
+        arr = np.stack([r[key] for r in rows])
+        return torch.as_tensor(arr.reshape((AL_ROLLOUT, RL_INSTANCES) + arr.shape[1:]),
+                               device=device)
+
+    return {"obs": col("obs"), "actions": col("action"), "rewards": col("reward"),
+            "dones": col("done")}
+
+
+def actor_learner_phase(torch, btt, control, rl_rates):
+    """The actor-learner on the card through its entry points:
+    :data:`RL_INSTANCES` cartpole producers (the RL phase's settings) ->
+    ``ActorLearner`` (one actor thread sampling on its own stream, the
+    learner's on-policy and replay updates captured over one Adam, the
+    replay tail at ratio 2) -> ``run`` for 3 untimed updates (each step's 2
+    warm-ups and its capture), then timed turns lockstep against pipelined,
+    then ``run_offline`` over the buffer the turns filled.  Checks: exact
+    update counts, finite losses and params, the actor ran ahead, every env
+    step appended once and none excluded, the pool healthy, the snapshot a
+    separate copy, the card against the CPU on a live segment and a sampled
+    replay batch, and the two steps alternated captured = eager bit for bit."""
+    import numpy as np
+
+    from blendjax_torch.models import policy
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.replay import ReplayBuffer
+    from blendjax_torch.utils.timing import EventCounters, StageTimer
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    t_phase = time.perf_counter()
+    counters = EventCounters()
+    buf = ReplayBuffer(AL_REPLAY["capacity"], seed=0, counters=EventCounters())
+
+    def forces(a):
+        return list((np.asarray(a) * 2 - 1) * control.FORCE_MAG)
+
+    def run_checks(label, st, appended, updates=None):
+        if updates is not None:
+            check(st["updates"] == updates, f"al {label}: exactly {updates} updates")
+        check(all(math.isfinite(v) for v in st["losses"] + st["replay_losses"]),
+              f"al {label}: losses finite")
+        check(st["env_steps"] > st["updates"] * AL_ROLLOUT * RL_INSTANCES,
+              f"al {label}: the actor ran ahead of the learner")
+        check(appended == st["env_steps"] and st["replay"]["excluded"] == 0,
+              f"al {label}: every env step appended once, none excluded")
+
+    with btt.launch_env_pool(scene="", script=str(control.SCRIPT),
+                             num_instances=RL_INSTANCES, background=True,
+                             start_port=_port_block(RL_INSTANCES), seed=0, real_time=False,
+                             pipeline_depth=RL_DEPTH, counters=counters) as pool:
+        al = ActorLearner(pool, 3, 2, rollout_len=AL_ROLLOUT, queue_size=AL_QUEUE,
+                          action_map=forces, replay=buf, replay_ratio=AL_REPLAY["ratio"],
+                          replay_batch=AL_REPLAY["batch"], device="cuda")
+        steps = 0
+        st = al.run(num_updates=3)
+        steps += st["updates"] + st["replay_updates"]
+        emit({"phase": "al_warmup", "updates": st["updates"],
+              "replay_updates": st["replay_updates"], "env_steps": st["env_steps"],
+              "elapsed_s": st["elapsed_s"], "graphs": [len(al._step.graphs),
+                                                       len(al._replay_step.graphs)]})
+        run_checks("warm-up", st, st["replay"]["appends"], updates=3)
+        check(len(al._step.graphs) == 1 and len(al._replay_step.graphs) == 1,
+              "al: each step captured one graph in the warm-up run")
+        rates = {arm: [] for arm in AL_ARMS}
+        for turn, arm in enumerate(AL_ARMS):
+            al.pipeline = arm == "pipelined"
+            buf.timer = StageTimer()
+            appends = buf.stats()["appends"]
+            st = al.run(seconds=AL_TURN_S)
+            steps += st["updates"] + st["replay_updates"]
+            stages, rstages = st["stages"], buf.timer.summary()
+            rates[arm].append(st["env_steps_per_sec"])
+            emit({"phase": "al_turn", "turn": turn, "arm": arm,
+                  "env_steps_per_s": st["env_steps_per_sec"],
+                  "updates_per_s": st["updates_per_sec"], "updates": st["updates"],
+                  "replay_updates": st["replay_updates"], "env_steps": st["env_steps"],
+                  "elapsed_s": st["elapsed_s"],
+                  "policy_p50_ms": _stage_p50(stages, "policy"),
+                  "env_step_p50_ms": _stage_p50(stages, "env_step"),
+                  "segment_wait_s": stages["segment_wait"]["total_s"],
+                  "segment_wait_p50_ms": _stage_p50(stages, "segment_wait"),
+                  "update_p50_ms": _stage_p50(stages, "update"),
+                  "replay_update_p50_ms": _stage_p50(stages, "replay_update"),
+                  "replay_stages": {k: rstages[k] for k in
+                                    ("replay_append", "sample_gather", "priority_update")
+                                    if k in rstages}})
+            run_checks(f"turn {turn}", st, buf.stats()["appends"] - appends)
+        emit({"phase": "al_summary", "arms": rates,
+              "lockstep_mean": statistics.mean(rates["lockstep"]),
+              "pipelined_mean": statistics.mean(rates["pipelined"]),
+              "pipelined_x": statistics.mean(rates["pipelined"])
+              / statistics.mean(rates["lockstep"]),
+              "without_learner": rl_rates})
+        healthy = bool(pool.healthy.all())
+        faults = counters.snapshot()
+    check(healthy and not faults.get("quarantines"), "the actor-learner's pool stayed healthy")
+    check(al.state.step == steps, "al: every on-policy and replay update stepped the state")
+    check(all(bool(torch.isfinite(v).all()) for v in al.state.params.values()),
+          "al: parameters finite")
+    snap, _ = al._actor_params
+    check(all(snap[k].data_ptr() != v.data_ptr() for k, v in al.state.params.items()),
+          "al: the actors' snapshot shares no storage with the learner's params")
+
+    # the card against the CPU on a live segment and a sampled replay batch
+    seg = _al_segment(torch, buf, "cuda")
+    data, _, w = buf.sample(AL_REPLAY["batch"], keys=("obs", "action", "reward"))
+    rep = {k: torch.as_tensor(v, device="cuda") for k, v in
+           (("obs", data["obs"]), ("action", data["action"]), ("reward", data["reward"]),
+            ("is_weight", w))}
+    diffs = {}
+    for name, loss_fn, batch in (("segment", al.loss_fn, seg),
+                                 ("replay", al.replay_loss_fn, rep)):
+        sides = []
+        for dev in ("cuda", "cpu"):
+            params = {k: v.detach().to(dev) for k, v in al.state.params.items()}
+            b = {k: v.to(dev) for k, v in batch.items()}
+            sides.append(_grads(torch, lambda q, b=b, f=loss_fn: f(q, b), params))
+        diffs[f"{name}_loss"] = _max_diff(torch, sides[0][0], sides[1][0])
+        for k in sides[0][1]:
+            diffs[f"{name}_grad.{k}"] = _max_diff(torch, sides[0][1][k], sides[1][1][k])
+    emit({"phase": "al_reference", "atol": RL_ATOL, "max_abs_diff": diffs})
+    check(all(d <= RL_ATOL for d in diffs.values()),
+          f"al: the card equals the CPU within {RL_ATOL}")
+
+    # the two steps alternated over one Adam, captured against eager
+    turns, ref = [], None
+    for turn, form in enumerate(FORMS):
+        state = TrainState.create(policy.init(torch.Generator(device="cuda").manual_seed(1),
+                                              3, 2, device="cuda"), lr=3e-3)
+        on = make_train_step(al.loss_fn, capture=form == "captured")
+        off = make_train_step(al.replay_loss_fn, capture=form == "captured")
+        losses, times = [], {"on": [], "replay": []}
+        for _ in range(AL_ROUNDS):
+            for name, step, batch in (("on", on, seg), ("replay", off, rep)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, batch)
+                losses.append(float(loss))
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        if ref is None:
+            ref = (losses, params)
+        rec = {"phase": "al_update_turn", "turn": turn, "form": form, "losses": losses,
+               "on_policy_ms": statistics.median(times["on"][3:]),
+               "replay_ms": statistics.median(times["replay"][3:]),
+               "graphs": [len(on.graphs), len(off.graphs)],
+               "loss_max_abs_diff": max(abs(a - b) for a, b in zip(losses, ref[0])),
+               "param_max_abs_diff": _max_param_diff(torch, params, ref[1])}
+        emit(rec)
+        turns.append(rec)
+        check(all(math.isfinite(v) for v in losses), f"al {form} turn {turn}: losses finite")
+        check(rec["graphs"] == ([1, 1] if form == "captured" else [0, 0]),
+              f"al {form}: one graph for each step")
+        check(rec["loss_max_abs_diff"] == 0 and rec["param_max_abs_diff"] == 0,
+              f"al {form} turn {turn}: the alternated steps {CAPTURED_MATCH} to the first "
+              "eager turn")
+
+    buf.timer = StageTimer()
+    off = al.run_offline(num_updates=AL_OFFLINE, batch_size=AL_REPLAY["batch"])
+    stages = buf.timer.summary()
+    emit({"phase": "al_offline", "updates": off["updates"],
+          "updates_per_s": off["updates_per_sec"], "elapsed_s": off["elapsed_s"],
+          "stages": {k: stages[k] for k in ("device_put", "recycle", "sample_gather",
+                                             "priority_update", "arena_wait") if k in stages}})
+    check(off["updates"] == AL_OFFLINE and all(math.isfinite(v) for v in off["losses"]),
+          f"al: run_offline took exactly {AL_OFFLINE} finite updates")
+    check(all(bool(torch.isfinite(v).all()) for v in al.state.params.values()),
+          "al: parameters finite after run_offline")
+    emit({"phase": "al_seconds", "seconds": time.perf_counter() - t_phase})
 
 
 def main():
@@ -1421,7 +1642,8 @@ def main():
         flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
     seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
     flash_launches, flash_routes = worldmodel_phase(torch, btt, worldmodel, flash)
-    rl_phase(torch, btt, control, policy)
+    rl_rates = rl_phase(torch, btt, control, policy)
+    actor_learner_phase(torch, btt, control, rl_rates)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",
