@@ -28,8 +28,6 @@ before.  Requests carrying a span context (``wire.SPAN_KEY``) get one
 The wire protocol is the JAX package's, byte for byte: a port producer
 serves a ``blendjax`` consumer and the other way round.  Module import
 needs no bpy; only instantiating ``BaseEnv`` touches the animation system.
-``attach_default_renderer`` (the offscreen renderer) is not ported: it
-needs the camera and offscreen modules (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -87,13 +85,14 @@ class BaseEnv:
         )
 
     def attach_default_renderer(self, every_nth=1):
-        """Render every nth frame into ``ctx['rgb_array']``: not ported.
-        The offscreen renderer needs ``btb/camera.py`` and
-        ``btb/offscreen.py``, which ROADMAP Queue 1, item 8 ports."""
-        raise NotImplementedError(
-            "BaseEnv.attach_default_renderer needs the camera and offscreen "
-            "modules, not ported yet (ROADMAP Queue 1, item 8)"
-        )
+        """Render every nth frame into ``ctx['rgb_array']`` for a remote
+        ``env.render()``: the scene camera through the offscreen renderer,
+        color-managed."""
+        from blendjax_torch.btb.camera import Camera
+        from blendjax_torch.btb.offscreen import OffScreenRenderer
+
+        self.renderer = OffScreenRenderer(camera=Camera(), mode="rgb", gamma=True)
+        self.render_every = every_nth
 
     def attach_param_channel(self, channel, apply=None):
         """Receive mid-training scene-parameter pushes (the densityopt

@@ -3,7 +3,8 @@
 The DataLoader role is played by :class:`blendjax_torch.btt.loader.BatchLoader`
 plus the pinned-memory device feed in :mod:`blendjax_torch.btt.prefetch`;
 the RL side by :class:`~blendjax_torch.btt.env.RemoteEnv` and the batched,
-pipelined :class:`~blendjax_torch.btt.envpool.EnvPool`.
+pipelined :class:`~blendjax_torch.btt.envpool.EnvPool`; the control plane
+into running producers by :class:`~blendjax_torch.btt.duplex.DuplexChannel`.
 Attribute access is lazy so importing the package drags in neither torch
 nor zmq (only the device feed needs torch, only the sockets need zmq).
 """
@@ -19,6 +20,7 @@ _LAZY = {
     "FileDataset": ("blendjax_torch.btt.dataset", "FileDataset"),
     "FileRecorder": ("blendjax_torch.btt.file", "FileRecorder"),
     "FileReader": ("blendjax_torch.btt.file", "FileReader"),
+    "DuplexChannel": ("blendjax_torch.btt.duplex", "DuplexChannel"),
     "BatchLoader": ("blendjax_torch.btt.loader", "BatchLoader"),
     "collate": ("blendjax_torch.btt.collate", "collate"),
     "TransferGate": ("blendjax_torch.btt.prefetch", "TransferGate"),
@@ -41,6 +43,7 @@ _LAZY_MODULES = (
     "launch_info",
     "dataset",
     "file",
+    "duplex",
     "loader",
     "collate",
     "prefetch",

@@ -1,0 +1,15 @@
+"""Consumer-side duplex channel: connects to the producer's bound PAIR
+socket (a copy of ``blendjax.btt.duplex``)."""
+
+from __future__ import annotations
+
+from blendjax_torch._duplex import DuplexChannelBase
+from blendjax_torch.btt.constants import DEFAULT_TIMEOUTMS
+
+
+class DuplexChannel(DuplexChannelBase):
+    DEFAULT_TIMEOUTMS = DEFAULT_TIMEOUTMS
+
+    def __init__(self, address, btid=None, lingerms=0, timeoutms=None, raw_buffers=False):
+        super().__init__(address, btid=btid, bind=False, lingerms=lingerms,
+                         timeoutms=timeoutms, raw_buffers=raw_buffers)

@@ -9,10 +9,14 @@ Modes::
     python -m blendjax_torch.datagen --record prefix  # ... and record .btr
     python -m blendjax_torch.datagen --replay prefix  # no Blender: replay
 
-The producer is :file:`btb/frames.blend.py` (seeded synthetic frames in
-the datagen schema); point ``$BLENDJAX_BLENDER`` at a Blender, or at
-``tests/helpers/fake_blender.py``.  The training loop is
-:func:`train_on_stream`, usable with any iterator of device batches.
+The producer is :file:`btb/cube.blend.py` (a randomly rotated cube
+rendered offscreen, its corners as keypoints); point ``$BLENDJAX_BLENDER``
+at a Blender, or at ``tests/helpers/fake_blender.py`` with
+``BLENDJAX_FAKE_BPY=1`` and ``--background``.  :data:`FRAMES_SCRIPT`
+(:file:`btb/frames.blend.py`, seeded synthetic frames in the same schema,
+no ``bpy``) stands in for it where the feed and the trainer are what is
+being measured.  The training loop is :func:`train_on_stream`, usable
+with any iterator of device batches.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from blendjax_torch.models.train import TrainState, make_train_step
 from blendjax_torch.ops.image import decode_frames
 from blendjax_torch.utils.device import resolve_device
 
-SCRIPT = Path(__file__).parent / "btb" / "frames.blend.py"
+SCRIPT = Path(__file__).parent / "btb" / "cube.blend.py"
+FRAMES_SCRIPT = Path(__file__).parent / "btb" / "frames.blend.py"
 IMAGE_HW = (480, 640)
 
 

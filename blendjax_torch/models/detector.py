@@ -19,12 +19,11 @@ from blendjax_torch.models.layers import (
     dense_apply,
     dense_init,
     gelu,
+    layer,
+    num_layers,
+    prefixed,
 )
 from blendjax_torch.utils.device import resolve_device
-
-
-def _flat(prefix, leaves):
-    return {f"{prefix}.{k}": v for k, v in leaves.items()}
 
 
 def init(generator, num_keypoints=8, channels=(32, 64, 128), in_channels=3,
@@ -35,22 +34,14 @@ def init(generator, num_keypoints=8, channels=(32, 64, 128), in_channels=3,
     params = {}
     c_in = in_channels
     for i, c_out in enumerate(channels):
-        params.update(_flat(f"convs.{i}", conv_init(
+        params.update(prefixed(f"convs.{i}", conv_init(
             c_in, c_out, ksize=3, generator=generator, device=device)))
         c_in = c_out
-    params.update(_flat("fc", dense_init(c_in, hidden, generator=generator,
+    params.update(prefixed("fc", dense_init(c_in, hidden, generator=generator,
                                          device=device)))
-    params.update(_flat("head", dense_init(hidden, num_keypoints * 2,
+    params.update(prefixed("head", dense_init(hidden, num_keypoints * 2,
                                            generator=generator, device=device)))
     return params
-
-
-def _layer(params, prefix):
-    return {"w": params[f"{prefix}.w"], "b": params[f"{prefix}.b"]}
-
-
-def _num_convs(params):
-    return sum(1 for k in params if k.startswith("convs.") and k.endswith(".w"))
 
 
 def apply(params, images, compute_dtype=torch.bfloat16):
@@ -61,12 +52,12 @@ def apply(params, images, compute_dtype=torch.bfloat16):
     float32 (the sigmoid runs in float32).
     """
     x = images.to(compute_dtype)
-    for i in range(_num_convs(params)):
-        x = gelu(conv_apply(_layer(params, f"convs.{i}"), x, stride=2,
+    for i in range(num_layers(params, "convs")):
+        x = gelu(conv_apply(layer(params, f"convs.{i}"), x, stride=2,
                             dtype=compute_dtype))
     x = x.mean(dim=(1, 2))  # global average pool
-    x = gelu(dense_apply(_layer(params, "fc"), x, dtype=compute_dtype))
-    out = dense_apply(_layer(params, "head"), x, dtype=compute_dtype)
+    x = gelu(dense_apply(layer(params, "fc"), x, dtype=compute_dtype))
+    out = dense_apply(layer(params, "head"), x, dtype=compute_dtype)
     out = torch.sigmoid(out.to(torch.float32))
     return out.reshape(*out.shape[:-1], out.shape[-1] // 2, 2)
 

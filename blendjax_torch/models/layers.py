@@ -17,6 +17,25 @@ import torch
 import torch.nn.functional as F
 
 
+def prefixed(prefix, leaves):
+    """A layer's ``{"w", "b"}`` leaves as flat params under ``prefix``
+    (``{"convs.0.w": ..., "convs.0.b": ...}``)."""
+    return {f"{prefix}.{k}": v for k, v in leaves.items()}
+
+
+def layer(params, prefix):
+    """The ``{"w", "b"}`` leaves of the layer at ``prefix`` of flat params."""
+    return {"w": params[f"{prefix}.w"], "b": params[f"{prefix}.b"]}
+
+
+def num_layers(params, prefix):
+    """How many layers ``prefix.0``, ``prefix.1``, ... flat params hold."""
+    n = 0
+    while f"{prefix}.{n}.w" in params:
+        n += 1
+    return n
+
+
 def conv_init(in_ch, out_ch, ksize=3, *, generator, device="cuda"):
     """He-normal conv kernel (OIHW) + zero bias."""
     fan_in = ksize * ksize * in_ch

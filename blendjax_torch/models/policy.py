@@ -21,13 +21,12 @@ import math
 
 import torch
 
-from blendjax_torch.models.layers import dense_apply, dense_init
+from blendjax_torch.models.layers import dense_apply, dense_init, layer, num_layers, prefixed
 from blendjax_torch.utils.device import resolve_device
 
 
 def _dense(prefix, d_in, d_out, generator, device):
-    layer = dense_init(d_in, d_out, generator=generator, device=device)
-    return {f"{prefix}.{k}": v for k, v in layer.items()}
+    return prefixed(prefix, dense_init(d_in, d_out, generator=generator, device=device))
 
 
 def init(generator, obs_dim, num_actions, hidden=(64, 64), continuous=False,
@@ -46,22 +45,11 @@ def init(generator, obs_dim, num_actions, hidden=(64, 64), continuous=False,
     return params
 
 
-def _layer(params, prefix):
-    return {"w": params[f"{prefix}.w"], "b": params[f"{prefix}.b"]}
-
-
-def _depth(params):
-    n = 0
-    while f"layers.{n}.w" in params:
-        n += 1
-    return n
-
-
 def logits(params, obs):
     x = obs.to(torch.float32)
-    for i in range(_depth(params)):
-        x = torch.tanh(dense_apply(_layer(params, f"layers.{i}"), x))
-    return dense_apply(_layer(params, "out"), x)
+    for i in range(num_layers(params, "layers")):
+        x = torch.tanh(dense_apply(layer(params, f"layers.{i}"), x))
+    return dense_apply(layer(params, "out"), x)
 
 
 def sample_action(params, generator, obs):

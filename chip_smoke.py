@@ -11,13 +11,14 @@ Phases, each printing JSON lines:
               built from ``blendjax_torch/ops/csrc`` into ``build/``, one
               ``nvcc`` per source in parallel (``build`` line).
 3. kernel   — the decode kernel against its plain PyTorch version on the
-              card (``decode_cases``: the main shape, unaligned bases
-              1-15, sizes around the plan's chunk; f32 and bf16, with and
-              without ``linearize``), with its max abs error, and
-              bit-equal to it wherever ``linearize`` is off; its time at
-              the main path's shape in bf16 and f32 beside the bytes it
-              moves and the card's bandwidth bound, the timing window's
-              own floor, and the kernel's own duration from
+              card (``decode_cases``: the main shape, the densityopt
+              path's (8|32, 128, 128, 3), unaligned bases 1-15, sizes
+              around the plan's chunk; f32 and bf16, with and without
+              ``linearize``), with its max abs error, and bit-equal to it
+              wherever ``linearize`` is off; its time at the main path's
+              shape in bf16 and f32, and at (8, 128, 128, 3) in f32, beside
+              the bytes it moves and the card's bandwidth bound, the timing
+              window's own floor, and the kernel's own duration from
               torch.profiler (``kernel_us``).
 4. train    — a full-width TinyDetector (channels 32/64/128, hidden 256,
               K=8) takes 8 Adam steps on seeded 8x480x640x3 uint8 batches
@@ -93,11 +94,26 @@ Phases, each printing JSON lines:
               gradients must equal the CPU's within 1e-5, and the on-policy
               and replay steps alternated over one Adam must be bit-equal
               captured and eager.  No kernel is on this path.
+12. densityopt — the densityopt example through its entry points: 4
+              ``btb/supershape.blend.py`` producers (``BLENDJAX_FAKE_BPY=1``)
+              started by ``BlenderLauncher`` with ``DATA`` and ``CTRL``
+              sockets -> ``RemoteIterableDataset`` and one
+              ``btt.DuplexChannel`` each -> ``make_blender_renderer``: the
+              32 real frames at the target (5, 5), then
+              ``densityopt.optimize`` for 20 iterations (the example runs
+              100) at its settings (batch 8, widths 32/64/128 in bf16, Adam
+              2e-4 and 5e-2), each decoding its frames with the decode
+              kernel and replaying the captured discriminator step, scores
+              and ProbModel step.  Per iteration the stages' p50, the stale
+              frames, iterations/s and renders/s; the loop again over the
+              recorded frames and samples eager and captured in turns
+              (bit-equal, and equal to the live run); one step of each on
+              the card against the CPU at f32 within ``DO_ATOL``.
 
 Every kernel's launch count is zeroed just before the path that runs it
-(the datagen stream for the decode kernel, the world-model stream for the
-flash kernels) and read just after; a kernel the path never launched fails
-the run.  The line before the last holds every kernel's numbers; the last
+(the datagen stream and the densityopt loop for the decode kernel, the
+world-model stream for the flash kernels) and read just after; a kernel a
+path never launched fails the run.  The line before the last holds every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 without printing it, as does a host without CUDA or a directory without
 the ``blendjax_torch`` package beside this file.
@@ -137,6 +153,8 @@ BF16_PEAK = {
 }
 
 MAIN_SHAPE = (8, 480, 640, 3)  # examples/datagen: batch 8 of 480x640 RGB
+# examples/densityopt: the simulated batch of 8 and the 32 real frames, 128x128 RGB
+DENSITYOPT_SHAPES = ((8, 128, 128, 3), (32, 128, 128, 3))
 # benchmarks/suite_device.py's flagship SeqFormer: batch 8, 513-step
 # episodes (T = 512) of 32 channels, d_model 1024, 8 heads, 8 layers
 SEQ = dict(batch=8, seq_len=512, obs_dim=32, d_model=1024, n_heads=8, n_layers=8, lr=1e-4)
@@ -275,11 +293,15 @@ def bf16_ulp(torch, ref):
 
 def decode_cases(torch, image, g):
     """The decode kernel's checked inputs as ``(label, uint8 tensor)``: the
-    main shape and a small odd one, the main shape's flat buffer from each
-    base offset 1-15 (unaligned input; the small one's from 1), and flat
-    sizes around the plan's chunk (``image.DECODE_CHUNK``)."""
+    main shape, the densityopt path's two and a small odd one, the main
+    shape's flat buffer from each base offset 1-15 (unaligned input; the
+    small one's from 1), and flat sizes around the plan's chunk
+    (``image.DECODE_CHUNK``)."""
     chunk = image.DECODE_CHUNK
     cases = []
+    for shape in DENSITYOPT_SHAPES:
+        cases.append((str(shape), torch.randint(0, 256, shape, dtype=torch.uint8,
+                                                device="cuda", generator=g)))
     for shape in (MAIN_SHAPE, (2, 13, 17, 3)):
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
         cases.append((str(shape), x))
@@ -356,6 +378,7 @@ def kernel_phase(torch, image, peak):
                            flush=flush, clean=True)
     f32_kernel_us = profiled_us(torch, lambda: image.decode_frames_cuda(x, torch.float32),
                                 flush)
+    small = densityopt_decode_time(torch, image, peak, g, flush, window_floor_ms)
     del flush
     nbytes = x.numel() * (1 + 2)  # uint8 read once, bf16 written once
     bound_ms = nbytes / peak * 1e3
@@ -377,7 +400,46 @@ def kernel_phase(torch, image, peak):
           "hbm_peak_share": f32_bound_ms / f32_ms,
           "hbm_peak_share_clean_l2": f32_bound_ms / f32_ms_clean})
     return {"max_abs_err": main_err, "ms": ms, "ms_clean_l2": ms_clean, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "library_ms": library_ms}
+            "bound_ms": bound_ms, "library_ms": library_ms, "densityopt": small}
+
+
+def densityopt_decode_time(torch, image, peak, g, flush, window_floor_ms):
+    """The decode at the densityopt path's simulated batch, (8, 128, 128, 3)
+    uint8 -> f32 as ``densityopt.optimize`` calls it: 1.97 MB, about 0.6 us
+    at the card's bandwidth, under the event window's ~3 us floor, so the
+    kernel's own duration comes from the profiler (``kernel_us``).  Beside
+    it the plain decode (two kernels: the cast and the multiply) and the
+    library call (``torch.mul`` into f32, checked bit-equal first, one
+    kernel, so the profiler times it too)."""
+    shape = DENSITYOPT_SHAPES[0]
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
+
+    def decode():
+        return image.decode_frames_cuda(x, torch.float32)
+
+    def plain():
+        return image.decode_frames_plain(x, torch.float32)
+
+    def library():
+        return torch.mul(x, 1.0 / 255.0,
+                         out=torch.empty(x.shape, dtype=torch.float32, device="cuda"))
+
+    check(torch.equal(library().view(torch.int32), plain().view(torch.int32)),
+          "torch.mul into f32 bit-equal to the plain decode at the densityopt shape")
+    rec = {"phase": "kernel_time", "kernel": "decode_u8", "shape": list(shape),
+           "out": "float32", "bytes_in": x.numel(), "bytes_out": 4 * x.numel(),
+           "ms": time_ms(torch, decode, flush=flush),
+           "ms_clean_l2": time_ms(torch, decode, flush=flush, clean=True),
+           "window_floor_ms": window_floor_ms,
+           "kernel_us": profiled_us(torch, decode, flush),
+           "plain_ms": time_ms(torch, plain, flush=flush),
+           "library_ms": time_ms(torch, library, flush=flush),
+           "library_kernel_us": profiled_us(torch, library, flush),
+           "library_call": "torch.mul(x, 1/255, out=f32)",
+           "bound_ms": x.numel() * (1 + 4) / peak * 1e3}
+    rec["hbm_peak_share_kernel_us"] = rec["bound_ms"] * 1e3 / rec["kernel_us"]
+    emit(rec)
+    return rec
 
 
 #: the train step's two forms, run in turns, each turn from the same seeded
@@ -603,7 +665,7 @@ def stream_phase(torch, btt, datagen, image):
         check(batch["image"].is_cuda and batch["image"].dtype == torch.uint8
               and tuple(batch["image"].shape) == MAIN_SHAPE, "stream batch")
 
-    with btt.BlenderLauncher(scene="", script=str(datagen.SCRIPT), num_instances=2,
+    with btt.BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT), num_instances=2,
                              named_sockets=["DATA"], start_port=_port_block(),
                              background=True, seed=0) as bl:
         ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
@@ -657,7 +719,7 @@ def stream_ab_phase(torch, btt, datagen, image):
 
     _fake_blender()
     batch_size, producers = 8, 2
-    script = runpy.run_path(str(datagen.SCRIPT), run_name="frames")
+    script = runpy.run_path(str(datagen.FRAMES_SCRIPT), run_name="frames")
     frames = [script["make_frame"](seed, i, MAIN_SHAPE[1], MAIN_SHAPE[2], 8)
               for seed in range(producers) for i in range(script["POOL"])]
     ref_image = torch.from_numpy(np.stack([f[0] for f in frames])).cuda()
@@ -670,7 +732,7 @@ def stream_ab_phase(torch, btt, datagen, image):
 
     state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
     step = make_train_step(datagen.make_loss())
-    with btt.BlenderLauncher(scene="", script=str(datagen.SCRIPT), num_instances=producers,
+    with btt.BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT), num_instances=producers,
                              named_sockets=["DATA"], start_port=_port_block(),
                              background=True, seed=0) as bl:
         addresses = bl.launch_info.addresses["DATA"]
@@ -1600,6 +1662,239 @@ def actor_learner_phase(torch, btt, control, rl_rates):
           "al: parameters finite after run_offline")
     emit({"phase": "al_seconds", "seconds": time.perf_counter() - t_phase})
 
+# -- densityopt: the duplex channel, the discriminator, the ProbModel -----------
+
+#: ``examples/densityopt/densityopt.py``'s defaults (:133-168, :70-81): 4
+#: supershape producers, batch 8, 32 real frames at the hidden target (5, 5),
+#: discriminator widths (32, 64, 128) in bf16, Adam at 2e-4 and 5e-2
+DO_INSTANCES = 4
+DO_BATCH = 8
+DO_TARGET = (5.0, 5.0)
+#: iterations of the loop; the example runs 100
+DO_ITERATIONS = 20
+#: stale frames read off full queues to time the join's read rate (the
+#: queues hold ~130 frames of 49 KB per producer: 10 at each socket's HWM,
+#: the rest in the TCP buffers)
+DO_DRAIN = 300
+#: one step of each on the card against the CPU, from the same parameters
+#: and inputs, at f32 compute (TF32 off, see main): the RL phases' limit.
+#: Adam's first step moves a parameter by lr * g / (|g| + eps), so where
+#: |g| is near eps (1e-8) a gradient difference of 1e-9 moves it by ~5e-6
+DO_ATOL = {"d_loss": 1e-5, "d_params": 1e-5, "scores": 1e-5, "p_loss": 1e-5,
+           "p_params": 1e-5}
+
+
+def _do_replays(torch, densityopt, real, frames, samples, live):
+    """The live run's loop again over its own frames and samples, the steps
+    eager and captured in :data:`FORMS` turns, each from the same initial
+    parameters; every turn's history and final parameters must equal the
+    first eager turn's bit for bit, and the live (captured) run's history
+    too.  Emits one line per turn."""
+    from blendjax_torch.models import discriminator
+    from blendjax_torch.models.train import WARMUP_STEPS
+    from blendjax_torch.utils.timing import StageTimer
+
+    turns, ref = [], None
+    for turn, form in enumerate(FORMS):
+        d0 = discriminator.init(torch.Generator(device="cuda").manual_seed(1),
+                                in_channels=3, device="cuda")
+        steps = densityopt.make_steps(capture=form == "captured")
+        frames_it, samples_it, last, times = iter(frames), iter(samples), {}, []
+
+        def keep(rec):
+            last.update(rec)
+            times.append(rec["stages_ms"])
+
+        _, history = densityopt.optimize(
+            lambda p: next(frames_it), real, iterations=len(frames), batch_size=DO_BATCH,
+            log_every=0, device="cuda", d_params=d0,
+            draw=lambda p, n: torch.from_numpy(next(samples_it)).cuda(), steps=steps,
+            timer=StageTimer(), on_iteration=keep)
+        params = {**{f"d.{k}": v.detach().clone() for k, v in last["d_state"].params.items()},
+                  **{f"p.{k}": v.detach().clone() for k, v in last["p_state"].params.items()}}
+        flat = [v for h in history for v in (h[0], h[1], *h[2].tolist())]
+        if ref is None:
+            ref = (flat, params)
+        rec = {"phase": "densityopt_turn", "turn": turn, "form": form,
+               # after each step's warm-ups and capture
+               "p50_ms": {k: statistics.median(t[k] for t in times[WARMUP_STEPS + 1:])
+                          for k in ("decode", "d_step", "scores", "p_step")},
+               "graphs": [len(st.graphs) for st in steps],
+               "history_max_abs_diff": max(abs(a - b) for a, b in zip(flat, ref[0])),
+               "param_max_abs_diff": _max_param_diff(torch, params, ref[1])}
+        emit(rec)
+        turns.append(rec)
+        check(rec["graphs"] == ([1, 1, 1] if form == "captured" else [0, 0, 0]),
+              f"densityopt {form}: one graph for each of d_step, p_step and scores")
+        check(rec["history_max_abs_diff"] == 0 and rec["param_max_abs_diff"] == 0,
+              f"densityopt {form} turn {turn}: history and parameters {CAPTURED_MATCH} to "
+              "the first eager turn")
+    live_flat = [v for h in live for v in (h[0], h[1], *h[2].tolist())]
+    check(live_flat == ref[0], "the live run's history (captured) equals the eager replay's "
+          "bit for bit")
+    return turns
+
+
+def _do_vs_cpu(torch, densityopt, d_params, pm_params, real, fake, samples, baseline):
+    """The scores, one discriminator step and one ProbModel step on the card
+    and on the CPU from the same parameters and inputs (fresh Adam state
+    each; the ProbModel step takes the card's scores on both sides), at f32
+    compute: the max abs differences of the losses, the scores and the
+    updated parameters."""
+    from blendjax_torch.models.train import TrainState
+
+    sides, sim = {}, None
+    for dev in ("cuda", "cpu"):
+        d_step, p_step, scores = densityopt.make_steps(torch.float32, capture=False)
+        d = TrainState.create({k: v.detach().to(dev).clone() for k, v in d_params.items()},
+                              lr=2e-4)
+        p = TrainState.create({k: v.detach().to(dev).clone() for k, v in pm_params.items()},
+                              lr=5e-2)
+        scored = scores(d.params, {"fake": fake.to(dev)})
+        sim = scored if sim is None else sim  # the card's scores feed both ProbModel steps
+        d, d_loss = d_step(d, {"real": real.to(dev), "fake": fake.to(dev)})
+        p, p_loss = p_step(p, {"samples": samples.to(dev), "losses": sim.to(dev),
+                               "baseline": baseline.to(dev)})
+        sides[dev] = (d_loss, d.params, scored, p_loss, p.params)
+    (dl, dp, ds, pl, pp), (cdl, cdp, cds, cpl, cpp) = sides["cuda"], sides["cpu"]
+    return {"d_loss": _max_diff(torch, dl, cdl),
+            "d_params": max(_max_diff(torch, dp[k], cdp[k]) for k in dp),
+            "scores": _max_diff(torch, ds, cds),
+            "p_loss": _max_diff(torch, pl, cpl),
+            "p_params": max(_max_diff(torch, pp[k], cpp[k]) for k in pp)}
+
+
+def densityopt_phase(torch, btt, image):
+    """Densityopt on the card through its entry points:
+    :data:`DO_INSTANCES` ``btb/supershape.blend.py`` producers under the fake
+    Blender (``BLENDJAX_FAKE_BPY=1``) started by ``BlenderLauncher``
+    (``DATA`` and ``CTRL`` sockets) -> ``RemoteIterableDataset`` + one
+    ``btt.DuplexChannel`` per producer -> ``make_blender_renderer`` renders
+    the 32 real frames at the target, then ``densityopt.optimize`` runs
+    :data:`DO_ITERATIONS` iterations at the example's settings: each samples
+    8 parameter pairs on the card, renders them through the fleet (sends,
+    then the join by shape id, stale frames skipped), decodes the batch with
+    K1, and replays the captured discriminator step, scores and ProbModel
+    step.  The decode kernel's count is zeroed just before ``optimize`` and
+    read just after.  Per iteration the stages' p50 (each synchronised at
+    its end), the stale frames, iterations/s and renders/s.  Then the
+    loop again over the recorded frames and samples, eager against captured
+    (:func:`_do_replays`), and one step of each on the card against the CPU
+    (:func:`_do_vs_cpu`)."""
+    import numpy as np
+
+    from blendjax_torch import densityopt
+    from blendjax_torch.models.train import WARMUP_STEPS
+    from blendjax_torch.utils.timing import StageTimer
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    t_phase = time.perf_counter()
+    timer, iters, frames, samples, last = StageTimer(), [], [], [], {}
+    steps = densityopt.make_steps()
+    with btt.BlenderLauncher(scene="", script=str(densityopt.SCRIPT),
+                             num_instances=DO_INSTANCES, named_sockets=["DATA", "CTRL"],
+                             start_port=_port_block(2 * DO_INSTANCES), background=True,
+                             seed=0) as bl:
+        ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"], max_items=10**9,
+                                       timeoutms=30000)
+        duplexes = [btt.DuplexChannel(addr, btid=i)
+                    for i, addr in enumerate(bl.launch_info.addresses["CTRL"])]
+        try:
+            stream = iter(ds)
+            render = densityopt.make_blender_renderer(duplexes, stream, DO_BATCH)
+            t0 = time.perf_counter()
+            real = render(np.tile(DO_TARGET, (DO_BATCH * 4, 1)))
+            real_s, real_stale = time.perf_counter() - t0, render.stale
+
+            def recording(params):
+                out = render(params)
+                frames.append(out)
+                recording.stale = render.stale
+                return out
+
+            recording.stale = render.stale
+
+            def on_iteration(rec):
+                samples.append(rec["samples"])
+                last.update(rec)
+                iters.append({k: rec[k] for k in ("iteration", "ms", "stages_ms", "stale",
+                                                  "d_loss", "sim_loss_mean", "baseline")}
+                             | {"pm_mean": rec["pm_mean"].tolist()})
+                emit({"phase": "densityopt_iteration", **iters[-1]})
+
+            image.decode_frames_cuda.launches = 0
+            t0 = time.perf_counter()
+            pm_params, history = densityopt.optimize(
+                recording, real, iterations=DO_ITERATIONS, batch_size=DO_BATCH, log_every=0,
+                device="cuda", steps=steps, timer=timer, on_iteration=on_iteration)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches = image.decode_frames_cuda.launches
+            # the join's own read rate: once the producers have filled their
+            # queues, frames taken off the stream with no request outstanding
+            # (every one stale), fewer than the queues hold
+            time.sleep(1.0)
+            t0 = time.perf_counter()
+            for _ in range(DO_DRAIN):
+                next(stream)
+            drain_per_s = DO_DRAIN / (time.perf_counter() - t0)
+        finally:
+            for d in duplexes:
+                d.close()
+    after = iters[WARMUP_STEPS + 1:]  # the iterations after each step's capture
+    rec = {"phase": "densityopt", "instances": DO_INSTANCES, "batch": DO_BATCH,
+           "iterations": DO_ITERATIONS, "target": DO_TARGET, "real_frames": len(real),
+           "real_render_s": real_s, "real_stale": real_stale,
+           "iterations_per_s": len(iters) / elapsed,
+           "iterations_per_s_after_capture": len(after) * 1e3 / sum(r["ms"] for r in after),
+           "renders_per_s": DO_BATCH * len(iters) / elapsed,
+           "frames_received_per_s": (DO_BATCH * len(iters) + sum(r["stale"] for r in iters))
+           / timer.summary()["render"]["total_s"],
+           "drain_frames_per_s": drain_per_s,
+           "p50_ms": {k: statistics.median(r["stages_ms"][k] for r in iters)
+                      for k in densityopt.STAGES},
+           "p50_ms_after_capture": {k: statistics.median(r["stages_ms"][k] for r in after)
+                                    for k in densityopt.STAGES},
+           "stale_p50": statistics.median(r["stale"] for r in iters),
+           "iteration_p50_ms": statistics.median(r["ms"] for r in iters),
+           "launches": {"decode_u8": launches},
+           "graphs": [len(st.graphs) for st in steps],
+           "first": iters[0], "last": iters[-1]}
+    emit(rec)
+    check(len(history) == DO_ITERATIONS and all(
+        math.isfinite(d) and math.isfinite(sl) and np.isfinite(m).all() for d, sl, m in history),
+        "densityopt history finite")
+    check(all(bool(torch.isfinite(v).all()) for v in last["d_state"].params.values())
+          and all(bool(torch.isfinite(v).all()) for v in pm_params.values()),
+          "densityopt parameters finite")
+    check(len(real) == 4 * DO_BATCH and real.shape[1:] == (128, 128, 3)
+          and real.dtype == np.uint8, "densityopt real frames: 32 of 128x128x3 uint8")
+    check(launches == DO_ITERATIONS + 1,
+          "densityopt launched decode_u8 once for the real frames and once an iteration")
+    check(rec["graphs"] == [1, 1, 1], "densityopt: each step captured one graph")
+
+    real_dev = image.decode_frames(torch.from_numpy(real).cuda())
+    turns = _do_replays(torch, densityopt, real, frames, samples, history)
+    summary = {}
+    for form in ("eager", "captured"):
+        rs = [r for r in turns if r["form"] == form]
+        summary[form] = {k: [r["p50_ms"][k] for r in rs] for k in rs[0]["p50_ms"]}
+    emit({"phase": "densityopt_forms", "p50_ms_by_turn": summary,
+          "captured_match": CAPTURED_MATCH})
+
+    fake = image.decode_frames(torch.from_numpy(frames[-1]).cuda())
+    diffs = _do_vs_cpu(torch, densityopt, last["d_state"].params, pm_params, real_dev, fake,
+                       torch.from_numpy(samples[-1]),
+                       torch.tensor(last["baseline"], dtype=torch.float32))
+    emit({"phase": "densityopt_reference", "compute": "float32", "atol": DO_ATOL,
+          "max_abs_diff": diffs})
+    check(all(diffs[k] <= lim for k, lim in DO_ATOL.items()),
+          "densityopt: one step of each on the card equals the CPU within the limits")
+    emit({"phase": "densityopt_seconds", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 
 def main():
     import torch
@@ -1644,15 +1939,24 @@ def main():
     flash_launches, flash_routes = worldmodel_phase(torch, btt, worldmodel, flash)
     rl_rates = rl_phase(torch, btt, control, policy)
     actor_learner_phase(torch, btt, control, rl_rates)
+    with smi_window("densityopt"):
+        densityopt_launches = densityopt_phase(torch, btt, image)
+    check(densityopt_launches >= 1, "the densityopt path launched decode_u8")
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",
         "source": "blendjax_torch/ops/csrc/decode.cu",
         "replaces": "blendjax/ops/image.py:69",
-        "launches": decode_launches, "max_abs_err": timing["max_abs_err"],
+        "launches": decode_launches + densityopt_launches,
+        "launches_by_path": {"datagen_stream": decode_launches,
+                             "densityopt": densityopt_launches},
+        "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
         "library_ms": timing["library_ms"], "ms_clean_l2": timing["ms_clean_l2"],
+        "densityopt_shape": {k: timing["densityopt"][k] for k in (
+            "shape", "out", "kernel_us", "ms", "ms_clean_l2", "plain_ms", "library_ms",
+            "library_kernel_us", "bound_ms")},
     }]
     # the flagship's bf16 inputs run the tensor-core kernels; f32 inputs
     # take the CUDA-core ones, whose time on these bf16 inputs is previous_ms

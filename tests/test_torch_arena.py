@@ -413,7 +413,7 @@ def _run_stream(monkeypatch, arena):
     numpy batches, and the stream."""
     monkeypatch.setenv("BLENDJAX_BLENDER", str(FAKE_BLENDER))
     args = ["--height", str(H), "--width", str(W), "--keypoints", str(K)]
-    with BlenderLauncher(scene="", script=str(datagen.SCRIPT), num_instances=1,
+    with BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT), num_instances=1,
                          named_sockets=["DATA"], start_port=_free_port(), background=True,
                          seed=SEED, instance_args=[args]) as bl:
         ds = RemoteIterableDataset(bl.launch_info.addresses["DATA"], max_items=16)
@@ -434,7 +434,7 @@ def test_arena_stream_equals_the_collate_stream(monkeypatch):
     assert plain_stream.timer.count("recycle") == 0
     assert stream.arena_pool.in_use == 0  # every arena back after close
     assert len(pooled) == len(plain) == 4
-    make_frame = runpy.run_path(str(datagen.SCRIPT), run_name="frames")["make_frame"]
+    make_frame = runpy.run_path(str(datagen.FRAMES_SCRIPT), run_name="frames")["make_frame"]
     for a, b in zip(pooled, plain):
         assert_tree_equal(a, b)
         for i in range(4):

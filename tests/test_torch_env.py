@@ -135,10 +135,17 @@ def test_base_env_scripted_agent_ordering():
 
 
 def test_default_renderer_names_its_roadmap_item():
-    fake_bpy.install()
+    """The default renderer is ported (ROADMAP Queue 1, item 8's camera and
+    offscreen modules): the scene camera, rgb, color-managed, every nth
+    frame.  ``tests/test_torch_camera.py`` holds what it renders."""
+    from blendjax_torch.btb.offscreen import OffScreenRenderer
+
+    bpy = fake_bpy.install()
     env = BaseEnv(lambda env, **ctx: (BaseEnv.CMD_STEP, None))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        env.attach_default_renderer()
+    env.attach_default_renderer(every_nth=3)
+    assert isinstance(env.renderer, OffScreenRenderer) and env.render_every == 3
+    assert env.renderer.mode == "rgb" and env.renderer.gamma is True
+    assert env.renderer.camera.bpy_camera is bpy.context.scene.camera
 
 
 def test_remote_env_rpc_loop(fake_blender):

@@ -108,7 +108,10 @@ _OUT_BASE = 0x7F40_0000_0000
 _C = timage.DECODE_CHUNK
 _SIZES = {"1": 1, "15": 15, "16": 16, "17": 17, "1326": 1326, "chunk-1": _C - 1,
           "chunk": _C, "chunk+1": _C + 1, "132chunk+7": 132 * _C + 7,
-          "7372800": 7_372_800}
+          "7372800": 7_372_800,
+          # densityopt's simulated (8, 128, 128, 3) and real (32, 128, 128, 3)
+          # batches: fewer chunks than SMs, and one chunk per block or two
+          "393216": 393_216, "1572864": 1_572_864}
 _plan_grid = pytest.mark.parametrize("offset", range(16))
 _plan_sizes = pytest.mark.parametrize("size", list(_SIZES))
 _plan_dtypes = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -194,6 +197,17 @@ def test_decode_plan_emulated_chunk_by_chunk_equals_plain(offset, size, dtype, s
     want = plain(x)
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(out.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n, grid, stages", [(393_216, 48, 1), (1_572_864, 132, 2)])
+def test_decode_plan_at_the_densityopt_shapes(dtype, n, grid, stages):
+    """(8|32, 128, 128, 3) uint8 on 132 SMs: 48 chunks take 48 blocks of
+    one chunk each and a ring of one stage; 192 take every SM, 1-2 chunks
+    a block, through two stages."""
+    plan = timage.decode_plan(n, _IN_BASE, _OUT_BASE, dtype, 132)
+    assert (plan.lo, plan.hi, plan.chunks) == (0, n, -(-n // _C))
+    assert (plan.grid, plan.stages) == (grid, stages)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

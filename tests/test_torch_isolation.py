@@ -74,6 +74,10 @@ def test_producer_side_imports_without_torch():
         "import blendjax_torch.btb.cartpole\n"
         "btb.BaseEnv, btb.RemoteControlledAgent, btb.AnimationController\n"
         "import blendjax_torch.btt.env, blendjax_torch.btt.envpool, blendjax_torch.btt.faults\n"
+        "import blendjax_torch._duplex, blendjax_torch.btb.duplex, blendjax_torch.btt.duplex\n"
+        "import blendjax_torch.btb.camera, blendjax_torch.btb.camera_math\n"
+        "import blendjax_torch.btb.utils, blendjax_torch.btb.offscreen\n"
+        "btb.DuplexChannel, btb.Camera, btb.OffScreenRenderer\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
     )
     assert _run(code) == []

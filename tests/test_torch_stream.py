@@ -55,7 +55,7 @@ def fleet(monkeypatch):
     monkeypatch.setenv("BLENDJAX_BLENDER", str(FAKE_BLENDER))
     args = ["--height", str(H), "--width", str(W), "--keypoints", str(K)]
     with BlenderLauncher(
-        scene="", script=str(datagen.SCRIPT), num_instances=2,
+        scene="", script=str(datagen.FRAMES_SCRIPT), num_instances=2,
         named_sockets=["DATA"], start_port=_port_pair(), background=True,
         seed=SEED, instance_args=[args, args],
     ) as bl:
@@ -63,7 +63,7 @@ def fleet(monkeypatch):
 
 
 def _make_frame():
-    return runpy.run_path(str(datagen.SCRIPT), run_name="frames")["make_frame"]
+    return runpy.run_path(str(datagen.FRAMES_SCRIPT), run_name="frames")["make_frame"]
 
 
 def _keep_ids(item):
