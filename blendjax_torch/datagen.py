@@ -8,6 +8,7 @@ Modes::
     python -m blendjax_torch.datagen                  # live stream -> train
     python -m blendjax_torch.datagen --record prefix  # ... and record .btr
     python -m blendjax_torch.datagen --replay prefix  # no Blender: replay
+    python -m blendjax_torch.datagen --infer-int8     # ... then int8 inference
 
 The producer is :file:`btb/cube.blend.py` (a randomly rotated cube
 rendered offscreen, its corners as keypoints); point ``$BLENDJAX_BLENDER``
@@ -89,6 +90,19 @@ def train_on_stream(batches, state=None, log_every=8, dtype=torch.bfloat16,
     return state, losses
 
 
+def infer_int8(state, raw_frames):
+    """w8a8 inference on a trained detector: quantize once
+    (:func:`blendjax_torch.ops.quant.quantize_detector`), decode the uint8
+    frames to f32 (the decode kernel on the card) and run the int8
+    forward.  Returns (N, K, 2) keypoints."""
+    from blendjax_torch.ops.quant import detector_apply_int8, quantize_detector
+
+    with torch.no_grad():
+        qparams = quantize_detector({k: v.detach() for k, v in state.params.items()})
+        images = decode_frames(raw_frames, dtype=torch.float32)
+        return detector_apply_int8(qparams, images)
+
+
 def main():
     from blendjax_torch import btt
     from blendjax_torch.btt.collate import collate
@@ -103,6 +117,9 @@ def main():
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--background", action="store_true",
                     help="run Blender headless")
+    ap.add_argument("--infer-int8", action="store_true",
+                    help="after training, run one quantized (w8a8) inference batch "
+                         "on the live stream")
     args = ap.parse_args()
 
     if args.replay:
@@ -131,7 +148,17 @@ def main():
         )
         with btt.TorchStream(ds, batch_size=args.batch,
                              num_workers=args.workers) as stream:
-            train_on_stream(stream)
+            it = iter(stream)
+            # the inference batch is held back before training, which
+            # drains the finite stream
+            hold = next(it, None) if args.infer_int8 else None
+            state, _ = train_on_stream(it)
+            if hold is not None:
+                xy = infer_int8(state, hold["image"])
+                print(f"int8 inference: {xy.shape[0]} frames -> keypoints "
+                      f"{tuple(xy.shape[1:])}")
+            elif args.infer_int8:
+                print("int8 inference SKIPPED: stream yielded no batch")
         print("stage timing:", stream.timer.summary())
 
 

@@ -44,20 +44,28 @@ def init(generator, num_keypoints=8, channels=(32, 64, 128), in_channels=3,
     return params
 
 
-def apply(params, images, compute_dtype=torch.bfloat16):
+def apply(params, images, compute_dtype=torch.bfloat16, conv_fn=None, dense_fn=None):
     """Forward pass.
 
     images: (N, H, W, C) float in [0, 1].
+    conv_fn / dense_fn: layer-apply overrides ``(p, x, stride) -> y`` /
+        ``(p, x) -> y``, the seam :mod:`blendjax_torch.ops.quant` injects
+        its int8 layers through.
     Returns (N, K, 2) predicted keypoints in [0, 1] normalized coordinates,
     float32 (the sigmoid runs in float32).
     """
+    if conv_fn is None:
+        def conv_fn(p, x, stride):
+            return conv_apply(p, x, stride=stride, dtype=compute_dtype)
+    if dense_fn is None:
+        def dense_fn(p, x):
+            return dense_apply(p, x, dtype=compute_dtype)
     x = images.to(compute_dtype)
     for i in range(num_layers(params, "convs")):
-        x = gelu(conv_apply(layer(params, f"convs.{i}"), x, stride=2,
-                            dtype=compute_dtype))
+        x = gelu(conv_fn(layer(params, f"convs.{i}"), x, 2))
     x = x.mean(dim=(1, 2))  # global average pool
-    x = gelu(dense_apply(layer(params, "fc"), x, dtype=compute_dtype))
-    out = dense_apply(layer(params, "head"), x, dtype=compute_dtype)
+    x = gelu(dense_fn(layer(params, "fc"), x))
+    out = dense_fn(layer(params, "head"), x)
     out = torch.sigmoid(out.to(torch.float32))
     return out.reshape(*out.shape[:-1], out.shape[-1] // 2, 2)
 

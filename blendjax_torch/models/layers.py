@@ -24,14 +24,18 @@ def prefixed(prefix, leaves):
 
 
 def layer(params, prefix):
-    """The ``{"w", "b"}`` leaves of the layer at ``prefix`` of flat params."""
-    return {"w": params[f"{prefix}.w"], "b": params[f"{prefix}.b"]}
+    """The leaves of the layer at ``prefix`` of flat params: ``{"w", "b"}``,
+    or ``{"w_q", "w_scale", "b"}`` for an int8 layer
+    (:mod:`blendjax_torch.ops.quant`)."""
+    names = ("w", "b") if f"{prefix}.w" in params else ("w_q", "w_scale", "b")
+    return {n: params[f"{prefix}.{n}"] for n in names}
 
 
 def num_layers(params, prefix):
-    """How many layers ``prefix.0``, ``prefix.1``, ... flat params hold."""
+    """How many layers ``prefix.0``, ``prefix.1``, ... flat params hold
+    (float or int8)."""
     n = 0
-    while f"{prefix}.{n}.w" in params:
+    while f"{prefix}.{n}.b" in params:
         n += 1
     return n
 
@@ -92,7 +96,9 @@ def rope_table(positions, dh, base=10000.0):
     f32, for integer ``positions`` at per-head dim ``dh`` (even)."""
     half = dh // 2
     exponent = -torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(base, dtype=torch.float32, device=positions.device),
+    # the base made on the device by a fill (no host copy: a captured
+    # decode step builds its tables inside the graph)
+    freqs = torch.pow(torch.full((), base, dtype=torch.float32, device=positions.device),
                       exponent)
     ang = positions.to(torch.float32)[:, None] * freqs[None]
     return torch.cos(ang), torch.sin(ang)
@@ -111,3 +117,16 @@ def apply_rope(x, cos, sin):
     s = sin[None, :, None, :]
     out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
     return out[:, 0] if single else out
+
+
+def apply_rope_rows(x, cos, sin):
+    """Rotate a single-position (B, H, Dh) q/k where each batch row sits at
+    its own position: ``cos``/``sin`` are (B, Dh/2) tables from
+    :func:`rope_table` over a (B,) position vector.  The halves split as in
+    :func:`apply_rope`; the per-row decode of
+    :func:`blendjax_torch.models.seqformer.decode_step` uses it."""
+    x32 = x.to(torch.float32)
+    x1, x2 = torch.chunk(x32, 2, dim=-1)
+    c = cos[:, None, :]
+    s = sin[:, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)

@@ -11,8 +11,9 @@ the reference's pytree paths (``layers.0.w``, ``out.b``, ``log_std``), so
 Randomness comes from an explicit ``torch.Generator`` on the parameters'
 device, in place of a JAX key.  The returns and GAE run a reverse loop over
 the rollout's T steps on the tensors' device, where the reference runs a
-``lax.scan``.  The int8 policy path (``quantize_policy``) is not ported
-(ROADMAP Queue 1, item 5).
+``lax.scan``.  ``logits`` dispatches per layer on its weight dict, so
+the int8 params of :func:`blendjax_torch.ops.quant.quantize_policy` run
+through the same body.
 """
 
 from __future__ import annotations
@@ -45,11 +46,21 @@ def init(generator, obs_dim, num_actions, hidden=(64, 64), continuous=False,
     return params
 
 
+def _dense_mq(p, x):
+    """``dense_apply`` of a float ``{'w', 'b'}`` or an int8 ``{'w_q',
+    'w_scale', 'b'}`` layer."""
+    if "w_q" in p:
+        from blendjax_torch.ops.quant import dense_apply_int8
+
+        return dense_apply_int8(p, x)
+    return dense_apply(p, x)
+
+
 def logits(params, obs):
     x = obs.to(torch.float32)
     for i in range(num_layers(params, "layers")):
-        x = torch.tanh(dense_apply(layer(params, f"layers.{i}"), x))
-    return dense_apply(layer(params, "out"), x)
+        x = torch.tanh(_dense_mq(layer(params, f"layers.{i}"), x))
+    return _dense_mq(layer(params, "out"), x)
 
 
 def sample_action(params, generator, obs):

@@ -17,9 +17,17 @@ Attention is pluggable: ``apply(..., attn_fn=...)`` takes any
 :func:`blendjax_torch.ops.flash_attention.make_flash_attention` gives the
 flash kernels.
 
+The inference path: :func:`init_cache` (a batch-uniform position, or one
+per row for serving), :func:`decode_step` (one position through a ring
+KV cache) and :func:`rollout` (one teacher-forced prefill, then the
+model's own predictions fed back step by step, a Python loop where the
+reference runs ``lax.scan``).  Every projection dispatches on its weight
+dict, so the int8 params of
+:func:`blendjax_torch.ops.quant.quantize_seqformer` serve through the same
+code.
+
 Not ported yet: the mixture-of-experts MLP (ROADMAP Queue 1, item 7,
-with ``models/moe.py``) and the KV-cache decode path ``init_cache`` /
-``decode_step`` / ``rollout`` (ROADMAP Queue 1, item 5).
+with ``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -30,11 +38,13 @@ import torch
 
 from blendjax_torch.models.layers import (
     apply_rope,
+    apply_rope_rows,
     dense_apply,
     dense_init,
     gelu,
     rope_table,
 )
+from blendjax_torch.ops.quant import maybe_quantized_einsum
 from blendjax_torch.parallel.ring_attention import full_attention
 from blendjax_torch.utils.device import resolve_device
 
@@ -65,9 +75,26 @@ def _blocks(tree):
     return out
 
 
-def _proj(p, x, eq, dtype):
-    """Head-major attention projection in ``dtype``, bias included."""
-    return torch.einsum(eq, x, p["w"].to(dtype)) + p["b"].to(dtype)
+def _dense_mq(p, x, dtype):
+    """``dense_apply`` of a float ``{'w', 'b'}`` or an int8 ``{'w_q',
+    'w_scale', 'b'}`` weight dict."""
+    if "w_q" not in p:
+        return dense_apply(p, x, dtype)
+    out = maybe_quantized_einsum("...d,df->...f", x, p, dtype)
+    return (out + p["b"]).to(dtype)
+
+
+def _proj_mq(p, x, eq, dtype):
+    """Head-major attention projection with the same float/int8 dispatch,
+    bias included."""
+    out = maybe_quantized_einsum(eq, x, p, dtype)
+    b = p["b"].to(dtype if "w_q" not in p else torch.float32)
+    return (out + b).to(dtype)
+
+
+def _wq_head_dim(blocks):
+    wq = blocks[0]["wq"]
+    return (wq["w"] if "w" in wq else wq["w_q"]).shape[-1]
 
 
 def _ln_init(d, device):
@@ -140,7 +167,10 @@ def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
     return params
 
 
-def _forward(params, obs, attn_fn, compute_dtype):
+def _forward(params, obs, attn_fn, compute_dtype, kv_sink=None):
+    """The shared forward.  ``kv_sink`` (a list) collects each layer's
+    (k, v), rotated: :func:`rollout`'s prefill fills its caches from one
+    teacher-forced pass."""
     if attn_fn is None:
         def attn_fn(q, k, v):
             return full_attention(q, k, v, causal=True)
@@ -149,26 +179,27 @@ def _forward(params, obs, attn_fn, compute_dtype):
     blocks = _blocks(tree)
     t = obs.shape[1]
     use_rope = "pos" not in tree
-    x = dense_apply(tree["embed"], obs.to(compute_dtype), compute_dtype)
+    x = _dense_mq(tree["embed"], obs.to(compute_dtype), compute_dtype)
     if use_rope:
-        dh = blocks[0]["wq"]["w"].shape[-1]
-        cos, sin = rope_table(torch.arange(t, device=obs.device), dh)
+        cos, sin = rope_table(torch.arange(t, device=obs.device), _wq_head_dim(blocks))
     else:
         x = x + tree["pos"][:t].to(compute_dtype)[None]
     for blk in blocks:
         h = _ln_apply(blk["ln1"], x)
-        q, k, v = (_proj(blk[n], h, "btd,dhk->bthk", compute_dtype)
+        q, k, v = (_proj_mq(blk[n], h, "btd,dhk->bthk", compute_dtype)
                    for n in ("wq", "wk", "wv"))
         if use_rope:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
+        if kv_sink is not None:
+            kv_sink.append((k, v))
         a = attn_fn(q, k, v)
-        x = x + _proj(blk["wo"], a, "bthk,hkd->btd", compute_dtype)
+        x = x + _proj_mq(blk["wo"], a, "bthk,hkd->btd", compute_dtype)
         h = _ln_apply(blk["ln2"], x)
-        h = gelu(dense_apply(blk["mlp"]["fc"], h, compute_dtype))
-        x = x + dense_apply(blk["mlp"]["proj"], h, compute_dtype)
+        h = gelu(_dense_mq(blk["mlp"]["fc"], h, compute_dtype))
+        x = x + _dense_mq(blk["mlp"]["proj"], h, compute_dtype)
     x = _ln_apply(tree["ln_f"], x)
-    return dense_apply(tree["head"], x, torch.float32)
+    return _dense_mq(tree["head"], x, torch.float32)
 
 
 def apply(params, obs, attn_fn=None, compute_dtype=torch.bfloat16):
@@ -211,3 +242,198 @@ def train_flops(batch_size, seq_len, obs_dim, d_model, n_heads, n_layers, d_ff=N
     fwd += tok * n_layers * (per_layer + 4.0 * d * d_ff)
     fwd += 2.0 * tok * d * obs_dim  # head
     return 3.0 * fwd
+
+
+# -- autoregressive decode (KV cache) -------------------------------------------
+
+
+def init_cache(params, batch_size, dtype=torch.bfloat16, length=None, per_row=False):
+    """Per-layer KV caches on the params' device: ``{'k': [(B, L, Hkv,
+    Dh)], 'v': [...], 'pos': 0}``.  ``length`` defaults to the learned
+    position table's; rope models have none, so it is required there.
+
+    ``per_row=True`` makes ``pos`` a (B,) int64 tensor: each row then
+    decodes at its own position (the serving path), and resetting one row
+    is setting its position to 0 (its stale k/v sit at negative slot
+    positions, which :func:`_attn_one` masks).  The batch-uniform position
+    is a Python int."""
+    tree = _nest(params)
+    if length is None:
+        if "pos" not in tree:
+            raise ValueError("rope models have no max_len; pass the decode horizon "
+                             "as length=")
+        length = tree["pos"].shape[0]
+    elif "pos" in tree and length > tree["pos"].shape[0]:
+        raise ValueError(
+            f"cache length {length} exceeds the learned position table "
+            f"({tree['pos'].shape[0]}); use pos_encoding='rope' for longer horizons"
+        )
+    device = tree["ln_f"]["scale"].device
+    caches = {"k": [], "v": [],
+              "pos": torch.zeros((batch_size,), dtype=torch.int64, device=device)
+              if per_row else 0}
+    for blk in _blocks(tree):
+        wk = blk["wk"]
+        _, h_kv, dh = (wk["w"] if "w" in wk else wk["w_q"]).shape
+        shape = (batch_size, length, h_kv, dh)
+        caches["k"].append(torch.zeros(shape, dtype=dtype, device=device))
+        caches["v"].append(torch.zeros(shape, dtype=dtype, device=device))
+    return caches
+
+
+def _attn_one(q, kc, vc, pos, scale, window=None):
+    """Single-query attention over a ring cache: q (B, H, Dh), kc/vc (B, C,
+    Hkv, Dh), in f32.  Slot ``s`` holds absolute position ``pos - ((pos -
+    s) mod C)`` (a floor modulo), the latest position congruent to ``s``;
+    masking on it covers both the unwrapped cache and the windowed ring,
+    and never-written slots sit at negative positions.  ``pos`` is the
+    batch-uniform int or a (B,) tensor (one position per row).  GQA
+    contracts grouped queries against the un-repeated cache."""
+    b, c, h_kv, dh = kc.shape
+    h = q.shape[1]
+    slots = torch.arange(c, device=kc.device)
+    if isinstance(pos, torch.Tensor):
+        p_col = pos[:, None]
+        slot_pos = p_col - ((p_col - slots[None]) % c)
+        keep = slot_pos >= 0                # (B, C)
+        if window is not None:
+            keep = keep & (slot_pos > p_col - window)
+        keep_g = keep[:, None, None, :]
+        keep_h = keep[:, None, :]
+    else:
+        slot_pos = pos - ((pos - slots) % c)
+        keep = slot_pos >= 0                # (C,)
+        if window is not None:
+            keep = keep & (slot_pos > pos - window)
+        keep_g = keep[None, None, None]
+        keep_h = keep[None, None]
+    if h_kv != h:
+        g = h // h_kv
+        qg = q.reshape(b, h_kv, g, dh).to(torch.float32)
+        s = torch.einsum("bkgd,blkd->bkgl", qg, kc.to(torch.float32)) * scale
+        s = torch.where(keep_g, s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgl,blkd->bkgd", p, vc.to(torch.float32))
+        return out.reshape(b, h, dh)
+    s = torch.einsum("bhd,blhd->bhl", q.to(torch.float32), kc.to(torch.float32)) * scale
+    s = torch.where(keep_h, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhl,blhd->bhd", p, vc.to(torch.float32))
+
+
+def decode_step(params, cache, obs_t, compute_dtype=torch.bfloat16, window=None):
+    """One incremental step: consume ``obs_t`` (B, obs_dim) at the cache's
+    position and return ``(prediction (B, obs_dim) f32, cache)``.  The
+    block math is :func:`_forward`'s at one position.
+
+    The cache is a ring: each row's k/v are written at slot ``pos % C`` and
+    attention masks by slot position (:func:`_attn_one`), so ``C >=
+    window`` slots serve an unbounded horizon.  The cache is advanced in
+    place — its k/v tensors written, its ``pos`` moved on — and returned,
+    where the reference returns a new one (the counterpart of donating
+    it).  With a (B,) ``pos`` every row embeds, rotates, writes and masks
+    at its own position; a learned table is read at positions clamped into
+    range, as the reference's lookups clamp."""
+    tree = _nest(params)
+    blocks = _blocks(tree)
+    pos = cache["pos"]
+    per_row = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if not per_row:
+        pos = int(pos)
+    use_rope = "pos" not in tree
+    x = _dense_mq(tree["embed"], obs_t.to(compute_dtype), compute_dtype)
+    device = x.device
+    if use_rope:
+        at = pos if per_row else torch.full((1,), pos, device=device)
+        cos, sin = rope_table(at, _wq_head_dim(blocks))
+    else:
+        table = tree["pos"]
+        if per_row:
+            x = x + table[pos.clamp(0, table.shape[0] - 1)].to(compute_dtype)
+        else:
+            x = x + table[min(max(pos, 0), table.shape[0] - 1)].to(compute_dtype)[None]
+    rows = torch.arange(obs_t.shape[0], device=device) if per_row else None
+    for i, blk in enumerate(blocks):
+        h = _ln_apply(blk["ln1"], x)
+        q = _proj_mq(blk["wq"], h, "bd,dhk->bhk", compute_dtype)
+        k_new = _proj_mq(blk["wk"], h, "bd,dhk->bhk", compute_dtype)
+        v_new = _proj_mq(blk["wv"], h, "bd,dhk->bhk", compute_dtype)
+        if use_rope:
+            rotate = apply_rope_rows if per_row else apply_rope
+            q = rotate(q, cos, sin)
+            k_new = rotate(k_new, cos, sin)
+        kc, vc = cache["k"][i], cache["v"][i]
+        slot = pos % kc.shape[1]
+        if per_row:
+            kc[rows, slot] = k_new.to(kc.dtype)
+            vc[rows, slot] = v_new.to(vc.dtype)
+        else:
+            kc[:, slot] = k_new.to(kc.dtype)
+            vc[:, slot] = v_new.to(vc.dtype)
+        dh = q.shape[-1]
+        a = _attn_one(q, kc, vc, pos, 1.0 / math.sqrt(dh), window=window).to(compute_dtype)
+        x = x + _proj_mq(blk["wo"], a, "bhk,hkd->bd", compute_dtype)
+        h = _ln_apply(blk["ln2"], x)
+        h = gelu(_dense_mq(blk["mlp"]["fc"], h, compute_dtype))
+        x = x + _dense_mq(blk["mlp"]["proj"], h, compute_dtype)
+    cache["pos"] = pos + 1
+    x = _ln_apply(tree["ln_f"], x)
+    return _dense_mq(tree["head"], x, torch.float32), cache
+
+
+def prefill_cache(params, prefix, cache, rows, compute_dtype, window=None):
+    """One teacher-forced pass over ``prefix`` (B, T0, obs_dim) that fills
+    rows ``rows`` of ``cache`` (every row for ``rows=None``) with its
+    rotated k/v: only the last ``C`` positions that fit the ring, each at
+    its slot.  The rows' positions become ``T0``.  Returns the pass's
+    predictions (B, T0, obs_dim) f32."""
+    kvs = []
+    preds = _forward(
+        params, prefix,
+        lambda q, k, v: full_attention(q, k, v, causal=True, window=window),
+        compute_dtype, kv_sink=kvs)
+    t0 = prefix.shape[1]
+    ring = cache["k"][0].shape[1]
+    keep_n = min(t0, ring)
+    slots = (torch.arange(keep_n, device=prefix.device) + (t0 - keep_n)) % ring
+    sel = slice(None) if rows is None else rows[:, None]
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i][sel, slots] = k[:, t0 - keep_n:].to(cache["k"][i].dtype)
+        cache["v"][i][sel, slots] = v[:, t0 - keep_n:].to(cache["v"][i].dtype)
+    if rows is None:
+        cache["pos"] = t0
+    else:
+        cache["pos"][rows] = t0
+    return preds
+
+
+def rollout(params, prefix, n_steps, compute_dtype=torch.bfloat16, window=None,
+            cache_dtype=None):
+    """Autoregressive rollout ("dreaming"): consume the ``prefix`` episode
+    (B, T0, obs_dim), then feed the model its own next-observation
+    predictions for ``n_steps`` more steps.  Returns (B, n_steps, obs_dim)
+    f32 predictions for positions T0 .. T0+n_steps-1.
+
+    One teacher-forced pass fills the caches (:func:`prefill_cache`), then
+    :func:`decode_step` runs ``n_steps - 1`` times; under a ``window`` the
+    cache is a ring of ``window`` slots."""
+    b, t0, _ = prefix.shape
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if t0 < 1:
+        raise ValueError("prefix must contain at least one observation")
+    if "pos" in params and t0 + n_steps > params["pos"].shape[0]:
+        raise ValueError(
+            f"prefix {t0} + rollout {n_steps} exceeds max_len {params['pos'].shape[0]}"
+        )
+    total = t0 + n_steps
+    length = total if window is None else min(total, window)
+    cache = init_cache(params, b, dtype=cache_dtype or compute_dtype, length=length)
+    preds = prefill_cache(params, prefix, cache, None, compute_dtype, window=window)
+    obs = preds[:, -1]  # the prediction for position t0
+    out = [obs]
+    for _ in range(n_steps - 1):
+        obs, cache = decode_step(params, cache, obs, compute_dtype=compute_dtype,
+                                 window=window)
+        out.append(obs)
+    return torch.stack(out, dim=1)

@@ -151,8 +151,10 @@ def _optimizer_tensors(optimizer):
     return out
 
 
-class _Captured:
-    """The captured graphs of one step function, keyed by batch signature."""
+class Captured:
+    """The captured graphs of one step function, keyed by batch signature
+    (the train and eval steps', and the policy server's per-bucket decode
+    tick)."""
 
     def __init__(self):
         self.graphs = {}  # signature -> _Graph
@@ -235,7 +237,7 @@ def make_train_step(loss_fn, capture=None):
     ``loss_fn(params, batch) -> scalar``; ``loss`` is detached.  Captured
     on the card, eager on the CPU (see the module docstring); the step's
     graphs, by batch signature, are in ``step.graphs``."""
-    graphs = _Captured()
+    graphs = Captured()
 
     def step(state, batch):
         def run(b):
@@ -262,7 +264,7 @@ def make_eval_step(loss_fn, capture=None):
     """Build ``evaluate(params, batch) -> loss``: ``loss_fn`` under
     ``torch.no_grad()``, captured on the card as the train step is, eager
     on the CPU.  The counterpart of the reference's ``jax.jit(loss_fn)``."""
-    graphs = _Captured()
+    graphs = Captured()
 
     def evaluate(params, batch):
         def run(b):

@@ -1,0 +1,1080 @@
+"""PolicyServer: continuous batching of ``step()`` over the DEALER wire, on
+the card.  The port of ``blendjax.serve.server``.
+
+One model sits behind a ROUTER socket and serves many concurrent
+episodes:
+
+- **continuous batching**: the admission queue is drained every tick,
+  pending ``step`` requests are padded to a bucketed batch size, one model
+  call serves the tick, and the replies scatter back per client;
+- **KV-cache slot pool** for the SeqFormer world model: every live episode
+  holds a row of batched ``(slots + 1, ...)`` caches, decoded at per-row
+  positions (:func:`blendjax_torch.models.seqformer.decode_step`); on the
+  card each bucket's gather -> decode -> scatter is one captured CUDA graph
+  (the counterpart of the reference's one jitted program per bucket);
+- **exactly-once RPCs**: a retried ``step``/``reset``/``close`` (same
+  ``wire.BTMID_KEY``) is answered from a bounded reply cache, and a
+  duplicate of a request still queued is dropped at admission;
+- ``int8=True`` serves the model through
+  :func:`blendjax_torch.ops.quant.quantize_seqformer` /
+  :func:`~blendjax_torch.ops.quant.quantize_policy`, the same model code;
+- ``SERVE_EVENTS`` counters, ``SERVE_STAGES`` timings, a ``telemetry``
+  RPC and trace spans riding ``BTMID_KEY``.
+
+Either package's ``ServeClient`` drives it: the wire is the JAX package's.
+Run a server as a process::
+
+    python -m blendjax_torch.serve.server --address tcp://127.0.0.1:24000 \\
+        --model seqformer --seed 0 --obs-dim 8 --slots 64 --length 128
+
+(``--device cpu`` on a host without a card), or in-process via
+:func:`start_server_thread`.  ``serial=True`` (a REP socket, one request
+per exchange) is the baseline continuous batching is measured against.
+
+Not ported yet, each raising an error that names its ROADMAP item: the
+``shm://`` transport (Queue 1, item 8: the server answers a client's
+upgrade request with a refusal, and ``hello`` reports ``"shm": None``), a
+WeightBus ``subscriber=`` / ``--subscribe`` and the supervised
+``ServerProcess`` / ``ServerFleet`` (item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import sys
+import threading
+import time
+from collections import OrderedDict, deque
+
+import numpy as np
+import torch
+
+from blendjax_torch import wire
+from blendjax_torch.obs.spans import make_span, now_us
+from blendjax_torch.utils.timing import StageTimer, fleet_counters
+
+logger = logging.getLogger("blendjax_torch")
+
+#: Commands whose replies enter the exactly-once reply cache.
+MUTATING_CMDS = ("step", "reset", "close")
+
+#: Idle horizon after which a stateless episode leaves the admission
+#: window's live count (window targeting only; its steps are never refused).
+STATELESS_TTL_S = 30.0
+
+#: Default bound on the reply cache (each client keeps one RPC in flight).
+REPLY_CACHE_DEPTH = 1024
+
+#: The shared-memory transport's negotiation commands: refused, since the
+#: port has no such transport yet, outside the request counters.
+SHM_CONTROL_CMDS = ("shm_connect", "shm_attach")
+
+_SHM_MISSING = "the shm:// transport is not ported yet (ROADMAP Queue 1, item 8)"
+_BUS_MISSING = ("the WeightBus (weights/bus.py) is not ported yet "
+                "(ROADMAP Queue 1, item 9)")
+_SUPERVISED_MISSING = ("ServerProcess and ServerFleet wait for the supervisor and "
+                       "watchdog (ROADMAP Queue 1, item 9)")
+
+
+def drain_socket(recv, handle, counters, who, what):
+    """Drain every message on a socket: ``recv()`` (NOBLOCK) until
+    ``zmq.Again``, dispatching each to ``handle``.  A closed socket
+    propagates; an undecodable frame, or a message whose handling raises,
+    is dropped and counted — it never stops the serving thread."""
+    import zmq
+
+    while True:
+        try:
+            out = recv()
+        except zmq.Again:
+            return
+        except zmq.ZMQError:
+            raise
+        except Exception as exc:  # noqa: BLE001 - the tier survives
+            counters.incr("serve_errors")
+            logger.warning("%s: undecodable %s dropped (%s: %s)",
+                           who, what, type(exc).__name__, exc)
+            continue
+        try:
+            handle(out)
+        except zmq.ZMQError:
+            raise
+        except Exception:  # noqa: BLE001 - the tier survives
+            counters.incr("serve_errors")
+            logger.exception("%s: handling a %s failed (dropped)", who, what)
+
+
+def _check_tree_like(cur, new, what):
+    """A snapshot must have the served params' leaves and per-leaf shapes
+    before it replaces them (flat ``{path: tensor}`` dicts)."""
+    if set(cur) != set(new):
+        raise ValueError(
+            f"published {what} snapshot structure does not match the served "
+            f"params (leaves {sorted(set(new) ^ set(cur))} differ)"
+        )
+    for path, c in cur.items():
+        if tuple(c.shape) != tuple(new[path].shape):
+            raise ValueError(
+                f"published {what} snapshot leaf {path} shape "
+                f"{tuple(new[path].shape)} != served {tuple(c.shape)}"
+            )
+
+
+def default_buckets(max_batch):
+    """Powers of two up to ``max_batch`` (inclusive as the cap): requests pad
+    to the next bucket, one captured graph each."""
+    out = []
+    b = 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# served models
+# ---------------------------------------------------------------------------
+
+
+class LinearModel:
+    """Stateful numpy stand-in: ``pred = obs @ W + pos`` with a per-slot
+    position counter, deterministic from ``seed`` and position-sensitive (a
+    double-applied step shifts every later prediction)."""
+
+    kind = "linear"
+
+    def __init__(self, obs_dim=8, slots=16, seed=0):
+        self.obs_dim = int(obs_dim)
+        self.slots = int(slots)
+        rng = np.random.default_rng(seed)
+        self.w = rng.standard_normal((self.obs_dim, self.obs_dim)).astype(np.float32)
+        # +1: the pad row batched ticks scatter their padding into
+        self.pos = np.zeros(self.slots + 1, np.int64)
+        self.pad_slot = self.slots
+
+    def apply_weights(self, tree):
+        """Replace ``w`` from a published ``{"w": (obs_dim, obs_dim)}``."""
+        w = np.asarray(tree["w"], np.float32)
+        if w.shape != self.w.shape:
+            raise ValueError(f"published w shape {w.shape} != served {self.w.shape}")
+        self.w = w
+
+    def reset_rows(self, idx):
+        self.pos[idx] = 0
+
+    def step_rows(self, idx, obs):
+        pred = obs.astype(np.float32) @ self.w + self.pos[idx, None].astype(np.float32)
+        self.pos[idx] += 1
+        return pred
+
+    def prefill_rows(self, idx, prefix):
+        """Admit a T-step prefix in one pass: the slot's position jumps to T
+        and the return is what the T'th serial step would have produced."""
+        t = prefix.shape[0]
+        self.pos[idx] = t
+        return prefix[-1].astype(np.float32) @ self.w + np.float32(t - 1)
+
+
+class _TorchModel:
+    """What the torch adapters share: detached params on one device, and
+    :meth:`apply_weights` — a published tree (the JAX package's layout, as
+    :meth:`blendjax_torch.weights.snapshot.Snapshot.tree` gives it) checked
+    against the served params and copied into them in place, so a captured
+    graph goes on reading the same tensors."""
+
+    int8 = False
+
+    def _init_params(self, params, quantize):
+        params = {k: v.detach() for k, v in params.items()}
+        if self.int8:
+            params = quantize(params)
+        self.params = params
+        self.device = next(iter(params.values())).device
+
+    def _adopt(self, tree, what):
+        from blendjax_torch.models.convert import params_from_jax
+
+        new = params_from_jax(tree, device=self.device)
+        if self.int8 != any(k.endswith(".w_q") for k in new):
+            raise ValueError(
+                "published snapshot precision (int8=%s) != served precision "
+                "(int8=%s); align the publisher's quantize= with the server's --int8"
+                % (not self.int8, self.int8)
+            )
+        _check_tree_like(self.params, new, what)
+        with torch.no_grad():
+            for path, t in new.items():
+                self.params[path].copy_(t)
+
+
+class PolicyModel(_TorchModel):
+    """Stateless MLP policy serving (:mod:`blendjax_torch.models.policy`):
+    ``logits`` per tick on the params' device.  ``int8=True`` serves
+    :func:`~blendjax_torch.ops.quant.quantize_policy` output through the
+    same ``logits``."""
+
+    kind = "policy"
+    slots = 0  # stateless: no cache rows, reset is an accounting no-op
+    pad_slot = 0
+
+    def __init__(self, params, obs_dim, int8=False):
+        from blendjax_torch.ops.quant import quantize_policy
+
+        self.int8 = bool(int8)
+        self._init_params(params, quantize_policy)
+        self.obs_dim = int(obs_dim)
+
+    def apply_weights(self, tree):
+        """Adopt a published policy tree (float, or ``quantize_policy``
+        output on an int8 server)."""
+        self._adopt(tree, "policy")
+
+    def reset_rows(self, idx):
+        pass
+
+    def step_rows(self, idx, obs):
+        from blendjax_torch.models import policy
+
+        with torch.no_grad():
+            out = policy.logits(self.params, torch.from_numpy(obs).to(self.device))
+        return out.cpu().numpy()
+
+
+class SeqFormerModel(_TorchModel):
+    """Stateful world-model serving: a slot pool of batched KV caches
+    (``init_cache(per_row=True)``) over ``slots + 1`` rows — the extra row
+    absorbs the padding rows' writes — stepped by one gather ->
+    ``decode_step`` -> scatter per tick.  On the card each bucket size's
+    tick is a CUDA graph captured after eager warm-up ticks
+    (:class:`blendjax_torch.models.train.Captured`), its ``idx`` and
+    ``obs`` copied into the graph's static buffers before each replay;
+    ``capture=False`` keeps it eager.  ``int8=True`` serves
+    :func:`~blendjax_torch.ops.quant.quantize_seqformer` output through the
+    same code.  It computes and caches in f32."""
+
+    kind = "seqformer"
+
+    def __init__(self, params, slots, length, *, window=None, int8=False, capture=None):
+        from blendjax_torch.models import seqformer
+        from blendjax_torch.models.train import Captured
+        from blendjax_torch.ops.quant import quantize_seqformer
+
+        self.int8 = bool(int8)
+        self._init_params(params, quantize_seqformer)
+        self.slots = int(slots)
+        self.length = int(length)
+        self.window = window
+        self.pad_slot = self.slots
+        emb = "embed.w" if "embed.w" in self.params else "embed.w_q"
+        self.obs_dim = self.params[emb].shape[0]
+        self._cache = seqformer.init_cache(
+            self.params, self.slots + 1, dtype=torch.float32, length=self.length,
+            per_row=True)
+        if capture and self.device.type != "cuda":
+            raise RuntimeError("capture=True needs the params on a CUDA device")
+        self.captured = self.device.type == "cuda" if capture is None else bool(capture)
+        #: the captured ticks, by bucket signature
+        self.graphs = Captured()
+        self._bound = {("param", k): v for k, v in self.params.items()}
+        for name in ("k", "v"):
+            self._bound.update({(name, i): t for i, t in enumerate(self._cache[name])})
+        self._bound["pos"] = self._cache["pos"]
+
+    def _tick(self, batch):
+        """Gather the rows' caches, decode one position, scatter them back;
+        the padding rows all write the pad row, which is never read."""
+        from blendjax_torch.models import seqformer
+
+        idx, cache = batch["idx"], self._cache
+        rows = {"pos": cache["pos"][idx],
+                "k": [k[idx] for k in cache["k"]],
+                "v": [v[idx] for v in cache["v"]]}
+        with torch.no_grad():
+            pred, rows = seqformer.decode_step(
+                self.params, rows, batch["obs"], compute_dtype=torch.float32,
+                window=self.window)
+        cache["pos"][idx] = rows["pos"]
+        for name in ("k", "v"):
+            for c, n in zip(cache[name], rows[name]):
+                c[idx] = n
+        return pred
+
+    def step_rows(self, idx, obs):
+        batch = {"idx": torch.from_numpy(np.asarray(idx, np.int64)).to(self.device),
+                 "obs": torch.from_numpy(np.asarray(obs, np.float32)).to(self.device)}
+        if self.captured:
+            pred = self.graphs(self._tick, batch, self._bound)
+        else:
+            pred = self._tick(batch)
+        return pred.cpu().numpy()  # fence: the compute stage ends on the host
+
+    def prefill_rows(self, idx, prefix):
+        """Admit a T-step prefix into slot ``idx`` with one teacher-forced
+        pass; returns the prediction for position T (what the T'th serial
+        step would have returned), and the slot's next step decodes at T."""
+        from blendjax_torch.models import seqformer
+
+        t0 = int(prefix.shape[0])
+        if t0 > self.length and (self.window is None or self.window > self.length):
+            raise ValueError(
+                f"prefix of {t0} steps exceeds the {self.length}-slot cache ring "
+                "(and no window bounds attention): raise length= or serve a "
+                "windowed model"
+            )
+        if "pos" in self.params and t0 > self.params["pos"].shape[0]:
+            raise ValueError(
+                f"prefix of {t0} steps exceeds the learned position table "
+                f"({self.params['pos'].shape[0]}); use pos_encoding='rope' for "
+                "longer prefixes"
+            )
+        rows = torch.as_tensor(np.asarray(idx, np.int64)[:1], device=self.device)
+        prefix = torch.from_numpy(np.array(prefix, np.float32)).to(self.device)
+        with torch.no_grad():
+            preds = seqformer.prefill_cache(self.params, prefix[None], self._cache, rows,
+                                            torch.float32, window=self.window)
+        return preds[0, -1].cpu().numpy()
+
+    def apply_weights(self, tree):
+        """Adopt a published SeqFormer tree of this server's precision.  The
+        slot pool is untouched: live episodes keep their rows and positions
+        and decode under the new weights from the next tick."""
+        self._adopt(tree, "seqformer")
+
+    def reset_rows(self, idx):
+        # rewinding the position is the reset: the previous tenant's k/v
+        # sit at negative slot positions and never attend
+        self._cache["pos"][torch.as_tensor(np.asarray(idx, np.int64), device=self.device)] = 0
+
+
+# ---------------------------------------------------------------------------
+# the server
+# ---------------------------------------------------------------------------
+
+
+class _Pending:
+    __slots__ = ("ident", "mid", "msg", "t_enq", "span_trace", "t0_us", "mstate")
+
+    def __init__(self, ident, mid, msg, span_trace, t0_us, mstate):
+        self.ident = ident
+        self.mid = mid
+        self.msg = msg
+        self.t_enq = time.perf_counter()
+        self.span_trace = span_trace
+        self.t0_us = t0_us
+        self.mstate = mstate
+
+
+class _ModelState:
+    """One hosted model's serving state: its slot pool (or stateless
+    episode registry)."""
+
+    __slots__ = ("mid", "model", "free", "live", "stateless_eps")
+
+    def __init__(self, mid, model):
+        self.mid = mid
+        self.model = model
+        self.free = list(range(model.slots))
+        self.live = {}  # slot -> [episode lease id, monotonic last-use]
+        self.stateless_eps = {}  # stateless: episode id -> monotonic last-use
+
+
+class PolicyServer:
+    """One served model behind a ROUTER socket (continuous batching) or a
+    REP socket (``serial=True``, one request per exchange).
+
+    Params
+    ------
+    address: str
+        Endpoint to bind (``tcp://host:*`` binds an ephemeral port; the
+        resolved endpoint is :attr:`address`).
+    model:
+        A served-model adapter (:class:`LinearModel`, :class:`PolicyModel`,
+        :class:`SeqFormerModel`), or a ``{model_id: adapter}`` dict hosting
+        several behind one socket: requests carry ``model`` in the envelope
+        (none: the first model), each model keeps its own slot pool, and a
+        tick batches one model's requests.
+    serial: bool
+        REP socket, batch size 1, no queue.
+    tick_ms: float
+        How long a tick waits for co-arriving requests once one is queued.
+    max_batch: int
+        Largest bucket (and the most requests one tick serves); requests
+        pad to :func:`default_buckets`.
+    slot_ttl_s: float | None
+        Idle-slot eviction horizon for a reset that finds no free slot
+        (None: the reset is denied instead).
+    """
+
+    def __init__(self, address, model, *, serial=False, tick_ms=2.0, max_batch=64,
+                 slot_ttl_s=None, counters=None, timer=None, subscriber=None):
+        import zmq
+
+        if subscriber is not None:
+            raise NotImplementedError(f"subscriber=: {_BUS_MISSING}")
+        if isinstance(model, dict):
+            if not model:
+                raise ValueError("multi-model server needs >= 1 model")
+            self._models = {str(k): _ModelState(str(k), m) for k, m in model.items()}
+        else:
+            self._models = {model.kind: _ModelState(model.kind, model)}
+        self._default_id = next(iter(self._models))
+        self.serial = bool(serial)
+        self.tick_ms = float(tick_ms)
+        if int(max_batch) < 1:
+            raise ValueError(f"max_batch must be positive: {max_batch}")
+        self.buckets = default_buckets(int(max_batch))
+        self.max_batch = int(max_batch)
+        self.slot_ttl_s = slot_ttl_s
+        self.counters = counters if counters is not None else fleet_counters
+        self.timer = timer if timer is not None else StageTimer()
+        self._reply_cache = OrderedDict()
+        self._queue = deque()
+        self._pending = {}  # mid -> _Pending still queued (dedupe)
+        # the episode-lease sequence is server-global: no two hosted
+        # models hand out the same lease id
+        self._episode_seq = 0
+        self._ctx = zmq.Context.instance()
+        self._sock = self._ctx.socket(zmq.REP if self.serial else zmq.ROUTER)
+        self._sock.setsockopt(zmq.LINGER, 0)
+        if address.endswith(":*") or address.endswith(":0"):
+            base = address.rsplit(":", 1)[0]
+            port = self._sock.bind_to_random_port(base)
+            self.address = f"{base}:{port}"
+        else:
+            self._sock.bind(address)
+            self.address = address
+        self._poller = zmq.Poller()
+        self._poller.register(self._sock, zmq.POLLIN)
+
+    @property
+    def model(self):
+        """The default hosted model's adapter."""
+        return self._models[self._default_id].model
+
+    @property
+    def models(self):
+        """Hosted model ids, default first."""
+        return tuple(self._models)
+
+    def _state_or_error(self, msg):
+        mid = msg.get("model")
+        st = self._models.get(self._default_id if mid is None else mid)
+        if st is None:
+            return None, {"error": f"unknown model {mid!r}; hosted: {sorted(self._models)}"}
+        return st, None
+
+    # -- slot pool -----------------------------------------------------------
+
+    def _alloc_slot(self, st):
+        """Returns (slot, episode lease id), or (None, None) when full."""
+        if st.model.slots == 0:
+            self._episode_seq += 1
+            st.stateless_eps[self._episode_seq] = time.monotonic()
+            return -1, self._episode_seq
+        if not st.free and self.slot_ttl_s is not None:
+            now = time.monotonic()
+            stale = [s for s, (_, ts) in st.live.items() if now - ts > self.slot_ttl_s]
+            for s in stale:
+                del st.live[s]
+                st.free.append(s)
+            if stale:
+                self.counters.incr("serve_evictions", len(stale))
+        if not st.free:
+            return None, None
+        slot = st.free.pop()
+        self._episode_seq += 1
+        st.live[slot] = [self._episode_seq, time.monotonic()]
+        st.model.reset_rows(np.asarray([slot]))
+        return slot, self._episode_seq
+
+    def _free_slot(self, st, slot, episode=None):
+        lease = st.live.get(slot)
+        if lease is None:
+            return False
+        if episode is not None and lease[0] != episode:
+            return False  # a stale close must not kill the new tenant
+        del st.live[slot]
+        st.free.append(slot)
+        return True
+
+    # -- request handling ----------------------------------------------------
+
+    def _live_count(self, st):
+        return len(st.live) if st.model.slots > 0 else len(st.stateless_eps)
+
+    def _live_episodes(self):
+        return sum(self._live_count(st) for st in self._models.values())
+
+    def _capabilities(self, st):
+        return {"model": st.model.kind, "obs_dim": st.model.obs_dim,
+                "slots": st.model.slots, "serial": self.serial,
+                "int8": bool(getattr(st.model, "int8", False)),
+                "max_batch": self.max_batch, "buckets": list(self.buckets)}
+
+    def _cmd_hello(self, msg):
+        st = self._models[self._default_id]
+        return {
+            **self._capabilities(st),
+            "free_slots": len(st.free),
+            "models": {
+                s.mid: {"kind": s.model.kind, "obs_dim": s.model.obs_dim,
+                        "slots": s.model.slots, "free_slots": len(s.free),
+                        "int8": bool(getattr(s.model, "int8", False))}
+                for s in self._models.values()
+            },
+            "shm": None,
+            "pid": os.getpid(),
+        }
+
+    def _cmd_reset(self, msg):
+        st, err = self._state_or_error(msg)
+        if err is not None:
+            return err
+        slot, episode = self._alloc_slot(st)
+        if slot is None:
+            self.counters.incr("serve_slot_denied")
+            return {"error": (
+                f"no free episode slot ({st.model.slots} live on model "
+                f"{st.mid!r}); close an episode or raise slots="
+            )}
+        reply = {"slot": slot, "episode": episode}
+        prefix = msg.get("prefix")
+        if prefix is not None:
+            err = self._prefill(st, slot, episode, prefix, reply)
+            if err is not None:
+                return err
+        self.counters.incr("serve_resets")
+        return reply
+
+    def _prefill(self, st, slot, episode, prefix, reply):
+        """Prefill admission: replay a T-step prefix into the new slot with
+        one teacher-forced pass.  Fills ``reply`` on success; returns an
+        error reply (the slot freed again) on failure."""
+        def fail(text):
+            if st.model.slots > 0:
+                self._free_slot(st, slot, episode)
+            else:
+                st.stateless_eps.pop(episode, None)
+            return {"error": text}
+
+        if not hasattr(st.model, "prefill_rows") or st.model.slots == 0:
+            return fail(f"model {st.mid!r} ({st.model.kind}) is stateless or has no "
+                        "prefill path: admit without a prefix")
+        try:
+            prefix = np.asarray(prefix, np.float32)
+        except (TypeError, ValueError) as exc:
+            return fail(f"prefix not coercible to float32: {exc}")
+        if prefix.ndim != 2 or prefix.shape[0] < 1 or prefix.shape[1] != st.model.obs_dim:
+            return fail(f"prefix shape {prefix.shape} != (T >= 1, {st.model.obs_dim})")
+        try:
+            pred = st.model.prefill_rows(np.asarray([slot]), prefix)
+        except Exception as exc:  # noqa: BLE001 - surfaced to client
+            logger.exception("policy server: prefill failed")
+            return fail(f"prefill failed: {type(exc).__name__}: {exc}")
+        self.counters.incr("serve_prefills")
+        reply["pred"] = np.ascontiguousarray(pred)
+        reply["pos"] = int(prefix.shape[0])
+        return None
+
+    def _cmd_close(self, msg):
+        st, err = self._state_or_error(msg)
+        if err is not None:
+            return err
+        if st.model.slots == 0:
+            closed = st.stateless_eps.pop(msg.get("episode"), None) is not None
+        else:
+            closed = self._free_slot(st, int(msg.get("slot", -1)), msg.get("episode"))
+        if closed:
+            # a no-op close is answered but not counted: resets and closes
+            # must reconcile
+            self.counters.incr("serve_closes")
+        return {"closed": closed}
+
+    def _cmd_stats(self, msg):
+        st = self._models[self._default_id]
+        return {
+            "model": st.model.kind,
+            "slots": st.model.slots,
+            "live_slots": len(st.live),
+            "live_episodes": self._live_count(st),
+            "free_slots": len(st.free),
+            "queued": len(self._queue),
+            "serial": self.serial,
+            "models": list(self._models),
+            "weight_version": None,
+            "per_model": {
+                s.mid: {"slots": s.model.slots, "free_slots": len(s.free),
+                        "live_slots": len(s.live), "live_episodes": self._live_count(s)}
+                for s in self._models.values()
+            },
+            "counters": self.counters.snapshot(),
+            "pid": os.getpid(),
+        }
+
+    def _cmd_telemetry(self, msg):
+        """This process's counters and stage summaries, with its load and
+        capabilities."""
+        st = self._models[self._default_id]
+        return {
+            "model": st.model.kind,
+            "models": list(self._models),
+            "queued": len(self._queue),
+            "live_episodes": self._live_episodes(),
+            "weight_version": None,
+            "hello": self._capabilities(st),
+            "pid": os.getpid(),
+            "counters": self.counters.snapshot(),
+            "stages": self.timer.summary(),
+        }
+
+    def _control_reply(self, msg):
+        cmd = msg.get("cmd")
+        handler = getattr(self, f"_cmd_{cmd}", None)
+        if handler is None:
+            reply = {"error": f"unknown serve command {cmd!r}"}
+        else:
+            try:
+                reply = handler(msg)
+            except Exception as exc:  # noqa: BLE001 - surfaced to client
+                logger.exception("policy server: %r failed", cmd)
+                reply = {"error": f"{type(exc).__name__}: {exc}"}
+        if "error" in reply:
+            self.counters.incr("serve_errors")
+        return reply
+
+    def _finish(self, ident, msg, reply, *, span_name, t0_us):
+        """Stamp correlation id and span, cache mutating replies, send."""
+        mid = msg.get(wire.BTMID_KEY)
+        span_ctx = msg.get(wire.SPAN_KEY)
+        if isinstance(span_ctx, dict) and span_ctx.get("trace") is not None:
+            reply = dict(reply)
+            reply[wire.SPANS_KEY] = [make_span(span_name, t0_us,
+                                               trace=span_ctx["trace"], cat="serve")]
+        if mid is not None:
+            reply[wire.BTMID_KEY] = mid
+            if msg.get("cmd") in MUTATING_CMDS:
+                self._reply_cache[mid] = reply
+                while len(self._reply_cache) > REPLY_CACHE_DEPTH:
+                    self._reply_cache.popitem(last=False)
+        self._send(ident, reply)
+
+    def _send(self, ident, reply):
+        import zmq
+
+        try:
+            if self.serial:
+                sent = wire.send_message(self._sock, reply, raw_buffers=True)
+            else:
+                sent = wire.send_message_router(self._sock, ident, reply, raw_buffers=True)
+            self.counters.incr("serve_wire_bytes", sent)
+            self.counters.incr("serve_replies")
+        except zmq.ZMQError:
+            pass  # client gone; its retry will re-dial
+
+    @staticmethod
+    def _shm_refusal(msg):
+        """The refusal a client's shm upgrade request gets, or None for
+        workload traffic."""
+        if msg.get("cmd") not in SHM_CONTROL_CMDS:
+            return None
+        reply = {"error": _SHM_MISSING}
+        mid = msg.get(wire.BTMID_KEY)
+        if mid is not None:
+            reply[wire.BTMID_KEY] = mid
+        return reply
+
+    def _admit(self, ident, msg):
+        """One decoded request: answer control commands at once, queue
+        ``step``s for the next tick, dedupe retries."""
+        self.counters.incr("serve_requests")
+        mid = msg.get(wire.BTMID_KEY)
+        cmd = msg.get("cmd")
+        t0_us = now_us()
+        if mid is not None and cmd in MUTATING_CMDS and mid in self._reply_cache:
+            # a retry of an executed request: the cached reply answers it
+            self.counters.incr("serve_cache_hits")
+            self._send(ident, self._reply_cache[mid])
+            return
+        if cmd != "step":
+            reply = self._control_reply(msg)
+            self._finish(ident, msg, reply, span_name=f"serve:{cmd}", t0_us=t0_us)
+            return
+        if mid is not None and mid in self._pending:
+            # a retry of a request still queued: the original's reply
+            # answers it, sent to the latest route
+            self.counters.incr("serve_dup_inflight")
+            self._pending[mid].ident = ident
+            return
+        st, err = self._state_or_error(msg)
+        if err is not None:
+            self.counters.incr("serve_errors")
+            self._finish(ident, msg, err, span_name="serve:step", t0_us=t0_us)
+            return
+        span_ctx = msg.get(wire.SPAN_KEY)
+        trace = (span_ctx or {}).get("trace") if isinstance(span_ctx, dict) else None
+        ent = _Pending(ident, mid, msg, trace, t0_us, st)
+        self._queue.append(ent)
+        if mid is not None:
+            self._pending[mid] = ent
+
+    def _step_entry_error(self, ent, text, lease=None):
+        """Error-reply one queued step; ``lease`` ("unknown"/"stale") rides
+        as a structured field."""
+        self.counters.incr("serve_errors")
+        reply = {"error": text}
+        if lease is not None:
+            reply["lease"] = lease
+        self._finish(ent.ident, ent.msg, reply, span_name="serve:step", t0_us=ent.t0_us)
+
+    def _tick(self):
+        """Drain up to ``max_batch`` queued steps of one model (the queue
+        head's) into one padded, bucketed model call and scatter the
+        replies.  Returns True when entries of another model were left at
+        the front of the queue (the serve loop ticks again at once)."""
+        t_assemble = time.perf_counter()
+        head = None
+        skipped = deque()
+        batch = []
+        while self._queue and len(batch) < self.max_batch:
+            ent = self._queue.popleft()
+            if head is None:
+                head = ent.mstate
+            elif ent.mstate is not head:
+                skipped.append(ent)
+                continue
+            if ent.mid is not None:
+                self._pending.pop(ent.mid, None)
+            st = ent.mstate
+            stateful = st.model.slots > 0
+            slot = int(ent.msg.get("slot", -1)) if stateful else -1
+            if not stateful:
+                ep = ent.msg.get("episode")
+                if ep is not None:
+                    st.stateless_eps[ep] = time.monotonic()
+            if stateful:
+                lease = st.live.get(slot)
+                if lease is None:
+                    self._step_entry_error(ent, (
+                        f"unknown episode slot {slot} (closed, evicted, or a "
+                        "restarted server): reset() and resume"), lease="unknown")
+                    continue
+                if ent.msg.get("episode") not in (None, lease[0]):
+                    self._step_entry_error(ent, (
+                        f"stale episode lease for slot {slot} (evicted and "
+                        "reassigned): reset() and resume"), lease="stale")
+                    continue
+            try:
+                obs = np.asarray(ent.msg.get("obs"), np.float32)
+            except (TypeError, ValueError) as exc:
+                self._step_entry_error(ent, f"step obs not coercible to float32: {exc}")
+                continue
+            if obs.shape != (head.model.obs_dim,):
+                self._step_entry_error(
+                    ent, f"step obs shape {obs.shape} != ({head.model.obs_dim},)")
+                continue
+            batch.append((ent, slot, obs))
+        more = bool(skipped)
+        while skipped:
+            self._queue.appendleft(skipped.pop())
+        if not batch:
+            return more
+        model = head.model
+        stateful = model.slots > 0
+        n = len(batch)
+        bucket = next((b for b in self.buckets if b >= n), self.buckets[-1])
+        for ent, _, _ in batch:
+            self.timer.add("queue_wait", t_assemble - ent.t_enq)
+        idx = np.full(bucket, model.pad_slot, np.int64)
+        obs_arr = np.zeros((bucket, model.obs_dim), np.float32)
+        pos_before = []
+        now = time.monotonic()
+        for j, (ent, slot, obs) in enumerate(batch):
+            idx[j] = slot if stateful else j
+            obs_arr[j] = obs
+            if stateful:
+                head.live[slot][1] = now
+            pos_before.append(int(model.pos[slot])
+                              if hasattr(model, "pos") and stateful else None)
+        t_compute = time.perf_counter()
+        self.timer.add("batch_assemble", t_compute - t_assemble)
+        try:
+            preds = model.step_rows(idx, obs_arr)
+        except Exception as exc:  # noqa: BLE001 - server must survive
+            logger.exception("policy server: batched step failed")
+            for ent, _, _ in batch:
+                self._step_entry_error(
+                    ent, f"batched step failed: {type(exc).__name__}: {exc}")
+            return more
+        t_reply = time.perf_counter()
+        self.timer.add("compute", t_reply - t_compute)
+        self.counters.incr("serve_batches")
+        if bucket > n:
+            self.counters.incr("serve_batch_pad", bucket - n)
+        for j, (ent, slot, _) in enumerate(batch):
+            reply = {"pred": np.ascontiguousarray(preds[j])}
+            if pos_before[j] is not None:
+                reply["pos"] = pos_before[j]
+            self._finish(ent.ident, ent.msg, reply, span_name="serve:step",
+                         t0_us=ent.t0_us)
+        self.timer.add("reply", time.perf_counter() - t_reply)
+        return more
+
+    # -- serving -------------------------------------------------------------
+
+    def _window_target(self):
+        """Queue occupancy at which an admission window stops waiting:
+        every live episode (each keeps at most one step in flight), capped
+        at the largest bucket; idle stateless episodes are pruned after
+        :data:`STATELESS_TTL_S`."""
+        live = 0
+        for st in self._models.values():
+            if st.model.slots == 0 and st.stateless_eps:
+                cutoff = time.monotonic() - STATELESS_TTL_S
+                for ep, ts in list(st.stateless_eps.items()):
+                    if ts < cutoff:
+                        del st.stateless_eps[ep]
+            live += self._live_count(st)
+        return min(self.max_batch, max(1, live))
+
+    def _drain(self):
+        """Admit every request sitting on the socket."""
+        import zmq
+
+        def handle(out):
+            ident, msg, nbytes = out
+            self.counters.incr("serve_wire_bytes", nbytes)
+            reply = self._shm_refusal(msg)
+            if reply is not None:
+                try:
+                    wire.send_message_router(self._sock, ident, reply)
+                except zmq.ZMQError:
+                    pass
+                return
+            self._admit(ident, msg)
+
+        drain_socket(
+            lambda: wire.recv_message_router_sized(self._sock, flags=zmq.NOBLOCK),
+            handle, self.counters, "policy server", "request")
+
+    def serve_forever(self, stop_event=None, poll_ms=50):
+        import zmq
+
+        if self.serial:
+            self._serve_serial(stop_event, poll_ms)
+            return
+        while stop_event is None or not stop_event.is_set():
+            try:
+                if not self._queue:
+                    self._poller.poll(poll_ms)
+                    self._drain()
+                    if not self._queue:
+                        continue
+                # admission window: wait up to tick_ms for co-arriving
+                # requests; leave on the first empty poll slice, a full
+                # bucket, or once every live episode has a step queued
+                t_end = time.perf_counter() + self.tick_ms / 1000.0
+                while len(self._queue) < self._window_target():
+                    rem_ms = (t_end - time.perf_counter()) * 1e3
+                    if rem_ms <= 0:
+                        break
+                    if not self._poller.poll(max(1, int(rem_ms))):
+                        break
+                    self._drain()
+            except zmq.ZMQError:
+                return  # socket closed under us: clean shutdown
+            if self._queue:
+                while self._tick():
+                    pass
+
+    def _serve_serial(self, stop_event, poll_ms):
+        """The REP baseline: one request, one (batch-1) reply."""
+        import zmq
+
+        while stop_event is None or not stop_event.is_set():
+            try:
+                if not self._poller.poll(poll_ms):
+                    continue
+                try:
+                    msg, nbytes = wire.recv_message_sized(self._sock)
+                    self.counters.incr("serve_wire_bytes", nbytes)
+                except zmq.ZMQError:
+                    return
+                except Exception as exc:  # noqa: BLE001 - see _drain
+                    # REP alternation: the garbled request was consumed, so
+                    # a reply is owed before the next recv
+                    self.counters.incr("serve_errors")
+                    logger.warning("policy server: undecodable request (%s: %s)",
+                                   type(exc).__name__, exc)
+                    self._send(None, {"error": "undecodable request (corrupt frames)"})
+                    continue
+            except zmq.ZMQError:
+                return
+            reply = self._shm_refusal(msg)
+            if reply is not None:
+                try:
+                    wire.send_message(self._sock, reply)
+                except zmq.ZMQError:
+                    return
+                continue
+            self._admit(None, msg)
+            while self._queue:
+                self._tick()
+
+    def close(self):
+        try:
+            self._sock.close(0)
+        except Exception:  # noqa: BLE001 - shutdown best-effort
+            pass
+
+
+# ---------------------------------------------------------------------------
+# in-process surface
+# ---------------------------------------------------------------------------
+
+
+class _LocalServerHandle:
+    """An in-process server (thread) for tests and benchmarks."""
+
+    def __init__(self, server, thread, stop):
+        self.server = server
+        self.address = server.address
+        self._thread = thread
+        self._stop = stop
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.server.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def start_server_thread(model, *, address="tcp://127.0.0.1:*", serial=False,
+                        counters=None, timer=None, **kwargs):
+    """Serve a :class:`PolicyServer` from a daemon thread; returns a handle
+    with ``.address``, ``.server`` and ``.close()``."""
+    server = PolicyServer(address, model, serial=serial, counters=counters, timer=timer,
+                          **kwargs)
+    stop = threading.Event()
+    thread = threading.Thread(target=server.serve_forever, kwargs={"stop_event": stop},
+                              daemon=True, name="bjx-policy-server")
+    thread.start()
+    return _LocalServerHandle(server, thread, stop)
+
+
+class ServerProcess:
+    """Not ported yet: the supervised server process."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(_SUPERVISED_MISSING)
+
+
+class ServerFleet(ServerProcess):
+    """Not ported yet: a fleet of supervised server processes."""
+
+
+# ---------------------------------------------------------------------------
+# process entry point
+# ---------------------------------------------------------------------------
+
+
+def build_model(args, kind=None, seed=None):
+    """Deterministic model construction from CLI args (params drawn from a
+    generator seeded ``--seed`` on ``--device``).  ``kind``/``seed``
+    override the args' own (the ``--extra-model`` path)."""
+    from blendjax_torch.utils.device import resolve_device
+
+    kind = args.model if kind is None else kind
+    seed = args.seed if seed is None else seed
+    if kind == "linear":
+        return LinearModel(obs_dim=args.obs_dim, slots=args.slots, seed=seed)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "policy":
+        from blendjax_torch.models import policy
+
+        params = policy.init(gen, args.obs_dim, args.num_actions, device=device)
+        return PolicyModel(params, args.obs_dim, int8=args.int8)
+    if kind == "seqformer":
+        from blendjax_torch.models import seqformer
+
+        params = seqformer.init(gen, obs_dim=args.obs_dim, d_model=args.d_model,
+                                n_heads=args.n_heads, n_layers=args.n_layers,
+                                max_len=max(args.length, 8), device=device)
+        return SeqFormerModel(params, args.slots, args.length, window=args.window,
+                              int8=args.int8)
+    raise ValueError(f"unknown --model {kind!r}")
+
+
+#: options of the reference's server that the port does not have yet
+NOT_PORTED = {"--subscribe": _BUS_MISSING, "--shm-base": _SHM_MISSING}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Serve one blendjax_torch policy/world-model.")
+    ap.add_argument("--address", required=True)
+    ap.add_argument("--model", default="linear", choices=("linear", "policy", "seqformer"))
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs (default: the card)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obs-dim", type=int, default=8)
+    ap.add_argument("--num-actions", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=16)
+    ap.add_argument("--length", type=int, default=64)
+    ap.add_argument("--window", type=int, default=None)
+    ap.add_argument("--d-model", type=int, default=32)
+    ap.add_argument("--n-heads", type=int, default=4)
+    ap.add_argument("--n-layers", type=int, default=2)
+    ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--serial", action="store_true")
+    ap.add_argument("--tick-ms", type=float, default=2.0)
+    ap.add_argument("--max-batch", type=int, default=64)
+    ap.add_argument("--extra-model", action="append", default=[], metavar="NAME=KIND",
+                    help="host an additional model under NAME; the i'th extra model "
+                         "inits from seed+1+i")
+    for flag, why in NOT_PORTED.items():
+        ap.add_argument(flag, default=None, help=f"not ported: {why}")
+    args = ap.parse_args(argv)
+    for flag, why in NOT_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            sys.exit(f"{flag}: {why}")
+    logging.basicConfig(level=logging.INFO)
+    model = build_model(args)
+    if args.extra_model:
+        models = {model.kind: model}
+        for i, spec in enumerate(args.extra_model):
+            name, sep, kind = spec.partition("=")
+            if not sep or not name or not kind:
+                ap.error(f"--extra-model needs NAME=KIND, got {spec!r}")
+            if name in models:
+                ap.error(f"duplicate hosted model name {name!r}")
+            models[name] = build_model(args, kind=kind, seed=args.seed + 1 + i)
+        model = models
+    server = PolicyServer(args.address, model, serial=args.serial, tick_ms=args.tick_ms,
+                          max_batch=args.max_batch)
+    stop = threading.Event()
+
+    def _term(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _term)
+    signal.signal(signal.SIGINT, _term)
+    logger.info("policy server (%s%s) serving %s", args.model,
+                ", int8" if args.int8 else "", server.address)
+    try:
+        server.serve_forever(stop_event=stop)
+    finally:
+        server.close()
+
+
+if __name__ == "__main__":
+    main()

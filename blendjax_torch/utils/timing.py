@@ -17,7 +17,8 @@ wait), ``collate`` (batch assembly in a worker, collate path),
 ``arena_wait`` (a worker blocked on an exhausted arena pool), ``scatter``
 (wire frames copied into an arena batch), ``device_put`` (staging +
 host->device copy issue) and ``recycle`` (the wait for an arena's copy to
-complete, and its return to the pool), under the reference's names.  The chrome-trace export of
+complete, and its return to the pool), under the reference's names; the
+policy server records :data:`SERVE_STAGES`.  The chrome-trace export of
 ``blendjax.utils.timing`` is not ported.
 """
 
@@ -58,6 +59,37 @@ class EventCounters:
         with self._lock:
             self._counts.clear()
 
+
+#: Canonical policy-serving event names
+#: (:class:`blendjax_torch.serve.server.PolicyServer`), the reference's:
+#: ``serve_requests`` / ``serve_replies`` — requests admitted, replies
+#: sent; ``serve_batches`` — batched model calls (ticks);
+#: ``serve_batch_pad`` — padding rows added to reach a bucket;
+#: ``serve_cache_hits`` — retried requests answered from the reply cache;
+#: ``serve_dup_inflight`` — duplicates of a still-queued request dropped at
+#: admission; ``serve_resets`` / ``serve_closes`` — episodes admitted and
+#: closed; ``serve_evictions`` — idle slots reclaimed; ``serve_slot_denied``
+#: — resets refused for want of a slot; ``serve_errors`` — requests
+#: answered with an error (or dropped as undecodable); ``serve_prefills``
+#: — episodes admitted with an observation prefix; ``serve_wire_bytes`` —
+#: request and reply payload bytes over the socket; ``serve_shm_bytes`` —
+#: the same through shared-memory rings (no such transport in the port
+#: yet: ROADMAP Queue 1, item 8).
+SERVE_EVENTS = (
+    "serve_requests", "serve_replies", "serve_batches",
+    "serve_batch_pad", "serve_cache_hits", "serve_dup_inflight",
+    "serve_resets", "serve_closes", "serve_evictions",
+    "serve_slot_denied", "serve_errors", "serve_prefills",
+    "serve_wire_bytes", "serve_shm_bytes",
+)
+
+#: Canonical policy-serving stage names (:class:`StageTimer`):
+#: ``queue_wait`` (admission to batch dequeue), ``batch_assemble`` (drain,
+#: pad to the bucket, host arrays), ``compute`` (the batched model call, to
+#: its result on the host), ``reply`` (the batch's replies sent).
+SERVE_STAGES = (
+    "queue_wait", "batch_assemble", "compute", "reply",
+)
 
 #: Process-wide default counter registry.  Component constructors take a
 #: ``counters=`` override for isolated accounting.

@@ -177,20 +177,32 @@ def decode(frames) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def frames_nbytes(frames) -> int:
+    """Payload bytes of a frame list (the serve tier's wire accounting)."""
+    return sum(memoryview(f).nbytes for f in frames)
+
+
 def send_message(socket: zmq.Socket, data: dict, raw_buffers: bool = False,
-                 flags: int = 0):
-    """Send one message."""
+                 flags: int = 0) -> int:
+    """Send one message; returns its payload byte count."""
     frames = encode(data, raw_buffers=raw_buffers)
     if len(frames) == 1:
         socket.send(frames[0], flags=flags)
     else:
         socket.send_multipart(frames, flags=flags, copy=False)
+    return frames_nbytes(frames)
 
 
 def recv_message(socket: zmq.Socket, flags: int = 0) -> dict:
     """Receive and decode one message (zero-copy array views)."""
+    return recv_message_sized(socket, flags)[0]
+
+
+def recv_message_sized(socket: zmq.Socket, flags: int = 0):
+    """:func:`recv_message` plus the payload byte count."""
     frames = socket.recv_multipart(flags=flags, copy=False)
-    return decode([f.buffer for f in frames])
+    bufs = [f.buffer for f in frames]
+    return decode(bufs), frames_nbytes(bufs)
 
 
 def recv_message_raw(socket: zmq.Socket, flags: int = 0):
@@ -226,3 +238,33 @@ def recv_message_dealer(socket: zmq.Socket, flags: int = 0) -> dict:
     if bufs and len(bufs[0]) == 0:
         bufs = bufs[1:]
     return decode(bufs)
+
+
+# ---------------------------------------------------------------------------
+# ROUTER <-> DEALER framing
+# ---------------------------------------------------------------------------
+#
+# A ROUTER socket serves many DEALER clients: each request arrives behind
+# the client's routing frame and the empty delimiter the client framed
+# with, and the reply goes back behind both.  The same DEALER clients speak
+# to REP and ROUTER servers unmodified.
+
+
+def recv_message_router_sized(socket: zmq.Socket, flags: int = 0):
+    """Receive one DEALER client's request on a ROUTER socket: returns
+    ``(identity, message, payload bytes)``; ``identity`` is the routing
+    frame to hand back to :func:`send_message_router`."""
+    frames = socket.recv_multipart(flags=flags, copy=True)
+    ident, body = frames[0], frames[1:]
+    if body and len(body[0]) == 0:
+        body = body[1:]
+    return ident, decode(body), frames_nbytes(body)
+
+
+def send_message_router(socket: zmq.Socket, ident: bytes, data: dict,
+                        raw_buffers: bool = False, flags: int = 0) -> int:
+    """Send ``data`` to the DEALER client behind routing frame ``ident``,
+    restoring the empty delimiter; returns the payload byte count."""
+    frames = encode(data, raw_buffers=raw_buffers)
+    socket.send_multipart([ident, b""] + frames, flags=flags, copy=False)
+    return frames_nbytes(frames)

@@ -4,13 +4,17 @@ path.
 
     python -m blendjax_torch.worldmodel                 # full attention
     python -m blendjax_torch.worldmodel --attn flash    # the flash kernels
+    python -m blendjax_torch.worldmodel --dream 32      # ... then dream
 
 Producers (:file:`btb/episodes.blend.py`, seeded pendulum episodes) stream
 episodes; the feed casts each batch to float16 on the host
 (:func:`episode_transform`), stages it onto the card, and the obs/target
 views are sliced on the device.  Point ``$BLENDJAX_BLENDER`` at a Blender,
 or at ``tests/helpers/fake_blender.py``.  The training loop is
-:func:`train_on_episodes`, usable with any iterator of device batches.
+:func:`train_on_episodes`, usable with any iterator of device batches;
+``--dream N`` then rolls the trained model forward open-loop from a
+held-out episode's prefix (:func:`dream`, the KV-cache rollout), in int8
+with ``--dream-int8``.
 """
 
 from __future__ import annotations
@@ -38,9 +42,6 @@ PARALLEL_ATTN = ("ring", "ring_flash", "zigzag_flash", "ulysses", "ulysses_flash
 #: the ROADMAP queue item that ports them
 NOT_PORTED = {
     "--mesh": "the sharded path waits for the parallel layer (ROADMAP Queue 1, item 7)",
-    "--dream": "rollout/decode_step wait for the serving adapters (ROADMAP Queue 1, item 5)",
-    "--dream-int8": "rollout and int8 quantization wait for the serving adapters "
-                    "(ROADMAP Queue 1, item 5)",
 }
 
 
@@ -102,6 +103,27 @@ def train_on_episodes(batches, state=None, attn=None, d_model=128, n_heads=4,
     return state, losses
 
 
+def dream(state, episode, prefix_len, n_steps, window=None, int8=False):
+    """Roll the trained world model forward without the simulator: feed
+    ``prefix_len`` real observations of ``episode`` (B, T, D), then its own
+    predictions for ``n_steps`` (:func:`seqformer.rollout`, f32 compute;
+    ``int8`` quantizes the params first).  Returns (predicted (B, n_steps,
+    D) on the params' device, open-loop MSE against the real
+    continuation)."""
+    params = {k: v.detach() for k, v in state.params.items()}
+    if int8:
+        from blendjax_torch.ops.quant import quantize_seqformer
+
+        params = quantize_seqformer(params)
+    device = next(iter(params.values())).device
+    episode = torch.as_tensor(np.asarray(episode, np.float32), device=device)
+    with torch.no_grad():
+        preds = seqformer.rollout(params, episode[:, :prefix_len], n_steps,
+                                  compute_dtype=torch.float32, window=window)
+    real = episode[:, prefix_len:prefix_len + n_steps]
+    return preds, float(torch.mean((preds - real) ** 2))
+
+
 def simulate_episode(rng, batch, T_steps=None, obs_dim=OBS_DIM):
     """Host-side pendulum episodes with the producer's dynamics, (batch,
     T_steps + 1, obs_dim) float32: held-out data without a fleet."""
@@ -120,6 +142,16 @@ def main(argv=None):
                     help="position encoding")
     ap.add_argument("--window", type=int, default=None,
                     help="sliding-window attention width (causal)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model trains and dreams (default: the card)")
+    ap.add_argument("--start-port", type=int, default=11000,
+                    help="the producers' first DATA port")
+    ap.add_argument("--dream", type=int, default=0,
+                    help="after training, roll the model forward this many steps "
+                         "open-loop from a held-out episode prefix and report the "
+                         "MSE against the real continuation")
+    ap.add_argument("--dream-int8", action="store_true",
+                    help="quantize the trained model (w8a8) before dreaming")
     for flag, why in NOT_PORTED.items():
         ap.add_argument(flag, nargs="?", const="", help=f"not ported: {why}")
     args = ap.parse_args(argv)
@@ -132,14 +164,27 @@ def main(argv=None):
     except ValueError as exc:
         sys.exit(str(exc))
     with btt.BlenderLauncher(scene="", script=str(SCRIPT), num_instances=args.instances,
-                             named_sockets=["DATA"], background=True) as bl:
+                             named_sockets=["DATA"], background=True,
+                             start_port=args.start_port) as bl:
         ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
                                        max_items=args.batches * args.batch)
         with btt.TorchStream(ds, batch_size=args.batch, num_workers=args.instances,
-                             transform=episode_transform) as stream:
-            _, losses = train_on_episodes(stream, attn=attn_fn, pos_encoding=args.pos)
+                             transform=episode_transform, device=args.device) as stream:
+            state, losses = train_on_episodes(stream, attn=attn_fn, pos_encoding=args.pos,
+                                              device=args.device)
     print(f"trained {len(losses)} batches; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     print("stage timing:", stream.timer.summary())
+    if args.dream > 0:
+        prefix_len = T // 2
+        # rope has no table bound: the requested horizon is honoured
+        n_steps = args.dream if args.pos == "rope" else min(args.dream, T - prefix_len)
+        # a fresh episode the model never saw, with the producers' dynamics
+        episode = simulate_episode(np.random.default_rng(123), batch=2,
+                                   T_steps=prefix_len + n_steps)
+        _, mse = dream(state, episode, prefix_len, n_steps, window=args.window,
+                       int8=args.dream_int8)
+        print(f"dream: {n_steps} open-loop steps from a {prefix_len}-step prefix, "
+              f"MSE vs real continuation {mse:.5f}")
 
 
 if __name__ == "__main__":

@@ -110,9 +110,37 @@ Phases, each printing JSON lines:
               (bit-equal, and equal to the live run); one step of each on
               the card against the CPU at f32 within ``DO_ATOL``.
 
+13. quant   — the int8 products (``ops/quant.py``: ``torch._int_mm``) on the
+              card equal the CPU's int64 products exactly at the flagship's
+              projection shapes (k = 1,024 and 4,096; 1, 8 and 16 rows) and
+              the detector's three convs on (8, 480, 640, 3), each timed
+              beside its f32 counterpart.
+14. serve   — the flagship SeqFormer (rope) served by ``PolicyServer`` from
+              16 slots with a 512-step ring to 8 ``ServeClient`` threads
+              (32-step episodes, each client's first admitted with a 16-step
+              prefix): float batched, serial and int8 windows in turns, with
+              the serve benchmark's metrics (``serve_qps``, ``serve_p50_ms``,
+              ``serve_p99_ms``, ``serve_batch_x``, ``serve_int8_x``), the
+              ``SERVE_STAGES`` p50s, each captured bucket's device time
+              beside its bound, and a profile of the 8-row tick (float and
+              int8: busy time, kernels, the ten costliest).  Checked: captured ticks bit-equal to eager
+              ones, every bucket; batched per-row decode against each episode
+              alone (1e-5); the card against the CPU on a small model (1e-5).
+              ``serve_small`` repeats the windows at the serve benchmark's
+              own width (d_model 64, 4 heads, 2 layers, a 64-step ring).
+15. dream   — ``worldmodel.dream`` on the world-model phase's flash-trained
+              model: batch 8, a 64-step prefix, 448 dreamed steps, float and
+              int8 in turns (steps/s); the rollout against the CPU on a small
+              model (1e-5).
+16. infer_int8 — ``generate.py --infer-int8``'s path: 2 producers, the first
+              batch held back, the detector trained on the rest, then K1's
+              decode to f32 and the int8 detector; against the CPU on the
+              same frames (``INFER_INT8_ATOL``).
+
 Every kernel's launch count is zeroed just before the path that runs it
-(the datagen stream and the densityopt loop for the decode kernel, the
-world-model stream for the flash kernels) and read just after; a kernel a
+(the datagen stream, the densityopt loop and the int8 inference for the
+decode kernel, the world-model stream for the flash kernels) and read just
+after; a kernel a
 path never launched fails the run.  The line before the last holds every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 without printing it, as does a host without CUDA or a directory without
@@ -161,6 +189,10 @@ SEQ = dict(batch=8, seq_len=512, obs_dim=32, d_model=1024, n_heads=8, n_layers=8
 FLASH_SHAPE = (SEQ["batch"], SEQ["seq_len"], SEQ["n_heads"],
                SEQ["d_model"] // SEQ["n_heads"])  # (B, T, H, Dh)
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")  # each counted by route too
+#: the card's name and power limit as nvidia-smi prints them, and its HBM
+#: rate (set by main)
+CARD = None
+HBM_RATE = None
 
 
 def emit(obj):
@@ -1198,7 +1230,7 @@ def worldmodel_phase(torch, btt, worldmodel, flash):
         with btt.TorchStream(ds, batch_size=batch_size, num_workers=2, device="cuda",
                              transform=worldmodel.episode_transform, arena="auto") as stream:
             _zero_flash_counts(flash)
-            _, losses = worldmodel.train_on_episodes(
+            state, losses = worldmodel.train_on_episodes(
                 _stamped(stream, arrivals, check_batch), attn=attn, log_every=0,
                 **sizing)
             torch.cuda.synchronize()
@@ -1223,7 +1255,7 @@ def worldmodel_phase(torch, btt, worldmodel, flash):
     for name, r in routes.items():
         check(r == {"tc": launches[name], "f32": 0},
               f"every world-model {name} launch took the tensor-core route")
-    return launches, routes
+    return launches, routes, state
 
 
 # -- RL: the env layer, the policy and the control twins -----------------------
@@ -1896,6 +1928,430 @@ def densityopt_phase(torch, btt, image):
 
 
 
+# -- serving: int8 products, the policy server, dreaming, int8 inference -------
+
+#: the flagship SeqFormer served (benchmarks/suite_device.py's widths, rope as
+#: benchmarks/serve_benchmark.py builds the served model): 16 slots, a
+#: 512-step ring; 8 clients, 32-step episodes, each client's first admitted
+#: with a 16-step prefix
+SERVE = dict(obs_dim=32, d_model=1024, n_heads=8, n_layers=8, slots=16, length=512,
+             clients=8, episode_len=32, prefix=16, window_s=3.0, rounds=2)
+#: serve_benchmark.py's own width, a short window: the launch-bound case
+SERVE_SMALL = dict(obs_dim=8, d_model=64, n_heads=4, n_layers=2, slots=16, length=64,
+                   clients=8, episode_len=32, prefix=16, window_s=1.0, rounds=1)
+SERVE_MODES = ("batched", "serial", "int8")
+#: the dream: batch 8, a 64-step prefix, 448 dreamed steps (T = 512 in all)
+DREAM = dict(batch=8, prefix=64, steps=448)
+#: card against CPU on small models (f32); int8 keypoints after K1
+SERVE_ATOL = 1e-5
+INFER_INT8_ATOL = 1e-3
+
+
+def _stamp(rec):
+    """A record with the card's name and power limit beside its numbers."""
+    return {**rec, "card": CARD}
+
+
+def quant_phase(torch, quant, layers):
+    """The int8 products (``torch._int_mm``, the weights laid out as the
+    quantizers store them) on the card against the CPU's int64 products,
+    exactly, at the flagship's projection shapes and the detector's three
+    convs on (8, 480, 640, 3); each timed beside its f32 counterpart (TF32
+    off)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    d, ff = SEQ["d_model"], 4 * SEQ["d_model"]
+    rows = []
+    for m in (1, 8, 16):
+        for k, n in ((d, d), (d, ff), (ff, d)):
+            a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+            # the weight as the quantizer stores it (column-major)
+            b = quant.quantize_dense({"w": torch.randn((k, n), generator=g),
+                                      "b": torch.zeros(n)})["w_q"]
+            got = quant.int8_matmul(a.cuda(), b.cuda())
+            check(got.dtype == torch.int32 and torch.equal(got.cpu().long(), a.long() @ b.long()),
+                  f"int8 product ({m}, {k}) x ({k}, {n}) on the card == the CPU's int64")
+            ac, bc = a.cuda(), b.cuda()
+            af, bf = ac.float(), bc.float()
+            rows.append({"shape": [m, k, n], "exact": True,
+                         "int8_ms": time_ms(torch, lambda: quant.int8_matmul(ac, bc),
+                                            flush=flush),
+                         "f32_ms": time_ms(torch, lambda: af @ bf, flush=flush)})
+    n, h, w = MAIN_SHAPE[:3]
+    channels = (3, 32, 64, 128)
+    for i in range(3):
+        c_in, c_out = channels[i], channels[i + 1]
+        hi, wi = h >> i, w >> i
+        x = torch.randint(-127, 128, (n, hi, wi, c_in), dtype=torch.int8, generator=g)
+        wq = quant.quantize_conv({"w": torch.randn((c_out, c_in, 3, 3), generator=g),
+                                  "b": torch.zeros(c_out)})["w_q"]
+        got = quant.conv_accumulate(x.cuda(), wq.cuda(), stride=2)
+        # the CPU's reference: the same SAME conv in float64 (exact: every
+        # partial sum of int8 products is an integer below 2**53)
+        h0, h1 = layers.same_padding(hi, 3, 2)
+        w0, w1 = layers.same_padding(wi, 3, 2)
+        xp = F.pad(x.double().permute(0, 3, 1, 2), (w0, w1, h0, h1))
+        want = F.conv2d(xp, wq.double(), stride=2).permute(0, 2, 3, 1).long()
+        check(got.dtype == torch.int32 and torch.equal(got.cpu().long(), want),
+              f"int8 conv {i} ({n}, {hi}, {wi}, {c_in}) -> {c_out} on the card == the CPU's")
+        xc, wc = x.cuda(), wq.cuda()
+        pf = {"w": wc.float(), "b": torch.zeros(c_out, device="cuda")}
+        xf = xc.float()
+        rows.append({"conv": i, "input": [n, hi, wi, c_in], "c_out": c_out, "exact": True,
+                     "int8_ms": time_ms(torch, lambda: quant.conv_accumulate(xc, wc, 2),
+                                        reps=20, flush=flush),
+                     "f32_ms": time_ms(torch, lambda: layers.conv_apply(pf, xf, stride=2),
+                                       reps=20, flush=flush)})
+    emit(_stamp({"phase": "quant", "products": rows}))
+
+
+def _serve_params(torch, seqformer, cfg, device="cuda", seed=0):
+    return seqformer.init(torch.Generator(device=device).manual_seed(seed),
+                          obs_dim=cfg["obs_dim"], d_model=cfg["d_model"],
+                          n_heads=cfg["n_heads"], n_layers=cfg["n_layers"],
+                          pos_encoding="rope", device=device)
+
+
+def _ticks(np, cfg, model, n_ticks, seed):
+    """Seeded ticks ``(idx, obs)`` over every bucket up to the slots: each
+    tick's rows are distinct live slots, padded onto the pad row."""
+    rng = np.random.default_rng(seed)
+    out = []
+    sizes = [b for b in (1, 2, 4, 8, 16) if b <= cfg["slots"]]
+    for t in range(n_ticks):
+        bucket = sizes[t % len(sizes)]
+        live = rng.choice(cfg["slots"], size=int(rng.integers(1, bucket + 1)), replace=False)
+        idx = np.full(bucket, model.pad_slot, np.int64)
+        idx[:len(live)] = live
+        obs = np.zeros((bucket, cfg["obs_dim"]), np.float32)
+        obs[:len(live)] = rng.standard_normal((len(live), cfg["obs_dim"]))
+        out.append((idx, obs, len(live)))
+    return out
+
+
+def _captured_vs_eager(torch, np, serve, params, cfg, int8):
+    """Captured ticks bit-equal to eager ones over the same seeded ticks,
+    every bucket, at ``int8``'s precision; returns the captured model and
+    the buckets held."""
+    what = "int8" if int8 else "f32"
+    eager = serve.SeqFormerModel(params, cfg["slots"], cfg["length"], int8=int8,
+                                 capture=False)
+    captured = serve.SeqFormerModel(params, cfg["slots"], cfg["length"], int8=int8)
+    check(captured.captured, f"the served {what} SeqFormer captures its ticks on the card")
+    for idx, obs, _ in _ticks(np, cfg, eager, 20, seed=1):
+        a, b = eager.step_rows(idx, obs), captured.step_rows(idx, obs)
+        check(np.array_equal(a, b),
+              f"captured {what} tick (bucket {len(idx)}) == eager, bit for bit")
+    check(all(torch.equal(x, y) for x, y in zip(eager._cache["k"] + eager._cache["v"],
+                                               captured._cache["k"] + captured._cache["v"]))
+          and torch.equal(eager._cache["pos"], captured._cache["pos"]),
+          f"the captured {what} ticks left the caches as the eager ones")
+    return captured, sorted({sig[1][1][0] for sig in captured.graphs.graphs})
+
+
+def _serve_checks(torch, np, seqformer, serve, cfg):
+    """Captured ticks bit-equal to eager ones, every bucket, float and int8;
+    batched per-row decode against each episode alone (scalar position);
+    the card against the CPU on a small model, float and int8.  Returns the
+    captured float model for timing."""
+    params = _serve_params(torch, seqformer, cfg)
+    buckets = {}
+    _, buckets["int8"] = _captured_vs_eager(torch, np, serve, params, cfg, int8=True)
+    captured, buckets["f32"] = _captured_vs_eager(torch, np, serve, params, cfg, int8=False)
+    # batched per-row decode == each episode decoded alone, on the card
+    rng = np.random.default_rng(2)
+    lengths = (7, 3, 5, 1)
+    episodes = [rng.standard_normal((t, cfg["obs_dim"])).astype(np.float32) for t in lengths]
+    model = serve.SeqFormerModel(params, cfg["slots"], cfg["length"])
+    batched = [[] for _ in episodes]
+    for t in range(max(lengths)):
+        live = [i for i, ep in enumerate(episodes) if t < len(ep)]
+        idx = np.full(4, model.pad_slot, np.int64)
+        idx[:len(live)] = live
+        obs = np.zeros((4, cfg["obs_dim"]), np.float32)
+        obs[:len(live)] = [episodes[i][t] for i in live]
+        pred = model.step_rows(idx, obs)
+        for j, i in enumerate(live):
+            batched[i].append(pred[j])
+    per_row_err = 0.0
+    with torch.no_grad():
+        for ep, got in zip(episodes, batched):
+            cache = seqformer.init_cache(params, 1, dtype=torch.float32, length=cfg["length"])
+            for t in range(len(ep)):
+                want, cache = seqformer.decode_step(
+                    params, cache, torch.from_numpy(ep[t][None]).cuda(),
+                    compute_dtype=torch.float32)
+                want = want[0].cpu().numpy()
+                per_row_err = max(per_row_err, float(np.abs(got[t] - want).max()))
+                check(np.allclose(got[t], want, atol=SERVE_ATOL, rtol=SERVE_ATOL),
+                      "batched per-row decode == per-episode serial decode on the card")
+    # the card against the CPU on a small model, float and int8
+    small = dict(SERVE_SMALL, d_model=32, n_layers=2, length=16, slots=4)
+    cpu_params = _serve_params(torch, seqformer, small, device="cpu")
+    cpu_err = {}
+    for int8 in (False, True):
+        what = "int8" if int8 else "f32"
+        on_cpu = serve.SeqFormerModel(cpu_params, small["slots"], small["length"], int8=int8)
+        on_card = serve.SeqFormerModel({k: v.cuda() for k, v in cpu_params.items()},
+                                       small["slots"], small["length"], int8=int8)
+        cpu_err[what] = 0.0
+        for idx, obs, _ in _ticks(np, small, on_cpu, 12, seed=3):
+            a, b = on_cpu.step_rows(idx, obs), on_card.step_rows(idx, obs)
+            cpu_err[what] = max(cpu_err[what], float(np.abs(a - b).max()))
+            check(np.allclose(b, a, atol=SERVE_ATOL, rtol=SERVE_ATOL),
+                  f"served {what} SeqFormer tick: card == CPU on a small model")
+    return captured, {"captured_eq_eager_buckets": buckets, "per_row_vs_serial_err": per_row_err,
+                      "card_vs_cpu_err": cpu_err, "atol": SERVE_ATOL}
+
+
+def _tick_times(torch, captured, cfg):
+    """Device time of each captured bucket's replay (CUDA events, the L2
+    flushed), beside its bound: the weights and the rows' caches read once."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    weights = sum(t.numel() * t.element_size() for t in captured.params.values())
+    cache = captured._cache
+    row_bytes = sum(t[0].numel() * t.element_size() for t in cache["k"] + cache["v"])
+    out = {}
+    for sig, entry in sorted(captured.graphs.graphs.items(), key=lambda kv: kv[0][1][1][0]):
+        rows = sig[1][1][0]
+        ms = time_ms(torch, entry.graph.replay, reps=20, flush=flush)
+        bound = (weights + rows * row_bytes) / HBM_RATE * 1e3
+        out[str(rows)] = {"ms": ms, "bound_ms": bound, "bound_by": "bytes",
+                          "weight_bytes": weights, "cache_bytes": rows * row_bytes}
+    return out
+
+
+def _tick_profile(torch, model, rows, replays=5):
+    """Where one captured tick's device time goes: torch.profiler over
+    ``replays`` replays of the ``rows``-row bucket, per replay the busy
+    time, the kernel count, and the ten kernels with the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    entry = next(e for sig, e in model.graphs.graphs.items() if sig[1][1][0] == rows)
+    entry.graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            entry.graph.replay()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"rows": rows, "busy_us": sum(us for _, us in by_name.values()) / replays,
+            "kernels": sum(n for n, _ in by_name.values()) / replays,
+            "top_us": [[name[:90], n / replays, us / replays] for name, (n, us) in top]}
+
+
+def _serve_window(np, serve, address, cfg, seconds, rng_seed):
+    """``clients`` episode loops through the port's ``ServeClient`` for
+    ``seconds``: each client's first episode admitted with a prefix, later
+    ones from empty; returns (steps/s, per-step latencies in s)."""
+    clients = cfg["clients"]
+    lat = [[] for _ in range(clients)]
+    counts = [0] * clients
+    errors = []
+    ready, go = threading.Barrier(clients + 1), threading.Barrier(clients + 1)
+    deadline = [None]
+
+    def run(i):
+        client = serve.ServeClient(address, timeoutms=30000)
+        rng = np.random.default_rng(rng_seed + i)
+        ep = rng.standard_normal((cfg["episode_len"], cfg["obs_dim"])).astype(np.float32)
+        try:
+            client.reset(prefix=ep[:cfg["prefix"]])
+            t = cfg["prefix"]
+            ready.wait(timeout=120)
+            go.wait(timeout=60)
+            while time.perf_counter() < deadline[0]:
+                t0 = time.perf_counter()
+                client.step(ep[t])
+                lat[i].append(time.perf_counter() - t0)
+                counts[i] += 1
+                t += 1
+                if t == cfg["episode_len"]:
+                    client.close_episode()
+                    client.reset()
+                    t = 0
+            client.close_episode()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"client {i}: {type(exc).__name__}: {exc}")
+            ready.abort()
+            go.abort()
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(clients)]
+    for t in threads:
+        t.start()
+    try:
+        ready.wait(timeout=120)
+        deadline[0] = time.perf_counter() + seconds
+        go.wait(timeout=60)
+    except threading.BrokenBarrierError:
+        pass  # a client failed before the start: reported below
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=seconds + 60)
+    elapsed = time.perf_counter() - t0
+    check(not errors, f"serve window: {errors}")
+    return sum(counts) / elapsed, [x for per in lat for x in per]
+
+
+def serve_phase(torch, seqformer, serve, cfg, label):
+    """The served SeqFormer through ``PolicyServer`` and ``ServeClient``:
+    float batched, serial and int8 windows in turns, with the serve
+    benchmark's metric names; the checks and tick times at the flagship."""
+    import numpy as np
+
+    from blendjax_torch.utils.timing import SERVE_STAGES, EventCounters, StageTimer
+
+    checks, ticks = {}, {}
+    if label == "serve":
+        captured, checks = _serve_checks(torch, np, seqformer, serve, cfg)
+        ticks = _tick_times(torch, captured, cfg)
+        del captured
+    params = _serve_params(torch, seqformer, cfg)
+    models = {
+        "batched": serve.SeqFormerModel(params, cfg["slots"], cfg["length"]),
+        "serial": serve.SeqFormerModel(params, cfg["slots"], cfg["length"]),
+        "int8": serve.SeqFormerModel(params, cfg["slots"], cfg["length"], int8=True),
+    }
+    timers = {m: StageTimer() for m in SERVE_MODES}
+    servers = {m: serve.start_server_thread(
+        models[m], serial=(m == "serial"), tick_ms=1.0, max_batch=cfg["slots"],
+        counters=EventCounters(), timer=timers[m]) for m in SERVE_MODES}
+    qps = {m: [] for m in SERVE_MODES}
+    lat = []
+    try:
+        for m in SERVE_MODES:
+            # every bucket a window can hit: its warm-ups and capture
+            model = models[m]
+            for b in servers[m].server.buckets:
+                for _ in range(3):
+                    model.step_rows(np.full(b, model.pad_slot, np.int64),
+                                    np.zeros((b, cfg["obs_dim"]), np.float32))
+                if b >= cfg["clients"]:
+                    break
+            _serve_window(np, serve, servers[m].address, cfg, 0.3, 100)
+        for r in range(cfg["rounds"]):
+            order = SERVE_MODES[r % 3:] + SERVE_MODES[:r % 3]
+            for m in order:
+                rate, l = _serve_window(np, serve, servers[m].address, cfg, cfg["window_s"],
+                                        1000 * (r + 1))
+                qps[m].append(rate)
+                if m == "batched":
+                    lat.extend(l)
+        counters = {m: servers[m].server.counters.snapshot() for m in SERVE_MODES}
+    finally:
+        for h in servers.values():
+            h.close()
+    profiles = {}
+    if label == "serve":
+        profiles = {m: _tick_profile(torch, models[m], cfg["clients"]) for m in ("batched", "int8")}
+    med = {m: float(np.median(v)) for m, v in qps.items()}
+    pairs = [b / s for b, s in zip(qps["batched"], qps["serial"]) if s]
+    rec = {"phase": label, "config": cfg,
+           "serve_qps": med["batched"],
+           "serve_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+           "serve_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+           "serve_batch_x": float(np.median(pairs)),
+           "serve_int8_x": med["int8"] / med["batched"],
+           "serve_qps_modes": med, "qps_turns": qps,
+           "stages_p50_ms": {m: {s: timers[m].percentiles(s)["p50_ms"]
+                                 for s in SERVE_STAGES} for m in SERVE_MODES},
+           "batches": {m: counters[m].get("serve_batches", 0) for m in SERVE_MODES},
+           "batch_pad": {m: counters[m].get("serve_batch_pad", 0) for m in SERVE_MODES},
+           "errors": {m: counters[m].get("serve_errors", 0) for m in SERVE_MODES},
+           "tick_device": ticks, "tick_profile": profiles, "checks": checks}
+    emit(_stamp(rec))
+    check(all(v > 0 for v in med.values()), f"{label}: every mode served steps")
+    check(all(counters[m].get("serve_errors", 0) == 0 for m in SERVE_MODES),
+          f"{label}: no request errored")
+    check(all(counters[m].get("serve_prefills", 0) >= cfg["clients"] for m in SERVE_MODES),
+          f"{label}: every client's first episode was admitted with a prefix")
+
+
+def dream_phase(torch, seqformer, worldmodel, quant, pendulum, state):
+    """``worldmodel.dream`` on the world-model phase's flash-trained model
+    at the flagship width: a 64-step prefix, 448 dreamed steps of batch 8,
+    float and int8 in turns; the rollout against the CPU on a small model."""
+    import numpy as np
+
+    episode = pendulum.simulate_episode(np.random.default_rng(123), DREAM["batch"],
+                                        DREAM["prefix"] + DREAM["steps"], SEQ["obs_dim"])
+    turns = []
+    for int8 in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, mse = worldmodel.dream(state, episode, DREAM["prefix"], DREAM["steps"],
+                                      int8=int8)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(tuple(preds.shape) == (DREAM["batch"], DREAM["steps"], SEQ["obs_dim"])
+              and bool(torch.isfinite(preds).all()) and math.isfinite(mse),
+              f"dream (int8={int8}): finite predictions of the expected shape")
+        turns.append({"int8": int8, "seconds": sec, "steps_per_s": DREAM["steps"] / sec,
+                      "obs_per_s": DREAM["steps"] * DREAM["batch"] / sec, "mse": mse})
+    # the card against the CPU on a small model, float and int8
+    small = seqformer.init(torch.Generator().manual_seed(0), obs_dim=8, d_model=32, n_heads=4,
+                           n_layers=2, max_len=64, device="cpu")
+    prefix = torch.from_numpy(pendulum.simulate_episode(np.random.default_rng(0), 2, 16, 8))
+    errs = {}
+    with torch.no_grad():
+        for int8 in (False, True):
+            p = quant.quantize_seqformer(small) if int8 else small
+            want = seqformer.rollout(p, prefix[:, :8], 8, compute_dtype=torch.float32)
+            got = seqformer.rollout({k: v.cuda() for k, v in p.items()}, prefix[:, :8].cuda(),
+                                    8, compute_dtype=torch.float32).cpu()
+            errs["int8" if int8 else "f32"] = float((got - want).abs().max())
+            check(torch.allclose(got, want, atol=SERVE_ATOL, rtol=SERVE_ATOL),
+                  f"rollout (int8={int8}): card == CPU on a small model")
+    emit(_stamp({"phase": "dream", "config": DREAM, "turns": turns,
+                 "card_vs_cpu_err": errs, "atol": SERVE_ATOL}))
+
+
+def infer_int8_phase(torch, btt, datagen, image):
+    """``generate.py --infer-int8``'s path: the stream's first batch held
+    back, the detector trained on the rest, then K1's decode to f32 and the
+    int8 detector on the held batch; against the CPU on the same frames."""
+    _fake_blender()
+    with btt.BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT), num_instances=2,
+                             named_sockets=["DATA"], start_port=_port_block(),
+                             background=True, seed=0) as bl:
+        ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"], max_items=32,
+                                       item_transform=datagen.item_transform)
+        with btt.TorchStream(ds, batch_size=8, num_workers=2, device="cuda") as stream:
+            it = iter(stream)
+            hold = next(it)
+            state, losses = datagen.train_on_stream(it, log_every=0)
+            check(hold["image"].is_cuda and tuple(hold["image"].shape) == MAIN_SHAPE,
+                  "the held batch is the stream's uint8 batch on the card")
+            image.decode_frames_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xy = datagen.infer_int8(state, hold["image"])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = image.decode_frames_cuda.launches
+    cpu_state = type(state)(params={k: v.detach().cpu() for k, v in state.params.items()},
+                            optimizer=None)
+    want = datagen.infer_int8(cpu_state, hold["image"].cpu())
+    err = float((xy.cpu() - want).abs().max())
+    emit(_stamp({"phase": "infer_int8", "batches_trained": len(losses),
+                 "keypoints": list(xy.shape), "seconds": sec, "launches": {"decode_u8": launches},
+                 "card_vs_cpu_err": err, "atol": INFER_INT8_ATOL}))
+    check(tuple(xy.shape) == (MAIN_SHAPE[0], 8, 2) and bool(torch.isfinite(xy).all()),
+          "int8 inference: finite keypoints of the expected shape")
+    check(err <= INFER_INT8_ATOL, "int8 inference: card == CPU on the same frames")
+    check(launches >= 1, "the infer_int8 path launched decode_u8")
+    return launches
+
+
 def main():
     import torch
 
@@ -1903,12 +2359,14 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from blendjax_torch import btt, control, datagen, worldmodel
+    from blendjax_torch import btt, control, datagen, serve, worldmodel
     from blendjax_torch.btb import pendulum
-    from blendjax_torch.models import detector, policy, seqformer
+    from blendjax_torch.models import detector, layers, policy, seqformer
     from blendjax_torch.models.train import TrainState
-    from blendjax_torch.ops import _build, image
+    from blendjax_torch.ops import _build, image, quant
     from blendjax_torch.ops import flash_attention as flash
+
+    global CARD, HBM_RATE
 
     # full float32 for the float32 checks (cuDNN would take TF32 by default)
     torch.backends.cudnn.allow_tf32 = False
@@ -1919,10 +2377,12 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    CARD = card
     emit({"card": card})
     emit({"kernels": ["decode_u8"] + list(FLASH_KERNELS)})
     name = card.split(",")[0]
     hbm, flops_peak = peak_rate(HBM_PEAK, name), peak_rate(BF16_PEAK, name)
+    HBM_RATE = hbm
     t0 = time.perf_counter()
     _build.load_library()
     emit({"phase": "build", "sources": _build.SOURCES, "seconds": time.perf_counter() - t0})
@@ -1936,20 +2396,28 @@ def main():
     with smi_window("flash_time"):
         flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
     seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
-    flash_launches, flash_routes = worldmodel_phase(torch, btt, worldmodel, flash)
+    flash_launches, flash_routes, wm_state = worldmodel_phase(torch, btt, worldmodel, flash)
     rl_rates = rl_phase(torch, btt, control, policy)
     actor_learner_phase(torch, btt, control, rl_rates)
     with smi_window("densityopt"):
         densityopt_launches = densityopt_phase(torch, btt, image)
     check(densityopt_launches >= 1, "the densityopt path launched decode_u8")
+    quant_phase(torch, quant, layers)
+    with smi_window("serve"):
+        serve_phase(torch, seqformer, serve, SERVE, "serve")
+    serve_phase(torch, seqformer, serve, SERVE_SMALL, "serve_small")
+    dream_phase(torch, seqformer, worldmodel, quant, pendulum, wm_state)
+    del wm_state
+    infer_launches = infer_int8_phase(torch, btt, datagen, image)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",
         "source": "blendjax_torch/ops/csrc/decode.cu",
         "replaces": "blendjax/ops/image.py:69",
-        "launches": decode_launches + densityopt_launches,
+        "launches": decode_launches + densityopt_launches + infer_launches,
         "launches_by_path": {"datagen_stream": decode_launches,
-                             "densityopt": densityopt_launches},
+                             "densityopt": densityopt_launches,
+                             "infer_int8": infer_launches},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",

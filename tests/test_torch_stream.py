@@ -189,3 +189,34 @@ def test_record_and_replay(fleet, tmp_path):
         assert a["frameid"] == b["frameid"] and a["btid"] == b["btid"]
         np.testing.assert_array_equal(a["image"], b["image"])
         np.testing.assert_array_equal(a["xy"], b["xy"])
+
+
+def _generate_example():
+    import importlib.util
+
+    path = HERE.parent / "examples" / "datagen" / "generate.py"
+    spec = importlib.util.spec_from_file_location("generate_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_infer_int8_matches_the_example_on_replayed_frames(fleet, tmp_path):
+    """``datagen.infer_int8`` (decode to f32, then the int8 detector) on
+    recorded frames replayed from disk, against ``generate.py``'s
+    ``infer_int8`` on the same frames and converted params: keypoints
+    within 1e-5 (absolute, plus 1e-5 relative)."""
+    from blendjax_torch.btt.collate import collate
+
+    prefix = str(tmp_path / "rec")
+    list(RemoteIterableDataset(fleet, max_items=4, record_path_prefix=prefix))
+    raw = collate([FileDataset(prefix)[i] for i in range(4)])["image"]
+    assert raw.dtype == np.uint8 and raw.shape == (4, H, W, 3)
+    tree = jax.device_get(jdet.init(jax.random.PRNGKey(3), num_keypoints=K,
+                                    channels=(8, 16), hidden=32))
+    state = TrainState.create(params_from_jax(tree, device="cpu"))
+    got = datagen.infer_int8(state, torch.from_numpy(raw))
+    want = _generate_example().infer_int8(JTrainState.create(tree, optax.adam(1e-3)),
+                                          jnp.asarray(raw))
+    assert tuple(got.shape) == (4, K, 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)

@@ -169,10 +169,43 @@ def test_training_route_matches_the_example(attn):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2,2,2"], "ROADMAP Queue 1, item 7"),
-    (["--dream", "8"], "ROADMAP Queue 1, item 5"),
-    (["--dream-int8"], "ROADMAP Queue 1, item 5"),
     (["--attn", "ring_flash"], "ROADMAP Queue 1, item 7"),
 ])
 def test_options_not_ported_exit_with_their_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):
         worldmodel.main(argv)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["dream", "dream-int8"])
+def test_dream_options_run_at_a_small_size(int8, monkeypatch, capsys):
+    """``--dream`` (and ``--dream-int8``) after two training batches from
+    one fake-Blender producer, on the CPU: the open-loop rollout prints a
+    finite MSE."""
+    monkeypatch.setenv("BLENDJAX_BLENDER", str(FAKE_BLENDER))
+    argv = ["--instances", "1", "--batch", "2", "--batches", "2", "--device", "cpu",
+            "--start-port", str(_port_pair()), "--dream", "8"]
+    worldmodel.main(argv + (["--dream-int8"] if int8 else []))
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines() if ln.startswith("dream:"))
+    assert "8 open-loop steps from a 32-step prefix" in line
+    assert np.isfinite(float(line.rsplit(" ", 1)[1]))
+
+
+@pytest.mark.parametrize("int8,window", [(False, None), (True, None), (False, 8)])
+def test_dream_matches_the_example(int8, window):
+    """The port's ``dream`` against the example's on the same params and
+    held-out episode: predictions and MSE within 1e-5 (absolute, plus 1e-5
+    relative), f32 and int8."""
+    ex = _example()
+    tree = jax.device_get(jseq.init(jax.random.PRNGKey(0), obs_dim=8, d_model=32,
+                                    n_heads=2, n_layers=2, max_len=ex.T))
+    episode = ex.simulate_episode(np.random.default_rng(123), batch=2, T_steps=40)
+
+    class _State:
+        params = tree
+
+    want, want_mse = ex.dream(_State, episode, 32, 8, window=window, int8=int8)
+    state = TrainState.create(params_from_jax(tree, device="cpu"))
+    got, mse = worldmodel.dream(state, episode, 32, 8, window=window, int8=int8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(mse, want_mse, atol=1e-5, rtol=1e-5)
