@@ -5,7 +5,8 @@ Blender processes, each running a user script with the framework arg
 protocol (``-btid/-btseed/-btsockets`` after Blender's ``--`` separator)
 and one pre-allocated address per named socket per instance.  Each child
 runs in its own process group; shutdown escalates terminate -> kill on the
-whole group with a timeout, and launch failures raise ``RuntimeError``.
+whole group with a timeout, and launch failures raise ``RuntimeError``;
+``respawn(idx)`` relaunches one instance with its original command line.
 Addresses are tcp; ``shm://`` is not ported.
 """
 
@@ -193,6 +194,20 @@ class BlenderLauncher:
 
         self.launch_info = LaunchInfo(addresses, commands, processes=processes)
         return self
+
+    def respawn(self, idx):
+        """Respawn instance ``idx`` with its original command line (same
+        addresses, same seed); used by
+        :class:`~blendjax_torch.btt.watchdog.FleetWatchdog` restarts, and
+        callable directly for manual healing.  Returns the new process."""
+        info = self.launch_info
+        if info is None:
+            raise RuntimeError("Not launched.")
+        new = subprocess.Popen(info.commands[idx], shell=False, env=child_env(),
+                               **popen_group_kwargs())
+        info.processes[idx] = new
+        logger.info("Respawned instance %d as pid %d", idx, new.pid)
+        return new
 
     def __exit__(self, exc_type, exc_value, exc_traceback):
         for p in self.launch_info.processes:

@@ -38,12 +38,16 @@ What differs from the reference, and why:
   (the counterpart of ``fold_in(PRNGKey(seed), 0xAC708 + fid)``), so its
   kernels never land on a stream the learner is capturing.  The sampling
   runs eagerly, as ``control.Rollout.step``'s does.
+- **A checkpoint restores in place.**  ``checkpointer=`` (a
+  :class:`~blendjax_torch.ha.checkpoint.TrainCheckpointer`) is called once
+  per completed update, on the learner thread, as the reference calls it;
+  :meth:`ActorLearner.load_checkpoint_state` writes a restored state into
+  the learner's own tensors, so the captured steps keep their graphs.
 
 Not ported, each refused with the ROADMAP item it waits for: ``mesh=`` and
 ``pipeline_stages=`` (item 7), ``weight_bus=`` (items 5 and 9), ``hub=``,
-``scenarios=``, ``curriculum=`` and ``fanin_min_ready=`` (item 9),
-``checkpointer=`` (item 6).  Pools come as one ``EnvPool`` or a list; the
-reference's ``FleetSet`` is item 9.
+``scenarios=``, ``curriculum=`` and ``fanin_min_ready=`` (item 9).  Pools
+come as one ``EnvPool`` or a list; the reference's ``FleetSet`` is item 9.
 """
 
 from __future__ import annotations
@@ -82,8 +86,6 @@ _NOT_PORTED = {
                   "(ROADMAP Queue 1, item 9)",
     "fanin_min_ready": "the heterogeneous-fleet fan-in waits for the "
                        "scenario plane (ROADMAP Queue 1, item 9)",
-    "checkpointer": "coordinated checkpoints wait for state and fences "
-                    "(ROADMAP Queue 1, item 6)",
 }
 
 
@@ -149,6 +151,10 @@ class ActorLearner:
     device: str | torch.device
         Where the parameters live and the updates and sampling run; CUDA
         unless the caller asks for the CPU.
+    checkpointer: blendjax_torch.ha.TrainCheckpointer | None
+        Coordinated train-state checkpoints: ``maybe_checkpoint(self)``
+        once per completed update (on- and off-policy), from the learner
+        thread; it decides the cadence and never raises into the loop.
 
     The reference's other arguments raise ``NotImplementedError`` naming
     their ROADMAP item (see the module docstring).
@@ -158,7 +164,7 @@ class ActorLearner:
                  queue_size=4, lr=3e-3, gamma=0.99, seed=0, continuous=False,
                  action_map=None, pipeline=False, num_fleets=None,
                  replay=None, replay_ratio=0, replay_batch=64, device="cuda",
-                 **not_ported):
+                 checkpointer=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"ActorLearner got an unexpected keyword argument {name!r}")
@@ -230,6 +236,11 @@ class ActorLearner:
         #: event after which the copy is complete, or None on the CPU)
         self._actor_params = self._snapshot()
         self._updates_done = 0
+        #: the last version published on a weight bus, which the port does
+        #: not have yet (ROADMAP Queue 1, item 9): recorded in every
+        #: checkpoint as the reference records it
+        self.last_published_version = None
+        self.checkpointer = checkpointer
         #: per-stage times of the last run: per env step the actors'
         #: ``policy`` (obs to the device, sample, actions back) and
         #: ``env_step`` (pipelined: submission to the wait's return, the
@@ -271,17 +282,27 @@ class ActorLearner:
 
     def checkpoint_state(self):
         """The learner-side scalars a checkpoint records next to the
-        TrainState: the update counter and the seed."""
-        return {"updates": self._updates_done, "seed": self._seed}
+        TrainState, the reference's keys: the update counter, the seed and
+        the last published bus version.  JSON-able: they ride inline in the
+        :class:`~blendjax_torch.ha.checkpoint.TrainCheckpointer` manifest."""
+        return {"updates": self._updates_done, "seed": self._seed,
+                "last_published_version": self.last_published_version}
 
     def load_checkpoint_state(self, state, aux):
-        """Adopt a restored TrainState and :meth:`checkpoint_state` dict:
-        the update counter continues from the cut, the actors' snapshot is
-        rebuilt from the restored params, and the checkpoint's seed wins
-        (the actors' sampling streams derive from it)."""
-        self.state = state
+        """Adopt a restored TrainState and :meth:`checkpoint_state` dict.
+        The state is written into the learner's own tensors unless it is
+        them already (a :class:`~blendjax_torch.utils.checkpoint.CheckpointManager`
+        restore into ``self.state``), so the captured steps keep their
+        graphs; the update counter continues from the cut, the actors'
+        snapshot is rebuilt from the restored params, and the checkpoint's
+        seed wins (the actors' sampling streams derive from it)."""
+        if state is not self.state:
+            from blendjax_torch.models import convert
+
+            convert.load_train_state_arrays(self.state, convert.train_state_arrays(state))
         self._actor_params = self._snapshot()
         self._updates_done = int(aux.get("updates", 0))
+        self.last_published_version = aux.get("last_published_version")
         seed = aux.get("seed")
         if seed is not None and int(seed) != self._seed:
             log.warning(
@@ -316,9 +337,12 @@ class ActorLearner:
 
     def _publish_params(self):
         """Swap the actors' sampling snapshot (one attribute assignment);
-        called once per completed update."""
+        called once per completed update, which also makes it the
+        checkpoint hook."""
         self._actor_params = self._snapshot()
         self._updates_done += 1
+        if self.checkpointer is not None:
+            self.checkpointer.maybe_checkpoint(self)
 
     # -- actor side ----------------------------------------------------------
 
@@ -619,7 +643,9 @@ class ActorLearner:
 
     def _next_queue_batch(self, deadline):
         """One segment from the single-fleet queue on the device, or
-        ``None`` on deadline; raises when the actor failed."""
+        ``None`` on deadline or once stop is set with the queue empty (the
+        supervised learner's SIGTERM ends a run at once); raises when the
+        actor failed."""
         while True:
             if self._actor_error is not None:
                 raise RuntimeError("actor thread failed") from self._actor_error
@@ -627,6 +653,8 @@ class ActorLearner:
                 seg = self._q.get(timeout=0.5)
                 break
             except queue.Empty:
+                if self._stop.is_set() and self._actor_error is None:
+                    return None
                 if deadline is not None and time.perf_counter() >= deadline:
                     return None
         batch = self._to_device({"obs": seg[0], "actions": seg[1],

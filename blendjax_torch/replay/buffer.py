@@ -20,10 +20,16 @@ architectures, arXiv:2104.06272).
 - **thread safety**: one lock serializes row writes, index/priority state
   and gathers.
 
-Not ported: ``save``/``restore`` (they need ``utils/checkpoint.py``,
-ROADMAP Queue 1, item 6) and the scenario-strata draw of a non-uniform
-``scenario_mix`` (it needs ``scenario/curriculum.py``, item 9).  The
-scenario stamps themselves are kept: they are bookkeeping only.
+- **checkpoints**: :meth:`ReplayBuffer.save` writes the columns, the sum
+  tree, the ring indices and the RNG's state in the reference's format
+  (``"blendjax.replay/1"``, through :func:`~blendjax_torch.utils.checkpoint.save_state`),
+  so either package restores the other's file and the restored buffer
+  draws the exact stream the saved one would have.
+
+Not ported: the scenario-strata draw of a non-uniform ``scenario_mix`` (it
+needs ``scenario/curriculum.py``, ROADMAP Queue 1, item 9).  The scenario
+stamps themselves are kept: they are bookkeeping only, and they and their
+names round-trip through a checkpoint.
 """
 
 from __future__ import annotations
@@ -53,6 +59,47 @@ HEALTHY_KEY = "healthy"
 #: the sum tree on their own, so a stamped-but-unmixed buffer draws the
 #: exact scenario-less stream.
 SCENARIO_KEY = "scenario"
+
+#: The checkpoint format tag, the reference's.
+REPLAY_FORMAT = "blendjax.replay/1"
+
+
+def load_client_state(buf, arrays, meta):
+    """Apply checkpointed sampling state (eligibility masks, generations,
+    scenario stamps, sum tree, ring indices, RNG) to a freshly constructed
+    buffer."""
+    buf._valid = np.array(arrays["valid"], bool)
+    buf._healthy = np.array(arrays["healthy"], bool)
+    if "gen" in arrays:
+        buf._gen = np.array(arrays["gen"], np.int64)
+        buf._drawn_gen = np.array(arrays["drawn_gen"], np.int64)
+    if "scenario" in arrays:
+        # scenario stamps and the id<->name interning table (older
+        # checkpoints carry neither: every slot restores unlabelled)
+        buf._scenario = np.array(arrays["scenario"], np.int32)
+        buf._scenario_names = list(meta.get("scenario_names", []))
+        buf._scenario_ids = {n: i for i, n in enumerate(buf._scenario_names)}
+    if buf.tree is not None:
+        buf.tree.rebuild(arrays["tree_leaves"])
+    buf._head = int(meta["head"])
+    buf._size = int(meta["size"])
+    buf._num_valid = int(meta["num_valid"])
+    buf._max_priority = float(meta["max_priority"])
+    buf._appends = int(meta["appends"])
+    buf._overwrites = int(meta["overwrites"])
+    buf._excluded = int(meta["excluded"])
+    buf._samples = int(meta["samples"])
+    state = meta["rng_state"]
+    buf._rng = np.random.default_rng()
+    try:
+        buf._rng.bit_generator.state = state
+    except (ValueError, TypeError):
+        # a foreign bit generator (a checkpoint written under a numpy whose
+        # default generator differs): rebuild it by name
+        bg = getattr(np.random, state["bit_generator"])()
+        bg.state = state
+        buf._rng = np.random.Generator(bg)
+    return buf
 
 
 class ReplayBuffer:
@@ -517,20 +564,65 @@ class ReplayBuffer:
 
     # -- checkpoint ----------------------------------------------------------
 
+    def _state_arrays_meta_locked(self):
+        """The checkpointable state (caller holds the lock): named arrays
+        and the JSON metadata, the reference's keys."""
+        arrays = dict(self.store.state_arrays())
+        arrays["valid"] = self._valid
+        arrays["healthy"] = self._healthy
+        arrays["gen"] = self._gen
+        arrays["drawn_gen"] = self._drawn_gen
+        arrays["scenario"] = self._scenario
+        if self.tree is not None:
+            arrays["tree_leaves"] = self.tree.leaves()
+        meta = {
+            "scenario_names": list(self._scenario_names),
+            "format": REPLAY_FORMAT,
+            "capacity": self.capacity,
+            "head": self._head,
+            "size": self._size,
+            "num_valid": self._num_valid,
+            "seed": self.seed,
+            "prioritized": self.prioritized,
+            "alpha": self.alpha,
+            "beta": self.beta,
+            "eps": self.eps,
+            "max_priority": self._max_priority,
+            "appends": self._appends,
+            "overwrites": self._overwrites,
+            "excluded": self._excluded,
+            "samples": self._samples,
+            "rng_state": self._rng.bit_generator.state,
+        }
+        return arrays, meta
+
     def save(self, path):
-        """Not ported: the checkpoint format lives in ``utils/checkpoint.py``."""
-        raise NotImplementedError(
-            "ReplayBuffer.save: replay checkpoints wait for utils/checkpoint.py "
-            "(ROADMAP Queue 1, item 6)"
-        )
+        """Checkpoint contents, sum tree, ring indices and RNG state
+        (atomic; :func:`blendjax_torch.utils.checkpoint.save_state`)."""
+        from blendjax_torch.utils.checkpoint import save_state
+
+        with self._cond:
+            arrays, meta = self._state_arrays_meta_locked()
+            save_state(path, arrays, meta)
+        return path
 
     @classmethod
-    def restore(cls, path, **kwargs):
-        """Not ported: see :meth:`save`."""
-        raise NotImplementedError(
-            "ReplayBuffer.restore: replay checkpoints wait for "
-            "utils/checkpoint.py (ROADMAP Queue 1, item 6)"
-        )
+    def restore(cls, path, *, counters=None, timer=None):
+        """Rebuild a buffer from :meth:`save`'s output (either package's):
+        columns, ring indices, sum tree and the RNG mid-stream, so the
+        restored buffer draws the exact stream the saved one would have."""
+        from blendjax_torch.utils.checkpoint import load_state
+
+        arrays, meta = load_state(path)
+        fmt = meta.get("format")
+        if fmt != REPLAY_FORMAT:
+            raise ValueError(f"not a replay checkpoint (format {fmt!r})")
+        buf = cls(meta["capacity"], seed=meta["seed"], prioritized=meta["prioritized"],
+                  alpha=meta["alpha"], beta=meta["beta"], eps=meta["eps"],
+                  counters=counters, timer=timer)
+        buf.store.load_state_arrays(arrays)
+        load_client_state(buf, arrays, meta)
+        return buf
 
     # -- observability -------------------------------------------------------
 

@@ -138,3 +138,30 @@ class ColumnStore:
                 )
             batch[key] = np.take(col, idx, axis=0, out=dst)
         return batch
+
+    # -- checkpoint surface --------------------------------------------------
+
+    def state_arrays(self):
+        """The raw column arrays, prefixed for a flat checkpoint namespace
+        (``col.<key>`` -> array)."""
+        return {f"col.{k}": v for k, v in self.columns.items()}
+
+    def load_state_arrays(self, arrays):
+        """Adopt checkpointed columns (inverse of :meth:`state_arrays`).
+        Replaces any existing schema; capacity must match."""
+        self.columns = {}
+        self._schema = None
+        schema = {}
+        for name, arr in arrays.items():
+            if not name.startswith("col."):
+                continue
+            key = name[len("col."):]
+            if arr.shape[0] != self.capacity:
+                raise ValueError(
+                    f"checkpoint column {key!r} has capacity "
+                    f"{arr.shape[0]}, store expects {self.capacity}"
+                )
+            self.columns[key] = np.array(arr)  # own the storage
+            schema[key] = (arr.shape[1:], arr.dtype)
+        if schema:
+            self._schema = schema

@@ -18,7 +18,8 @@ wait), ``collate`` (batch assembly in a worker, collate path),
 (wire frames copied into an arena batch), ``device_put`` (staging +
 host->device copy issue) and ``recycle`` (the wait for an arena's copy to
 complete, and its return to the pool), under the reference's names; the
-policy server records :data:`SERVE_STAGES`.  The chrome-trace export of
+policy server records :data:`SERVE_STAGES`, the HA checkpointer
+:data:`HA_STAGES`.  The chrome-trace export of
 ``blendjax.utils.timing`` is not ported.
 """
 
@@ -89,6 +90,35 @@ SERVE_EVENTS = (
 #: its result on the host), ``reply`` (the batch's replies sent).
 SERVE_STAGES = (
     "queue_wait", "batch_assemble", "compute", "reply",
+)
+
+#: Canonical learner-failover (HA) event names, the reference's:
+#: ``ha_ckpt_saves`` — coordinated checkpoints committed (the manifest
+#: written); ``ha_ckpt_bytes`` — bytes serialized into committed
+#: checkpoints; ``ha_ckpt_skipped`` — due checkpoints skipped because the
+#: previous background serialization was still in flight;
+#: ``ha_ckpt_failures`` — checkpoint attempts that failed (counted and
+#: logged, never raised into the update loop); ``ha_ckpt_evicted`` — old
+#: cuts removed by retention; ``ha_restores`` — restores from a manifest;
+#: ``ha_restore_fallbacks`` — restores that fell back to an older step or
+#: manifest because the latest failed to load; ``ha_learner_deaths`` /
+#: ``ha_learner_respawns`` — supervised learner-process deaths and
+#: respawns; ``ha_resume_publishes`` — restored parameters republished on
+#: a weight bus (no bus in the port yet: ROADMAP Queue 1, item 9).
+HA_EVENTS = (
+    "ha_ckpt_saves", "ha_ckpt_bytes", "ha_ckpt_skipped",
+    "ha_ckpt_failures", "ha_ckpt_evicted",
+    "ha_restores", "ha_restore_fallbacks",
+    "ha_learner_deaths", "ha_learner_respawns", "ha_resume_publishes",
+)
+
+#: Canonical learner-failover stage names: ``ha_snapshot`` (the
+#: synchronous barrier on the update loop: the TrainState copied to host
+#: buffers, ordered after the update, plus the replay cut), ``ha_serialize``
+#: (the background thread: npz writes, fsync, manifest commit, retention),
+#: ``ha_restore`` (the train state restored in place from a manifest).
+HA_STAGES = (
+    "ha_snapshot", "ha_serialize", "ha_restore",
 )
 
 #: Process-wide default counter registry.  Component constructors take a

@@ -136,12 +136,37 @@ Phases, each printing JSON lines:
               batch held back, the detector trained on the rest, then K1's
               decode to f32 and the int8 detector; against the CPU on the
               same frames (``INFER_INT8_ATOL``).
+17. ha      — state and checkpoints.  ``ha_resume``: the train phase's
+              full-width detector (K1) and the flagship SeqFormer (K2-K4)
+              each take 4 captured steps from a seeded state, are saved
+              (the barrier's host copy, ``ha_snapshot``, timed on its first
+              cut, which allocates the pinned buffers, and again into the
+              same buffers; then ``CheckpointManager.save``,
+              ``ha_serialize``) and take 4 more;
+              a differently seeded state whose step is captured gets the
+              cut restored in place (``ha_restore``) and takes the same 4:
+              losses, parameters and Adam's tensors bit-equal, the same
+              graph (no new capture), 3P + 2 leaves in the file.
+              ``ha_al``: the al phase's fleet and settings with a
+              ``TrainCheckpointer`` cutting every 2 updates; a forced cut
+              restored into a fresh learner on the card draws the no-crash
+              replay stream, parameters and Adam bit-equal; then
+              ``ckpt_overhead_x`` (``benchmarks/ha_benchmark.py``'s
+              interleaved ``run_offline`` windows, on/off median ratio).
+              ``ha_drill``: two cartpole producers feed a
+              ``python -m blendjax_torch.ha.learner`` child on the card under
+              a ``LearnerSupervisor``; SIGKILL after its first cut; one
+              death, one respawn, resumed from a real cut, past the
+              pre-kill count, the postmortem naming the learner;
+              ``learner_recovery_s`` (the kill to the mirror showing the
+              respawn past the pre-kill count) split by the child's boot
+              times (import, CUDA init, build, restore, the first update).
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream, the densityopt loop and the int8 inference for the
-decode kernel, the world-model stream for the flash kernels) and read just
-after; a kernel a
-path never launched fails the run.  The line before the last holds every kernel's numbers; the last
+decode kernel, the world-model stream for the flash kernels, and the ha
+phase's resumed steps for all four) and read just after; a kernel a path
+never launched fails the run.  The line before the last holds every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 without printing it, as does a host without CUDA or a directory without
 the ``blendjax_torch`` package beside this file.
@@ -159,6 +184,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -1694,6 +1720,397 @@ def actor_learner_phase(torch, btt, control, rl_rates):
           "al: parameters finite after run_offline")
     emit({"phase": "al_seconds", "seconds": time.perf_counter() - t_phase})
 
+# -- ha: state and checkpoints on the card ----------------------------------------
+
+#: resumed steps of each model: 4 before the cut, 4 after it on both timelines
+HA_STEPS = 4
+#: the cut cadence of the actor-learner's checkpointer, in completed updates
+HA_EVERY = 2
+#: ``benchmarks/ha_benchmark.py``'s ``measure_ckpt_overhead`` defaults:
+#: interleaved run_offline windows (on, off / off, on), a wall-clock cadence
+HA_OVERHEAD = dict(window_s=1.5, rounds=4, ckpt_every_s=1.0, batch=32, capacity=4096,
+                   chunk=50)
+#: the reference's targets for its CPU runs (``scripts/bench_compare.py``):
+#: quoted beside the card's numbers, not held against them
+HA_REFERENCE_TARGETS = {"ckpt_overhead_x_floor": 0.90, "learner_recovery_s_ceiling": 1.50}
+
+
+def _adam_tensors(state):
+    """Every parameter's Adam tensors, by name."""
+    out = {}
+    for name, p in state.params.items():
+        for key, t in state.optimizer.state[p].items():
+            out[f"{name}.{key}"] = t
+    return out
+
+
+def _resume_model(torch, label, make_state, loss, batches, counts, tmp):
+    """One model's resume on the card: timeline A takes HA_STEPS captured
+    steps, is saved (the barrier's host copy, timed with and without the
+    pinned buffers' allocation, then ``CheckpointManager.save``) and takes
+    HA_STEPS more; B, seeded differently, takes HA_STEPS + 1 steps
+    (its graph captured), gets the cut restored in place, and takes the
+    same HA_STEPS steps as A's second half.  Losses, parameters and Adam's
+    tensors must be bit-equal, B's graph the one it captured before the
+    restore, the file 3P + 2 leaves.  ``counts(zero=True)`` is zeroed just
+    before B's resumed steps and read just after."""
+    import numpy as np
+
+    from blendjax_torch.models import convert
+    from blendjax_torch.models.train import make_train_step
+    from blendjax_torch.utils.checkpoint import CheckpointManager
+
+    first, second = batches[:HA_STEPS], batches[HA_STEPS:2 * HA_STEPS]
+    a, step_a = make_state(0), make_train_step(loss)
+    for batch in first:
+        a, _ = step_a(a, batch)
+    mgr = CheckpointManager(os.path.join(tmp, label), max_to_keep=1)
+    staging = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = convert.train_state_arrays(a, staging)  # waits for the copy
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    # a TrainCheckpointer's later cuts reuse its host buffers: the copy alone
+    t0 = time.perf_counter()
+    host = convert.train_state_arrays(a, staging)
+    snapshot_reuse_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    path = mgr.save(HA_STEPS, host)
+    serialize_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    with np.load(path) as data:
+        leaves = len(data.files)
+    del host, staging
+    losses_a = []
+    for batch in second:
+        a, loss_a = step_a(a, batch)
+        losses_a.append(float(loss_a))
+
+    b, step_b = make_state(1), make_train_step(loss)
+    for batch in batches[:HA_STEPS + 1]:
+        b, _ = step_b(b, batch)
+    graphs_before = list(step_b.graphs.values())
+    ptrs = {k: v.data_ptr() for k, v in b.params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.restore(b, step=HA_STEPS)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    counts(zero=True)
+    losses_b = []
+    for batch in second:
+        b, loss_b = step_b(b, batch)
+        losses_b.append(float(loss_b))
+    launched = counts()
+    params = len(b.params)
+    diffs = {"loss": max(abs(x - y) for x, y in zip(losses_a, losses_b)),
+             "params": _max_param_diff(torch, b.params, a.params),
+             "adam": _max_param_diff(torch, _adam_tensors(b), _adam_tensors(a))}
+    rec = {"phase": "ha_resume", "card": CARD, "model": label, "params": params,
+           "param_elements": sum(v.numel() for v in b.params.values()),
+           "leaves": leaves, "bytes": nbytes, "ha_snapshot_ms": snapshot_ms,
+           "ha_snapshot_reuse_ms": snapshot_reuse_ms,
+           "ha_serialize_s": serialize_s, "ha_restore_s": restore_s,
+           "losses_uninterrupted": losses_a, "losses_resumed": losses_b,
+           "max_abs_diff": diffs, "graphs": len(step_b.graphs),
+           "same_graph": len(step_b.graphs) == 1
+           and next(iter(step_b.graphs.values())) is graphs_before[0],
+           "launches": launched}
+    emit(rec)
+    shutil.rmtree(os.path.join(tmp, label), ignore_errors=True)
+    check(all(math.isfinite(v) for v in losses_b), f"ha_resume {label}: losses finite")
+    check(leaves == 3 * params + 2, f"ha_resume {label}: the file holds 3P + 2 leaves")
+    check(diffs == {"loss": 0, "params": 0, "adam": 0},
+          f"ha_resume {label}: the resumed steps' losses, parameters and Adam tensors "
+          "are bit-equal to the uninterrupted timeline")
+    check(rec["same_graph"] and len(graphs_before) == 1,
+          f"ha_resume {label}: the restore kept the captured graph (no new capture)")
+    check({k: v.data_ptr() for k, v in b.params.items()} == ptrs,
+          f"ha_resume {label}: the restore wrote into the parameters in place")
+    del a, b, step_a, step_b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _ckpt_overhead(torch, tmp):
+    """``benchmarks/ha_benchmark.py::measure_ckpt_overhead`` on the card:
+    twin fleet-less learners, one with a TrainCheckpointer on a wall-clock
+    cadence, ``run_offline`` windows interleaved (order rotated each
+    round), the median of the rounds' on/off ratios."""
+    import numpy as np
+
+    from blendjax_torch.ha import TrainCheckpointer
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.replay import ReplayBuffer
+    from blendjax_torch.utils.timing import EventCounters
+
+    o = HA_OVERHEAD
+    counters = EventCounters()
+    ck = TrainCheckpointer(os.path.join(tmp, "overhead"), every_updates=10 ** 9,
+                           every_seconds=o["ckpt_every_s"], counters=counters, stats_path=None)
+    learners = {}
+    for arm, c in (("on", ck), ("off", None)):
+        buf = ReplayBuffer(o["capacity"], seed=0, counters=EventCounters())
+        rng = np.random.default_rng(0)
+        for _ in range(min(o["capacity"], 2048)):
+            buf.append({"obs": rng.standard_normal(4).astype(np.float32),
+                        "action": np.int32(rng.integers(0, 3)),
+                        "reward": np.float32(rng.standard_normal()),
+                        "next_obs": rng.standard_normal(4).astype(np.float32),
+                        "done": np.bool_(False)})
+        learners[arm] = ActorLearner(None, 4, 3, replay=buf, seed=0, checkpointer=c,
+                                     device="cuda")
+    for al in learners.values():  # warm-ups and captures
+        al.run_offline(num_updates=8, batch_size=o["batch"])
+
+    def window(arm):
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < o["window_s"]:
+            learners[arm].run_offline(num_updates=o["chunk"], batch_size=o["batch"])
+            n += o["chunk"]
+        return n / (time.perf_counter() - t0)
+
+    rates, ratios = {"on": [], "off": []}, []
+    for r in range(o["rounds"]):
+        pair = {}
+        for arm in (("on", "off") if r % 2 == 0 else ("off", "on")):
+            pair[arm] = window(arm)
+            rates[arm].append(pair[arm])
+        ratios.append(pair["on"] / pair["off"])
+    ck.join(timeout=30)
+    stages = ck.timer.summary()
+    return {"ckpt_overhead_x": statistics.median(ratios), "pair_ratios": ratios,
+            "ckpt_on_updates_per_sec": statistics.median(rates["on"]),
+            "ckpt_off_updates_per_sec": statistics.median(rates["off"]),
+            "ckpt_saves": counters.get("ha_ckpt_saves"),
+            "ckpt_skipped": counters.get("ha_ckpt_skipped"),
+            "ha_snapshot_p50_ms": _stage_p50(stages, "ha_snapshot"),
+            "ha_serialize_p50_ms": _stage_p50(stages, "ha_serialize")}
+
+
+def _ha_al(torch, btt, control, tmp):
+    """The actor-learner with its checkpointer on the card: the al phase's
+    fleet and settings, a cut every HA_EVERY updates; then a forced cut, and
+    the cut's replay and train state restored into a fresh learner on the
+    card: the same 4 draws as the no-crash buffer, parameters and Adam's
+    tensors bit-equal; then ``ckpt_overhead_x``."""
+    import numpy as np
+
+    from blendjax_torch.ha import TrainCheckpointer, latest_manifest, restore_replay
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.replay import ReplayBuffer
+    from blendjax_torch.utils.timing import EventCounters
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    directory = os.path.join(tmp, "al")
+    counters = EventCounters()
+    ck = TrainCheckpointer(directory, every_updates=HA_EVERY, counters=counters)
+    buf = ReplayBuffer(AL_REPLAY["capacity"], seed=0, counters=EventCounters())
+
+    def forces(a):
+        return list((np.asarray(a) * 2 - 1) * control.FORCE_MAG)
+
+    with btt.launch_env_pool(scene="", script=str(control.SCRIPT),
+                             num_instances=RL_INSTANCES, background=True,
+                             start_port=_port_block(RL_INSTANCES), seed=0, real_time=False,
+                             pipeline_depth=RL_DEPTH, counters=EventCounters()) as pool:
+        al = ActorLearner(pool, 3, 2, rollout_len=AL_ROLLOUT, queue_size=AL_QUEUE,
+                          action_map=forces, replay=buf, replay_ratio=AL_REPLAY["ratio"],
+                          replay_batch=AL_REPLAY["batch"], checkpointer=ck, device="cuda")
+        st = al.run(num_updates=8)
+    ck.join(timeout=60)
+    saves = counters.get("ha_ckpt_saves")
+    cut = ck.checkpoint(al, block=True)
+    man = latest_manifest(directory)
+    seq_no_crash = [buf.sample(AL_REPLAY["batch"])[1].tolist() for _ in range(4)]
+
+    t0 = time.perf_counter()
+    buf2 = restore_replay(man, counters=EventCounters())
+    fresh = ActorLearner(None, 3, 2, replay=buf2, replay_ratio=0,
+                         replay_batch=AL_REPLAY["batch"], seed=7, device="cuda")
+    TrainCheckpointer(directory, counters=EventCounters()).restore(fresh, man)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    seq_restored = [buf2.sample(AL_REPLAY["batch"])[1].tolist() for _ in range(4)]
+    diffs = {"params": _max_param_diff(torch, fresh.state.params, al.state.params),
+             "adam": _max_param_diff(torch, _adam_tensors(fresh.state),
+                                     _adam_tensors(al.state))}
+    stages = ck.timer.summary()
+    over = _ckpt_overhead(torch, tmp)
+    rec = {"phase": "ha_al", "card": CARD, "updates": st["updates"],
+           "replay_updates": st["replay_updates"], "updates_done": al._updates_done,
+           "ckpt_saves_in_run": saves, "ckpt_skipped": counters.get("ha_ckpt_skipped"),
+           "forced_cut": cut, "manifest_update": man["update"],
+           "replay_rows": len(buf), "ckpt_bytes": counters.get("ha_ckpt_bytes"),
+           "ha_snapshot_p50_ms": _stage_p50(stages, "ha_snapshot"),
+           "ha_snapshot_max_ms": stages["ha_snapshot"]["max_ms"],
+           "ha_serialize_p50_ms": _stage_p50(stages, "ha_serialize"),
+           "ha_restore_s": restore_s, "draws_equal": seq_restored == seq_no_crash,
+           "max_abs_diff": diffs, **over,
+           "reference_targets": HA_REFERENCE_TARGETS,
+           "reference_targets_note": "the reference's targets come from CPU runs"}
+    emit(rec)
+    check(st["updates"] == 8 and saves >= 1, "ha_al: the run's cuts were committed")
+    check(cut == al._updates_done == man["update"], "ha_al: the forced cut committed")
+    check(rec["draws_equal"], "ha_al: the restored replay draws the no-crash stream")
+    check(diffs == {"params": 0, "adam": 0},
+          "ha_al: the restored learner's parameters and Adam tensors are bit-equal")
+    check(fresh._updates_done == cut, "ha_al: the update counter resumed from the cut")
+    check(over["ckpt_saves"] >= 1 and math.isfinite(over["ckpt_overhead_x"]),
+          "ha_al: the overhead windows checkpointed")
+    return rec
+
+
+def _ha_drill(torch, control, tmp):
+    """The kill/respawn drill on the card: two cartpole producers under the
+    fake Blender feed a ``LearnerProcess`` (child on the card) under a
+    ``LearnerSupervisor``; SIGKILL the child after its first cut; the
+    respawn resumes.  ``learner_recovery_s`` as ``ha_benchmark.py``'s
+    ``measure_recovery`` defines it (the kill to the first mirror showing a
+    new pid past the pre-kill update count), split by the child's own boot
+    times."""
+    import signal
+
+    from blendjax_torch.btt.env import kwargs_to_cli
+    from blendjax_torch.btt.launcher import BlenderLauncher
+    from blendjax_torch.ha import LearnerProcess, LearnerSupervisor
+    from blendjax_torch.utils.timing import EventCounters
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    counters = EventCounters()
+
+    def await_stats(lp, cond, timeout, what):
+        deadline = time.monotonic() + timeout
+        while True:
+            s = lp.read_stats() or {}
+            if cond(s):
+                return s, time.time()
+            check(time.monotonic() < deadline, f"ha_drill: {what} within {timeout} s ({s})")
+            time.sleep(0.02)
+
+    with BlenderLauncher(scene="", script=str(control.SCRIPT), num_instances=2,
+                         named_sockets=["GYM"], background=True, start_port=_port_block(2),
+                         seed=0, instance_args=[kwargs_to_cli({"real_time": False})] * 2) as bl:
+        with LearnerProcess(ckpt_dir=os.path.join(tmp, "drill"),
+                            env_addresses=bl.launch_info.addresses["GYM"], obs_dim=3,
+                            num_actions=2, rollout_len=8, seed=1, ckpt_every=2,
+                            chunk_updates=2, device="cuda", ready_timeout=120,
+                            action_values=[-control.FORCE_MAG, control.FORCE_MAG]) as lp:
+            with LearnerSupervisor(lp, interval=0.2, counters=counters,
+                                   postmortem_dir=os.path.join(tmp, "pm")) as sup:
+                first = lp.read_stats()
+                pre, _ = await_stats(lp, lambda s: s.get("updates", 0) >= 3
+                                     and s.get("last_ckpt_update", 0) >= 2, 120,
+                                     "warm-up and the first cut")
+                kill_ts = time.time()
+                t_kill = time.monotonic()
+                os.kill(lp.launch_info.processes[0].pid, signal.SIGKILL)
+                post, end_ts = await_stats(
+                    lp, lambda s: s.get("pid") not in (None, pre["pid"])
+                    and s.get("updates", 0) > pre["updates"], 120, "post-respawn progress")
+                recovery_s = time.monotonic() - t_kill
+                check(sup.await_deaths(1, 10) and sup.await_respawns(1, 10),
+                      "ha_drill: the death and the respawn were counted")
+    boot = post["boot"]
+    split = {"detect_respawn_s": boot["boot_ts"] - kill_ts,
+             "import_s": boot["import_s"], "cuda_init_s": boot["device_init_s"],
+             "build_s": boot["build_s"], "restore_s": boot["restore_s"],
+             "ready_to_first_update_s": post["first_update_ts"] - boot["ready_ts"],
+             "first_update_to_recovered_s": end_ts - post["first_update_ts"]}
+    doc = json.loads(open(sup.last_postmortem).read())
+    rec = {"phase": "ha_drill", "card": CARD, "learner_recovery_s": recovery_s,
+           "split": split, "first_boot": first.get("boot"),
+           "prekill_updates": pre["updates"], "prekill_last_cut": pre["last_ckpt_update"],
+           "resumed_from": post.get("resumed_from"), "postkill_updates": post["updates"],
+           "deaths": counters.get("ha_learner_deaths"),
+           "respawns": counters.get("ha_learner_respawns"),
+           "postmortem_target": doc["extra"]["target"],
+           "reference_targets": HA_REFERENCE_TARGETS,
+           "reference_targets_note": "the reference's targets come from CPU runs"}
+    emit(rec)
+    check(rec["deaths"] == 1 and rec["respawns"] == 1, "ha_drill: one death, one respawn")
+    check(rec["resumed_from"] >= pre["last_ckpt_update"] >= 2,
+          "ha_drill: the respawn resumed from a real cut")
+    check(post["updates"] > pre["updates"], "ha_drill: updates went past the pre-kill count")
+    check(doc["extra"]["target"] == "learner", "ha_drill: the postmortem names the learner")
+    return rec
+
+
+def ha_phase(torch, btt, control, datagen, image, seqformer, flash, worldmodel, pendulum):
+    """State and checkpoints on the card: ``ha_resume`` (the full-width
+    detector through K1 and the flagship SeqFormer through K2-K4, resumed
+    in place with their graphs), ``ha_al`` and ``ha_drill``.  Returns the
+    kernels' launches in the resumed steps."""
+    import functools
+    import tempfile
+
+    import numpy as np
+
+    from blendjax_torch.models.train import TrainState
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="bjx-ha-")
+    launches = {}
+    try:
+        dg = torch.Generator(device="cuda").manual_seed(1)
+        target = torch.rand((MAIN_SHAPE[0], 8, 2), generator=dg, device="cuda")
+        det_batches = [{"image": torch.randint(0, 256, MAIN_SHAPE, dtype=torch.uint8,
+                                               device="cuda", generator=dg),
+                        "xy": target} for _ in range(2 * HA_STEPS)]
+
+        def det_counts(zero=False):
+            if zero:
+                image.decode_frames_cuda.launches = 0
+            return {"decode_u8": image.decode_frames_cuda.launches}
+
+        det = _resume_model(
+            torch, "detector",
+            lambda seed: datagen.make_state(torch.Generator(device="cuda").manual_seed(seed)),
+            datagen.make_loss(), det_batches, det_counts, tmp)
+        check(det["launches"]["decode_u8"] == HA_STEPS,
+              "ha_resume detector: one decode_u8 launch per resumed step")
+        launches.update(det["launches"])
+        del det_batches
+
+        cfg = {k: SEQ[k] for k in ("obs_dim", "d_model", "n_heads", "n_layers")}
+        rng = np.random.default_rng(3)
+        seq_batches = [_episodes(torch, pendulum, rng, SEQ["batch"]) for _ in range(2 * HA_STEPS)]
+
+        def seq_counts(zero=False):
+            if zero:
+                _zero_flash_counts(flash)
+            return {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}
+
+        seq = _resume_model(
+            torch, "seqformer",
+            lambda seed: TrainState.create(seqformer.init(
+                torch.Generator(device="cuda").manual_seed(seed), max_len=SEQ["seq_len"],
+                device="cuda", **cfg), lr=SEQ["lr"]),
+            functools.partial(seqformer.episode_loss_fn,
+                              attn_fn=worldmodel.make_attn("flash", SEQ["seq_len"])),
+            seq_batches, seq_counts, tmp)
+        check(all(n == SEQ["n_layers"] * HA_STEPS for n in seq["launches"].values()),
+              "ha_resume seqformer: one launch of each flash kernel per layer and resumed step")
+        launches.update(seq["launches"])
+        del seq_batches
+
+        al = _ha_al(torch, btt, control, tmp)
+        drill = _ha_drill(torch, control, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "ha", "card": CARD,
+          "resume": {r["model"]: {k: r[k] for k in ("bytes", "ha_snapshot_ms",
+                                                    "ha_snapshot_reuse_ms",
+                                                    "ha_serialize_s", "ha_restore_s")}
+                     for r in (det, seq)},
+          "ckpt_overhead_x": al["ckpt_overhead_x"],
+          "learner_recovery_s": drill["learner_recovery_s"], "recovery_split": drill["split"],
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 # -- densityopt: the duplex channel, the discriminator, the ProbModel -----------
 
 #: ``examples/densityopt/densityopt.py``'s defaults (:133-168, :70-81): 4
@@ -2409,15 +2826,19 @@ def main():
     dream_phase(torch, seqformer, worldmodel, quant, pendulum, wm_state)
     del wm_state
     infer_launches = infer_int8_phase(torch, btt, datagen, image)
+    ha_launches = ha_phase(torch, btt, control, datagen, image, seqformer, flash, worldmodel,
+                           pendulum)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",
         "source": "blendjax_torch/ops/csrc/decode.cu",
         "replaces": "blendjax/ops/image.py:69",
-        "launches": decode_launches + densityopt_launches + infer_launches,
+        "launches": (decode_launches + densityopt_launches + infer_launches
+                     + ha_launches["decode_u8"]),
         "launches_by_path": {"datagen_stream": decode_launches,
                              "densityopt": densityopt_launches,
-                             "infer_int8": infer_launches},
+                             "infer_int8": infer_launches,
+                             "ha_resume": ha_launches["decode_u8"]},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
@@ -2436,7 +2857,10 @@ def main():
         kernels.append({
             "name": kname, "route": "cuda", "source": f"blendjax_torch/ops/csrc/{src}",
             "replaces": f"blendjax/ops/flash_attention.py:{line}",
-            "launches": flash_launches[kname], "max_abs_err": flash_errs[kname],
+            "launches": flash_launches[kname] + ha_launches[kname],
+            "launches_by_path": {"worldmodel_stream": flash_launches[kname],
+                                 "ha_resume": ha_launches[kname]},
+            "max_abs_err": flash_errs[kname],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "ms_clean_l2": rec["ms_clean_l2"], "launches_by_route": flash_routes[kname],

@@ -363,7 +363,7 @@ def test_snapshot_is_a_copy_that_survives_the_next_update():
 @pytest.mark.parametrize("name, item", [
     ("mesh", "item 7"), ("pipeline_stages", "item 7"), ("weight_bus", "items 5 and 9"),
     ("hub", "item 9"), ("scenarios", "item 9"), ("curriculum", "item 9"),
-    ("fanin_min_ready", "item 9"), ("checkpointer", "item 6")])
+    ("fanin_min_ready", "item 9")])
 def test_not_ported_arguments_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         ActorLearner(None, D, A, device="cpu", **{name: object()})

@@ -64,8 +64,9 @@ def test_sources_name_neither_jax_nor_blendjax():
 
 
 def test_producer_side_imports_without_torch():
-    """The producer side, and a serving client (with the snapshot format),
-    import neither torch nor JAX."""
+    """The producer side, a serving client (with the snapshot format), the
+    checkpoint files, the watchdog and the replay buffer import neither
+    torch nor JAX."""
     code = (
         "import json, sys\n"
         "import blendjax_torch, blendjax_torch.btb as btb\n"
@@ -81,6 +82,8 @@ def test_producer_side_imports_without_torch():
         "import blendjax_torch.btb.utils, blendjax_torch.btb.offscreen\n"
         "btb.DuplexChannel, btb.Camera, btb.OffScreenRenderer\n"
         "import blendjax_torch.serve.client, blendjax_torch.weights.snapshot\n"
+        "import blendjax_torch.utils.checkpoint, blendjax_torch.btt.watchdog\n"
+        "import blendjax_torch.replay.ring, blendjax_torch.replay.buffer, blendjax_torch.ha\n"
         "from blendjax_torch.serve import ServeClient, ServeRPCError\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
     )

@@ -10,8 +10,9 @@ reference's (``blendjax.replay``), on the CPU.
    ``sample_batches`` through an ``ArenaPool`` and the port's
    ``device_prefetch`` (``device="cpu"``), and the ``.btr`` prefill,
    bit-identical to direct appends (also from a live pool of the port's
-   echo producers).  Not ported: the save/restore cases (they wait for
-   ``utils/checkpoint.py``, ROADMAP Queue 1, item 6), the supervisor's
+   echo producers), and the save/restore cases: the continued draw stream
+   across a save and restore, foreign files refused, and a file saved by
+   either package restored by the other.  Not ported: the supervisor's
    health case and the replay benchmark's (item 9 and the benchmarks).
 2. **Differential** — the same seeded appends into both packages' buffers
    (healthy and unhealthy rows, past wraparound), then 50 rounds of
@@ -366,12 +367,74 @@ def test_not_ported_parts_name_their_roadmap_item(tmp_path):
     buf = ReplayBuffer(8, seed=0)
     for k in range(8):
         buf.append(_tr(k), scenario="a" if k % 2 else "b")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        buf.save(str(tmp_path / "replay.npz"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ReplayBuffer.restore(str(tmp_path / "replay.npz"))
     with pytest.raises(NotImplementedError, match="item 9"):
         buf.sample(4, scenario_mix={"a": 0.7, "b": 0.3})
+
+
+def test_determinism_across_save_restore_roundtrip(tmp_path):
+    path = str(tmp_path / "replay.npz")
+    buf = ReplayBuffer(32, seed=9)
+    _fill(buf, 40, healthy=lambda k: k % 6 != 2)
+    buf.sample(8)  # advance the RNG mid-stream
+    buf.update_priorities([0, 4], [3.0, 7.0])
+    buf.save(path)
+    restored = ReplayBuffer.restore(path)
+    assert restored.store.keys == buf.store.keys
+    for key in buf.store.keys:
+        np.testing.assert_array_equal(restored.store.columns[key], buf.store.columns[key])
+    np.testing.assert_array_equal(restored.tree.leaves(), buf.tree.leaves())
+    assert len(restored) == len(buf)
+    assert restored.num_eligible == buf.num_eligible
+    for _ in range(5):
+        da, ia, wa = buf.sample(8)
+        db, ib, wb = restored.sample(8)
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(wa, wb)
+        np.testing.assert_array_equal(da["obs"], db["obs"])
+    buf.append(_tr(99))
+    restored.append(_tr(99))
+    da, ia, _ = buf.sample(4)
+    db, ib, _ = restored.sample(4)
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_array_equal(da["reward"], db["reward"])
+
+
+def test_restore_rejects_foreign_files(tmp_path):
+    from blendjax_torch.utils.checkpoint import save_state
+
+    path = str(tmp_path / "other.npz")
+    save_state(path, {"x": np.zeros(3)}, {"format": "something/else"})
+    with pytest.raises(ValueError, match="not a replay checkpoint"):
+        ReplayBuffer.restore(path)
+
+
+@pytest.mark.parametrize("prioritized", [True, False])
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_saved_file_restores_in_the_other_package(tmp_path, writer, prioritized):
+    """Either package's file restores in the other: the same columns, tree
+    and counters, and the same draws and weights from there on, as the
+    saved buffer itself would draw them."""
+    path = str(tmp_path / "replay.npz")
+    src_cls, dst_cls = ((ReplayBuffer, JReplayBuffer) if writer == "port"
+                        else (JReplayBuffer, ReplayBuffer))
+    src = src_cls(32, seed=4, prioritized=prioritized)
+    _fill(src, 45, healthy=lambda k: k % 7 != 3)
+    _, idx, _ = src.sample(8)
+    src.update_priorities(idx, np.arange(8.0))
+    src.save(path)
+    dst = dst_cls.restore(path)
+    assert dst.stats()["appends"] == src.stats()["appends"] == 45
+    assert dst.num_eligible == src.num_eligible
+    for key in src.store.keys:
+        np.testing.assert_array_equal(dst.store.columns[key], src.store.columns[key])
+    for _ in range(6):
+        da, ia, wa = src.sample(8)
+        db, ib, wb = dst.sample(8)
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(wa, wb)
+        np.testing.assert_array_equal(da["obs"], db["obs"])
+        src.update_priorities(ia, np.abs(da["reward"]))
+        dst.update_priorities(ib, np.abs(db["reward"]))
 
 
 def test_uniform_scenario_mix_is_the_plain_draw():
