@@ -6,8 +6,9 @@ M:N fan-in with ZMQ fair queuing).  ``SNDHWM`` is small and
 buffering frames unboundedly.  Needs no ``bpy``.  Set
 ``raw_buffers=True`` for the zero-copy multipart encoding of ndarray
 payloads (see :mod:`blendjax_torch.wire`); leave it False for byte-compat
-with blendtorch consumers.  Only tcp addresses: the ``shm://`` transport
-is not ported.
+with blendtorch consumers.  A ``shm://`` address writes a same-host
+shared-memory ring instead (:mod:`blendjax_torch.native.ring`): one copy
+into the arena, no socket.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ class DataPublisher:
     sndtimeoms: int | None
         When set, :meth:`publish` returns False instead of blocking past
         this many milliseconds of backpressure.
+    shm_capacity: int
+        Ring size in bytes for a ``shm://`` address.
     """
 
     def __init__(
@@ -43,11 +46,18 @@ class DataPublisher:
         send_hwm=wire.DEFAULT_HWM,
         raw_buffers=False,
         sndtimeoms=None,
+        shm_capacity=64 << 20,
     ):
-        if bind_address.startswith("shm://"):
-            raise ValueError("the shm:// transport is not ported; use tcp")
         self.btid = btid
         self.raw_buffers = raw_buffers
+        self._sndtimeoms = -1 if sndtimeoms is None else sndtimeoms
+        self.sock = None
+        self._ring = None
+        if bind_address.startswith("shm://"):
+            from blendjax_torch.native import ShmRingWriter
+
+            self._ring = ShmRingWriter(bind_address, capacity_bytes=shm_capacity)
+            return
         self._ctx = zmq.Context.instance()
         self.sock = self._ctx.socket(zmq.PUSH)
         self.sock.setsockopt(zmq.SNDHWM, send_hwm)
@@ -64,6 +74,9 @@ class DataPublisher:
         returns False instead of blocking past the timeout.
         """
         data = {wire.BTID_KEY: self.btid, **kwargs}
+        if self._ring is not None:
+            frames = wire.encode(data, raw_buffers=self.raw_buffers)
+            return self._ring.send_frames(frames, timeout_ms=self._sndtimeoms)
         try:
             wire.send_message(self.sock, data, raw_buffers=self.raw_buffers)
         except zmq.Again:
@@ -71,6 +84,9 @@ class DataPublisher:
         return True
 
     def close(self):
+        if self._ring is not None:
+            self._ring.close(unlink=False)  # the reader may still drain
+            self._ring = None
         if self.sock is not None:
             self.sock.close(0)
             self.sock = None

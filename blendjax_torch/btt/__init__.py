@@ -35,6 +35,9 @@ _LAZY = {
     "FaultPolicy": ("blendjax_torch.btt.faults", "FaultPolicy"),
     "CircuitOpenError": ("blendjax_torch.btt.faults", "CircuitOpenError"),
     "launch_vector_env": ("blendjax_torch.btt.vector_env", "launch_vector_env"),
+    "RpcChannel": ("blendjax_torch.btt.transport", "RpcChannel"),
+    "as_torch_iterable": ("blendjax_torch.btt.torch_compat", "as_torch_iterable"),
+    "as_torch_map": ("blendjax_torch.btt.torch_compat", "as_torch_map"),
 }
 
 _LAZY_MODULES = (
@@ -53,6 +56,11 @@ _LAZY_MODULES = (
     "envpool",
     "faults",
     "vector_env",
+    "shm_rpc",
+    "rpc",
+    "transport",
+    "torch_compat",
+    "env_rendering",
 )
 
 

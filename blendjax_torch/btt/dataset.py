@@ -12,10 +12,14 @@ time (``item_transform`` and recording select it).  ``stream_batches``
 assembles whole batches straight from the wire frames, into recycled
 arena buffers when it is given an :class:`~blendjax_torch.btt.arena.ArenaPool`
 (one host copy from frame to batch slot); it degrades per key to the
-``collate`` rules for ragged, mixed-dtype and compat-pickle traffic.  The
-``shm://`` rings and the native gather are not ported: ``np.stack(out=)``
-does the gather.  zmq is imported where a stream opens its socket, so the
-replay side (:class:`FileDataset`) works without pyzmq.
+``collate`` rules for ragged, mixed-dtype and compat-pickle traffic.
+Leaves of 64 KiB or more a row are gathered by the native GIL-released
+``gather_into`` (:mod:`blendjax_torch.native.ring`), smaller ones row by
+row.  ``shm://`` addresses read same-host shared-memory rings instead of
+the socket: rings are single-consumer, so worker ``w`` of ``n`` reads
+``addresses[w::n]``, and each record is copied into its batch buffer
+before the ring slot is released.  zmq is imported where a stream opens
+its socket, so the replay side (:class:`FileDataset`) works without pyzmq.
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ import bisect
 import numbers
 import pickle
 import sys
+import time
 from contextlib import ExitStack
 from glob import glob
 
 import numpy as np
 
 from blendjax_torch import wire
+from blendjax_torch.btt.collate import _NATIVE_STACK_MIN_BYTES
 from blendjax_torch.btt.constants import DEFAULT_TIMEOUTMS
 from blendjax_torch.btt.file import FileReader, FileRecorder
 from blendjax_torch.utils.timing import fleet_counters
@@ -86,8 +92,6 @@ class RemoteIterableDataset:
         counters=None,
     ):
         self.addresses = list(addresses)
-        if any(a.startswith("shm://") for a in self.addresses):
-            raise ValueError("the shm:// transport is not ported; use tcp")
         self.queue_size = queue_size
         self.timeoutms = timeoutms
         self.max_items = max_items
@@ -108,7 +112,15 @@ class RemoteIterableDataset:
         ``stop_event`` (a ``threading.Event``) aborts the stream promptly —
         the poll loop checks it between messages so loaders can shut down
         without waiting out ``timeoutms``.
+
+        ``shm://`` addresses take the native shared-memory path: rings are
+        single-consumer, so they are partitioned
+        ``addresses[worker_id::num_workers]`` instead of the ZMQ
+        connect-to-all fan-in; use ``num_workers <= len(addresses)``.
         """
+        if self._is_shm():
+            yield from self._stream_shm(worker_id, num_workers, stop_event)
+            return
         socket, poller = self._open_socket()
         try:
             count = self.max_items // num_workers
@@ -171,6 +183,95 @@ class RemoteIterableDataset:
                     f"{self.addresses}"
                 )
 
+    def _is_shm(self):
+        return bool(self.addresses) and all(a.startswith("shm://") for a in self.addresses)
+
+    def _shm_rotation(self, worker_id, num_workers, stop_event, consume, count):
+        """The ring-rotation loop of the shm paths: opens this worker's
+        rings, round-robins ``consume(reader, block_ms)`` over them, and
+        owns the EOF / timeout / stop semantics.  ``consume`` returns a
+        result to yield, None when no message arrived in its slice, or
+        raises EOFError when its ring is closed and drained (the ring then
+        leaves the rotation: producer exit ends the stream instead of
+        raising a timeout)."""
+        from blendjax_torch.native import ShmRingReader
+
+        mine = self.addresses[worker_id::num_workers]
+        if not mine:
+            return
+        # ring creation waits on producer startup: give it the stream timeout
+        open_ms = max(self.timeoutms, 10000)
+        readers = [ShmRingReader(a, open_timeout_ms=open_ms) for a in mine]
+        # observable: the stream took the ring path
+        self.counters.incr("stream_shm_rings", len(readers))
+        try:
+            delivered = 0
+            waited_ms = 0
+            # one ring (one worker per producer): block inside the C call,
+            # 100 us wakeups; several: non-blocking rotation, short sleeps
+            block_ms = 100 if len(readers) == 1 else 0
+            while delivered < count and readers:
+                progressed = False
+                for reader in list(readers):
+                    if stop_event is not None and stop_event.is_set():
+                        return
+                    try:
+                        res = consume(reader, block_ms)
+                    except EOFError:
+                        reader.close(unlink=True)  # drained and closed
+                        readers.remove(reader)
+                        block_ms = 100 if len(readers) == 1 else 0
+                        continue
+                    except ConnectionResetError:
+                        # the ring vanished and its producer is not back
+                        # within this slice; the reader stays retryable, so
+                        # keep rotating until the stream timeout (a
+                        # watchdog respawn may land any moment)
+                        self.counters.incr("stream_ring_vanished")
+                        waited_ms += max(block_ms, 0)
+                        continue
+                    if res is None:
+                        waited_ms += max(block_ms, 0)
+                        continue
+                    progressed = True
+                    waited_ms = 0
+                    yield res
+                    delivered += 1
+                    if delivered >= count:
+                        return
+                if not progressed:
+                    if block_ms == 0:
+                        time.sleep(0.001)
+                        waited_ms += 1
+                    if waited_ms >= self.timeoutms:
+                        self.counters.incr("stream_timeouts")
+                        raise TimeoutError(f"No message within {self.timeoutms} ms from {mine}")
+        finally:
+            for r in readers:
+                r.close()
+
+    def _stream_shm(self, worker_id, num_workers, stop_event):
+        """The per-item stream loop over shm rings."""
+        count = self.max_items // num_workers
+        with ExitStack() as es:
+            rec = None
+            if self.record_path_prefix is not None:
+                rec = es.enter_context(FileRecorder(
+                    FileRecorder.filename(self.record_path_prefix, worker_id),
+                    self.max_items))
+
+            def consume(reader, block_ms):
+                frames = reader.recv_frames(timeout_ms=block_ms)
+                if frames is None:
+                    return None
+                if rec is not None:
+                    rec.save_frames(frames)
+                return (self._item(wire.decode(frames)),)
+
+            for (item,) in self._shm_rotation(worker_id, num_workers, stop_event, consume,
+                                              count):
+                yield item
+
     def _item(self, item):
         """Override point; defaults to ``item_transform``."""
         return self.item_transform(item)
@@ -227,8 +328,9 @@ class RemoteIterableDataset:
                     out = collate(batch)
                 yield out
             return
-        yield from self._stream_zmq_batches(batch_size, worker_id, num_workers, stop_event,
-                                            drop_last, timer, arena_pool)
+        impl = self._stream_shm_batches if self._is_shm() else self._stream_zmq_batches
+        yield from impl(batch_size, worker_id, num_workers, stop_event, drop_last, timer,
+                        arena_pool)
 
     def _acquire_arena(self, arena_pool, timer, stop_event):
         """Next free arena from the pool (None without a pool).  Blocks
@@ -264,7 +366,7 @@ class RemoteIterableDataset:
         copy into the (optionally pooled) batch buffer."""
         socket, poller = self._open_socket()
         # the decode plan is shared across this stream's batches
-        builder = _BatchBuilder(batch_size, schema_cache={})
+        builder = _BatchBuilder(batch_size, schema_cache={}, parallel=num_workers > 1)
         pending = False  # builder holds an unyielded (possibly empty) batch
         arena = None
         try:
@@ -305,19 +407,76 @@ class RemoteIterableDataset:
                 arena.release()  # acquired but never yielded (dropped tail)
             socket.close(0)
 
+    def _stream_shm_batches(self, batch_size, worker_id, num_workers, stop_event, drop_last,
+                            timer, arena_pool):
+        """Batched shm rotation: each ring record is held only while its
+        payloads are copied into the (optionally pooled) batch buffer
+        (the builder's eager mode), then released, so no batch aliases
+        ring memory."""
+        count = self.max_items // num_workers
+        state = {"builder": None, "arena": None}
+
+        def consume(reader, block_ms):
+            frames = reader.recv_frames_view(timeout_ms=block_ms)
+            if frames is None:
+                return None
+            try:
+                if state["builder"] is None:
+                    arena, alive = self._acquire_arena(arena_pool, timer, stop_event)
+                    if not alive:
+                        # stopping mid-acquire: drop this record and let the
+                        # rotation's own stop check end the stream
+                        return None
+                    state["arena"] = arena
+                    state["builder"] = _BatchBuilder(batch_size, arena=arena, defer=False)
+                with timer.stage("scatter"):
+                    state["builder"].add_message(frames)
+            finally:
+                reader.release_record()
+            return True
+
+        try:
+            for _ in self._shm_rotation(worker_id, num_workers, stop_event, consume, count):
+                builder = state["builder"]
+                if builder is not None and builder.full():
+                    with timer.stage("scatter"):
+                        data = builder.finish()
+                    # ownership moves to the batch BEFORE the yield (a close
+                    # at the yield must not release the arena again)
+                    out = self._wrap_batch(data, state["arena"])
+                    state["builder"], state["arena"] = None, None
+                    yield out
+            builder = state["builder"]
+            if builder is not None and builder.count and not drop_last:
+                with timer.stage("scatter"):
+                    data = builder.finish()
+                out = self._wrap_batch(data, state["arena"])
+                state["builder"], state["arena"] = None, None
+                yield out
+        finally:
+            if state["arena"] is not None:
+                state["arena"].release()
+
 
 class _BatchBuilder:
     """Assembles one collated batch directly from wire frames.
 
-    :meth:`add_message` references each message's zero-copy frames until
-    the batch completes; :meth:`finish` then copies every array leaf ONCE
-    into a ``(batch_size, *shape)`` buffer — taken from a recycled
-    :class:`~blendjax_torch.btt.arena.Arena` when one is supplied, freshly
-    allocated otherwise — with ``np.stack(out=)``, and collates everything
-    else.  After the first message fixes the schema, later batches are
-    decoded by a precompiled per-stream plan (no recursive walk on the hot
-    path); any structural surprise falls back to the generic walk for that
-    batch, preserving the collate semantics exactly.
+    Array leaves land in ``(batch_size, *shape)`` buffers — taken from a
+    recycled :class:`~blendjax_torch.btt.arena.Arena` when one is supplied,
+    freshly allocated otherwise — and everything else is collated.  Two
+    modes, as the reference's:
+
+    - **deferred** (``defer=True``, the default; the ZMQ transport):
+      :meth:`add_message` references each message's zero-copy frames until
+      the batch completes; :meth:`finish` then copies every array leaf
+      ONCE into its buffer (the native ``gather_into`` for rows of
+      :data:`_NATIVE_STACK_MIN_BYTES` or more, row by row below).  After
+      the first message fixes the schema, later batches are decoded by a
+      precompiled per-stream plan; any structural surprise falls back to
+      the generic walk for that batch, preserving the collate semantics.
+    - **eager** (``defer=False``; the shm transport): each message's
+      payloads are copied into the batch buffer (``copy_into``) before
+      :meth:`add_message` returns, so the ring record can be released.
 
     Semantics mirror ``stream() + collate``: a key whose shape/dtype
     drifts within a batch degrades to the ragged-list rules, keys absent
@@ -325,11 +484,22 @@ class _BatchBuilder:
     first-message key raises KeyError (as dict collate would).
     """
 
-    def __init__(self, batch_size, arena=None, schema_cache=None):
+    #: With several loader workers sharing the GIL, GIL time is the scarce
+    #: resource: the native gather pays off from 16 KiB a row.
+    _PARALLEL_GATHER_MIN_BYTES = 16 * 1024
+
+    def __init__(self, batch_size, arena=None, schema_cache=None, defer=True,
+                 parallel=False):
         self.batch_size = batch_size
         self.count = 0
         self._arena = arena
-        self._msgs = []  # per-message frame lists (zero-copy)
+        self._defer = bool(defer)
+        self._min_native = (self._PARALLEL_GATHER_MIN_BYTES if parallel
+                            else _NATIVE_STACK_MIN_BYTES)
+        self._msgs = []  # deferred: per-message frame lists (zero-copy)
+        self._stacked = {}  # eager: path -> preallocated (B, ...) ndarray
+        self._lists = {}  # eager: path -> leaves (collated at the end)
+        self._paths = None  # eager: the schema from the first message
         # {'schema': {...}} shared across builders of one stream so the
         # decode plan survives batch boundaries
         self._schema_cache = schema_cache if schema_cache is not None else {}
@@ -344,6 +514,9 @@ class _BatchBuilder:
         self.count = 0
         self._arena = arena
         self._msgs.clear()
+        self._stacked = {}
+        self._lists = {}
+        self._paths = None
         return self
 
     def _batch_buffer(self, path, leaf_shape, dtype):
@@ -363,10 +536,12 @@ class _BatchBuilder:
         ).reshape(placeholder["shape"])
 
     def _resolve(self, obj, payloads):
-        """Deep-resolve placeholders inside a container to views over the
-        payload frames (which outlive the batch)."""
+        """Deep-resolve placeholders inside a container: views over the
+        payload frames in deferred mode (they outlive the batch), owned
+        copies in eager mode (a ring record dies at its release)."""
         if wire.is_array_placeholder(obj):
-            return self._view(obj, payloads)
+            view = self._view(obj, payloads)
+            return view if self._defer else np.array(view)
         if isinstance(obj, dict):
             return {k: self._resolve(v, payloads) for k, v in obj.items()}
         if isinstance(obj, (list, tuple)):
@@ -433,6 +608,20 @@ class _BatchBuilder:
         build(head, (), ())
         return {"plan": plan, "dict_lens": dict_lens}
 
+    def _gather(self, dst, bufs, dtype):
+        """Copy ``bufs`` (one row each) into ``dst``: the native gather for
+        large rows, row by row below the threshold."""
+        from blendjax_torch.native.ring import gather_into
+
+        n = len(bufs)
+        if n and dst.nbytes // n >= self._min_native and not dtype.hasobject:
+            gather_into(dst, bufs)
+            return
+        rows = dst.reshape(n, -1)
+        for i, b in enumerate(bufs):
+            rows[i] = np.frombuffer(b, dtype) if not isinstance(b, np.ndarray) \
+                else b.reshape(-1)
+
     def _columnar(self, heads, msgs, schema):
         """Collate the batch along the precompiled plan, column by column.
         Returns None on ANY deviation (changed arity, moved key, type
@@ -460,8 +649,7 @@ class _BatchBuilder:
                     fi = idx + 1  # payload frames start after the header
                     buf = self._batch_buffer(path, shape, dtype)
                     dst = buf if n == self.batch_size else buf[:n]
-                    np.stack([np.frombuffer(m[fi], dtype).reshape(shape) for m in msgs],
-                             out=dst)
+                    self._gather(dst, [m[fi] for m in msgs], dtype)
                 elif kind == "leaf":
                     v0 = vals[0]
                     t0v = type(v0)
@@ -535,7 +723,7 @@ class _BatchBuilder:
                 if all(v.shape == first.shape and v.dtype == first.dtype for v, _ in col):
                     buf = self._batch_buffer(path, first.shape, first.dtype)
                     dst = buf if n == self.batch_size else buf[:n]
-                    np.stack([v for v, _ in col], out=dst)
+                    self._gather(dst, [v for v, _ in col], first.dtype)
                     _set_path(out, path, dst)
                     continue
             vals = [v for v, _ in col]
@@ -543,14 +731,66 @@ class _BatchBuilder:
         return out
 
     def add_message(self, frames):
-        """Reference one message's frames until :meth:`finish`."""
-        self._msgs.append(frames)
+        """Consume one message's frames: deferred mode references them
+        until :meth:`finish`; eager mode copies the payloads out before
+        returning (a ring record's lifetime)."""
+        if self._defer:
+            self._msgs.append(frames)
+            self.count += 1
+            return
+        from blendjax_torch.native import copy_into
+
+        head = wire.loads(frames[0])
+        payloads = frames[1:]
+        i = self.count
+        seen = set()
+        for path, leaf, is_array in self._walk(head, payloads):
+            if self._paths is not None and path not in self._paths:
+                # collate keys the batch off its first item and drops keys
+                # that only appear later
+                continue
+            seen.add(path)
+            if path in self._lists:
+                self._lists[path].append(np.array(leaf) if is_array else leaf)
+                continue
+            if is_array and i == 0:
+                self._stacked[path] = self._batch_buffer(path, leaf.shape, leaf.dtype)
+            buf = self._stacked.get(path)
+            if buf is not None and leaf.shape == buf.shape[1:] and leaf.dtype == buf.dtype:
+                copy_into(buf[i], leaf)
+                continue
+            # shape/dtype drift (or a non-array leaf): this key degrades to
+            # list mode, earlier slots COPIED out (a view would alias the
+            # recycled arena); the final collate applies the ragged rules
+            prior = ([np.array(buf[j]) for j in range(i)] if buf is not None
+                     else self._lists.get(path, []))
+            self._stacked.pop(path, None)
+            self._lists[path] = list(prior) + [np.array(leaf) if is_array else leaf]
+        if self._paths is None:
+            self._paths = seen
+        elif seen != self._paths:
+            missing = sorted(map(str, self._paths - seen))
+            raise KeyError(
+                f"stream message {i} of the current batch is missing "
+                f"key(s) {missing} present in the batch's first message"
+            )
         self.count += 1
 
     def finish(self):
-        """The collated batch pytree (nested dict): the headers parsed in
-        one pass, then collated column by column along the stream's cached
-        plan, or by the generic walk where the plan does not fit."""
+        """The collated batch pytree (nested dict).  Deferred mode: the
+        headers parsed in one pass, then collated column by column along
+        the stream's cached plan, or by the generic walk where the plan
+        does not fit."""
+        if not self._defer:
+            from blendjax_torch.btt.collate import collate
+
+            n = self.count
+            out = {}
+            for path, buf in self._stacked.items():
+                _set_path(out, path, buf if n == self.batch_size else buf[:n])
+            for path, vals in self._lists.items():
+                _set_path(out, path, collate(vals) if vals else vals)
+            return out
         if not self._msgs:
             return {}
         msgs = self._msgs

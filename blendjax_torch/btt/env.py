@@ -50,6 +50,7 @@ class RemoteEnv:
         self.socket.connect(address)
         self.env_time = None
         self.rgb_array = None
+        self.viewer = None
         self.fault_policy = fault_policy
         self._fault_state = (
             fault_policy.new_state() if fault_policy is not None else None
@@ -75,16 +76,19 @@ class RemoteEnv:
         self.rgb_array = ddict.pop("rgb_array", None)
         return obs, reward, done, ddict
 
-    def render(self, mode="human"):
-        """The last frame the remote env's renderer sent (``mode=
-        "rgb_array"``, or None when it sent none).  Showing it in a viewer
-        (``mode="human"``) is not ported (ROADMAP Queue 1, item 8)."""
+    def render(self, mode="human", backend=None):
+        """Show (``mode="human"``, in a viewer from
+        :mod:`blendjax_torch.btt.env_rendering`) or return
+        (``mode="rgb_array"``) the last frame the remote env's renderer
+        sent; None when it sent none."""
         if mode == "rgb_array" or self.rgb_array is None:
             return self.rgb_array
-        raise NotImplementedError(
-            "RemoteEnv.render(mode='human') needs the viewer, not ported yet "
-            "(ROADMAP Queue 1, item 8); use mode='rgb_array'"
-        )
+        if self.viewer is None:
+            from blendjax_torch.btt.env_rendering import create_renderer
+
+            self.viewer = create_renderer(backend)
+        self.viewer.imshow(self.rgb_array)
+        return None
 
     def _reqrep(self, **send_kwargs):
         if self.fault_policy is None:
@@ -116,6 +120,9 @@ class RemoteEnv:
         return ddict
 
     def close(self):
+        if self.viewer is not None:
+            self.viewer.close()
+            self.viewer = None
         if self.socket is not None:
             self.socket.close(0)
             self.socket = None

@@ -7,7 +7,10 @@ and one pre-allocated address per named socket per instance.  Each child
 runs in its own process group; shutdown escalates terminate -> kill on the
 whole group with a timeout, and launch failures raise ``RuntimeError``;
 ``respawn(idx)`` relaunches one instance with its original command line.
-Addresses are tcp; ``shm://`` is not ported.
+``proto`` picks the transport of the allocated addresses: ``tcp``,
+``ipc`` (a socket file under :func:`tempfile.gettempdir`) or ``shm``
+(same-host shared-memory rings, :mod:`blendjax_torch.native.ring`, named
+under a per-launch nonce and swept at exit and before a respawn).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import logging
 import os
 import signal as _signal
 import subprocess
+import tempfile
 
 import numpy as np
 
@@ -76,6 +80,9 @@ class BlenderLauncher:
         default-route interface so other hosts can connect.
     instance_args: list[list[str]] | None
         Extra per-instance CLI args appended after the framework args.
+    proto: str
+        Transport: ``'tcp'`` (default), ``'ipc'``, or ``'shm'`` (native
+        same-host shared-memory rings).
     blend_path: str | None
         Extra PATH entries searched for the Blender executable.
     seed: int | None
@@ -95,6 +102,7 @@ class BlenderLauncher:
         start_port=11000,
         bind_addr="127.0.0.1",
         instance_args=None,
+        proto="tcp",
         blend_path=None,
         seed=None,
         background=False,
@@ -102,12 +110,15 @@ class BlenderLauncher:
     ):
         if num_instances <= 0:
             raise ValueError("num_instances must be positive")
+        if proto not in ("tcp", "ipc", "shm"):
+            raise ValueError(f"proto must be 'tcp', 'ipc' or 'shm', got {proto!r}")
         self.scene = scene
         self.script = script
         self.num_instances = num_instances
         self.named_sockets = list(named_sockets or [])
         self.start_port = start_port
         self.bind_addr = bind_addr
+        self.proto = proto
         self.blend_path = blend_path
         self.seed = seed
         self.background = background
@@ -122,6 +133,12 @@ class BlenderLauncher:
                 f"instance_args has {len(self.instance_args)} entries "
                 f"for {num_instances} instances"
             )
+        # 8 hex chars of urandom: unique per launch, shared by respawns.
+        # Every shm object of this launch sits under one glob-able prefix,
+        # so teardown is one sweep, and a ring a killed earlier run left
+        # behind is never mistaken for this launch's
+        self._nonce = os.urandom(4).hex()
+        self._shm_base = f"blendjax-{self._nonce}"
 
         self.blender_info = discover_blender(self.blend_path)
         if self.blender_info is None:
@@ -138,17 +155,50 @@ class BlenderLauncher:
         self.launch_info = None
 
     def _addresses(self):
-        """One address per (socket name, instance), ports ascending."""
+        """One address per (socket name, instance), ports ascending.  shm
+        names carry the launch nonce; respawns reuse the command line, so
+        the same name, and the reader reopens the new ring generation."""
         bind = self.bind_addr
         if bind == "primaryip":
             bind = get_primary_ip()
         addresses, port = {}, self.start_port
         for name in self.named_sockets:
-            addresses[name] = [
-                f"tcp://{bind}:{port + idx}" for idx in range(self.num_instances)
-            ]
+            addrs = []
+            for idx in range(self.num_instances):
+                if self.proto == "ipc":
+                    path = os.path.join(tempfile.gettempdir(),
+                                        f"blendjax-{name}-{port + idx}.ipc")
+                    addrs.append(f"ipc://{path}")
+                elif self.proto == "shm":
+                    addrs.append(f"shm://{self._shm_base}-{name}-{port + idx}")
+                else:
+                    addrs.append(f"tcp://{bind}:{port + idx}")
             port += self.num_instances
+            addresses[name] = addrs
         return addresses
+
+    def _unlink_shm(self):
+        """Remove every shm object under this launch's prefix: a SIGKILLed
+        producer never runs its own unlink."""
+        if self.proto != "shm":
+            return
+        from blendjax_torch.btt.shm_rpc import unlink_base
+
+        removed = unlink_base(self._shm_base)
+        if removed:
+            logger.debug("swept %d shm objects under %s", len(removed), self._shm_base)
+
+    def _unlink_instance_shm(self, idx):
+        """Sweep one instance's shm objects before it is replaced.  A live
+        reader of a swept ring sees it vanish and reopens the respawn's
+        fresh generation."""
+        if self.proto != "shm" or self.launch_info is None:
+            return
+        from blendjax_torch.btt.shm_rpc import unlink_base
+
+        for addrs in self.launch_info.addresses.values():
+            if addrs[idx].startswith("shm://"):
+                unlink_base(addrs[idx][len("shm://"):])
 
     def __enter__(self):
         if self.launch_info is not None:
@@ -190,6 +240,7 @@ class BlenderLauncher:
         except Exception:
             for p in processes:
                 self._stop_process(p)
+            self._unlink_shm()
             raise
 
         self.launch_info = LaunchInfo(addresses, commands, processes=processes)
@@ -197,22 +248,31 @@ class BlenderLauncher:
 
     def respawn(self, idx):
         """Respawn instance ``idx`` with its original command line (same
-        addresses, same seed); used by
+        addresses, same seed: shm names carry the launch nonce); used by
         :class:`~blendjax_torch.btt.watchdog.FleetWatchdog` restarts, and
         callable directly for manual healing.  Returns the new process."""
         info = self.launch_info
         if info is None:
             raise RuntimeError("Not launched.")
+        # the dead incarnation ran no cleanup (SIGKILL): sweep its shm
+        # objects before the respawn recreates them
+        self._unlink_instance_shm(idx)
         new = subprocess.Popen(info.commands[idx], shell=False, env=child_env(),
                                **popen_group_kwargs())
         info.processes[idx] = new
         logger.info("Respawned instance %d as pid %d", idx, new.pid)
         return new
 
+    def wait(self):
+        """Block until every launched process terminates."""
+        for p in self.launch_info.processes:
+            p.wait()
+
     def __exit__(self, exc_type, exc_value, exc_traceback):
         for p in self.launch_info.processes:
             self._stop_process(p)
         remaining = [p for p in self.launch_info.processes if p.poll() is None]
+        self._unlink_shm()
         self.launch_info = None
         if remaining:
             raise RuntimeError("Not all Blender instances closed.")

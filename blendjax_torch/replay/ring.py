@@ -3,10 +3,11 @@ columns with O(1) row append and one gather per key for a batch.
 
 The port of ``blendjax.replay.ring``.  One ``(capacity, *leaf_shape)``
 array per transition key, allocated once on first sight of the schema,
-rows written in place (``np.copyto``) and batches gathered column by
-column (``np.take(..., out=)``).  The reference hands large rows to its
-native GIL-released ``copy_into``/``gather_into``; that transport is not
-ported (ROADMAP Queue 1, item 8), and the bytes are the same.
+rows written in place (``copy_into``: the native GIL-released copy for
+rows of 64 KiB or more, ``np.copyto`` below) and batches gathered column
+by column (the native ``gather_into`` for rows of
+:data:`_NATIVE_GATHER_MIN_BYTES` or more, so a concurrent actor thread
+keeps the GIL; ``np.take(..., out=)`` below).
 
 The schema is fixed by the first row: replay is a homogeneous transition
 log, so a key that later changes shape/dtype (or appears / disappears) is
@@ -20,6 +21,13 @@ serializes row writes and gathers together with its index/priority state
 from __future__ import annotations
 
 import numpy as np
+
+from blendjax_torch.native.ring import copy_into, gather_into
+
+#: Rows at or above this many bytes gather through the native GIL-released
+#: call; below it the per-row pointer extraction (~3 us a row) costs more
+#: than the copy saves and ``np.take`` wins.
+_NATIVE_GATHER_MIN_BYTES = 16 * 1024
 
 
 class ColumnStore:
@@ -84,7 +92,7 @@ class ColumnStore:
                 )
             col = self.columns[key]
             if shape:
-                np.copyto(col[slot], arr)
+                copy_into(col[slot], np.ascontiguousarray(arr))
             else:
                 col[slot] = arr
 
@@ -136,7 +144,13 @@ class ColumnStore:
                     f"out[{key!r}] is {dst.shape}/{dst.dtype}, need "
                     f"{(n,) + row_shape}/{col.dtype}"
                 )
-            batch[key] = np.take(col, idx, axis=0, out=dst)
+            if row_shape and col[0].nbytes >= _NATIVE_GATHER_MIN_BYTES:
+                if dst is None:
+                    dst = np.empty((n,) + row_shape, col.dtype)
+                gather_into(dst, [col[i] for i in idx])
+            else:
+                dst = np.take(col, idx, axis=0, out=dst)
+            batch[key] = dst
         return batch
 
     # -- checkpoint surface --------------------------------------------------

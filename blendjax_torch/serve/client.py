@@ -1,13 +1,18 @@
 """ServeClient: one episode's blocking RPC channel to a PolicyServer, the
 port of ``blendjax.serve.client.ServeClient``.
 
-A plain DEALER socket speaking the empty-delimiter framing of
-:mod:`blendjax_torch.wire`; every RPC is stamped with a ``wire.BTMID_KEY``
-correlation id and run under a :class:`~blendjax_torch.btt.faults.
-FaultPolicy`: a retry re-sends the same id (the server's reply cache
-answers it without a second decode), and replies whose id does not match
-the outstanding request are dropped as stale.  It talks to either
-package's server::
+It dials through a :class:`~blendjax_torch.btt.transport.RpcChannel`: a
+DEALER socket speaking the empty-delimiter framing of
+:mod:`blendjax_torch.wire`, upgraded to a same-host shared-memory ring
+pair (ShmRPC, :mod:`blendjax_torch.btt.shm_rpc`) once the server has
+answered and accepts (``shm="auto"``; ``shm=False`` or
+``BJX_NO_SHM_RPC=1`` pins it to ZMQ).  Every RPC runs the exactly-once
+discipline of :func:`blendjax_torch.btt.rpc.exactly_once_rpc`: a fresh
+``wire.BTMID_KEY`` correlation id, retries under a
+:class:`~blendjax_torch.btt.faults.FaultPolicy` that re-send the same id
+(the server's reply cache answers it without a second decode), and replies
+whose id does not match dropped as stale.  It talks to either package's
+server::
 
     client = ServeClient("tcp://host:24000")
     slot = client.reset()            # admit an episode (KV-cache slot)
@@ -15,26 +20,19 @@ package's server::
         pred = client.step(obs)["pred"]
     client.close_episode()           # release the slot
 
-Not ported yet: the transport channel with its ``shm://`` upgrade
-(``RpcChannel``, ROADMAP Queue 1, item 8) and the gateway's redirects and
-hub registration (item 9).
+Not ported yet: the gateway's redirects and hub registration (ROADMAP
+Queue 1, item 9).
 """
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
-from blendjax_torch import wire
-from blendjax_torch.btt.faults import CircuitOpenError, FaultPolicy
-from blendjax_torch.obs.spans import make_span, now_us
+from blendjax_torch.btt.faults import FaultPolicy
+from blendjax_torch.btt.rpc import ServeRPCError, exactly_once_rpc
 from blendjax_torch.utils.timing import fleet_counters
 
-
-class ServeRPCError(TimeoutError):
-    """A serve RPC failed at the transport level (no reply within the
-    policy, circuit open)."""
+__all__ = ["ServeClient", "ServeRPCError"]
 
 
 class ServeClient:
@@ -42,7 +40,7 @@ class ServeClient:
     REP/serial: the DEALER framing serves both)."""
 
     def __init__(self, address, *, fault_policy=None, counters=None, timeoutms=5000,
-                 span_recorder=None, model=None):
+                 span_recorder=None, model=None, shm="auto", shm_chaos=None):
         self.address = address
         self.policy = fault_policy or FaultPolicy()
         self.state = self.policy.new_state()
@@ -54,23 +52,28 @@ class ServeClient:
         self.model = model
         #: cross-process span sink (None: tracing off)
         self.spans = span_recorder
-        self._sock = None
+        self._shm_mode = shm
+        self._shm_chaos = shm_chaos
+        self._chan = None
 
-    def _socket(self):
-        if self._sock is None:
-            import zmq
+    def _channel(self):
+        if self._chan is None:
+            from blendjax_torch.btt.transport import RpcChannel
 
-            self._sock = zmq.Context.instance().socket(zmq.DEALER)
-            self._sock.setsockopt(zmq.LINGER, 0)
-            self._sock.connect(self.address)
-        return self._sock
+            self._chan = RpcChannel(self.address, shm=self._shm_mode,
+                                    shm_chaos=self._shm_chaos)
+        return self._chan
+
+    @property
+    def transport(self):
+        """The wire the next RPC rides: ``"shm"`` or ``"tcp"``."""
+        return self._chan.transport if self._chan is not None else "tcp"
 
     def reset_channel(self):
-        """Drop the socket so the next RPC dials fresh (stale replies of a
-        dead server die with it)."""
-        if self._sock is not None:
-            self._sock.close(0)
-            self._sock = None
+        """Drop the channel (the DEALER socket and any shm ring pair) so the
+        next RPC dials fresh (stale replies of a dead server die with it)."""
+        if self._chan is not None:
+            self._chan.reset()
 
     close = reset_channel
 
@@ -78,49 +81,13 @@ class ServeClient:
         """One exactly-once RPC under the fault policy; returns the decoded
         reply.  Raises :class:`ServeRPCError` (transport) or RuntimeError
         (the server executed the request and reported a failure)."""
-        import zmq
-
         msg = dict(payload or {})
         msg["cmd"] = cmd
-        mid = wire.stamp_message_id(msg)
-        if self.spans is not None:
-            wire.stamp_span_context(msg, mid)
-        t0_us = now_us() if self.spans is not None else 0
-        wait_ms = self.timeoutms if timeout_ms is None else int(timeout_ms)
-
-        def attempt(n):
-            sock = self._socket()
-            wire.send_message_dealer(sock, msg, raw_buffers=raw_buffers)
-            deadline = time.monotonic() + wait_ms / 1000.0
-            while True:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    raise ServeRPCError(
-                        f"policy server ({self.address}): no reply to {cmd!r} "
-                        f"within {wait_ms} ms (attempt {n + 1})")
-                if not sock.poll(max(1, min(50, int(remaining * 1000))), zmq.POLLIN):
-                    continue
-                reply = wire.recv_message_dealer(sock)
-                if reply.get(wire.BTMID_KEY) != mid:
-                    # an earlier attempt's late reply: this one is still owed
-                    self.counters.incr("stale_replies")
-                    continue
-                piggyback = wire.pop_spans(reply)
-                if self.spans is not None:
-                    self.spans.ingest(piggyback)
-                    self.spans.record(make_span(f"serve_rpc:{cmd}", t0_us, trace=mid,
-                                                cat="serve_client"))
-                if "error" in reply:
-                    raise RuntimeError(
-                        f"policy server: {cmd!r} failed remotely: {reply['error']}")
-                reply.pop(wire.BTMID_KEY, None)
-                return reply
-
-        try:
-            return self.policy.run(attempt, state=self.state, counters=self.counters,
-                                   name=f"serve:{cmd}", retryable=(ServeRPCError,))
-        except CircuitOpenError as exc:
-            raise ServeRPCError(f"policy server ({self.address}): {exc}") from exc
+        return exactly_once_rpc(
+            self._channel(), msg, policy=self.policy, state=self.state,
+            counters=self.counters,
+            wait_ms=self.timeoutms if timeout_ms is None else int(timeout_ms),
+            raw_buffers=raw_buffers, spans=self.spans)
 
     # -- episode protocol ----------------------------------------------------
 

@@ -19,7 +19,12 @@ episodes:
   :func:`blendjax_torch.ops.quant.quantize_seqformer` /
   :func:`~blendjax_torch.ops.quant.quantize_policy`, the same model code;
 - ``SERVE_EVENTS`` counters, ``SERVE_STAGES`` timings, a ``telemetry``
-  RPC and trace spans riding ``BTMID_KEY``.
+  RPC and trace spans riding ``BTMID_KEY``;
+- **ShmRPC** (:mod:`blendjax_torch.btt.shm_rpc`): a same-host client that
+  asks for the upgrade gets a shared-memory ring pair whose requests enter
+  the same admission queue; the ZMQ socket stays the control plane and the
+  remote path.  ``BJX_NO_SHM_RPC=1`` turns it off, and ``hello`` then
+  reports ``"shm": None``.
 
 Either package's ``ServeClient`` drives it: the wire is the JAX package's.
 Run a server as a process::
@@ -31,11 +36,9 @@ Run a server as a process::
 :func:`start_server_thread`.  ``serial=True`` (a REP socket, one request
 per exchange) is the baseline continuous batching is measured against.
 
-Not ported yet, each raising an error that names its ROADMAP item: the
-``shm://`` transport (Queue 1, item 8: the server answers a client's
-upgrade request with a refusal, and ``hello`` reports ``"shm": None``), a
+Not ported yet, each raising an error that names its ROADMAP item: a
 WeightBus ``subscriber=`` / ``--subscribe`` and the supervised
-``ServerProcess`` / ``ServerFleet`` (item 9).
+``ServerProcess`` / ``ServerFleet`` (Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from blendjax_torch import wire
+from blendjax_torch.btt import shm_rpc
 from blendjax_torch.obs.spans import make_span, now_us
 from blendjax_torch.utils.timing import StageTimer, fleet_counters
 
@@ -68,11 +72,6 @@ STATELESS_TTL_S = 30.0
 #: Default bound on the reply cache (each client keeps one RPC in flight).
 REPLY_CACHE_DEPTH = 1024
 
-#: The shared-memory transport's negotiation commands: refused, since the
-#: port has no such transport yet, outside the request counters.
-SHM_CONTROL_CMDS = ("shm_connect", "shm_attach")
-
-_SHM_MISSING = "the shm:// transport is not ported yet (ROADMAP Queue 1, item 8)"
 _BUS_MISSING = ("the WeightBus (weights/bus.py) is not ported yet "
                 "(ROADMAP Queue 1, item 9)")
 _SUPERVISED_MISSING = ("ServerProcess and ServerFleet wait for the supervisor and "
@@ -407,10 +406,15 @@ class PolicyServer:
     slot_ttl_s: float | None
         Idle-slot eviction horizon for a reset that finds no free slot
         (None: the reset is denied instead).
+    shm_base: str | None
+        ``/dev/shm`` name prefix of the ShmRPC transport (a supervising
+        parent passes one so it can sweep what a killed server left;
+        generated when None).
     """
 
     def __init__(self, address, model, *, serial=False, tick_ms=2.0, max_batch=64,
-                 slot_ttl_s=None, counters=None, timer=None, subscriber=None):
+                 slot_ttl_s=None, counters=None, timer=None, subscriber=None,
+                 shm_base=None):
         import zmq
 
         if subscriber is not None:
@@ -447,8 +451,21 @@ class PolicyServer:
         else:
             self._sock.bind(address)
             self.address = address
+        # the same-host ShmRPC transport (None when disabled) serves the same
+        # admission queue and slot pools: a request is a request whichever
+        # wire delivered it
+        self._shm = None
+        if shm_rpc.enabled():
+            self._shm = shm_rpc.ShmRpcServer(shm_base or shm_rpc.new_base("ps"), self.counters)
         self._poller = zmq.Poller()
         self._poller.register(self._sock, zmq.POLLIN)
+        if self._shm is not None and self._shm.fd is not None:
+            self._poller.register(self._shm.fd, zmq.POLLIN)
+
+    @property
+    def shm_endpoint(self):
+        """The advertised ``shm://`` endpoint (None on a pure-ZMQ server)."""
+        return self._shm.endpoint if self._shm is not None else None
 
     @property
     def model(self):
@@ -526,7 +543,7 @@ class PolicyServer:
                         "int8": bool(getattr(s.model, "int8", False))}
                 for s in self._models.values()
             },
-            "shm": None,
+            "shm": self._shm.info() if self._shm is not None else None,
             "pid": os.getpid(),
         }
 
@@ -646,8 +663,9 @@ class PolicyServer:
             self.counters.incr("serve_errors")
         return reply
 
-    def _finish(self, ident, msg, reply, *, span_name, t0_us):
-        """Stamp correlation id and span, cache mutating replies, send."""
+    def _finish(self, ident, msg, reply, *, span_name, t0_us, ding=True):
+        """Stamp correlation id and span, cache mutating replies, send.
+        ``ding=False`` defers the shm doorbell to the caller's flush."""
         mid = msg.get(wire.BTMID_KEY)
         span_ctx = msg.get(wire.SPAN_KEY)
         if isinstance(span_ctx, dict) and span_ctx.get("trace") is not None:
@@ -660,11 +678,18 @@ class PolicyServer:
                 self._reply_cache[mid] = reply
                 while len(self._reply_cache) > REPLY_CACHE_DEPTH:
                     self._reply_cache.popitem(last=False)
-        self._send(ident, reply)
+        self._send(ident, reply, ding=ding)
 
-    def _send(self, ident, reply):
+    def _send(self, ident, reply, ding=True):
         import zmq
 
+        if getattr(ident, "shm_channel", False):
+            # the request came over shm: the reply goes back down the same
+            # channel (a dead or full channel drops it; the client demotes
+            # and its same-mid retry is answered from the reply cache)
+            if self._shm is not None and self._shm.send(ident, reply, ding=ding):
+                self.counters.incr("serve_replies")
+            return
         try:
             if self.serial:
                 sent = wire.send_message(self._sock, reply, raw_buffers=True)
@@ -674,18 +699,6 @@ class PolicyServer:
             self.counters.incr("serve_replies")
         except zmq.ZMQError:
             pass  # client gone; its retry will re-dial
-
-    @staticmethod
-    def _shm_refusal(msg):
-        """The refusal a client's shm upgrade request gets, or None for
-        workload traffic."""
-        if msg.get("cmd") not in SHM_CONTROL_CMDS:
-            return None
-        reply = {"error": _SHM_MISSING}
-        mid = msg.get(wire.BTMID_KEY)
-        if mid is not None:
-            reply[wire.BTMID_KEY] = mid
-        return reply
 
     def _admit(self, ident, msg):
         """One decoded request: answer control commands at once, queue
@@ -818,8 +831,11 @@ class PolicyServer:
             reply = {"pred": np.ascontiguousarray(preds[j])}
             if pos_before[j] is not None:
                 reply["pos"] = pos_before[j]
+            # the batch's shm replies ring one bell per channel (below)
             self._finish(ent.ident, ent.msg, reply, span_name="serve:step",
-                         t0_us=ent.t0_us)
+                         t0_us=ent.t0_us, ding=False)
+        if self._shm is not None:
+            self._shm.flush_bells()
         self.timer.add("reply", time.perf_counter() - t_reply)
         return more
 
@@ -847,8 +863,10 @@ class PolicyServer:
         def handle(out):
             ident, msg, nbytes = out
             self.counters.incr("serve_wire_bytes", nbytes)
-            reply = self._shm_refusal(msg)
+            reply = shm_rpc.control_reply(self._shm, msg)
             if reply is not None:
+                # transport negotiation, not workload: answered outside the
+                # request counters and the reply cache
                 try:
                     wire.send_message_router(self._sock, ident, reply)
                 except zmq.ZMQError:
@@ -859,6 +877,24 @@ class PolicyServer:
         drain_socket(
             lambda: wire.recv_message_router_sized(self._sock, flags=zmq.NOBLOCK),
             handle, self.counters, "policy server", "request")
+
+    def _handle_shm_msg(self, chan, msg):
+        reply = shm_rpc.control_reply(self._shm, msg)
+        if reply is not None:
+            self._shm.send(chan, reply)
+            return
+        self._admit(chan, msg)
+        if self.serial:
+            # serial is per request: tick at once so co-pumped shm requests
+            # never batch
+            while self._queue:
+                self._tick()
+
+    def _drain_shm(self):
+        """Admit every request pending on the shm channels (the channel
+        rides as the request's reply ident)."""
+        if self._shm is not None:
+            self._shm.pump(self._handle_shm_msg)
 
     def serve_forever(self, stop_event=None, poll_ms=50):
         import zmq
@@ -871,6 +907,7 @@ class PolicyServer:
                 if not self._queue:
                     self._poller.poll(poll_ms)
                     self._drain()
+                    self._drain_shm()
                     if not self._queue:
                         continue
                 # admission window: wait up to tick_ms for co-arriving
@@ -884,6 +921,7 @@ class PolicyServer:
                     if not self._poller.poll(max(1, int(rem_ms))):
                         break
                     self._drain()
+                    self._drain_shm()
             except zmq.ZMQError:
                 return  # socket closed under us: clean shutdown
             if self._queue:
@@ -891,12 +929,16 @@ class PolicyServer:
                     pass
 
     def _serve_serial(self, stop_event, poll_ms):
-        """The REP baseline: one request, one (batch-1) reply."""
+        """The REP baseline: one request, one (batch-1) reply.  shm channels
+        are served from the same loop (their replies ride their own rings,
+        so the REP alternation governs only the ZMQ socket)."""
         import zmq
 
         while stop_event is None or not stop_event.is_set():
             try:
-                if not self._poller.poll(poll_ms):
+                events = dict(self._poller.poll(poll_ms))
+                self._drain_shm()  # ticks per message (serial handler)
+                if self._sock not in events:
                     continue
                 try:
                     msg, nbytes = wire.recv_message_sized(self._sock)
@@ -913,7 +955,7 @@ class PolicyServer:
                     continue
             except zmq.ZMQError:
                 return
-            reply = self._shm_refusal(msg)
+            reply = shm_rpc.control_reply(self._shm, msg)
             if reply is not None:
                 try:
                     wire.send_message(self._sock, reply)
@@ -929,6 +971,12 @@ class PolicyServer:
             self._sock.close(0)
         except Exception:  # noqa: BLE001 - shutdown best-effort
             pass
+        if self._shm is not None:
+            try:
+                self._shm.close(unlink=True)
+            except Exception:  # noqa: BLE001
+                pass
+            self._shm = None
 
 
 # ---------------------------------------------------------------------------
@@ -1016,7 +1064,7 @@ def build_model(args, kind=None, seed=None):
 
 
 #: options of the reference's server that the port does not have yet
-NOT_PORTED = {"--subscribe": _BUS_MISSING, "--shm-base": _SHM_MISSING}
+NOT_PORTED = {"--subscribe": _BUS_MISSING}
 
 
 def main(argv=None):
@@ -1038,6 +1086,9 @@ def main(argv=None):
     ap.add_argument("--serial", action="store_true")
     ap.add_argument("--tick-ms", type=float, default=2.0)
     ap.add_argument("--max-batch", type=int, default=64)
+    ap.add_argument("--shm-base", default=None,
+                    help="/dev/shm name prefix for the ShmRPC transport (default: a "
+                         "fresh one; BJX_NO_SHM_RPC=1 turns the transport off)")
     ap.add_argument("--extra-model", action="append", default=[], metavar="NAME=KIND",
                     help="host an additional model under NAME; the i'th extra model "
                          "inits from seed+1+i")
@@ -1060,7 +1111,7 @@ def main(argv=None):
             models[name] = build_model(args, kind=kind, seed=args.seed + 1 + i)
         model = models
     server = PolicyServer(args.address, model, serial=args.serial, tick_ms=args.tick_ms,
-                          max_batch=args.max_batch)
+                          max_batch=args.max_batch, shm_base=args.shm_base)
     stop = threading.Event()
 
     def _term(signum, frame):

@@ -9,7 +9,9 @@ Phases, each printing JSON lines:
 1. card     — ``nvidia-smi``'s name and power limit.
 2. kernels  — the hand-written kernels the port has; their library is
               built from ``blendjax_torch/ops/csrc`` into ``build/``, one
-              ``nvcc`` per source in parallel (``build`` line).
+              ``nvcc`` per source in parallel, while ``g++`` builds the
+              native shared-memory ring from ``blendjax_torch/native``
+              (``build`` line; a failed build prints the compiler's output).
 3. kernel   — the decode kernel against its plain PyTorch version on the
               card (``decode_cases``: the main shape, the densityopt
               path's (8|32, 128, 128, 3), unaligned bases 1-15, sizes
@@ -41,6 +43,20 @@ Phases, each printing JSON lines:
               arenas, staged through the feed's pinned ring) in turns of
               ``AB_ITEMS`` items, each batch held on the card to what its
               producers published, the arena checked engaged.
+5c. transport — the same-host transports.  The datagen stream of 5b
+              (arena engaged) with the producers launched by
+              ``BlenderLauncher(proto=...)`` over tcp, shm, shm, tcp, then
+              ipc, 512 items a turn: items/s and the p50s of ``recv``,
+              ``scatter``, ``arena_wait``, ``device_put`` and ``wait``;
+              every batch held to its producers' frames, the shm turns
+              checked to have read the rings, nothing left under each
+              launch's ``/dev/shm`` prefix.  Then the flagship served (as
+              14, float) to 8 ``ServeClient`` threads in one child process,
+              ``shm=False`` and ``shm="auto"`` in turns (3 s windows, 2
+              rounds): ``serve_qps``, p50/p99, ``serve_shm_bytes`` and
+              ``serve_wire_bytes`` per arm; every client's wire checked
+              (``tcp``, ``shm`` with no demotion), one seeded episode's
+              predictions bit-equal between the arms.
 6. flash    — the flash-attention forward, dQ and dK/dV kernels against
               their plain passes on the card, case by case (the flagship
               shape in bf16, f32 causal and not, f32 at head dim 128 and
@@ -128,6 +144,7 @@ Phases, each printing JSON lines:
               alone (1e-5); the card against the CPU on a small model (1e-5).
               ``serve_small`` repeats the windows at the serve benchmark's
               own width (d_model 64, 4 heads, 2 layers, a 64-step ring).
+              These clients stay on ZMQ (``shm=False``); 5c measures ShmRPC.
 15. dream   — ``worldmodel.dream`` on the world-model phase's flash-trained
               model: batch 8, a 64-step prefix, 448 dreamed steps, float and
               int8 in turns (steps/s); the rollout against the CPU on a small
@@ -163,7 +180,7 @@ Phases, each printing JSON lines:
               times (import, CUDA init, build, restore, the first update).
 
 Every kernel's launch count is zeroed just before the path that runs it
-(the datagen stream, the densityopt loop and the int8 inference for the
+(the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
 decode kernel, the world-model stream for the flash kernels, and the ha
 phase's resumed steps for all four) and read just after; a kernel a path
 never launched fails the run.  The line before the last holds every kernel's numbers; the last
@@ -858,6 +875,310 @@ def stream_ab_phase(torch, btt, datagen, image):
         arm["items_per_s"].append(rec["items_per_s"])
         arm["median_step_ms"].append(rec["median_step_ms"])
     emit({"phase": "stream_ab_summary", "items_per_turn": AB_ITEMS, "arms": summary})
+
+
+# -- the same-host transports ------------------------------------------------------
+
+#: datagen turns of the transport phase, by ``BlenderLauncher(proto=)``: tcp and
+#: shm in turns, then one ipc turn as a check
+TRANSPORT_TURNS = ("tcp", "shm", "shm", "tcp", "ipc")
+TRANSPORT_ITEMS = 512
+TRANSPORT_STAGES = ("recv", "scatter", "arena_wait", "device_put", "wait")
+#: the served flagship's arms (``ServeClient(shm=)``) and their rounds
+SERVE_SHM_ARMS = (False, "auto")
+
+
+def _frames_reference(torch, datagen, producers):
+    """The frames each ``frames.blend.py`` producer publishes (a pool of
+    seeded frames per producer), on the card, with the keypoints the
+    batch-level transform gives them."""
+    import runpy
+
+    import numpy as np
+
+    script = runpy.run_path(str(datagen.FRAMES_SCRIPT), run_name="frames")
+    frames = [script["make_frame"](seed, i, MAIN_SHAPE[1], MAIN_SHAPE[2], 8)
+              for seed in range(producers) for i in range(script["POOL"])]
+    ref_image = torch.from_numpy(np.stack([f[0] for f in frames])).cuda()
+    ref_xy = torch.from_numpy(np.stack([
+        datagen.item_transform({"image": f[0], "xy": f[1]})["xy"] for f in frames])).cuda()
+    return script["POOL"], ref_image, ref_xy
+
+
+def _transport_datagen(torch, btt, datagen, image):
+    """The datagen stream over each transport of :data:`TRANSPORT_TURNS`,
+    through its entry points: 2 ``frames.blend.py`` producers started by
+    ``BlenderLauncher(proto=...)`` -> ``RemoteIterableDataset`` ->
+    ``TorchStream`` (arena engaged, a batch-level transform) -> K1 -> the
+    captured detector step.  Every batch is held on the card to the frames
+    its producers published; the shm turns must have read the rings
+    (``stream_shm_rings``), and no launch may leave objects under its
+    ``/dev/shm`` prefix.  Returns K1's launches in the shm turns."""
+    from blendjax_torch.btt import shm_rpc
+    from blendjax_torch.models.train import make_train_step
+    from blendjax_torch.utils.timing import EventCounters
+
+    _fake_blender()
+    batch_size, producers = 8, 2
+    pool_size, ref_image, ref_xy = _frames_reference(torch, datagen, producers)
+
+    def transform(batch):
+        return {**datagen.item_transform(batch), "btid": batch["btid"],
+                "frameid": batch["frameid"]}
+
+    state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(datagen.make_loss())
+
+    def turn(proto, items):
+        counters = EventCounters()
+        wrong = torch.zeros((), dtype=torch.int64, device="cuda")
+        arrivals, losses = [], []
+
+        def check_batch(batch):
+            nonlocal wrong
+            check(batch["image"].is_cuda and batch["image"].dtype == torch.uint8
+                  and tuple(batch["image"].shape) == MAIN_SHAPE, f"{proto} stream batch")
+            idx = batch["btid"].long() * pool_size + batch["frameid"].long() % pool_size
+            wrong = wrong + (batch["image"] != ref_image[idx]).sum() + \
+                (batch["xy"] != ref_xy[idx]).sum()
+
+        with btt.BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT),
+                                 num_instances=producers, named_sockets=["DATA"],
+                                 start_port=_port_block(), background=True, seed=0,
+                                 proto=proto) as bl:
+            base = bl._shm_base
+            addresses = bl.launch_info.addresses["DATA"]
+            ds = btt.RemoteIterableDataset(addresses, max_items=items, counters=counters)
+            with btt.TorchStream(ds, batch_size=batch_size, num_workers=producers,
+                                 device="cuda", transform=transform, arena="auto") as stream:
+                image.decode_frames_cuda.launches = 0
+                for batch in _stamped(stream, arrivals, check_batch):
+                    _, loss = step(state, batch)
+                    losses.append(float(loss))
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+                launches = image.decode_frames_cuda.launches
+            engaged = stream.arena_pool is not None
+        leaked = shm_rpc.leaked_objects(base)
+        summary = stream.timer.summary()
+        rec = {"phase": "transport_datagen", "proto": proto, "addresses": addresses,
+               "batches": len(losses), "items": len(losses) * batch_size,
+               "items_per_s": (len(arrivals) - 1) * batch_size / (end - arrivals[0]),
+               "p50_ms": {k: stream.timer.percentiles(k)["p50_ms"] for k in TRANSPORT_STAGES},
+               "ms_per_batch": {k: summary[k]["total_s"] * 1e3 / max(1, len(losses))
+                                for k in TRANSPORT_STAGES if k in summary},
+               "counts": {k: stream.timer.count(k) for k in TRANSPORT_STAGES},
+               "median_step_ms": stream.timer.percentiles("step")["p50_ms"],
+               "shm_rings_read": counters.get("stream_shm_rings"),
+               "wrong_elements": int(wrong), "launches": {"decode_u8": launches},
+               "arena_engaged": engaged, "leaked": leaked, "last_loss": losses[-1]}
+        check(len(losses) == items // batch_size, f"{proto}: the stream delivered every batch")
+        check(rec["wrong_elements"] == 0,
+              f"{proto}: every batch reached the card as its producers published it")
+        check(all(math.isfinite(v) for v in losses), f"{proto}: losses finite")
+        check(launches == len(losses), f"{proto}: one decode_u8 launch per step")
+        check(engaged, f"{proto}: the arena was engaged")
+        check(all(a.startswith(f"{proto}://") for a in addresses),
+              f"{proto}: the launcher allocated {proto} addresses")
+        check(rec["shm_rings_read"] == (producers if proto == "shm" else 0),
+              f"{proto}: the stream read the rings iff shm ({rec['shm_rings_read']})")
+        check(not leaked, f"{proto}: nothing left under /dev/shm/{base}*: {leaked}")
+        return rec
+
+    emit({**turn("shm", 8 * batch_size), "phase": "transport_datagen_warmup"})
+    turns = [turn(proto, TRANSPORT_ITEMS) for proto in TRANSPORT_TURNS]
+    for rec in turns:
+        emit(_stamp(rec))
+    arms = {}
+    for rec in turns:
+        arms.setdefault(rec["proto"], []).append(rec["items_per_s"])
+    emit(_stamp({"phase": "transport_datagen_summary", "items_per_turn": TRANSPORT_ITEMS,
+                 "items_per_s": arms}))
+    return sum(r["launches"]["decode_u8"] for r in turns if r["proto"] == "shm")
+
+
+def serve_clients_main(spec):
+    """The serving arm's clients, in a process of their own (``python3
+    chip_smoke.py --serve-clients '<json>'``): first one seeded check
+    episode alone, then ``clients`` threads stepping episodes for
+    ``seconds``; prints one JSON line (the check episode's predictions,
+    per-thread steps and latencies, each client's wire and channel
+    generations and demotions, errors)."""
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    from blendjax_torch.serve.client import ServeClient
+
+    cfg = json.loads(spec)
+    shm = cfg["shm"]
+
+    def episode(seed):
+        rng = np.random.default_rng(seed)
+        return rng.standard_normal((cfg["episode_len"], cfg["obs_dim"])).astype(np.float32)
+
+    check_client = ServeClient(cfg["address"], timeoutms=30000, shm=shm)
+    ep = episode(7)
+    check_preds = [check_client.reset(prefix=ep[:cfg["prefix"]])["pred"].tolist()]
+    check_preds += [check_client.step(o)["pred"].tolist() for o in ep[cfg["prefix"]:]]
+    check_client.close_episode()
+    check_client.close()
+
+    n = cfg["clients"]
+    lat, steps = [[] for _ in range(n)], [0] * n
+    wires, errors = [None] * n, []
+    ready, go = threading.Barrier(n + 1), threading.Barrier(n + 1)
+    deadline = [None]
+
+    def run(i):
+        client = ServeClient(cfg["address"], timeoutms=30000, shm=shm)
+        e = episode(cfg["seed"] + i)
+        try:
+            client.reset(prefix=e[:cfg["prefix"]])
+            t = cfg["prefix"]
+            ready.wait(timeout=120)
+            go.wait(timeout=60)
+            while time.perf_counter() < deadline[0]:
+                t0 = time.perf_counter()
+                client.step(e[t])
+                lat[i].append(time.perf_counter() - t0)
+                steps[i] += 1
+                t += 1
+                if t == cfg["episode_len"]:
+                    client.close_episode()
+                    client.reset()
+                    t = 0
+            client.close_episode()
+            chan = client._chan
+            wires[i] = {"transport": client.transport, "generations": chan.generations,
+                        "demotions": chan.demotions}
+        except Exception as exc:  # noqa: BLE001 - reported to the parent
+            errors.append(f"client {i}: {type(exc).__name__}: {exc}")
+            ready.abort()
+            go.abort()
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    try:
+        ready.wait(timeout=120)
+        deadline[0] = time.perf_counter() + cfg["seconds"]
+        go.wait(timeout=60)
+    except threading.BrokenBarrierError:
+        pass
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=cfg["seconds"] + 60)
+    elapsed = time.perf_counter() - t0
+    print(json.dumps({"check_preds": check_preds, "steps": steps, "elapsed": elapsed,
+                      "latencies": [x for per in lat for x in per], "wires": wires,
+                      "errors": errors}), flush=True)
+    return 0
+
+
+def _serve_clients(address, cfg, shm, seconds, seed):
+    """One window of the child-process clients; returns its JSON record."""
+    spec = json.dumps({"address": address, "shm": shm, "seconds": seconds, "seed": seed,
+                       **{k: cfg[k] for k in ("clients", "episode_len", "prefix", "obs_dim")}})
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-clients", spec],
+                          capture_output=True, text=True, timeout=seconds + 240, cwd=REPO)
+    check(proc.returncode == 0,
+          f"serve clients exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not out["errors"], f"serve clients: {out['errors']}")
+    return out
+
+
+def _transport_serve(torch, seqformer, serve, cfg):
+    """The flagship served to 8 ``ServeClient`` threads in one child process,
+    each arm of :data:`SERVE_SHM_ARMS` in turns (``cfg["rounds"]`` rounds of
+    ``cfg["window_s"]``): ``serve_qps`` and p50/p99 per arm, the bytes each
+    wire moved, every client's wire checked, and one seeded episode's
+    predictions bit-equal between the arms."""
+    import numpy as np
+
+    from blendjax_torch.btt import shm_rpc
+    from blendjax_torch.utils.timing import EventCounters, StageTimer
+
+    params = _serve_params(torch, seqformer, cfg)
+    model = serve.SeqFormerModel(params, cfg["slots"], cfg["length"])
+    counters = EventCounters()
+    handle = serve.start_server_thread(model, tick_ms=1.0, max_batch=cfg["slots"],
+                                       counters=counters, timer=StageTimer())
+    base = handle.server._shm.base if handle.server._shm is not None else None
+    check(base is not None, "the policy server built its ShmRPC transport")
+    arms = {str(a): {"qps": [], "lat": [], "shm_bytes": 0, "wire_bytes": 0, "wires": []}
+            for a in SERVE_SHM_ARMS}
+    checks = {}
+    try:
+        for b in handle.server.buckets:  # every bucket a window can hit: warm-ups, capture
+            for _ in range(3):
+                model.step_rows(np.full(b, model.pad_slot, np.int64),
+                                np.zeros((b, cfg["obs_dim"]), np.float32))
+            if b >= cfg["clients"]:
+                break
+        for r in range(cfg["rounds"]):
+            order = SERVE_SHM_ARMS if r % 2 == 0 else SERVE_SHM_ARMS[::-1]
+            for arm in order:
+                before = counters.snapshot()
+                out = _serve_clients(handle.address, cfg, arm, cfg["window_s"], 1000 * (r + 1))
+                after = counters.snapshot()
+                rec = arms[str(arm)]
+                rec["qps"].append(sum(out["steps"]) / out["elapsed"])
+                rec["lat"].extend(out["latencies"])
+                for key, name in (("shm_bytes", "serve_shm_bytes"),
+                                  ("wire_bytes", "serve_wire_bytes")):
+                    rec[key] += after.get(name, 0) - before.get(name, 0)
+                rec["wires"].extend(out["wires"])
+                checks.setdefault(str(arm), out["check_preds"])
+                want = "shm" if arm else "tcp"
+                check(all(w["transport"] == want for w in out["wires"]),
+                      f"serve shm={arm}: every client rode {want}: {out['wires']}")
+                if arm:
+                    check(all(w["demotions"] == 0 and w["generations"] == 1
+                              for w in out["wires"]),
+                          f"serve shm={arm}: no channel demoted: {out['wires']}")
+        errors = counters.get("serve_errors")
+    finally:
+        handle.close()
+    leaked = shm_rpc.leaked_objects(base)
+    results = {}
+    for arm, rec in arms.items():
+        results[arm] = {
+            "serve_qps": float(np.median(rec["qps"])), "qps_turns": rec["qps"],
+            "serve_p50_ms": float(np.percentile(rec["lat"], 50)) * 1e3,
+            "serve_p99_ms": float(np.percentile(rec["lat"], 99)) * 1e3,
+            "serve_shm_bytes": rec["shm_bytes"], "serve_wire_bytes": rec["wire_bytes"],
+            "clients": len(rec["wires"])}
+    a, b = (np.asarray(checks[str(x)], np.float32) for x in SERVE_SHM_ARMS)
+    emit(_stamp({"phase": "transport_serve", "config": cfg, "arms": results,
+                 "check_episode_bit_equal": bool(np.array_equal(a, b)),
+                 "check_episode_max_abs_diff": float(np.abs(a - b).max()),
+                 "shm_endpoint": f"shm://{base}", "leaked": leaked, "errors": errors}))
+    check(np.array_equal(a, b), "serve: one seeded episode's predictions bit-equal "
+          "between the arms")
+    check(results["False"]["serve_shm_bytes"] == 0, "serve shm=False: no byte rode shm")
+    check(results["auto"]["serve_shm_bytes"] > results["auto"]["serve_wire_bytes"],
+          "serve shm=auto: the requests rode the rings")
+    check(errors == 0, "serve: no request errored")
+    check(not leaked, f"serve: nothing left under /dev/shm/{base}*: {leaked}")
+
+
+def transport_phase(torch, btt, datagen, image, seqformer, serve):
+    """The same-host transports on the card: the native ring must have
+    built, the datagen stream over tcp, shm and ipc, then the flagship
+    served over ZMQ and over ShmRPC.  Returns K1's launches in the shm
+    datagen turns."""
+    from blendjax_torch.btt import shm_rpc
+    from blendjax_torch.native import ring
+
+    check(ring.native_available(), f"the native ring loaded: {ring.load_error()}")
+    check(shm_rpc.enabled(), "ShmRPC is enabled (Linux, /dev/shm, the ring, no kill switch)")
+    emit({"phase": "transport", "ring": ring.LIBRARY, "host_token": shm_rpc.host_token()})
+    launches = _transport_datagen(torch, btt, datagen, image)
+    _transport_serve(torch, seqformer, serve, SERVE)
+    return launches
 
 
 # -- flash attention -----------------------------------------------------------
@@ -2576,7 +2897,8 @@ def _serve_window(np, serve, address, cfg, seconds, rng_seed):
     deadline = [None]
 
     def run(i):
-        client = serve.ServeClient(address, timeoutms=30000)
+        # pinned to ZMQ, as in PRs 10-11: the transport phase measures ShmRPC
+        client = serve.ServeClient(address, timeoutms=30000, shm=False)
         rng = np.random.default_rng(rng_seed + i)
         ep = rng.standard_normal((cfg["episode_len"], cfg["obs_dim"])).astype(np.float32)
         try:
@@ -2801,14 +3123,35 @@ def main():
     hbm, flops_peak = peak_rate(HBM_PEAK, name), peak_rate(BF16_PEAK, name)
     HBM_RATE = hbm
     t0 = time.perf_counter()
+    ring_build = {}
+
+    def build_ring():
+        from blendjax_torch.native import ring
+
+        try:
+            ring_build["library"] = ring.build_library()
+        except RuntimeError as exc:  # the compiler's output rides the message
+            ring_build["error"] = str(exc)
+        ring_build["seconds"] = time.perf_counter() - t0
+
+    ring_thread = threading.Thread(target=build_ring)
+    ring_thread.start()
     _build.load_library()
-    emit({"phase": "build", "sources": _build.SOURCES, "seconds": time.perf_counter() - t0})
+    kernel_s = time.perf_counter() - t0
+    ring_thread.join()
+    emit({"phase": "build", "sources": _build.SOURCES, "seconds": kernel_s,
+          "ring": ring_build})
+    if "error" in ring_build:
+        print(ring_build["error"], file=sys.stderr)
+    check("library" in ring_build, "the native ring built")
 
     with smi_window("kernel"):
         timing = kernel_phase(torch, image, hbm)
     train_phase(torch, datagen, detector, image)
     decode_launches = stream_phase(torch, btt, datagen, image)
     stream_ab_phase(torch, btt, datagen, image)
+    shm_launches = transport_phase(torch, btt, datagen, image, seqformer, serve)
+    check(shm_launches >= 1, "the shm datagen path launched decode_u8")
     flash_errs = flash_phase(torch, flash)
     with smi_window("flash_time"):
         flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
@@ -2833,9 +3176,10 @@ def main():
         "name": "decode_u8", "route": "cuda",
         "source": "blendjax_torch/ops/csrc/decode.cu",
         "replaces": "blendjax/ops/image.py:69",
-        "launches": (decode_launches + densityopt_launches + infer_launches
+        "launches": (decode_launches + shm_launches + densityopt_launches + infer_launches
                      + ha_launches["decode_u8"]),
         "launches_by_path": {"datagen_stream": decode_launches,
+                             "datagen_shm": shm_launches,
                              "densityopt": densityopt_launches,
                              "infer_int8": infer_launches,
                              "ha_resume": ha_launches["decode_u8"]},
@@ -2875,4 +3219,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-clients"]:
+        sys.exit(serve_clients_main(sys.argv[2]))
     sys.exit(main())

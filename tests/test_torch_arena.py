@@ -14,11 +14,10 @@
    producers gives batch for batch what ``arena=False`` gives, and the
    pool drains after close.
 
-``test_arena.py``'s ``test_shm_stream_yields_arena_batches`` and
-``test_gather_into_matches_numpy`` are not ported: the ``shm://`` rings and
-the native gather wait for ROADMAP Queue 1, item 8.  Its eager-mode
-aliasing case is ported in the deferred mode, the only one the port has
-(the eager mode serves the shm rings).
+``test_arena.py``'s shm cases run on the port too: the shm stream threads
+the pool through the eager builder, ``gather_into`` equals numpy, and the
+eager builder's drift degrade does not alias a recycled arena (its
+deferred twin is kept).
 """
 
 import runpy
@@ -197,6 +196,42 @@ class TestArenaParity:
         b2.finish()
         np.testing.assert_array_equal(batch1["x"][0], [0, 1, 2, 3])
 
+    def test_eager_drift_degrade_does_not_alias_recycled_arena(self):
+        """Eager (shm) assembly: a mid-batch shape drift degrades a key to a
+        ragged list; the slots already copied must be copies, not views into
+        the arena buffer a later batch overwrites."""
+        pool = ArenaPool(1)
+        arena = pool.acquire()
+        b1 = _BatchBuilder(2, arena=arena, defer=False)
+        b1.add_message(wire.encode({"x": np.array([0, 1, 2, 3])}, raw_buffers=True))
+        b1.add_message(wire.encode({"x": np.array([9, 9])}, raw_buffers=True))
+        batch1 = b1.finish()
+        arena.release()
+        arena2 = pool.acquire()
+        assert arena2 is arena
+        b2 = _BatchBuilder(2, arena=arena2, defer=False)
+        for _ in range(2):
+            b2.add_message(wire.encode({"x": np.array([-1, -1, -1, -1])}, raw_buffers=True))
+        b2.finish()
+        np.testing.assert_array_equal(batch1["x"][0], [0, 1, 2, 3])
+
+    def test_gather_into_matches_numpy(self):
+        from blendjax_torch.native.ring import gather_into
+
+        rng = np.random.default_rng(0)
+        parts = [rng.integers(0, 255, (40, 7), np.uint8) for _ in range(6)]
+        dst = np.empty((6, 40, 7), np.uint8)
+        gather_into(dst, parts)
+        np.testing.assert_array_equal(dst, np.stack(parts))
+        # buffer-protocol sources (the wire-frame case) and fortran order
+        dst2 = np.empty((3, 4, 4), np.float32)
+        srcs = [np.arange(16, dtype=np.float32).reshape(4, 4) + i for i in range(3)]
+        gather_into(dst2, [memoryview(srcs[0].tobytes()), srcs[1],
+                           np.asfortranarray(srcs[2])])
+        np.testing.assert_array_equal(dst2, np.stack(srcs))
+        with pytest.raises(ValueError, match="bytes"):
+            gather_into(np.empty(3, np.uint8), [b"toolongbytes"])
+
     def test_arena_buffers_are_recycled_not_reallocated(self):
         pool = ArenaPool(2)
         cache = {}
@@ -337,6 +372,38 @@ class TestArenaPoolBackpressure:
         assert fresh is not batch.arena
         batch.recycle()
         assert pool.in_use == 1  # only `fresh` remains out
+
+
+    def test_shm_stream_yields_arena_batches(self):
+        """The shm transport threads the same pool through its eager
+        (record-lifetime-bounded) builder."""
+        import os
+        import uuid
+
+        from blendjax_torch.btb.publisher import DataPublisher
+
+        addr = f"shm://bjx-test-t-arena-{uuid.uuid4().hex[:6]}-{os.getpid()}"
+
+        def produce():
+            pub = DataPublisher(addr, btid=0, raw_buffers=True, sndtimeoms=500)
+            i = 0
+            while i < 8:
+                if pub.publish(image=np.full((8, 8), i, np.uint8), frameid=i):
+                    i += 1
+            pub.close()
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        pool = ArenaPool(3)
+        ds = RemoteIterableDataset([addr], max_items=8, timeoutms=10000)
+        batches = []
+        for b in ds.stream_batches(4, arena_pool=pool):
+            assert isinstance(b, ArenaBatch)
+            batches.append(b.data["frameid"].tolist())
+            b.recycle()
+        t.join(timeout=10)
+        assert batches == [[0, 1, 2, 3], [4, 5, 6, 7]]
+        assert pool.in_use == 0
 
 
 class TestFeed:

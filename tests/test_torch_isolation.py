@@ -1,6 +1,8 @@
 """The port stands alone: ``blendjax_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, the producer side imports no torch, and
-the two packages' wire encodings decode each other's frames."""
+neither JAX nor the JAX package, the producer side (the publisher and the
+native ring included) imports no torch, the port's ring loads its own
+library and never the JAX package's, and the two packages' wire encodings
+decode each other's frames."""
 
 import json
 import re
@@ -64,9 +66,9 @@ def test_sources_name_neither_jax_nor_blendjax():
 
 
 def test_producer_side_imports_without_torch():
-    """The producer side, a serving client (with the snapshot format), the
-    checkpoint files, the watchdog and the replay buffer import neither
-    torch nor JAX."""
+    """The producer side (the shm ring writer too), a serving client (with
+    the snapshot format and the ShmRPC transport), the checkpoint files, the
+    watchdog and the replay buffer import neither torch nor JAX."""
     code = (
         "import json, sys\n"
         "import blendjax_torch, blendjax_torch.btb as btb\n"
@@ -85,9 +87,33 @@ def test_producer_side_imports_without_torch():
         "import blendjax_torch.utils.checkpoint, blendjax_torch.btt.watchdog\n"
         "import blendjax_torch.replay.ring, blendjax_torch.replay.buffer, blendjax_torch.ha\n"
         "from blendjax_torch.serve import ServeClient, ServeRPCError\n"
+        "import blendjax_torch.native, blendjax_torch.native.ring as ring\n"
+        "import blendjax_torch.btt.shm_rpc, blendjax_torch.btt.transport\n"
+        "import blendjax_torch.btt.rpc, blendjax_torch.btt.env_rendering\n"
+        "import blendjax_torch.btt.apps.launch\n"
+        "assert ring.native_available(), ring.load_error()\n"
+        "import os\n"
+        "addr = 'shm://bjx-test-t-iso-%d' % os.getpid()\n"
+        "pub = btb.DataPublisher(addr, btid=0)\n"
+        "assert pub.publish(x=1)\n"
+        "pub.close()\n"
+        "ring.unlink_address(addr)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
     )
     assert _run(code) == []
+
+
+def test_native_ring_loads_only_its_own_library():
+    """The port's ring maps ``libblendjax_torch_ring.so`` from ``build/``,
+    never the JAX package's ``libblendjax_ring.so``."""
+    code = (
+        "import json\n"
+        "from blendjax_torch.native import ring\n"
+        "assert ring.native_available(), ring.load_error()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(json.dumps([ring.LIBRARY in maps, 'libblendjax_ring.so' in maps]))\n"
+    )
+    assert _run(code) == [True, False]
 
 
 def _message():

@@ -187,10 +187,11 @@ def test_columnstore_gather_out_and_alloc():
         cs.gather(idx, out={"obs": np.empty((3, 4), np.float32)})
 
 
-@pytest.mark.parametrize("obs_shape", [(4,), (64, 96, 3)])
+@pytest.mark.parametrize("obs_shape", [(4,), (64, 96, 3), (128, 160, 4)])
 def test_columnstore_rows_and_gathers_equal_the_references(obs_shape):
-    """Small rows and rows above the reference's native-gather threshold
-    (16 KiB) store and gather the same bytes in both packages."""
+    """Small rows, rows above the native-gather threshold (16 KiB) and rows
+    above the native-copy threshold (64 KiB) store and gather the same
+    bytes in both packages."""
     from blendjax.replay import ColumnStore as JColumnStore
 
     rng = np.random.default_rng(0)
@@ -206,6 +207,36 @@ def test_columnstore_rows_and_gathers_equal_the_references(obs_shape):
         assert got[key].dtype == want[key].dtype
         np.testing.assert_array_equal(got[key], want[key])
         np.testing.assert_array_equal(ours.columns[key], ref.columns[key])
+
+
+def test_columnstore_large_rows_take_the_native_copies(monkeypatch):
+    """Rows of 16 KiB or more gather through the native ``gather_into``
+    (into a given ``out=`` buffer too), and rows of 64 KiB or more are
+    written through ``copy_into``'s native path; the bytes equal numpy's."""
+    from blendjax_torch.native import ring as nring
+    from blendjax_torch.replay import ring as rring
+
+    assert nring.native_available()
+    calls = {"gather": 0}
+    real_gather = rring.gather_into
+
+    def counting_gather(dst, srcs):
+        calls["gather"] += 1
+        return real_gather(dst, srcs)
+
+    monkeypatch.setattr(rring, "gather_into", counting_gather)
+    rng = np.random.default_rng(3)
+    cs = ColumnStore(5)
+    rows = [{"obs": rng.integers(0, 255, (128, 160, 4), dtype=np.uint8),
+             "small": rng.random(3).astype(np.float32)} for _ in range(5)]
+    for k, row in enumerate(rows):
+        cs.write_row(k, row)
+    idx = np.array([4, 0, 0, 3])
+    out = {"obs": np.empty((4, 128, 160, 4), np.uint8)}
+    got = cs.gather(idx, out=out)
+    assert got["obs"] is out["obs"] and calls["gather"] == 1  # "small" took np.take
+    np.testing.assert_array_equal(got["obs"], np.stack([rows[i]["obs"] for i in idx]))
+    np.testing.assert_array_equal(got["small"], np.stack([rows[i]["small"] for i in idx]))
 
 
 # -- replay buffer ----------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's serving tier (``blendjax_torch.serve``) on the CPU, held to
-``tests/test_serve.py``'s cases that need no MoE, shm or watchdog, and to
-the JAX package over the wire: each package's ``ServeClient`` against the
-other's ``PolicyServer``, and a snapshot the JAX package published adopted
-by the port's server.  Every server runs through ``start_server_thread``
+``tests/test_serve.py``'s cases that need no MoE or watchdog, and to the
+JAX package over the wire: each package's ``ServeClient`` against the
+other's ``PolicyServer`` (upgraded to ShmRPC), and a snapshot the JAX
+package published adopted by the port's server.  Every server runs through ``start_server_thread``
 (or as ``python -m blendjax_torch.serve.server``), every client with a
 timeout.
 
@@ -28,6 +28,7 @@ import torch
 
 from blendjax.models import policy as jpol
 from blendjax.models import seqformer as jseq
+from blendjax_torch.btt import shm_rpc
 from blendjax_torch.btt.faults import FaultPolicy
 from blendjax_torch.models import seqformer as tseq
 from blendjax_torch.models.convert import params_from_jax
@@ -214,7 +215,8 @@ def test_multi_model_single_workload_replies_identical():
         for key in vs:
             if isinstance(vs[key], np.ndarray):
                 assert vs[key].tobytes() == vm[key].tobytes(), (ks, key)
-            elif key != "pid":
+            elif key not in ("pid", "shm"):
+                # the pid and the shm endpoint are the server process's own
                 assert vs[key] == vm[key], (ks, key)
 
 
@@ -224,7 +226,10 @@ def test_linear_server_end_to_end_counters_and_stages():
                              counters=counters, timer=timer) as h:
         c = ServeClient(h.address, span_recorder=spans)
         hello = c.hello()
-        assert hello["model"] == "linear" and hello["slots"] == 2 and hello["shm"] is None
+        assert hello["model"] == "linear" and hello["slots"] == 2
+        # the ShmRPC capability blob: the endpoint under the server's base
+        assert hello["shm"]["endpoint"] == h.server.shm_endpoint
+        assert hello["shm"]["host"] == shm_rpc.host_token()
         c.reset()
         obs = np.arange(4, dtype=np.float32)
         r0, r1 = c.step(obs), c.step(obs)
@@ -283,9 +288,10 @@ def test_slot_ttl_eviction():
         c2.close()
 
 
-def _run_episodes(address, episodes, client_cls=ServeClient, prefix_len=0):
+def _run_episodes(address, episodes, client_cls=ServeClient, prefix_len=0, transports=None):
     """Each episode from its own client thread; returns each one's
-    predictions (after the prefix: the prefill's, then every step's)."""
+    predictions (after the prefix: the prefill's, then every step's).
+    ``transports`` (a list) collects each client's wire at its end."""
     outs = [[] for _ in episodes]
     errors = []
 
@@ -300,6 +306,8 @@ def _run_episodes(address, episodes, client_cls=ServeClient, prefix_len=0):
             for t in range(prefix_len, len(ep)):
                 outs[i].append(c.step(ep[t])["pred"])
             c.close_episode()
+            if transports is not None:
+                transports.append(c.transport)
             c.close()
         except Exception as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
@@ -416,8 +424,10 @@ def test_exactly_once_through_drop_dup_and_stall():
     obs = np.arange(4, dtype=np.float32)
     with start_server_thread(LinearModel(obs_dim=4, slots=2, seed=0),
                              counters=counters) as h, ChaosProxy(h.address) as proxy:
+        # pinned to ZMQ: the proxy injects at the TCP layer, which an
+        # upgraded channel would leave (the shm arm is test_torch_shm_rpc's)
         client = ServeClient(
-            proxy.address, counters=counters, timeoutms=400,
+            proxy.address, counters=counters, timeoutms=400, shm=False,
             fault_policy=FaultPolicy(max_retries=4, backoff_base=0.02, backoff_max=0.1,
                                      circuit_threshold=0, seed=1))
         client.reset()
@@ -451,21 +461,25 @@ def test_exactly_once_through_drop_dup_and_stall():
 
 
 def test_jax_client_against_port_server():
-    """The JAX package's ``ServeClient`` (its shm upgrade refused) drives
-    the port's server: concurrent episodes, the first admitted with a
-    prefix, equal the reference's serial decode."""
+    """The JAX package's ``ServeClient`` drives the port's server and
+    upgrades to the port's ShmRPC rings: concurrent episodes, the first
+    admitted with a prefix, equal the reference's serial decode."""
     from blendjax.serve import ServeClient as JaxClient
 
     tree, params = _params(pos_encoding="rope")
     episodes = _episodes(4, (8, 5, 6))
     want = _jax_serial(tree, episodes, 16, None)
-    with start_server_thread(SeqFormerModel(params, slots=4, length=16)) as h:
-        got = _run_episodes(h.address, episodes, client_cls=JaxClient)
+    transports, counters = [], EventCounters()
+    with start_server_thread(SeqFormerModel(params, slots=4, length=16),
+                             counters=counters) as h:
+        got = _run_episodes(h.address, episodes, client_cls=JaxClient, transports=transports)
         got_prefix = _run_episodes(h.address, episodes[:1], client_cls=JaxClient,
-                                   prefix_len=3)[0]
+                                   prefix_len=3, transports=transports)[0]
     for g, w in zip(got, want):
         _close(g, w)
     _close(got_prefix, want[0][2:])
+    assert transports == ["shm"] * 4
+    assert counters.get("serve_shm_bytes") > 0
 
 
 def test_port_client_against_jax_server():
@@ -575,5 +589,26 @@ def test_parts_not_ported_name_their_roadmap_item():
         PolicyServer("tcp://127.0.0.1:*", LinearModel(), subscriber=object())
     with pytest.raises(SystemExit, match="item 9"):
         main(["--address", "tcp://127.0.0.1:*", "--subscribe", "tcp://127.0.0.1:1"])
-    with pytest.raises(SystemExit, match="item 8"):
-        main(["--address", "tcp://127.0.0.1:*", "--shm-base", "x"])
+
+
+def test_shm_base_flag_names_the_server_prefix():
+    """``--shm-base`` puts every ShmRPC object of the server process under
+    the given prefix: ``hello`` advertises it, a client's channel lives
+    under it, and nothing is left there once the server exits."""
+    base = shm_rpc.new_base("t")
+    address = f"tcp://127.0.0.1:{_free_port()}"
+    proc = subprocess.Popen([sys.executable, "-m", "blendjax_torch.serve.server", "--address",
+                             address, "--device", "cpu", "--shm-base", base],
+                            cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        client = ServeClient(address, timeoutms=30000)
+        assert client.hello()["shm"]["endpoint"] == f"shm://{base}"
+        client.reset()
+        client.step(np.zeros(8, np.float32))
+        assert client.transport == "shm"
+        assert any(".c2s" in p for p in shm_rpc.leaked_objects(base))
+        client.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=20)
+    assert shm_rpc.leaked_objects(base) == []

@@ -3,8 +3,7 @@ port's ``BlenderLauncher``: ``tests/test_watchdog.py``'s first three cases
 (prompt death detection reported once, a raising ``on_death`` callback that
 does not kill the watchdog, restart with the original command line), with
 ``tests/blender/torch_exit.blend.py`` (publishes once, exits) under the fake
-Blender.  The shm cases wait for the shm transport (ROADMAP Queue 1,
-item 8)."""
+Blender.  The shm respawn case is ``tests/test_torch_launcher.py``'s."""
 
 import time
 
