@@ -36,6 +36,10 @@ _LAZY = {
     "CircuitOpenError": ("blendjax_torch.btt.faults", "CircuitOpenError"),
     "launch_vector_env": ("blendjax_torch.btt.vector_env", "launch_vector_env"),
     "RpcChannel": ("blendjax_torch.btt.transport", "RpcChannel"),
+    "FleetSupervisor": ("blendjax_torch.btt.supervise", "FleetSupervisor"),
+    "aggregate_health": ("blendjax_torch.btt.supervise", "aggregate_health"),
+    "ChaosProxy": ("blendjax_torch.btt.chaos", "ChaosProxy"),
+    "kill_instance": ("blendjax_torch.btt.chaos", "kill_instance"),
     "as_torch_iterable": ("blendjax_torch.btt.torch_compat", "as_torch_iterable"),
     "as_torch_map": ("blendjax_torch.btt.torch_compat", "as_torch_map"),
 }
@@ -61,6 +65,9 @@ _LAZY_MODULES = (
     "transport",
     "torch_compat",
     "env_rendering",
+    "supervise",
+    "chaos",
+    "watchdog",
 )
 
 

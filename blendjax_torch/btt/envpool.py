@@ -41,11 +41,13 @@ synthetic transitions (the first carrying the episode-closing
 ``done=True``) without touching survivors, and re-admission resyncs the
 pipeline depth from zero.
 
-The fleet supervisor and watchdog that respawn dead producers are not
-ported (ROADMAP Queue 1, item 9): :meth:`EnvPool.quarantine_env`,
-:meth:`EnvPool.notify_respawn` and :meth:`EnvPool.probe` are the hooks
-they call, and a relaunched producer on the same address is re-admitted
-by the probes alone.
+:class:`~blendjax_torch.btt.supervise.FleetSupervisor` ties the pool to
+a :class:`~blendjax_torch.btt.watchdog.FleetWatchdog`: on a producer's
+death it calls :meth:`EnvPool.quarantine_env`, on its respawn
+:meth:`EnvPool.notify_respawn`, and its heal thread drives
+:meth:`EnvPool.probe` until the env is re-admitted.  Without a
+supervisor, a relaunched producer on the same address is re-admitted by
+the step's probes alone.
 """
 
 from __future__ import annotations

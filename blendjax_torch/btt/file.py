@@ -89,6 +89,14 @@ class FileRecorder:
             self.file.write(pickle.dumps(data, protocol=wire.PICKLE_PROTOCOL))
         return True
 
+    def flush(self):
+        """Push buffered records to the OS now.  The replay shard calls
+        this before it acknowledges an ``append``, so every acked row is
+        recoverable from the spill log even if the shard is SIGKILLed the
+        next instant (:func:`scan_messages` reads an unfinalized log)."""
+        if self.file is not None:
+            self.file.flush()
+
     def save_frames(self, frames):
         """Append a message captured as raw ZMQ frames.  Single-frame
         (compat) messages hit disk verbatim; multipart raw-buffer messages
@@ -112,6 +120,30 @@ class FileRecorder:
     def filename(prefix, worker_idx):
         """Per-worker file name ``{prefix}_{worker:02d}.btr``."""
         return f"{prefix}_{worker_idx:02d}.btr"
+
+
+def scan_messages(path):
+    """Yield messages from a ``.btr`` file sequentially, ignoring the
+    offsets header: the crash-recovery read path.
+
+    :class:`FileRecorder` rewrites its header only on a clean close; a
+    recorder killed mid-stream leaves the header all ``-1``, which
+    :class:`FileReader` reads as an empty file.  Records nonetheless lie
+    back to back after the header, so this scanner recovers every fully
+    written one.  A torn final record (the crash landed mid-``write``)
+    ends the scan cleanly.
+    """
+    with io.open(path, "rb") as f:
+        try:
+            pickle.load(f)  # the (possibly unfinalized) offsets header
+        except (EOFError, pickle.UnpicklingError):
+            return
+        while True:
+            try:
+                yield pickle.load(f)
+            except (EOFError, pickle.UnpicklingError, AttributeError,
+                    MemoryError, ValueError):
+                return  # torn tail: the crash interrupted the last write
 
 
 class FileReader:

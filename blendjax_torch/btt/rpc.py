@@ -8,10 +8,11 @@ reply, and runs the whole attempt under a
 :class:`~blendjax_torch.btt.faults.FaultPolicy` whose retries re-send the
 same id, so the server's reply cache makes them exactly-once.
 
-The port's one caller is :class:`~blendjax_torch.serve.client.ServeClient`,
-so the names and the error class are the serve tier's (the reference
-parameterizes them for its gateway and replay clients: ROADMAP Queue 1,
-item 9).
+Its two callers, :class:`~blendjax_torch.serve.client.ServeClient` and
+:class:`~blendjax_torch.replay.shard_client.ShardClient`, pass their own
+naming (error text, span label and category, the policy's call name) and
+error class, as in the reference.  The reference's bare-DEALER branch has
+no caller in the port: both clients dial an ``RpcChannel``.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ class ServeRPCError(TimeoutError):
 
 
 def exactly_once_rpc(channel, msg, *, policy, state, counters, wait_ms, raw_buffers=False,
-                     spans=None):
-    """One exactly-once RPC to a policy server; returns the decoded reply
-    dict, its correlation id removed.
+                     spans=None, remote_name, span_label, span_cat, span_args=None,
+                     rpc_name, exc_factory, retryable, pop_mid=False):
+    """One exactly-once RPC; returns the decoded reply dict.
 
     Params
     ------
@@ -50,16 +51,24 @@ def exactly_once_rpc(channel, msg, *, policy, state, counters, wait_ms, raw_buff
     spans: SpanRecorder | None
         When set, the request carries a span context and the reply's
         piggybacked server spans are ingested beside a client-side
-        ``serve_rpc:{cmd}`` span.
+        ``{span_label}:{cmd}`` span (category ``span_cat``).
+    remote_name: str
+        Names the remote in remote-failure text.
+    rpc_name: str
+        The fault policy's call name (counter and flight-recorder label).
+    exc_factory: callable
+        ``exc_factory(message) -> Exception``, the caller's transport
+        error (one of ``retryable``).
+    retryable: tuple
+        Exception classes the policy retries.
+    pop_mid: bool
+        Strip the echoed correlation id from the returned reply.
     """
     cmd = msg.get("cmd")
     mid = wire.stamp_message_id(msg)
     if spans is not None:
         wire.stamp_span_context(msg, mid)
     t0_us = now_us() if spans is not None else 0
-
-    def fail(text):
-        return ServeRPCError(f"policy server ({channel.address}): {text}")
 
     def attempt(n):
         channel.send_request(msg, raw_buffers=raw_buffers)
@@ -70,7 +79,8 @@ def exactly_once_rpc(channel, msg, *, policy, state, counters, wait_ms, raw_buff
                 # over shm a missed deadline is the peer-death signal:
                 # demote, so the retry rides ZMQ
                 channel.notify_timeout()
-                raise fail(f"no reply to {cmd!r} within {wait_ms} ms (attempt {n + 1})")
+                raise exc_factory(f"no reply to {cmd!r} within {wait_ms} ms "
+                                  f"(attempt {n + 1})")
             slice_ms = max(1, min(50, int(remaining * 1000)))
             reply = channel.recv_reply() if channel.poll_reply(slice_ms) else None
             if reply is None:
@@ -82,15 +92,16 @@ def exactly_once_rpc(channel, msg, *, policy, state, counters, wait_ms, raw_buff
             piggyback = wire.pop_spans(reply)
             if spans is not None:
                 spans.ingest(piggyback)
-                spans.record(make_span(f"serve_rpc:{cmd}", t0_us, trace=mid,
-                                       cat="serve_client"))
+                spans.record(make_span(f"{span_label}:{cmd}", t0_us, trace=mid,
+                                       cat=span_cat, args=span_args))
             if "error" in reply:
-                raise RuntimeError(f"policy server: {cmd!r} failed remotely: {reply['error']}")
-            reply.pop(wire.BTMID_KEY, None)
+                raise RuntimeError(f"{remote_name}: {cmd!r} failed remotely: {reply['error']}")
+            if pop_mid:
+                reply.pop(wire.BTMID_KEY, None)
             return reply
 
     try:
-        return policy.run(attempt, state=state, counters=counters, name=f"serve:{cmd}",
-                          retryable=(ServeRPCError,))
+        return policy.run(attempt, state=state, counters=counters, name=rpc_name,
+                          retryable=retryable)
     except CircuitOpenError as exc:
-        raise fail(str(exc)) from exc
+        raise exc_factory(str(exc)) from exc

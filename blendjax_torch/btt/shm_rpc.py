@@ -205,15 +205,22 @@ class ShmRpcServer:
         (``--shm-base`` from a supervising parent, else :func:`new_base`).
     counters: EventCounters
         Every request/reply payload byte moved through shm lands on its
-        ``serve_shm_bytes`` — the observable half of the shm-vs-tcp byte
-        saving.  (The reference's replay service counts its own; ROADMAP
-        Queue 1, item 9.)
+        ``bytes_counter`` — the observable half of the shm-vs-tcp byte
+        saving.
+    bytes_counter: str
+        ``serve_shm_bytes`` for a policy server, ``replay_shm_bytes`` for
+        a replay shard.
+    who: str
+        Names the server in its log lines.
     """
 
-    def __init__(self, base, counters):
+    def __init__(self, base, counters, *, bytes_counter="serve_shm_bytes",
+                 who="shm rpc server"):
         from blendjax_torch.native.ring import DoorBell
 
         self.base = base
+        self.who = who
+        self.bytes_counter = bytes_counter
         #: ring sizes for channels this server accepts
         self.req_capacity = REQ_CAPACITY
         self.rep_capacity = REP_CAPACITY
@@ -299,7 +306,7 @@ class ShmRpcServer:
             bell_path = msg.get("bell")
             bell = DoorBell(bell_path) if bell_path else None
             self._channels[name] = ServerChannel(name, reader, writer, bell)
-            logger.info("shm rpc server: channel %s attached", name)
+            logger.info("%s: shm channel %s attached", self.who, name)
             return {"shm_ok": True, "channel": name}
         raise ValueError(f"unknown shm control command {cmd!r}")
 
@@ -323,13 +330,13 @@ class ShmRpcServer:
                     break
                 if frames is None:
                     break
-                self.counters.incr("serve_shm_bytes", frames_nbytes(frames))
+                self.counters.incr(self.bytes_counter, frames_nbytes(frames))
                 try:
                     msg = wire.decode(frames)
                 except Exception as exc:  # noqa: BLE001 - tier survives
                     logger.warning(
-                        "shm rpc server: undecodable shm request dropped (%s: %s)",
-                        type(exc).__name__, exc,
+                        "%s: undecodable shm request dropped (%s: %s)",
+                        self.who, type(exc).__name__, exc,
                     )
                     continue
                 n += 1
@@ -337,7 +344,7 @@ class ShmRpcServer:
                     handler(chan, msg)
                 except Exception:  # noqa: BLE001 - the tier survives
                     logger.exception(
-                        "shm rpc server: handling an shm request failed (dropped)")
+                        "%s: handling an shm request failed (dropped)", self.who)
         return n
 
     def send(self, chan, reply, ding=True):
@@ -377,7 +384,7 @@ class ShmRpcServer:
         except OSError:
             return False
         if ok:
-            self.counters.incr("serve_shm_bytes", frames_nbytes(frames))
+            self.counters.incr(self.bytes_counter, frames_nbytes(frames))
             self._ding(chan, ding)
         return ok
 
@@ -423,7 +430,7 @@ class ShmRpcServer:
             os.unlink(f"/dev/shm/{chan.name}.cbell")
         except OSError:
             pass
-        logger.info("shm rpc server: channel %s dropped", chan.name)
+        logger.info("%s: shm channel %s dropped", self.who, chan.name)
 
     def close(self, unlink=True):
         for chan in list(self._channels.values()):

@@ -30,9 +30,10 @@ Selection is automatic and conservative:
    answers again.
 
 ``BJX_NO_SHM_RPC=1`` (or ``shm=False``) pins the channel to ZMQ.  The
-reference's ``redirect`` (a sharded gateway's worker handoff), its forced
-``shm=True`` and its per-channel ring size and name wait for the gateway
-and the replay service (ROADMAP Queue 1, item 9).
+reference's ``redirect`` (a sharded gateway's worker handoff) waits for the
+gateway (ROADMAP Queue 1, item 9); its forced ``shm=True``, per-channel
+ring size, zero-copy reply views and ``shm_active`` have no caller in the
+port.
 """
 
 from __future__ import annotations
@@ -68,15 +69,18 @@ class RpcChannel:
         the channel stays upgraded.
     shm_chaos: ShmChaos | None
         Frame-layer fault injection on the upgraded channel (tests).
+    name: str
+        Names the channel in its log lines (``replay-shard-3``).
     """
 
-    def __init__(self, address, *, shm="auto", shm_chaos=None):
+    def __init__(self, address, *, shm="auto", shm_chaos=None, name="rpc channel"):
         if shm not in ("auto", False):
             raise ValueError(f"shm must be 'auto' or False, not {shm!r}")
         self.address = address
         self._zsock = None
         self._shm = None
         self._shm_allowed = shm == "auto" and shm_rpc.enabled()
+        self.name = name
         self._chaos = shm_chaos
         self._state = "idle"  # idle | active | backoff | off
         self._rpcs = 0
@@ -124,7 +128,7 @@ class RpcChannel:
         self._alive = False  # re-upgrade only after a ZMQ reply proves the peer
         self._next_try = time.monotonic() + self._backoff_s
         self._backoff_s = min(self._backoff_s * 2, 30.0)
-        logger.warning("rpc channel (%s): shm demoted to zmq (%s)", self.address, reason)
+        logger.warning("%s (%s): shm demoted to zmq (%s)", self.name, self.address, reason)
 
     # -- upgrade -------------------------------------------------------------
 
@@ -164,7 +168,7 @@ class RpcChannel:
             # a considered refusal (kill switch, host mismatch, a server
             # without the transport): permanent for this channel
             self._state = "off"
-            logger.info("rpc channel (%s): shm upgrade refused (%s)", self.address,
+            logger.info("%s (%s): shm upgrade refused (%s)", self.name, self.address,
                         r1.get("error", "no channel"))
             return
         chan = None
@@ -184,15 +188,15 @@ class RpcChannel:
                     pass
             self._state = "backoff"
             self._backoff_s = min(self._backoff_s * 2, 30.0)
-            logger.info("rpc channel (%s): shm upgrade failed, staying on zmq (%s: %s)",
-                        self.address, type(exc).__name__, exc)
+            logger.info("%s (%s): shm upgrade failed, staying on zmq (%s: %s)",
+                        self.name, self.address, type(exc).__name__, exc)
             return
         self._shm = chan
         self._state = "active"
         self._backoff_s = 1.0
         self.generations += 1
-        logger.info("rpc channel (%s): upgraded to shm channel %s (generation %d)",
-                    self.address, chan.name, self.generations)
+        logger.info("%s (%s): upgraded to shm channel %s (generation %d)",
+                    self.name, self.address, chan.name, self.generations)
 
     # -- the channel protocol ------------------------------------------------
 

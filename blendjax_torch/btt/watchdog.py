@@ -6,8 +6,10 @@ with their original command line (``launcher.respawn(idx)``).  Streams heal
 on tcp because producers bind and consumers keep their connect-mode
 sockets.  Anything with a ``launch_info.processes`` list and a
 ``respawn(idx)`` is watched the same way: the learner supervisor
-(:mod:`blendjax_torch.ha.supervisor`) is one.  The ``shm://`` rings and
-their sweep on respawn are not ported (ROADMAP Queue 1, item 8).
+(:mod:`blendjax_torch.ha.supervisor`) and the replay shard fleet
+(:class:`~blendjax_torch.replay.service.ShardFleet`, under
+:class:`~blendjax_torch.btt.supervise.FleetSupervisor`) are two; each
+sweeps its ``/dev/shm`` objects in its own ``respawn``.
 """
 
 from __future__ import annotations

@@ -37,10 +37,9 @@ What differs from the reference, and why:
   barrier starts while the previous cut is being written.
 - **A restore lands in the learner's own tensors** (``copy_``/``fill_``),
   so its captured steps stay valid and nothing is captured again.
-- ``restore_replay`` rebuilds a ``local`` cut only; a ``sharded`` cut
-  waits for the replay service (ROADMAP Queue 1, item 9).  The port has no
-  weight bus (item 9), so ``restore(republish=True)`` has nothing to
-  republish, as the reference with no bus.
+- A resume republish reads the restored params back from the card
+  (:func:`~blendjax_torch.models.convert.params_to_jax`) and publishes
+  them in the reference's layout under a fresh, higher version.
 - The stats mirror also records ``first_update_ts``, when this process
   completed its first update: the end of a respawned learner's recovery.
 """
@@ -122,23 +121,33 @@ def latest_manifest(directory, counters=None):
     return None
 
 
-def restore_replay(manifest, *, counters=None, timer=None):
-    """Rebuild the replay buffer a manifest's cut describes: a ``local`` cut
-    restores an in-process :class:`~blendjax_torch.replay.ReplayBuffer`
-    wholesale (its draw stream continues exactly); None when the cut has no
-    replay.  A ``sharded`` cut raises: the shard services are ROADMAP
-    Queue 1, item 9."""
+def restore_replay(manifest, shards=None, *, counters=None, timer=None, timeoutms=5000):
+    """Rebuild the replay buffer a manifest's cut describes; None when the
+    cut has no replay.
+
+    A ``sharded`` cut needs the shard endpoints (the same deployment, still
+    running: the learner died, its storage tier did not) and restores with
+    ``reconcile=True``: the shards legitimately sit ahead of the
+    cut by whatever the dead learner appended after it, and exactly those
+    slots leave the draw domain until the resumed actors rewrite them.  A
+    ``local`` cut restores the in-process
+    :class:`~blendjax_torch.replay.ReplayBuffer` wholesale (its draw stream
+    continues exactly)."""
     rel = manifest.get("replay")
     if rel is None:
         return None
+    path = os.path.join(manifest["_directory"], rel)
     if manifest.get("replay_kind") == "sharded":
-        raise NotImplementedError(
-            "restore_replay: a sharded replay cut needs the replay shard services "
-            "(ROADMAP Queue 1, item 9)")
+        if not shards:
+            raise ValueError("manifest describes a sharded replay cut; pass the shard "
+                             "endpoints to restore it")
+        from blendjax_torch.replay.shard_client import ShardedReplay
+
+        return ShardedReplay.restore(path, shards, counters=counters, timer=timer,
+                                     timeoutms=timeoutms, reconcile=True)
     from blendjax_torch.replay.buffer import ReplayBuffer
 
-    return ReplayBuffer.restore(os.path.join(manifest["_directory"], rel),
-                                counters=counters, timer=timer)
+    return ReplayBuffer.restore(path, counters=counters, timer=timer)
 
 
 class TrainCheckpointer:
@@ -251,7 +260,7 @@ class TrainCheckpointer:
             if replay is not None:
                 replay_rel = f"replay_{update:08d}.npz"
                 replay.save(os.path.join(self.directory, replay_rel))
-                replay_kind = "local"
+                replay_kind = "sharded" if hasattr(replay, "num_shards") else "local"
         except Exception:  # noqa: BLE001 - training outlives checkpoints
             self._failures += 1
             self.counters.incr("ha_ckpt_failures")
@@ -348,10 +357,10 @@ class TrainCheckpointer:
         one; FileNotFoundError when none exists): the manifest's TrainState
         step, written in place into ``learner.state`` (raises when it cannot
         be), and the update counter and seed through
-        :meth:`ActorLearner.load_checkpoint_state`.  ``republish`` is the
-        reference's; the port has no weight bus to republish on.  Returns
-        the manifest."""
-        del republish  # no weight bus in the port (ROADMAP Queue 1, item 9)
+        :meth:`ActorLearner.load_checkpoint_state`; when the learner carries
+        a weight bus and ``republish``, the restored params are published
+        under a fresh, higher version (``ha_resume_publishes``): the serve
+        tier rolls forward across the respawn.  Returns the manifest."""
         if manifest is None:
             manifest = self.latest_manifest()
             if manifest is None:
@@ -365,6 +374,15 @@ class TrainCheckpointer:
         self.timer.add("ha_restore", time.perf_counter() - t0)
         flight_recorder.note("learner_restored", target="learner",
                              update=int(manifest["update"]), manifest=manifest.get("_path"))
+        if republish and learner.weight_bus is not None:
+            from blendjax_torch.models.convert import params_to_jax
+
+            v = learner.weight_bus.publish(params_to_jax(learner.state.params),
+                                           step=learner._updates_done)
+            learner.last_published_version = v
+            self.counters.incr("ha_resume_publishes")
+            logger.info("resume republish: checkpointed params (update %d) published as "
+                        "weight version %s", learner._updates_done, v)
         return manifest
 
     # -- observability --------------------------------------------------------

@@ -49,14 +49,16 @@ class LearnerProcess:
     original command line.  The respawned child resumes from the latest
     complete manifest under ``ckpt_dir`` on its own.
 
-    Params mirror the child's CLI (see :mod:`blendjax_torch.ha.learner`).
-    The reference's replay-shard, weight-bus and probe-digest parameters
-    are not offered: they wait for the shard services (ROADMAP Queue 1,
-    item 9)."""
+    Params mirror the child's CLI (see :mod:`blendjax_torch.ha.learner`):
+    ``replay_shards`` (with ``shard_capacity``) puts the replay on shard
+    processes, ``weight_bus`` is the publisher's bind address (a fixed
+    port, so a respawned learner binds where the subscribers dial), and
+    ``probe_batch`` records the digest of the first draw after a resume."""
 
-    def __init__(self, *, ckpt_dir, env_addresses=(), obs_dim=1, num_actions=2,
+    def __init__(self, *, ckpt_dir, env_addresses=(), replay_shards=(), shard_capacity=None,
+                 weight_bus=None, publish_every=1, obs_dim=1, num_actions=2,
                  rollout_len=8, seed=0, ckpt_every=2, chunk_updates=4, action_values=None,
-                 device="cuda", ready_timeout=90.0):
+                 probe_batch=0, device="cuda", ready_timeout=90.0):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.stats_path = os.path.join(self.ckpt_dir, "learner_stats.json")
@@ -74,6 +76,14 @@ class LearnerProcess:
         ]
         if env_addresses:
             self._cmd += ["--envs", ",".join(env_addresses)]
+        if replay_shards:
+            self._cmd += ["--replay-shards", ",".join(replay_shards)]
+        if shard_capacity is not None:
+            self._cmd += ["--shard-capacity", str(shard_capacity)]
+        if weight_bus:
+            self._cmd += ["--weight-bus", weight_bus, "--publish-every", str(publish_every)]
+        if probe_batch:
+            self._cmd += ["--probe-batch", str(probe_batch)]
         if action_values is not None:
             # one token: a leading minus would read as an option
             self._cmd += ["--action-values=" + ",".join(str(float(v)) for v in action_values)]

@@ -44,10 +44,23 @@ What differs from the reference, and why:
   :meth:`ActorLearner.load_checkpoint_state` writes a restored state into
   the learner's own tensors, so the captured steps keep their graphs.
 
+- **A bus publish reads back a snapshot.**  With ``weight_bus=`` every
+  ``publish_every``-th update converts the actors' fresh snapshot (made on
+  the learner's stream after the update, so never torn) to the
+  reference's layout with :func:`~blendjax_torch.models.convert.params_to_jax`
+  and publishes it; the read-back synchronises the learner with the card
+  once per publish, timed as the ``weight_publish`` stage.
+
+``replay=`` takes an in-process ``ReplayBuffer`` or a
+:class:`~blendjax_torch.replay.ShardedReplay` over shard processes;
+``hub=`` registers the replay (each shard as a remote), the loop's
+``stats`` and the checkpointer with a
+:class:`~blendjax_torch.obs.TelemetryHub`.
+
 Not ported, each refused with the ROADMAP item it waits for: ``mesh=`` and
-``pipeline_stages=`` (item 7), ``weight_bus=`` (items 5 and 9), ``hub=``,
-``scenarios=``, ``curriculum=`` and ``fanin_min_ready=`` (item 9).  Pools
-come as one ``EnvPool`` or a list; the reference's ``FleetSet`` is item 9.
+``pipeline_stages=`` (item 7), ``scenarios=``, ``curriculum=`` and
+``fanin_min_ready=`` (item 9).  Pools come as one ``EnvPool`` or a list;
+the reference's ``FleetSet`` is item 9.
 """
 
 from __future__ import annotations
@@ -76,10 +89,6 @@ _NOT_PORTED = {
             "(ROADMAP Queue 1, item 7)",
     "pipeline_stages": "the MPMD pipeline learner waits for the parallel "
                        "layer (ROADMAP Queue 1, item 7)",
-    "weight_bus": "live weight publication waits for the weight snapshots "
-                  "and the bus (ROADMAP Queue 1, items 5 and 9)",
-    "hub": "the telemetry hub waits for the control plane "
-           "(ROADMAP Queue 1, item 9)",
     "scenarios": "the scenario plane waits for the control plane "
                  "(ROADMAP Queue 1, item 9)",
     "curriculum": "the scenario curriculum waits for the control plane "
@@ -137,7 +146,7 @@ class ActorLearner:
     num_fleets: int | None
         Validation marker for the multi-fleet configuration; when given
         it must match the number of pools passed.
-    replay: blendjax_torch.replay.ReplayBuffer | None
+    replay: blendjax_torch.replay.ReplayBuffer | ShardedReplay | None
         Off-policy path: the actor threads append every transition —
         quarantine-aware, so a degraded rollout's synthetic transitions
         land flagged and are never sampled — and the learner follows each
@@ -155,6 +164,20 @@ class ActorLearner:
         Coordinated train-state checkpoints: ``maybe_checkpoint(self)``
         once per completed update (on- and off-policy), from the learner
         thread; it decides the cadence and never raises into the loop.
+    hub: blendjax_torch.obs.TelemetryHub | None
+        Registers the replay's counters and timer (a sharded replay with
+        each shard process as a remote), a ``stats`` probe and the
+        checkpointer, so one ``hub.scrape()`` covers acting and learning.
+    weight_bus: blendjax_torch.weights.WeightPublisher | None
+        Live weight publication: every ``publish_every``-th completed
+        update (on- and off-policy) publishes the params as a versioned,
+        checksummed snapshot; subscribed
+        :class:`~blendjax_torch.serve.server.PolicyServer` replicas
+        hot-swap it between ticks.  The caller owns the publisher (its
+        ``quantize=`` must match the serving precision).  A failed publish
+        is logged; training goes on.
+    publish_every: int
+        Updates between bus publishes (1 = every update).
 
     The reference's other arguments raise ``NotImplementedError`` naming
     their ROADMAP item (see the module docstring).
@@ -164,7 +187,8 @@ class ActorLearner:
                  queue_size=4, lr=3e-3, gamma=0.99, seed=0, continuous=False,
                  action_map=None, pipeline=False, num_fleets=None,
                  replay=None, replay_ratio=0, replay_batch=64, device="cuda",
-                 checkpointer=None, **not_ported):
+                 checkpointer=None, hub=None, weight_bus=None, publish_every=1,
+                 **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"ActorLearner got an unexpected keyword argument {name!r}")
@@ -236,9 +260,10 @@ class ActorLearner:
         #: event after which the copy is complete, or None on the CPU)
         self._actor_params = self._snapshot()
         self._updates_done = 0
-        #: the last version published on a weight bus, which the port does
-        #: not have yet (ROADMAP Queue 1, item 9): recorded in every
-        #: checkpoint as the reference records it
+        self.weight_bus = weight_bus
+        self.publish_every = max(1, int(publish_every))
+        #: the last version published on the weight bus, recorded in every
+        #: checkpoint
         self.last_published_version = None
         self.checkpointer = checkpointer
         #: per-stage times of the last run: per env step the actors'
@@ -265,6 +290,23 @@ class ActorLearner:
         self._fleet_restarts = [0] * nf
         self._fleet_restart_allowed = [0.0] * nf
         self._fleet_restart_steps = [0] * nf
+        if hub is not None:
+            self._register_with_hub(hub)
+
+    def _register_with_hub(self, hub):
+        replay = self.replay
+        if replay is not None and hasattr(replay, "register_with_hub"):
+            replay.register_with_hub(hub)
+        elif replay is not None:
+            hub.register(replay.name, counters=replay.counters, timer=replay.timer,
+                         probe=replay.stats)
+        hub.register("actor_learner", probe=self.stats)
+        ckpt = self.checkpointer
+        if ckpt is not None:
+            # one EventCounters shared with the replay must not fold twice
+            dup = replay is not None and ckpt.counters is replay.counters
+            hub.register("ha_checkpointer", counters=None if dup else ckpt.counters,
+                         timer=ckpt.timer, probe=ckpt.stats)
 
     # -- aggregate views -----------------------------------------------------
 
@@ -278,6 +320,7 @@ class ActorLearner:
             "fleet_restarts": list(self._fleet_restarts),
             "dead_fleets": [fid for fid, e in enumerate(self._actor_errors)
                             if e is not None],
+            "last_published_version": self.last_published_version,
         }
 
     def checkpoint_state(self):
@@ -337,10 +380,23 @@ class ActorLearner:
 
     def _publish_params(self):
         """Swap the actors' sampling snapshot (one attribute assignment);
-        called once per completed update, which also makes it the
-        checkpoint hook."""
+        called once per completed update, which also makes it the weight-bus
+        publication point and the checkpoint hook."""
         self._actor_params = self._snapshot()
         self._updates_done += 1
+        if self.weight_bus is not None and self._updates_done % self.publish_every == 0:
+            from blendjax_torch.models.convert import params_to_jax
+
+            t0 = time.perf_counter()
+            try:
+                # the snapshot was copied on this thread's stream after the
+                # update, so the read-back waits for exactly that update
+                self.last_published_version = self.weight_bus.publish(
+                    params_to_jax(self._actor_params[0]), step=self._updates_done)
+            except Exception:  # noqa: BLE001 - training outlives the bus
+                log.exception("weight bus publish failed (training continues; the "
+                              "serve tier keeps its last good version)")
+            self.timer.add("weight_publish", time.perf_counter() - t0)
         if self.checkpointer is not None:
             self.checkpointer.maybe_checkpoint(self)
 

@@ -1,5 +1,5 @@
 """blendjax_torch.obs — telemetry building blocks: latency histograms,
-cross-process trace spans and the flight recorder.
+cross-process trace spans, the flight recorder and the telemetry hub.
 
 Import-light (PEP 562 lazy attributes): producers inside Blender's
 embedded Python import ``blendjax_torch.obs.spans`` alone.
@@ -11,6 +11,8 @@ _EXPORTS = {
     "make_span": ("blendjax_torch.obs.spans", "make_span"),
     "now_us": ("blendjax_torch.obs.spans", "now_us"),
     "span_trace": ("blendjax_torch.obs.spans", "span_trace"),
+    "TelemetryHub": ("blendjax_torch.obs.hub", "TelemetryHub"),
+    "scrape_socket": ("blendjax_torch.obs.hub", "scrape_socket"),
     "FlightRecorder": ("blendjax_torch.obs.flight", "FlightRecorder"),
     "flight_recorder": ("blendjax_torch.obs.flight", "flight_recorder"),
 }

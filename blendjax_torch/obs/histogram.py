@@ -67,6 +67,19 @@ class LatencyHistogram:
         if seconds > self.max_s:
             self.max_s = seconds
 
+    def merge(self, other):
+        """Fold ``other``'s counts into this histogram (buckets are
+        position-aligned by construction)."""
+        counts = self.counts
+        for i, c in enumerate(other.counts):
+            if c:
+                counts[i] += c
+        self.n += other.n
+        self.sum_s += other.sum_s
+        if other.max_s > self.max_s:
+            self.max_s = other.max_s
+        return self
+
     def quantile(self, q):
         """The ``q``-quantile duration in seconds (bucket-midpoint
         estimate, clamped to the observed maximum; 0.0 while empty).
@@ -93,3 +106,72 @@ class LatencyHistogram:
             "p99_ms": round(self.quantile(0.99) * 1e3, 4),
             "max_ms": round(self.max_s * 1e3, 4),
         }
+
+    def to_dict(self):
+        """Sparse JSON-able snapshot (non-zero buckets only): the form a
+        remote ``telemetry`` reply and the hub's merge carry."""
+        return {
+            "n": self.n,
+            "sum_s": self.sum_s,
+            "max_s": self.max_s,
+            "counts": {str(i): c for i, c in enumerate(self.counts) if c},
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        h = cls()
+        if not d:
+            return h
+        h.n = int(d.get("n", 0))
+        h.sum_s = float(d.get("sum_s", 0.0))
+        h.max_s = float(d.get("max_s", 0.0))
+        for i, c in (d.get("counts") or {}).items():
+            h.counts[int(i)] = int(c)
+        return h
+
+    def copy(self):
+        h = LatencyHistogram()
+        h.counts = list(self.counts)
+        h.n, h.sum_s, h.max_s = self.n, self.sum_s, self.max_s
+        return h
+
+
+def fold_stage_snapshot(merged, snapshot):
+    """Fold one ``StageTimer.snapshot()``-shaped dict into ``merged``
+    (``{stage: [count, total_s, LatencyHistogram | None]}``).
+
+    Histograms may arrive as live objects (local timers hand out copies)
+    or serialized dicts (remote ``telemetry`` replies); the fold takes
+    ownership and merges destructively.  The hub's scrape and the
+    supervisor's ``aggregate_health`` share it.
+    """
+    for stage, rec in (snapshot or {}).items():
+        slot = merged.setdefault(stage, [0, 0.0, None])
+        slot[0] += int(rec.get("count", 0))
+        slot[1] += float(rec.get("total_s", 0.0))
+        hist = rec.get("hist")
+        if hist is not None:
+            if not isinstance(hist, LatencyHistogram):
+                hist = LatencyHistogram.from_dict(hist)
+            slot[2] = hist if slot[2] is None else slot[2].merge(hist)
+    return merged
+
+
+def stage_records(merged):
+    """Render a :func:`fold_stage_snapshot` accumulator as reporting
+    records: ``{stage: {"count", "total_s", "mean_ms", "p50_ms", "p90_ms",
+    "p99_ms", "max_ms"}}`` (percentiles zero when no histogram
+    contributed)."""
+    out = {}
+    for stage, (count, total_s, hist) in merged.items():
+        rec = {
+            "count": count,
+            "total_s": round(total_s, 6),
+            "mean_ms": round((total_s / count) * 1e3, 4) if count else 0.0,
+        }
+        rec.update(
+            hist.percentiles() if hist is not None
+            else {"p50_ms": 0.0, "p90_ms": 0.0, "p99_ms": 0.0, "max_ms": 0.0}
+        )
+        out[stage] = rec
+    return out

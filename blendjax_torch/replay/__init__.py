@@ -9,8 +9,9 @@ prioritized sampling and ``.btr`` prefill, the port of ``blendjax.replay``::
     data, idx, w = buf.sample(32)
     buf.update_priorities(idx, errors)
 
-The sharded replay service (``ShardedReplay``) is not ported (ROADMAP
-Queue 1, item 9).  Attribute access is lazy.
+The sharded replay service: :class:`ShardedReplay` over shard processes
+(:mod:`blendjax_torch.replay.service`, ``ShardFleet``).  Attribute access
+is lazy, so a shard process imports none of the learner's modules.
 """
 
 _LAZY = {
@@ -19,6 +20,12 @@ _LAZY = {
     "ReplayBuffer": ("blendjax_torch.replay.buffer", "ReplayBuffer"),
     "ColumnStore": ("blendjax_torch.replay.ring", "ColumnStore"),
     "SumTree": ("blendjax_torch.replay.sumtree", "SumTree"),
+    "ShardedReplay": ("blendjax_torch.replay.shard_client", "ShardedReplay"),
+    "ShardClient": ("blendjax_torch.replay.shard_client", "ShardClient"),
+    "ShardRPCError": ("blendjax_torch.replay.shard_client", "ShardRPCError"),
+    "ReplayShard": ("blendjax_torch.replay.service", "ReplayShard"),
+    "ShardFleet": ("blendjax_torch.replay.service", "ShardFleet"),
+    "start_shard_thread": ("blendjax_torch.replay.service", "start_shard_thread"),
     "prefill_from_btr": ("blendjax_torch.replay.prefill", "prefill_from_btr"),
     "iter_btr_transitions": ("blendjax_torch.replay.prefill", "iter_btr_transitions"),
     "transition_to_message": ("blendjax_torch.replay.prefill", "transition_to_message"),

@@ -51,6 +51,10 @@ class ColumnStore:
     def keys(self):
         return tuple(self.columns)
 
+    @property
+    def nbytes(self):
+        return sum(c.nbytes for c in self.columns.values())
+
     def _init_schema(self, row):
         schema = {}
         columns = {}

@@ -52,6 +52,10 @@ class ServeClient:
         self.model = model
         #: cross-process span sink (None: tracing off)
         self.spans = span_recorder
+        #: the weight version of the last reply that carried one (a server
+        #: subscribed to a WeightBus stamps every reply once it adopted a
+        #: snapshot); it rides the transport-error text and the RPC span
+        self.weight_version = None
         self._shm_mode = shm
         self._shm_chaos = shm_chaos
         self._chan = None
@@ -83,11 +87,21 @@ class ServeClient:
         (the server executed the request and reported a failure)."""
         msg = dict(payload or {})
         msg["cmd"] = cmd
-        return exactly_once_rpc(
+        wv = self.weight_version
+        via = f", weights v{wv}" if wv is not None else ""
+        reply = exactly_once_rpc(
             self._channel(), msg, policy=self.policy, state=self.state,
             counters=self.counters,
             wait_ms=self.timeoutms if timeout_ms is None else int(timeout_ms),
-            raw_buffers=raw_buffers, spans=self.spans)
+            raw_buffers=raw_buffers, spans=self.spans,
+            remote_name="policy server", span_label="serve_rpc", span_cat="serve_client",
+            span_args={"weight_version": wv} if wv is not None else None,
+            rpc_name=f"serve:{cmd}",
+            exc_factory=lambda text: ServeRPCError(f"policy server ({self.address}{via}): {text}"),
+            retryable=(ServeRPCError,), pop_mid=True)
+        if reply.get("weight_version") is not None:
+            self.weight_version = reply["weight_version"]
+        return reply
 
     # -- episode protocol ----------------------------------------------------
 

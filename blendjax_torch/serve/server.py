@@ -26,6 +26,13 @@ episodes:
   remote path.  ``BJX_NO_SHM_RPC=1`` turns it off, and ``hello`` then
   reports ``"shm": None``.
 
+- **WeightBus** (``subscriber=``, ``--subscribe``): a
+  :class:`~blendjax_torch.weights.bus.WeightSubscriber` is polled between
+  ticks, and a complete, digest-verified snapshot (published by either
+  package) is copied into the served tensors in place, so the captured
+  ticks keep their addresses; every reply then carries the executing
+  model's ``weight_version``.
+
 Either package's ``ServeClient`` drives it: the wire is the JAX package's.
 Run a server as a process::
 
@@ -36,9 +43,8 @@ Run a server as a process::
 :func:`start_server_thread`.  ``serial=True`` (a REP socket, one request
 per exchange) is the baseline continuous batching is measured against.
 
-Not ported yet, each raising an error that names its ROADMAP item: a
-WeightBus ``subscriber=`` / ``--subscribe`` and the supervised
-``ServerProcess`` / ``ServerFleet`` (Queue 1, item 9).
+Not ported yet, raising an error that names its ROADMAP item: the
+supervised ``ServerProcess`` / ``ServerFleet`` (Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -47,7 +53,6 @@ import argparse
 import logging
 import os
 import signal
-import sys
 import threading
 import time
 from collections import OrderedDict, deque
@@ -72,8 +77,6 @@ STATELESS_TTL_S = 30.0
 #: Default bound on the reply cache (each client keeps one RPC in flight).
 REPLY_CACHE_DEPTH = 1024
 
-_BUS_MISSING = ("the WeightBus (weights/bus.py) is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
 _SUPERVISED_MISSING = ("ServerProcess and ServerFleet wait for the supervisor and "
                        "watchdog (ROADMAP Queue 1, item 9)")
 
@@ -371,11 +374,14 @@ class _ModelState:
     """One hosted model's serving state: its slot pool (or stateless
     episode registry)."""
 
-    __slots__ = ("mid", "model", "free", "live", "stateless_eps")
+    __slots__ = ("mid", "model", "free", "live", "stateless_eps", "weight_version")
 
     def __init__(self, mid, model):
         self.mid = mid
         self.model = model
+        #: the version of the last snapshot this model adopted (None: its
+        #: initial params; its replies then carry no stamp)
+        self.weight_version = None
         self.free = list(range(model.slots))
         self.live = {}  # slot -> [episode lease id, monotonic last-use]
         self.stateless_eps = {}  # stateless: episode id -> monotonic last-use
@@ -410,6 +416,12 @@ class PolicyServer:
         ``/dev/shm`` name prefix of the ShmRPC transport (a supervising
         parent passes one so it can sweep what a killed server left;
         generated when None).
+    subscriber: blendjax_torch.weights.WeightSubscriber | None
+        WeightBus subscription, polled from the serve loop between ticks:
+        a complete, digest-verified snapshot is copied into the hosted
+        model (the snapshot's ``model`` id, else the subscriber's, else the
+        default model), slots, leases and the reply cache untouched; a
+        torn or refused snapshot leaves the last good version serving.
     """
 
     def __init__(self, address, model, *, serial=False, tick_ms=2.0, max_batch=64,
@@ -417,8 +429,6 @@ class PolicyServer:
                  shm_base=None):
         import zmq
 
-        if subscriber is not None:
-            raise NotImplementedError(f"subscriber=: {_BUS_MISSING}")
         if isinstance(model, dict):
             if not model:
                 raise ValueError("multi-model server needs >= 1 model")
@@ -461,6 +471,18 @@ class PolicyServer:
         self._poller.register(self._sock, zmq.POLLIN)
         if self._shm is not None and self._shm.fd is not None:
             self._poller.register(self._shm.fd, zmq.POLLIN)
+        #: the latest adopted snapshot's version over all hosted models
+        #: (stats and telemetry); replies carry their own model's
+        self.subscriber = subscriber
+        self.weight_version = None
+        if subscriber is not None:
+            # the subscriber counts into the server's sinks unless the
+            # caller wired its own, and its pushed chunks wake the loop
+            if subscriber.counters is None:
+                subscriber.counters = self.counters
+            if subscriber.timer is None:
+                subscriber.timer = self.timer
+            self._poller.register(subscriber.sock, zmq.POLLIN)
 
     @property
     def shm_endpoint(self):
@@ -622,7 +644,7 @@ class PolicyServer:
             "queued": len(self._queue),
             "serial": self.serial,
             "models": list(self._models),
-            "weight_version": None,
+            "weight_version": self.weight_version,
             "per_model": {
                 s.mid: {"slots": s.model.slots, "free_slots": len(s.free),
                         "live_slots": len(s.live), "live_episodes": self._live_count(s)}
@@ -641,7 +663,7 @@ class PolicyServer:
             "models": list(self._models),
             "queued": len(self._queue),
             "live_episodes": self._live_episodes(),
-            "weight_version": None,
+            "weight_version": self.weight_version,
             "hello": self._capabilities(st),
             "pid": os.getpid(),
             "counters": self.counters.snapshot(),
@@ -663,9 +685,48 @@ class PolicyServer:
             self.counters.incr("serve_errors")
         return reply
 
+    def _poll_weights(self):
+        """Drain the WeightBus subscription and hot-swap a staged snapshot,
+        called from the serve loop between ticks (no batch in flight).  A
+        snapshot the model refuses (structure, shape or precision) is
+        counted and dropped; the last good version keeps serving."""
+        if self.subscriber is None:
+            return
+        snap = self.subscriber.poll()
+        if snap is None:
+            return
+        target = (snap.model if snap.model is not None
+                  else self.subscriber.model if self.subscriber.model is not None
+                  else self._default_id)
+        st = self._models.get(target)
+        t0 = time.perf_counter()
+        try:
+            if st is None:
+                raise KeyError(f"snapshot for unhosted model {target!r} "
+                               f"(hosted: {sorted(self._models)})")
+            st.model.apply_weights(snap.tree())
+        except Exception as exc:  # noqa: BLE001 - keep serving the last good version
+            self.counters.incr("weight_apply_failed")
+            logger.warning("policy server: weight snapshot v%d refused (%s: %s); still "
+                           "serving v%s", snap.version, type(exc).__name__, exc,
+                           self.weight_version)
+            return
+        st.weight_version = snap.version
+        self.weight_version = snap.version
+        self.counters.incr("weight_adopted")
+        self.timer.add("weight_swap", time.perf_counter() - t0)
+        logger.info("policy server: weights v%d hot-swapped (step %d)", snap.version,
+                    snap.step)
+
     def _finish(self, ident, msg, reply, *, span_name, t0_us, ding=True):
-        """Stamp correlation id and span, cache mutating replies, send.
-        ``ding=False`` defers the shm doorbell to the caller's flush."""
+        """Stamp the executing model's weight version, the correlation id and
+        the span, cache mutating replies, send.  ``ding=False`` defers the
+        shm doorbell to the caller's flush."""
+        st = self._models.get(msg.get("model") or self._default_id)
+        if st is not None and st.weight_version is not None:
+            # stamped before the reply cache: a retry answered from it
+            # reports the version that executed the request
+            reply["weight_version"] = st.weight_version
         mid = msg.get(wire.BTMID_KEY)
         span_ctx = msg.get(wire.SPAN_KEY)
         if isinstance(span_ctx, dict) and span_ctx.get("trace") is not None:
@@ -904,6 +965,8 @@ class PolicyServer:
             return
         while stop_event is None or not stop_event.is_set():
             try:
+                # between ticks: the hot-swap point
+                self._poll_weights()
                 if not self._queue:
                     self._poller.poll(poll_ms)
                     self._drain()
@@ -937,6 +1000,7 @@ class PolicyServer:
         while stop_event is None or not stop_event.is_set():
             try:
                 events = dict(self._poller.poll(poll_ms))
+                self._poll_weights()  # between (batch-1) ticks
                 self._drain_shm()  # ticks per message (serial handler)
                 if self._sock not in events:
                     continue
@@ -971,6 +1035,11 @@ class PolicyServer:
             self._sock.close(0)
         except Exception:  # noqa: BLE001 - shutdown best-effort
             pass
+        if self.subscriber is not None:
+            try:
+                self.subscriber.close()
+            except Exception:  # noqa: BLE001
+                pass
         if self._shm is not None:
             try:
                 self._shm.close(unlink=True)
@@ -1063,10 +1132,6 @@ def build_model(args, kind=None, seed=None):
     raise ValueError(f"unknown --model {kind!r}")
 
 
-#: options of the reference's server that the port does not have yet
-NOT_PORTED = {"--subscribe": _BUS_MISSING}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Serve one blendjax_torch policy/world-model.")
     ap.add_argument("--address", required=True)
@@ -1092,12 +1157,10 @@ def main(argv=None):
     ap.add_argument("--extra-model", action="append", default=[], metavar="NAME=KIND",
                     help="host an additional model under NAME; the i'th extra model "
                          "inits from seed+1+i")
-    for flag, why in NOT_PORTED.items():
-        ap.add_argument(flag, default=None, help=f"not ported: {why}")
+    ap.add_argument("--subscribe", default=None,
+                    help="WeightBus publisher address: published snapshots hot-swap "
+                         "into the served model between ticks")
     args = ap.parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            sys.exit(f"{flag}: {why}")
     logging.basicConfig(level=logging.INFO)
     model = build_model(args)
     if args.extra_model:
@@ -1110,8 +1173,14 @@ def main(argv=None):
                 ap.error(f"duplicate hosted model name {name!r}")
             models[name] = build_model(args, kind=kind, seed=args.seed + 1 + i)
         model = models
+    subscriber = None
+    if args.subscribe:
+        from blendjax_torch.weights.bus import WeightSubscriber
+
+        subscriber = WeightSubscriber(args.subscribe)
     server = PolicyServer(args.address, model, serial=args.serial, tick_ms=args.tick_ms,
-                          max_batch=args.max_batch, shm_base=args.shm_base)
+                          max_batch=args.max_batch, shm_base=args.shm_base,
+                          subscriber=subscriber)
     stop = threading.Event()
 
     def _term(signum, frame):

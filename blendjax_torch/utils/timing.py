@@ -19,8 +19,10 @@ wait), ``collate`` (batch assembly in a worker, collate path),
 host->device copy issue) and ``recycle`` (the wait for an arena's copy to
 complete, and its return to the pool), under the reference's names; the
 policy server records :data:`SERVE_STAGES`, the HA checkpointer
-:data:`HA_STAGES`.  The chrome-trace export of
-``blendjax.utils.timing`` is not ported.
+:data:`HA_STAGES`, the replay service :data:`REPLAY_STAGES` and the
+weight bus :data:`WEIGHT_STAGES`.  :meth:`StageTimer.snapshot` is the
+mergeable form the :class:`~blendjax_torch.obs.hub.TelemetryHub` folds.
+The chrome-trace export of ``blendjax.utils.timing`` is not ported.
 """
 
 from __future__ import annotations
@@ -61,6 +63,87 @@ class EventCounters:
             self._counts.clear()
 
 
+#: Canonical feed-pipeline stage names (the loader, the arena assembly and
+#: the device feed record under them).
+FEED_STAGES = (
+    "recv", "collate", "arena_wait", "scatter", "recycle", "device_put",
+)
+
+#: Canonical fault and health event names, the reference's: what the env
+#: layer, the watchdog and the stream count, and what
+#: ``FleetSupervisor.health()`` zero-fills.  ``ready_waits`` /
+#: ``stale_replies`` / ``inflight_discards`` are the async env pipeline's;
+#: ``record_drops`` the recorder's refusals at capacity;
+#: ``watchdog_backoff_jitter_ms`` the watchdog's randomized respawn delay.
+FLEET_EVENTS = (
+    "deaths", "restarts", "retries", "timeouts", "failures", "quarantines",
+    "readmissions", "circuit_opens", "circuit_rejections",
+    "stream_timeouts", "stream_ring_vanished", "transfer_gate_backstops",
+    "ready_waits", "stale_replies", "inflight_discards",
+    "record_drops",
+    "watchdog_backoff_jitter_ms",
+)
+
+#: Canonical experience-replay event names, the reference's:
+#: ``replay_appends`` / ``replay_overwrites`` / ``replay_excluded`` —
+#: rows accepted, rows that evicted a live one, rows flagged unhealthy;
+#: ``replay_samples`` / ``replay_sample_waits`` / ``replay_sample_skips``
+#: — batches drawn, draws that waited on an underfilled buffer, learner
+#: tail draws skipped; ``replay_priority_updates`` — priority refreshes;
+#: the sharded service's ``replay_shard_quarantined`` (a shard isolated,
+#: the draw renormalized over the live ones), ``replay_shard_readmissions``
+#: (a shard back after the handshake), ``replay_shard_journal`` (appends
+#: held client-side for a quarantined shard), ``replay_shard_lost`` (rows
+#: a restarted shard could not account for, their slots invalidated);
+#: ``replay_wire_bytes`` / ``replay_shm_bytes`` — a shard's RPC payload
+#: bytes over the socket and through the ShmRPC rings.
+REPLAY_EVENTS = (
+    "replay_appends", "replay_overwrites", "replay_excluded",
+    "replay_samples", "replay_sample_waits", "replay_priority_updates",
+    "replay_sample_skips",
+    "replay_shard_quarantined", "replay_shard_readmissions",
+    "replay_shard_journal", "replay_shard_lost",
+    "replay_wire_bytes", "replay_shm_bytes",
+)
+
+#: Canonical weight-bus event names, the reference's (the canary names
+#: are counted by the gateway's controller, ROADMAP item 9):
+#: ``weight_published`` / ``weight_publish_bytes`` — snapshots streamed
+#: and their payload bytes; ``weight_syncs`` — full catch-ups for late
+#: joiners; ``weight_adopted`` — verified snapshots hot-swapped into a
+#: serving model between ticks; ``weight_torn_discarded`` — partial
+#: streams dropped; ``weight_digest_rejected`` — completed streams that
+#: failed their checksums; ``weight_apply_failed`` — verified snapshots
+#: the model refused (the last good version keeps serving);
+#: ``weight_rollback_publishes`` — a prior version republished under a
+#: fresh id.
+WEIGHT_EVENTS = (
+    "weight_published", "weight_publish_bytes", "weight_syncs",
+    "weight_adopted", "weight_torn_discarded", "weight_digest_rejected",
+    "weight_apply_failed",
+    "weight_canary_starts", "weight_canary_routes",
+    "weight_canary_promotions", "weight_canary_rollbacks",
+    "weight_rollback_publishes",
+)
+
+#: Canonical weight-bus stage names: ``weight_publish`` (the actor-learner's
+#: host read-back of its params and the publish: snapshot, digest, chunk and
+#: stream), ``weight_assemble`` (chunk ingest and digest check per completed
+#: snapshot), ``weight_swap`` (the between-ticks hot-swap into the served
+#: tensors).
+WEIGHT_STAGES = (
+    "weight_publish", "weight_assemble", "weight_swap",
+)
+
+#: Canonical replay stage names: ``replay_append``, ``sample_wait``,
+#: ``sample_gather``, ``priority_update``, and the sharded service's
+#: ``shard_append`` (one append RPC: wire, remote write, spill flush) and
+#: ``shard_gather`` (one gather RPC and the client-side scatter).
+REPLAY_STAGES = (
+    "replay_append", "sample_wait", "sample_gather", "priority_update",
+    "shard_append", "shard_gather",
+)
+
 #: Canonical policy-serving event names
 #: (:class:`blendjax_torch.serve.server.PolicyServer`), the reference's:
 #: ``serve_requests`` / ``serve_replies`` — requests admitted, replies
@@ -74,8 +157,7 @@ class EventCounters:
 #: answered with an error (or dropped as undecodable); ``serve_prefills``
 #: — episodes admitted with an observation prefix; ``serve_wire_bytes`` —
 #: request and reply payload bytes over the socket; ``serve_shm_bytes`` —
-#: the same through shared-memory rings (no such transport in the port
-#: yet: ROADMAP Queue 1, item 8).
+#: the same through the ShmRPC rings.
 SERVE_EVENTS = (
     "serve_requests", "serve_replies", "serve_batches",
     "serve_batch_pad", "serve_cache_hits", "serve_dup_inflight",
@@ -104,7 +186,7 @@ SERVE_STAGES = (
 #: manifest because the latest failed to load; ``ha_learner_deaths`` /
 #: ``ha_learner_respawns`` — supervised learner-process deaths and
 #: respawns; ``ha_resume_publishes`` — restored parameters republished on
-#: a weight bus (no bus in the port yet: ROADMAP Queue 1, item 9).
+#: a weight bus under a fresh version.
 HA_EVENTS = (
     "ha_ckpt_saves", "ha_ckpt_bytes", "ha_ckpt_skipped",
     "ha_ckpt_failures", "ha_ckpt_evicted",
@@ -176,3 +258,24 @@ class StageTimer:
                     **self._hist[name].percentiles(),
                 }
             return out
+
+    def snapshot(self):
+        """Mergeable per-stage state for the
+        :class:`~blendjax_torch.obs.hub.TelemetryHub`: ``{stage: {"count",
+        "total_s", "hist"}}`` with the histograms copied (the hub merges
+        destructively)."""
+        with self._lock:
+            return {
+                name: {"count": self._count[name], "total_s": total,
+                       "hist": self._hist[name].copy()}
+                for name, total in self._total.items()
+            }
+
+    def snapshot_serialized(self):
+        """:meth:`snapshot` with the histograms in their sparse
+        ``to_dict`` form: the ``stages`` of a remote ``telemetry`` reply."""
+        return {
+            name: {"count": rec["count"], "total_s": rec["total_s"],
+                   "hist": rec["hist"].to_dict()}
+            for name, rec in self.snapshot().items()
+        }

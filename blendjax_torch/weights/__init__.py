@@ -1,8 +1,9 @@
 """blendjax_torch.weights — versioned, checksummed parameter snapshots, a
 numpy-only copy of ``blendjax.weights.snapshot``: a snapshot that either
 package publishes assembles in the other, and a served model adopts it
-through ``apply_weights``.  The WeightBus publisher and subscriber are not
-ported (ROADMAP Queue 1, item 9)."""
+through ``apply_weights``; and the WeightBus (:mod:`blendjax_torch.weights.bus`)
+that streams them from a learner to the serve tier.  The publisher and
+subscriber are imported lazily (they need zmq)."""
 
 from blendjax_torch.weights.snapshot import (
     Snapshot,
@@ -13,5 +14,18 @@ from blendjax_torch.weights.snapshot import (
     unflatten_tree,
 )
 
-__all__ = ["Snapshot", "SnapshotAssembler", "flatten_tree", "leaf_digest",
-           "snapshot_messages", "unflatten_tree"]
+_BUS = ("WeightPublisher", "WeightSubscriber", "linear_tree")
+
+__all__ = ["Snapshot", "SnapshotAssembler", "WeightPublisher", "WeightSubscriber",
+           "flatten_tree", "leaf_digest", "linear_tree", "snapshot_messages",
+           "unflatten_tree"]
+
+
+def __getattr__(name):
+    if name in _BUS:
+        from blendjax_torch.weights import bus
+
+        value = getattr(bus, name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module 'blendjax_torch.weights' has no attribute {name!r}")

@@ -178,6 +178,40 @@ Phases, each printing JSON lines:
               ``learner_recovery_s`` (the kill to the mirror showing the
               respawn past the pre-kill count) split by the child's boot
               times (import, CUDA init, build, restore, the first update).
+18. replay_service — the sharded replay service at the reference replay
+              benchmark's shape ((120, 160, 3) uint8 frames, 4,096 rows,
+              batch 32): 2 shard processes (``ShardFleet``), one
+              ``ShardedReplay`` over ShmRPC and one over tcp, and an
+              in-process ``ReplayBuffer``, each sampling onto the card
+              through pinned staging buffers; the first batches of all three
+              bit-equal on the card; interleaved windows give
+              ``replay_shard_x`` (service over in-process batches/s) and
+              ``replay_degraded_x`` (a shard quarantined over healthy) per
+              wire; then a ``FleetSupervisor`` over the fleet, shard 0
+              SIGKILLed after 512 more appends: quarantined, respawned, restored from its
+              checkpoint and spill tail with its rows' digest unchanged,
+              re-admitted; nothing left under the fleet's ``/dev/shm``
+              prefixes.  No kernel is on this path.
+19. flywheel — (a) the al phase's cartpole fleet -> ``ActorLearner`` over a
+              ``ShardedReplay`` on 2 shard processes (replay ratio 1) with a
+              ``TelemetryHub`` and a ``WeightPublisher`` (every 2 updates);
+              a ``PolicyServer`` on the card subscribed to the bus serves 2
+              ``ServeClient``s in a child process throughout: turns with the
+              bus on and off (env-steps/s beside the al phase's,
+              ``weight_publish``), each client's weight versions strictly
+              increasing to the last publish with no error, the hub's scrape
+              holding the learner's, the replay's (shards as remotes) and the
+              server's telemetry, its Prometheus text parsing.  (b) the
+              flagship served (as 14) with clients stepping while a second
+              parameter set is published, float and then int8
+              (``quantize="seqformer"`` into an int8 server): snapshot MB,
+              publish ms, ``weight_swap_ms`` (publish's return to the first
+              reply at the new version), ``weight_swap_qps_dip_x``
+              (``benchmarks/weight_benchmark.py``'s 100 ms buckets); held:
+              no tick recaptured, every served tensor the published one in
+              its layout, and the first captured tick after a further swap
+              bit-equal to an eager ``decode_step`` with the new params on
+              the same cache.  No kernel is on this path.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
@@ -201,6 +235,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -1000,10 +1035,12 @@ def _transport_datagen(torch, btt, datagen, image):
 def serve_clients_main(spec):
     """The serving arm's clients, in a process of their own (``python3
     chip_smoke.py --serve-clients '<json>'``): first one seeded check
-    episode alone, then ``clients`` threads stepping episodes for
-    ``seconds``; prints one JSON line (the check episode's predictions,
-    per-thread steps and latencies, each client's wire and channel
-    generations and demotions, errors)."""
+    episode alone (unless ``check`` is false), then ``clients`` threads
+    stepping episodes for ``seconds`` or until ``stop_file`` exists (a
+    ``prefix`` of 0 admits episodes without one); prints one JSON line (the
+    check episode's predictions, per-thread steps and latencies, each
+    client's wire and channel generations and demotions, each client's
+    weight versions in the order they arrived, errors)."""
     import numpy as np
 
     sys.path.insert(0, REPO)
@@ -1016,15 +1053,18 @@ def serve_clients_main(spec):
         rng = np.random.default_rng(seed)
         return rng.standard_normal((cfg["episode_len"], cfg["obs_dim"])).astype(np.float32)
 
-    check_client = ServeClient(cfg["address"], timeoutms=30000, shm=shm)
-    ep = episode(7)
-    check_preds = [check_client.reset(prefix=ep[:cfg["prefix"]])["pred"].tolist()]
-    check_preds += [check_client.step(o)["pred"].tolist() for o in ep[cfg["prefix"]:]]
-    check_client.close_episode()
-    check_client.close()
+    check_preds = []
+    if cfg.get("check", True):
+        check_client = ServeClient(cfg["address"], timeoutms=30000, shm=shm)
+        ep = episode(7)
+        check_preds = [check_client.reset(prefix=ep[:cfg["prefix"]])["pred"].tolist()]
+        check_preds += [check_client.step(o)["pred"].tolist() for o in ep[cfg["prefix"]:]]
+        check_client.close_episode()
+        check_client.close()
 
+    stop_file = cfg.get("stop_file")
     n = cfg["clients"]
-    lat, steps = [[] for _ in range(n)], [0] * n
+    lat, steps, versions = [[] for _ in range(n)], [0] * n, [[] for _ in range(n)]
     wires, errors = [None] * n, []
     ready, go = threading.Barrier(n + 1), threading.Barrier(n + 1)
     deadline = [None]
@@ -1033,15 +1073,21 @@ def serve_clients_main(spec):
         client = ServeClient(cfg["address"], timeoutms=30000, shm=shm)
         e = episode(cfg["seed"] + i)
         try:
-            client.reset(prefix=e[:cfg["prefix"]])
+            if cfg["prefix"]:
+                client.reset(prefix=e[:cfg["prefix"]])
+            else:
+                client.reset()
             t = cfg["prefix"]
             ready.wait(timeout=120)
             go.wait(timeout=60)
-            while time.perf_counter() < deadline[0]:
+            while time.perf_counter() < deadline[0] and not (
+                    stop_file and os.path.exists(stop_file)):
                 t0 = time.perf_counter()
-                client.step(e[t])
+                v = client.step(e[t]).get("weight_version")
                 lat[i].append(time.perf_counter() - t0)
                 steps[i] += 1
+                if v is not None and (not versions[i] or versions[i][-1] != v):
+                    versions[i].append(v)
                 t += 1
                 if t == cfg["episode_len"]:
                     client.close_episode()
@@ -1073,14 +1119,15 @@ def serve_clients_main(spec):
     elapsed = time.perf_counter() - t0
     print(json.dumps({"check_preds": check_preds, "steps": steps, "elapsed": elapsed,
                       "latencies": [x for per in lat for x in per], "wires": wires,
-                      "errors": errors}), flush=True)
+                      "versions": versions, "errors": errors}), flush=True)
     return 0
 
 
 def _serve_clients(address, cfg, shm, seconds, seed):
     """One window of the child-process clients; returns its JSON record."""
     spec = json.dumps({"address": address, "shm": shm, "seconds": seconds, "seed": seed,
-                       **{k: cfg[k] for k in ("clients", "episode_len", "prefix", "obs_dim")}})
+                       **{k: cfg[k] for k in ("clients", "episode_len", "prefix", "obs_dim",
+                                              "check", "stop_file") if k in cfg}})
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-clients", spec],
                           capture_output=True, text=True, timeout=seconds + 240, cwd=REPO)
     check(proc.returncode == 0,
@@ -2040,6 +2087,7 @@ def actor_learner_phase(torch, btt, control, rl_rates):
     check(all(bool(torch.isfinite(v).all()) for v in al.state.params.values()),
           "al: parameters finite after run_offline")
     emit({"phase": "al_seconds", "seconds": time.perf_counter() - t_phase})
+    return {arm: statistics.mean(v) for arm, v in rates.items()}
 
 # -- ha: state and checkpoints on the card ----------------------------------------
 
@@ -2328,9 +2376,12 @@ def _ha_drill(torch, control, tmp):
                 kill_ts = time.time()
                 t_kill = time.monotonic()
                 os.kill(lp.launch_info.processes[0].pid, signal.SIGKILL)
+                # past the resume point too: a cut taken after ``pre`` was
+                # read resumes the child beyond ``pre["updates"]`` already
                 post, end_ts = await_stats(
                     lp, lambda s: s.get("pid") not in (None, pre["pid"])
-                    and s.get("updates", 0) > pre["updates"], 120, "post-respawn progress")
+                    and s.get("updates", 0) > max(pre["updates"], s.get("resumed_from") or 0),
+                    120, "post-respawn progress")
                 recovery_s = time.monotonic() - t_kill
                 check(sup.await_deaths(1, 10) and sup.await_respawns(1, 10),
                       "ha_drill: the death and the respawn were counted")
@@ -3090,6 +3141,596 @@ def infer_int8_phase(torch, btt, datagen, image):
     check(launches >= 1, "the infer_int8 path launched decode_u8")
     return launches
 
+# -- replay_service and flywheel: the replay service and the weight bus on the card --------
+
+#: the reference's replay-benchmark shape (benchmarks/replay_benchmark.py: 120x160x3
+#: uint8 frames, a 4,096-row ring, batches of 32) over 2 shard processes; ``tail``
+#: rows appended after the shards' checkpoint make the killed shard's spill tail
+RS = dict(height=120, width=160, channels=3, capacity=4096, batch=32, shards=2,
+          window_s=0.25, rounds=4, check_batches=8, tail=512)
+#: the flywheel's actor-learner: the al phase's fleet over 2 shard processes
+FLY = dict(shard_capacity=4096, replay_ratio=1, replay_batch=64, publish_every=2,
+           turn_s=2.5, clients=2, episode_len=32)
+FLY_ARMS = ("bus", "no_bus", "no_bus", "bus")
+#: the flagship swap's client window: the publish lands ``publish_at_s`` into
+#: it, and it ends ``after_s`` after the publish returns
+SWAP = dict(publish_at_s=1.5, after_s=2.5, bucket_s=0.1)
+PROM_LINE = re.compile(r'^(# (HELP|TYPE) .+|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? '
+                       r'(-?[0-9.]+(e[-+]?[0-9]+)?|NaN|[-+]Inf))$')
+
+
+def _rs_transition(np, rng):
+    shape = (RS["height"], RS["width"], RS["channels"])
+    return {"obs": rng.integers(0, 255, shape, dtype=np.uint8),
+            "action": np.int32(rng.integers(0, 4)), "reward": np.float32(rng.random()),
+            "next_obs": rng.integers(0, 255, shape, dtype=np.uint8),
+            "done": bool(rng.random() < 0.02)}
+
+
+class _CardFeed:
+    """Sampled replay batches onto the card through pinned staging buffers:
+    ``sample`` gathers into the pinned buffers, copies them to the card
+    without blocking, and waits for the copy before the buffers are reused."""
+
+    def __init__(self, torch, np):
+        self.torch, self.np = torch, np
+        self.pinned, self.card = {}, {}
+
+    def _dst(self, key, shape, dtype):
+        buf = self.pinned.get(key)
+        if buf is None or tuple(buf.shape) != shape:
+            buf = self.torch.from_numpy(self.np.empty(shape, dtype)).pin_memory()
+            self.pinned[key] = buf
+            self.card[key] = self.torch.empty_like(buf, device="cuda")
+        return buf.numpy()
+
+    def sample(self, buffer, batch):
+        data, idx, w = buffer.sample(batch, out=self._dst)
+        for key in data:
+            self.card[key].copy_(self.pinned[key], non_blocking=True)
+        self.torch.cuda.current_stream().synchronize()
+        return self.card, idx, w
+
+    def rate(self, buffer, batch, seconds):
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            self.sample(buffer, batch)
+            n += 1
+        return n / (time.perf_counter() - t0)
+
+
+def _shard_digest(np, buf, shard):
+    """SHA-256 over every column of one shard's rows, read back over its
+    client in local slot order.  Each reply (64 rows, 7.4 MB) stays under
+    half of the 32 MiB shm reply ring: a larger record fits the ring only
+    at some positions of its head (ROADMAP Queue 3)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    keys = sorted(buf.store.keys)
+    for start in range(0, buf.shard_capacity, 64):
+        data = buf.clients[shard].rpc(
+            "gather", {"indices": list(range(start, start + 64)), "keys": keys},
+            raw_buffers=True)["data"]
+        for key in keys:
+            h.update(np.ascontiguousarray(data[key]).tobytes())
+    return h.hexdigest()
+
+
+def _rs_wires(buf):
+    """Each client's wire, channel generations and demotions."""
+    return [{"transport": c.transport,
+             "generations": c._chan.generations if c._chan is not None else 0,
+             "demotions": c._chan.demotions if c._chan is not None else 0}
+            for c in buf.clients]
+
+
+def _rs_shm_bytes(meter):
+    """Each shard's ``replay_shm_bytes`` counter, read over ``meter``'s tcp
+    clients (a telemetry RPC over tcp adds no shm bytes)."""
+    return [int(meter.shard_telemetry(s, timeout_ms=2000)["counters"]
+                .get("replay_shm_bytes", 0)) for s in range(meter.num_shards)]
+
+
+def _rs_measure(np, torch, feeds, arms, shards, meter):
+    """Interleaved windows per round: the in-process buffer, each service arm
+    healthy, then each arm with its last shard quarantined and re-admitted
+    (the reference benchmark's ``measure_sharded`` windows).  Around every
+    service window it reads each shard's ``replay_shm_bytes`` through
+    ``meter``, and after each healthy window each client's wire, so the
+    windows' labels rest on what the shards counted."""
+    rates = {name: [] for name in ["inproc"] + [f"{a}{s}" for a in arms
+                                                for s in ("", "_degraded")]}
+    #: per arm and round, each shard's shm bytes in the healthy and the
+    #: degraded window; per arm and round, the wires after the healthy window
+    moved = {arm: [] for arm in arms}
+    wires = {arm: [] for arm in arms}
+    for _ in range(RS["rounds"]):
+        rates["inproc"].append(feeds["inproc"][0].rate(feeds["inproc"][1], RS["batch"],
+                                                       RS["window_s"]))
+        for arm in arms:
+            feed, buf = feeds[arm]
+            b0 = _rs_shm_bytes(meter)
+            rates[arm].append(feed.rate(buf, RS["batch"], RS["window_s"]))
+            wires[arm].append(_rs_wires(buf))
+            b1 = _rs_shm_bytes(meter)
+            buf.quarantine_shard(shards - 1, reason="degraded window")
+            rates[f"{arm}_degraded"].append(feed.rate(buf, RS["batch"], RS["window_s"]))
+            check(buf.probe(), f"replay_service: the {arm} arm's shard re-admitted")
+            b2 = _rs_shm_bytes(meter)
+            moved[arm].append({"healthy": [b - a for a, b in zip(b0, b1)],
+                               "degraded": [b - a for a, b in zip(b1, b2)]})
+    return rates, moved, wires
+
+
+def _median_ratio(np, num, den):
+    return float(np.median([a / b for a, b in zip(num, den) if b > 0]))
+
+
+def replay_service_phase(torch):
+    """The sharded replay service at the reference benchmark's shape: 2 shard
+    processes (``ShardFleet``: ``python -m blendjax_torch.replay.service``,
+    durable under a temporary directory), one ``ShardedReplay`` over ShmRPC
+    filled with 4,096 seeded rows and checkpointed, one over tcp restored
+    from that cut, and an in-process ``ReplayBuffer`` filled alike.  Checks:
+    the first batches of all three bit-equal on the card; then interleaved windows (``replay_shard_x``, the
+    service over the in-process rate, and ``replay_degraded_x``, a shard
+    quarantined over healthy, per wire); then SIGKILL shard 0 under a
+    ``FleetSupervisor``: quarantined, respawned, restored crash-exact (its
+    rows' digest unchanged) and re-admitted; nothing left under the fleet's
+    ``/dev/shm`` prefixes."""
+    import tempfile
+
+    import numpy as np
+
+    from blendjax_torch.btt import shm_rpc
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.btt.faults import FaultPolicy
+    from blendjax_torch.btt.supervise import FleetSupervisor
+    from blendjax_torch.replay import ReplayBuffer, ShardedReplay
+    from blendjax_torch.replay.service import ShardFleet
+    from blendjax_torch.replay.shard_client import ShardClient
+    from blendjax_torch.utils.timing import EventCounters
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    rows = [_rs_transition(np, rng) for _ in range(64)]
+    cap, shards = RS["capacity"], RS["shards"]
+    inproc = ReplayBuffer(cap, seed=0)
+    for k in range(cap):
+        inproc.append(rows[k % len(rows)])
+    counters = EventCounters()
+    policy = FaultPolicy(max_retries=1, backoff_base=0.02, backoff_max=0.1, deadline_s=2.0,
+                         circuit_threshold=0, seed=3)
+    with tempfile.TemporaryDirectory(prefix="bjx-replay-") as tmp, \
+            ShardFleet(shards, capacity_per_shard=cap // shards, data_dir=tmp,
+                       checkpoint_every=0) as fleet:
+        svc = {"shm": ShardedReplay(fleet.addresses, seed=0, counters=counters,
+                                    fault_policy=policy, timeoutms=2000)}
+        t0 = time.perf_counter()
+        for k in range(cap):
+            svc["shm"].append(rows[k % len(rows)])
+        fill_s = time.perf_counter() - t0
+        # the shards checkpoint, and the tcp client restores the shm
+        # client's cut over the same shards: the same draw state on another
+        # wire
+        cut = os.path.join(tmp, "client.npz")
+        svc["shm"].save(cut)
+        svc["tcp"] = ShardedReplay.restore(
+            cut, [ShardClient(a, i, shm=False, timeoutms=2000)
+                  for i, a in enumerate(fleet.addresses)], counters=EventCounters())
+        check(svc["shm"].clients[0].transport == "shm"
+              and svc["tcp"].clients[0].transport == "tcp",
+              "replay_service: one client rides ShmRPC, the other tcp")
+        feeds = {"inproc": (_CardFeed(torch, np), inproc),
+                 **{arm: (_CardFeed(torch, np), buf) for arm, buf in svc.items()}}
+        for _ in range(RS["check_batches"]):
+            (want, wi, ww), *others = [f.sample(b, RS["batch"]) for f, b in feeds.values()]
+            want = {k: v.clone() for k, v in want.items()}
+            for got, gi, gw in others:
+                check(np.array_equal(gi, wi) and np.array_equal(gw, ww)
+                      and all(torch.equal(got[k], want[k]) for k in want),
+                      "replay_service: the service's batches on the card equal the "
+                      "in-process buffer's, bit for bit")
+        for feed, buf in feeds.values():
+            feed.rate(buf, RS["batch"], 0.1)  # warm-up
+        rates, moved, wires = _rs_measure(np, torch, feeds, ("shm", "tcp"), shards,
+                                          meter=svc["tcp"])
+        svc["tcp"].close()
+
+        # SIGKILL shard 0 under the supervisor, its rows a checkpoint and a
+        # spill tail (the ring's head has wrapped to slot 0, so the tail rows
+        # land on shard 0)
+        buf = svc["shm"]
+        for k in range(RS["tail"]):  # other rows than the checkpoint's in those slots
+            buf.append(rows[(k + 7) % len(rows)])
+        before = _shard_digest(np, buf, 0)
+        with FleetSupervisor(fleet, pool=None, interval=0.15, counters=counters,
+                             replay=buf, heal_interval=0.05, postmortem_dir=tmp) as sup:
+            t_kill = time.perf_counter()
+            kill_instance(fleet, 0)
+            check(sup.await_deaths(1, timeout=30), "replay_service: shard 0's death seen")
+            degraded_draws = 0
+            for _ in range(5):
+                dead = bool(buf.quarantined[0])
+                _, idx, _ = buf.sample(RS["batch"])
+                if dead and bool(buf.quarantined[0]):  # not re-admitted meanwhile
+                    degraded_draws += 1
+                    check(not (idx < buf.shard_capacity).any(),
+                          "replay_service: degraded draws avoid the dead shard")
+            check(sup.await_healthy(timeout=90), f"replay_service: shard 0 re-admitted "
+                  f"({counters.snapshot()})")
+            readmit_s = time.perf_counter() - t_kill
+        after = _shard_digest(np, buf, 0)
+        restored = buf.clients[0].rpc("hello")["restored_from"]
+        health = sup.health()
+        buf.close()
+        bases = [b for b in fleet.shm_bases if b is not None]
+    leaked = {b: shm_rpc.leaked_objects(b) for b in bases}
+    shard_x = {arm: _median_ratio(np, rates[arm], rates["inproc"]) for arm in ("shm", "tcp")}
+    degraded_x = {arm: _median_ratio(np, rates[f"{arm}_degraded"], rates[arm])
+                  for arm in ("shm", "tcp")}
+    emit(_stamp({"phase": "replay_service", "config": RS,
+                 "replay_shard_x": shard_x, "replay_degraded_x": degraded_x,
+                 "shm_rpc_x": _median_ratio(np, rates["shm"], rates["tcp"]),
+                 "batches_per_s": {k: float(np.median(v)) for k, v in rates.items()},
+                 "batches_per_s_rounds": rates, "fill_s": fill_s,
+                 "shm_bytes_moved": moved, "wires": wires,
+                 "kill": {"digest_before": before, "digest_after": after,
+                          "restored_from": restored, "readmit_s": readmit_s,
+                          "degraded_draws": degraded_draws,
+                          "quarantined": counters.get("replay_shard_quarantined"),
+                          "readmissions": counters.get("replay_shard_readmissions"),
+                          "lost": counters.get("replay_shard_lost"),
+                          "deaths": health["deaths"], "restarts": health["restarts"]},
+                 "shm_leaked": leaked, "seconds": time.perf_counter() - t_phase}))
+    check(all(w["transport"] == "shm" and w["demotions"] == 0
+              for rnd in wires["shm"] for w in rnd),
+          f"replay_service: every client of the shm arm rode ShmRPC through its healthy "
+          f"windows, none demoted ({wires['shm']})")
+    check(all(w["transport"] == "tcp" for rnd in wires["tcp"] for w in rnd),
+          f"replay_service: every client of the tcp arm rode tcp ({wires['tcp']})")
+    check(all(n > 0 for rnd in moved["shm"] for n in rnd["healthy"]),
+          f"replay_service: every shard counted shm bytes in each healthy shm window "
+          f"({moved['shm']})")
+    check(all(n == 0 for rnd in moved["tcp"] for w in ("healthy", "degraded")
+              for n in rnd[w]),
+          f"replay_service: no shard counted shm bytes in the tcp windows ({moved['tcp']})")
+    check(before == after, "replay_service: the respawned shard restored its rows exactly")
+    check(restored is not None and restored[0] > 0 and restored[1] > 0,
+          "replay_service: the respawn restored a checkpoint and a spill tail")
+    check(counters.get("replay_shard_quarantined") >= 1
+          and counters.get("replay_shard_readmissions") >= 1
+          and counters.get("replay_shard_lost") == 0,
+          "replay_service: the killed shard was quarantined and re-admitted, nothing lost")
+    check(health["deaths"] == 1 and health["restarts"] == 1,
+          "replay_service: one death, one respawn")
+    check(not any(leaked.values()), f"replay_service: /dev/shm left clean ({leaked})")
+
+
+def _prometheus_parses(text):
+    lines = text.rstrip("\n").split("\n")
+    return bool(lines) and all(PROM_LINE.match(line) for line in lines)
+
+
+def _flywheel_learner(torch, btt, control, al_rates):
+    """(a) The actor-learner path: the al phase's cartpole fleet -> an
+    ``ActorLearner`` over a ``ShardedReplay`` on 2 shard processes at replay
+    ratio 1, publishing every 2 updates on a ``WeightPublisher``, with a
+    ``TelemetryHub``; a ``PolicyServer`` on the card subscribed to the bus
+    serves 2 ``ServeClient``s in a child process throughout.  Turns with
+    the bus on and off give env-steps/s with learning beside the al phase's
+    (in-process replay) and the ``weight_publish`` stage."""
+    import tempfile
+
+    import numpy as np
+
+    from blendjax_torch.models import policy
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.obs.hub import TelemetryHub
+    from blendjax_torch.replay import ShardedReplay
+    from blendjax_torch.replay.service import ShardFleet
+    from blendjax_torch.serve import PolicyModel, start_server_thread
+    from blendjax_torch.utils.timing import EventCounters, StageTimer
+    from blendjax_torch.weights import WeightPublisher, WeightSubscriber
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+
+    def forces(a):
+        return list((np.asarray(a) * 2 - 1) * control.FORCE_MAG)
+
+    hub = TelemetryHub("flywheel")
+    server_counters, server_timer = EventCounters(), StageTimer()
+    with tempfile.TemporaryDirectory(prefix="bjx-fly-") as tmp, \
+            ShardFleet(2, capacity_per_shard=FLY["shard_capacity"], data_dir=tmp) as fleet, \
+            WeightPublisher(counters=EventCounters()).start() as pub, \
+            btt.launch_env_pool(scene="", script=str(control.SCRIPT), num_instances=RL_INSTANCES,
+                                background=True, start_port=_port_block(RL_INSTANCES), seed=0,
+                                real_time=False, pipeline_depth=RL_DEPTH,
+                                counters=EventCounters()) as pool:
+        replay = ShardedReplay(fleet.addresses, seed=0, counters=EventCounters())
+        al = ActorLearner(pool, 3, 2, rollout_len=AL_ROLLOUT, queue_size=AL_QUEUE,
+                          action_map=forces, replay=replay, replay_ratio=FLY["replay_ratio"],
+                          replay_batch=FLY["replay_batch"], hub=hub, weight_bus=pub,
+                          publish_every=FLY["publish_every"], device="cuda")
+        served = PolicyModel(policy.init(torch.Generator(device="cuda").manual_seed(9), 3, 2,
+                                         device="cuda"), 3)
+        with start_server_thread(served, counters=server_counters, timer=server_timer,
+                                 subscriber=WeightSubscriber(pub.address)) as srv:
+            hub.register("policy_server", counters=server_counters, timer=server_timer)
+            hub.register("weight_publisher", counters=pub.counters)
+            stop_file = os.path.join(tmp, "clients.stop")
+            clients = {}
+            cfg = {"clients": FLY["clients"], "episode_len": FLY["episode_len"], "prefix": 0,
+                   "obs_dim": 3, "check": False, "stop_file": stop_file}
+
+            def run_clients():
+                try:
+                    clients.update(_serve_clients(srv.address, cfg, "auto", 600, 50))
+                except SystemExit as exc:  # a failed check in this thread
+                    clients["failure"] = str(exc)
+
+            runner = threading.Thread(target=run_clients, daemon=True)
+            runner.start()
+            st = al.run(num_updates=3)  # each step's warm-ups and capture
+            turns = []
+            for turn, arm in enumerate(FLY_ARMS):
+                al.weight_bus = pub if arm == "bus" else None
+                st = al.run(seconds=FLY["turn_s"])
+                stages = st["stages"]
+                turns.append({"turn": turn, "arm": arm,
+                              "env_steps_per_s": st["env_steps_per_sec"],
+                              "updates_per_s": st["updates_per_sec"],
+                              "updates": st["updates"], "replay_updates": st["replay_updates"],
+                              "weight_publish_p50_ms": _stage_p50(stages, "weight_publish"),
+                              "publishes": stages.get("weight_publish", {}).get("count", 0),
+                              "update_p50_ms": _stage_p50(stages, "update"),
+                              "replay_update_p50_ms": _stage_p50(stages, "replay_update")})
+                emit({"phase": "flywheel_turn", **turns[-1]})
+                check(all(math.isfinite(v) for v in st["losses"] + st["replay_losses"]),
+                      f"flywheel turn {turn}: losses finite")
+            final = pub.version
+            deadline = time.monotonic() + 30
+            while srv.server.weight_version != final and time.monotonic() < deadline:
+                time.sleep(0.05)
+            time.sleep(1.0)  # the clients step at the final version
+            open(stop_file, "w").close()
+            runner.join(timeout=120)
+            snap = hub.scrape()
+            prom = hub.to_prometheus(snap)
+        replay.close()
+    check(not runner.is_alive() and "failure" not in clients and clients,
+          f"flywheel: the client process finished ({clients.get('failure')})")
+    versions = clients["versions"]
+    emit({"phase": "flywheel_clients", "versions": versions, "final": final,
+          "steps": clients["steps"], "errors": clients["errors"],
+          "wires": clients["wires"]})
+    check(not clients["errors"], f"flywheel: no client errored ({clients['errors']})")
+    for i, seq in enumerate(versions):
+        check(len(seq) >= 2 and all(a < b for a, b in zip(seq, seq[1:])) and seq[-1] == final,
+              f"flywheel: client {i}'s weight versions rise strictly to the last publish "
+              f"({seq} vs {final})")
+    c = snap["counters"]
+    check(c["replay_appends"] > 0 and c["serve_requests"] > 0 and c["weight_adopted"] >= 2
+          and c["weight_published"] >= 2, "flywheel: the hub holds the replay's, the "
+          "server's and the bus's counters")
+    check(snap["components"]["actor_learner"]["probe"]["updates"] > 0
+          and snap["stages"]["shard_srv_append"]["count"] > 0
+          and "remote_errors" not in snap,
+          "flywheel: the hub holds the learner's probe and the shards' remote stages")
+    check(_prometheus_parses(prom), "flywheel: the Prometheus text parses")
+    bus = [t["env_steps_per_s"] for t in turns if t["arm"] == "bus"]
+    off = [t["env_steps_per_s"] for t in turns if t["arm"] == "no_bus"]
+    pub_ms = [t["weight_publish_p50_ms"] for t in turns if t["arm"] == "bus"]
+    rec = {"phase": "flywheel", "config": FLY,
+           "env_steps_per_s": {"bus": statistics.mean(bus), "no_bus": statistics.mean(off),
+                               "al_phase_inproc_replay": al_rates},
+           "bus_x": statistics.mean(bus) / statistics.mean(off),
+           "weight_publish_p50_ms": statistics.median(pub_ms),
+           "published": c["weight_published"], "adopted": c["weight_adopted"],
+           "hub_counters": {k: c[k] for k in ("replay_appends", "replay_samples",
+                                              "serve_requests", "weight_published",
+                                              "weight_adopted", "weight_syncs")},
+           "server_weight_swap": server_timer.percentiles("weight_swap")}
+    emit(_stamp(rec))
+    return rec
+
+
+def _swap_window(np, serve, address, cfg, rng_seed, publish):
+    """``clients`` episode loops recording each reply's time and weight
+    version; ``publish()`` runs :data:`SWAP` ``publish_at_s`` into the
+    window, which ends ``after_s`` after the publish returns.  Returns
+    (replies, publish return time, window start, window end, the publish's
+    result)."""
+    clients = cfg["clients"]
+    replies = [[] for _ in range(clients)]
+    errors = []
+    ready, go = threading.Barrier(clients + 1), threading.Barrier(clients + 1)
+    deadline = [None]
+
+    def run(i):
+        client = serve.ServeClient(address, timeoutms=60000, shm=False)
+        rng = np.random.default_rng(rng_seed + i)
+        ep = rng.standard_normal((cfg["episode_len"], cfg["obs_dim"])).astype(np.float32)
+        try:
+            client.reset(prefix=ep[:cfg["prefix"]])
+            t = cfg["prefix"]
+            ready.wait(timeout=120)
+            go.wait(timeout=60)
+            while time.perf_counter() < deadline[0]:
+                r = client.step(ep[t])
+                replies[i].append((time.perf_counter(), r.get("weight_version")))
+                t += 1
+                if t == cfg["episode_len"]:
+                    client.close_episode()
+                    client.reset()
+                    t = 0
+            client.close_episode()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"client {i}: {type(exc).__name__}: {exc}")
+            ready.abort()
+            go.abort()
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(clients)]
+    for t in threads:
+        t.start()
+    ready.wait(timeout=120)
+    start = time.perf_counter()
+    deadline[0] = start + 600.0  # until the publish has returned
+    go.wait(timeout=60)
+    time.sleep(SWAP["publish_at_s"])
+    result = publish()
+    t_pub = time.perf_counter()
+    deadline[0] = t_pub + SWAP["after_s"]
+    for t in threads:
+        t.join(timeout=SWAP["after_s"] + 120)
+    check(not errors, f"flagship swap window: {errors}")
+    return replies, t_pub, start, deadline[0], result
+
+
+def _dip(np, replies, start, t_pub, t_seen, seconds):
+    """The weight benchmark's ``weight_swap_qps_dip_x``: the aggregate QPS of
+    the 100 ms buckets from one before the publish to one after the first
+    observation at the new version, over the median of the other buckets
+    (edges trimmed)."""
+    w = SWAP["bucket_s"]
+    n = int(seconds / w)
+    counts = np.zeros(n)
+    for per in replies:
+        for t, _ in per:
+            b = int((t - start) / w)
+            if 0 <= b < n:
+                counts[b] += 1
+    swap = set(range(int((t_pub - start) / w) - 1, int((t_seen - start) / w) + 2))
+    steady = [counts[b] for b in range(1, n - 1) if b not in swap and counts[b] > 0]
+    dipped = [counts[b] for b in sorted(swap) if 0 < b < n - 1]
+    return float(np.median(dipped) / np.median(steady)), float(np.median(steady) / w)
+
+
+def _flagship_swap(torch, seqformer, serve, int8):
+    """(b) The flagship's served weights swapped over the bus: the flagship
+    SeqFormer served (captured ticks) to ``SERVE["clients"]`` threads, a
+    second parameter set published mid-window (``quantize="seqformer"``
+    into an int8 server), then held: the count of captured graphs
+    unchanged, the served tensors equal to the published ones (``w_q`` in
+    the column-major layout ``torch._int_mm`` takes), and the first captured
+    tick after a further swap bit-equal to an eager ``decode_step`` with the
+    new params on the same cache."""
+    import numpy as np
+
+    from blendjax_torch.models.convert import params_from_jax, params_to_jax
+    from blendjax_torch.ops.quant import quantize_seqformer
+    from blendjax_torch.utils.timing import EventCounters, StageTimer
+    from blendjax_torch.weights import WeightPublisher, WeightSubscriber
+
+    what = "int8" if int8 else "f32"
+    cfg = SERVE
+    model = serve.SeqFormerModel(_serve_params(torch, seqformer, cfg), cfg["slots"],
+                                 cfg["length"], int8=int8)
+    new = [params_to_jax(_serve_params(torch, seqformer, cfg, seed=s)) for s in (1, 2)]
+    # what the wire carries: the publisher quantizes on the CPU
+    published = (params_to_jax(quantize_seqformer(params_from_jax(new[0], device="cpu")))
+                 if int8 else new[0])
+    counters, timer = EventCounters(), StageTimer()
+    with WeightPublisher(quantize="seqformer" if int8 else None, history=1,
+                         counters=counters).start() as pub, \
+            serve.start_server_thread(model, tick_ms=1.0, max_batch=cfg["slots"],
+                                      counters=counters, timer=timer,
+                                      subscriber=WeightSubscriber(pub.address)) as srv:
+        for b in srv.server.buckets:  # every bucket's warm-ups and capture
+            for _ in range(3):
+                model.step_rows(np.full(b, model.pad_slot, np.int64),
+                                np.zeros((b, cfg["obs_dim"]), np.float32))
+            if b >= cfg["clients"]:
+                break
+        graphs = len(model.graphs.graphs)
+        strides = {k: t.stride() for k, t in model.params.items()}
+        t_box = {}
+
+        def publish():
+            t0 = time.perf_counter()
+            v = pub.publish(new[0], step=1)
+            t_box["publish_ms"] = (time.perf_counter() - t0) * 1e3
+            return v
+
+        replies, t_pub, start, end, v1 = _swap_window(np, serve, srv.address, cfg, 300,
+                                                      publish)
+        seen = [t for per in replies for t, v in per if v == v1]
+        check(bool(seen), f"flagship {what} swap: the clients saw the new version")
+        t_seen = min(seen)
+        for i, per in enumerate(replies):
+            vs = [v for _, v in per if v is not None]
+            check(vs == sorted(vs) and vs and vs[-1] == v1,
+                  f"flagship {what} swap: client {i}'s versions rise to v{v1}")
+        dip_x, qps = _dip(np, replies, start, t_pub, t_seen, end - start)
+        check(len(model.graphs.graphs) == graphs,
+              f"flagship {what} swap: no tick recaptured after the swap")
+        want = params_from_jax(published, device="cuda")
+        check(all(torch.equal(model.params[k], want[k]) for k in want),
+              f"flagship {what} swap: the served tensors are the published ones")
+        check({k: t.stride() for k, t in model.params.items()} == strides,
+              f"flagship {what} swap: every served tensor kept its layout (w_q the "
+              "column-major one torch._int_mm takes)")
+        # the first captured tick after a swap against eager decode_step on
+        # the same cache: no client ticks between the adoption and the check
+        v2 = pub.publish(new[1], step=2)
+        deadline = time.monotonic() + 60
+        while srv.server.weight_version != v2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(srv.server.weight_version == v2, f"flagship {what}: v{v2} adopted")
+        rng = np.random.default_rng(5)
+        bucket = cfg["clients"]
+        idx = np.arange(bucket, dtype=np.int64)
+        obs = rng.standard_normal((bucket, cfg["obs_dim"])).astype(np.float32)
+        cache = model._cache
+        idx_t = torch.from_numpy(idx).to("cuda")
+        rows = {"pos": cache["pos"][idx_t].clone(), "k": [k[idx_t].clone() for k in cache["k"]],
+                "v": [v[idx_t].clone() for v in cache["v"]]}
+        with torch.no_grad():
+            eager, eager_rows = seqformer.decode_step(
+                model.params, rows, torch.from_numpy(obs).to("cuda"),
+                compute_dtype=torch.float32, window=model.window)
+        captured = model.step_rows(idx, obs)
+        tick_eq = (np.array_equal(captured, eager.cpu().numpy())
+                   and all(torch.equal(c[idx_t], e) for c, e in
+                           zip(cache["k"] + cache["v"], eager_rows["k"] + eager_rows["v"])))
+        check(tick_eq, f"flagship {what} swap: the first captured tick after the swap equals "
+              "an eager decode_step with the new params, bit for bit")
+        check(len(model.graphs.graphs) == graphs, f"flagship {what}: still no recapture")
+        snap_mb = sum(a.nbytes for a in _leaves(published)) / 1e6
+        rec = {"precision": what, "snapshot_mb": snap_mb,
+               "publish_ms": t_box["publish_ms"], "weight_swap_ms": (t_seen - t_pub) * 1e3,
+               "weight_swap_qps_dip_x": dip_x, "qps_steady": qps,
+               "server_weight_swap_ms": timer.percentiles("weight_swap"),
+               "server_weight_assemble_ms": timer.percentiles("weight_assemble"),
+               "graphs": graphs, "tick_eq_eager": tick_eq,
+               "adopted": counters.get("weight_adopted"),
+               "serve_errors": counters.get("serve_errors")}
+    check(rec["adopted"] == 2 and rec["serve_errors"] == 0,
+          f"flagship {what} swap: both snapshots adopted, no request errored")
+    return rec
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def flywheel_phase(torch, btt, control, seqformer, serve, al_rates):
+    t0 = time.perf_counter()
+    rec = {"learner": _flywheel_learner(torch, btt, control, al_rates)}
+    for int8 in (False, True):
+        rec["int8" if int8 else "f32"] = _flagship_swap(torch, seqformer, serve, int8)
+        emit(_stamp({"phase": "flywheel_swap", **rec["int8" if int8 else "f32"]}))
+    emit({"phase": "flywheel_seconds", "seconds": time.perf_counter() - t0})
+    return rec
+
 
 def main():
     import torch
@@ -3158,7 +3799,7 @@ def main():
     seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
     flash_launches, flash_routes, wm_state = worldmodel_phase(torch, btt, worldmodel, flash)
     rl_rates = rl_phase(torch, btt, control, policy)
-    actor_learner_phase(torch, btt, control, rl_rates)
+    al_rates = actor_learner_phase(torch, btt, control, rl_rates)
     with smi_window("densityopt"):
         densityopt_launches = densityopt_phase(torch, btt, image)
     check(densityopt_launches >= 1, "the densityopt path launched decode_u8")
@@ -3171,6 +3812,8 @@ def main():
     infer_launches = infer_int8_phase(torch, btt, datagen, image)
     ha_launches = ha_phase(torch, btt, control, datagen, image, seqformer, flash, worldmodel,
                            pendulum)
+    replay_service_phase(torch)
+    flywheel_phase(torch, btt, control, seqformer, serve, al_rates)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",

@@ -361,13 +361,85 @@ def test_snapshot_is_a_copy_that_survives_the_next_update():
 
 
 @pytest.mark.parametrize("name, item", [
-    ("mesh", "item 7"), ("pipeline_stages", "item 7"), ("weight_bus", "items 5 and 9"),
-    ("hub", "item 9"), ("scenarios", "item 9"), ("curriculum", "item 9"),
-    ("fanin_min_ready", "item 9")])
+    ("mesh", "item 7"), ("pipeline_stages", "item 7"), ("scenarios", "item 9"),
+    ("curriculum", "item 9"), ("fanin_min_ready", "item 9")])
 def test_not_ported_arguments_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         ActorLearner(None, D, A, device="cpu", **{name: object()})
     ActorLearner(None, D, A, device="cpu", **{name: None})  # the default is accepted
+
+
+def _filled_buffer(buf, n=128, seed=1):
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        buf.append({"obs": rng.standard_normal(D).astype(np.float32),
+                    "action": np.int64(rng.integers(0, A)),
+                    "reward": np.float32(rng.random())})
+    return buf
+
+
+@pytest.mark.parametrize("name", ["weight_bus", "hub"])
+def test_ported_arguments_are_held(name):
+    """``weight_bus=``: every ``publish_every``-th update publishes the
+    learner's params in the reference's layout (a subscriber's snapshot
+    equals ``params_to_jax`` of the params at that update, exactly), timed
+    as ``weight_publish``.  ``hub=``: one scrape holds the sharded replay's
+    client counters and stages, each shard process's as a remote, and the
+    loop's ``stats`` probe."""
+    from blendjax_torch.replay import ShardedReplay
+    from blendjax_torch.replay.service import start_shard_thread
+    from blendjax_torch.weights import WeightPublisher, WeightSubscriber
+
+    if name == "weight_bus":
+        buf = _filled_buffer(ReplayBuffer(256, seed=0, counters=EventCounters()))
+        with WeightPublisher(version_base=0).start() as pub:
+            sub = WeightSubscriber(pub.address)
+            try:
+                al = ActorLearner(None, D, A, device="cpu", replay=buf, replay_batch=32,
+                                  weight_bus=pub, publish_every=2)
+                published = {}
+                for _ in range(4):
+                    data, idx, w = buf.sample(32, keys=("obs", "action", "reward"))
+                    al._replay_update(data, idx, w)
+                    if al._updates_done % 2 == 0:
+                        published[al.last_published_version] = params_to_jax(al.state.params)
+                assert sorted(published) == [1, 2] and pub.version == 2
+                assert al.stats()["last_published_version"] == 2
+                assert al.checkpoint_state()["last_published_version"] == 2
+                assert al.timer.summary()["weight_publish"]["count"] == 2
+                deadline = time.monotonic() + 10
+                snap = None
+                while (snap is None or snap.version < 2) and time.monotonic() < deadline:
+                    snap = sub.poll() or snap
+                    time.sleep(0.02)
+                assert snap is not None and snap.version == 2
+                for a, b in zip(jax.tree.leaves(snap.tree()), jax.tree.leaves(published[2])):
+                    np.testing.assert_array_equal(a, b)
+            finally:
+                sub.close()
+        return
+    from blendjax_torch.obs.hub import TelemetryHub
+
+    # the shards' own counters: the process-wide ones hold other tests' events
+    handles = [start_shard_thread(128, shard_id=i, counters=EventCounters()) for i in range(2)]
+    try:
+        buf = _filled_buffer(ShardedReplay([h.address for h in handles], seed=0,
+                                           counters=EventCounters()))
+        hub = TelemetryHub()
+        al = ActorLearner(None, D, A, device="cpu", replay=buf, hub=hub)
+        al.run_offline(num_updates=2, batch_size=32)
+        snap = hub.scrape()
+        assert snap["counters"]["replay_appends"] == 128
+        assert snap["stages"]["shard_append"]["count"] == 128
+        assert snap["stages"]["shard_srv_append"]["count"] == 128  # the shards, as remotes
+        assert snap["components"]["actor_learner"]["probe"]["updates"] == 2
+        assert set(snap["components"]) >= {buf.name, f"{buf.name}/shard0",
+                                           f"{buf.name}/shard1", "actor_learner"}
+        assert "remote_errors" not in snap
+        buf.close()
+    finally:
+        for h in handles:
+            h.close()
 
 
 def test_validation_errors():

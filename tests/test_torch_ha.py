@@ -8,14 +8,19 @@ reference's ``tests/test_ha.py``, on the CPU.
   is in flight; the supervisor's postmortem naming the learner;
 - a cut written by either package restores in the other, with an equal
   draw stream and equal parameters (through ``convert``'s layouts);
-- the learner CLI refuses the control plane's flags (ROADMAP Queue 1,
-  item 9), as ``restore_replay`` refuses a sharded cut;
+- the sharded cut over live shard services (the reference's
+  ``test_checkpointer_sharded_cut_and_reconcile``): equal draws when
+  nothing moved, the slots appended past the cut reconciled out; a
+  sharded cut written by either package restores in the other; a resume
+  republishes under a higher weight version;
 - the SIGKILL -> respawn -> resume drill (``chaos``), with the port's echo
   producers (``tests/blender/torch_env.blend.py``) under the fake Blender and
-  a ``--device cpu`` child.
+  a ``--device cpu`` child; and the sharded drill: the child over two
+  replay shard processes and a weight bus, a subscribed policy server and
+  its client seeing strictly increasing versions across the respawn.
 
-Not ported: the sharded-replay cases, the curriculum case and the benchmark
-cases (the shard services, the scenario plane and the benchmarks are
+Not ported: the curriculum case, the benchmark cases and the full-stack
+acceptance (the scenario plane, the benchmarks and ``ServerProcess`` are
 ROADMAP items 9 and 10).
 """
 
@@ -328,17 +333,138 @@ def test_replay_file_crosses_packages_both_ways(tmp_path):
 
 
 def test_sharded_cut_and_control_plane_flags_name_item_9(tmp_path):
+    """The control plane's half that ROADMAP item 9 named is ported: a
+    sharded cut asks for the shard endpoints instead of refusing, and the
+    learner child and ``LearnerProcess`` take the shard, bus and probe
+    flags."""
+    from blendjax_torch.ha import LearnerProcess
+    from blendjax_torch.ha.learner import build_parser
+
     man = {"replay": "replay_00000001.npz", "replay_kind": "sharded",
            "_directory": str(tmp_path)}
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="shard endpoints"):
         restore_replay(man)
-    for flag in ("--replay-shards", "--shard-capacity", "--weight-bus", "--publish-every"):
-        out = subprocess.run(
-            [sys.executable, "-m", "blendjax_torch.ha.learner", "--ckpt-dir",
-             str(tmp_path / "ck"), "--device", "cpu", flag, "1"],
-            cwd=REPO_ROOT, capture_output=True, text=True, timeout=60)
-        assert out.returncode == 2, (flag, out.stderr)
-        assert "item 9" in out.stderr and flag in out.stderr
+    lp = LearnerProcess(ckpt_dir=str(tmp_path), env_addresses=["tcp://127.0.0.1:1"],
+                        replay_shards=["tcp://127.0.0.1:2", "tcp://127.0.0.1:3"],
+                        shard_capacity=64, weight_bus="tcp://127.0.0.1:4", publish_every=3,
+                        probe_batch=8, device="cpu")
+    args = build_parser().parse_args(lp._cmd[3:])
+    assert args.replay_shards == "tcp://127.0.0.1:2,tcp://127.0.0.1:3"
+    assert (args.shard_capacity, args.weight_bus, args.publish_every, args.probe_batch) == (
+        64, "tcp://127.0.0.1:4", 3, 8)
+
+
+def test_checkpointer_sharded_cut_and_reconcile(tmp_path):
+    """The cut over live shard services: the draws of a restore equal the
+    no-crash draws when nothing moved past the cut, and the slots a dead
+    incarnation appended past the cut leave the restored draw domain
+    (``replay_shard_lost``) until the resumed actors rewrite them."""
+    from blendjax_torch.replay.service import start_shard_thread
+    from blendjax_torch.replay.shard_client import ShardedReplay
+
+    shards = [start_shard_thread(64, shard_id=i, data_dir=str(tmp_path / f"s{i}"))
+              for i in range(2)]
+    try:
+        addrs = [h.address for h in shards]
+        buf = ShardedReplay(addrs, seed=3, counters=EventCounters())
+        _fill(buf, 140, seed=7)  # a full ring and wraparound
+        for _ in range(3):
+            buf.sample(8)
+        ck = TrainCheckpointer(str(tmp_path / "ck"), counters=EventCounters())
+        ck.checkpoint(_offline_learner(buf), block=True)
+        man = latest_manifest(str(tmp_path / "ck"))
+        assert man["replay_kind"] == "sharded"
+
+        seq_no_crash = [buf.sample(8)[1].tolist() for _ in range(4)]
+        buf_a = restore_replay(man, addrs, counters=EventCounters())
+        assert [buf_a.sample(8)[1].tolist() for _ in range(4)] == seq_no_crash
+        assert buf_a.counters.get("replay_shard_lost") == 0
+
+        head_at_cut = buf._head
+        _fill(buf, 10, seed=11)  # the doomed incarnation appends past the cut
+        rolled = {(head_at_cut + k) % buf.capacity for k in range(10)}
+        ctr_b = EventCounters()
+        buf_b = restore_replay(man, addrs, counters=ctr_b)
+        assert ctr_b.get("replay_shard_lost") == len(rolled)
+        for _ in range(6):
+            _, idx, _ = buf_b.sample(8)
+            assert not (set(idx.tolist()) & rolled), "drew a slot whose row was rolled back"
+        _fill(buf_b, 10, seed=12)
+        buf_b.sample(32)
+        for b in (buf, buf_a, buf_b):
+            b.close()
+    finally:
+        for h in shards:
+            h.close()
+
+
+def test_sharded_cut_crosses_packages(tmp_path):
+    """A sharded cut the reference wrote over the port's shards restores in
+    the port, and the port's over the reference's shards restores in the
+    reference: the draws continue equal, index for index."""
+    from blendjax.replay.service import start_shard_thread as j_start_shard_thread
+    from blendjax.replay.shard_client import ShardedReplay as JShardedReplay
+    from blendjax_torch.replay.service import start_shard_thread
+    from blendjax_torch.replay.shard_client import ShardedReplay
+
+    for writer, reader, start in ((JShardedReplay, ShardedReplay, start_shard_thread),
+                                  (ShardedReplay, JShardedReplay, j_start_shard_thread)):
+        shards = [start(32, shard_id=i) for i in range(2)]
+        try:
+            addrs = [h.address for h in shards]
+            buf = writer(addrs, seed=5)
+            _fill(buf, 80, seed=2)
+            buf.sample(8)
+            path = str(tmp_path / f"{writer.__module__}.npz")
+            buf.save(path)
+            want = [buf.sample(8)[1].tolist() for _ in range(4)]
+            other = reader.restore(path, addrs)
+            assert [other.sample(8)[1].tolist() for _ in range(4)] == want
+            buf.close()
+            other.close()
+        finally:
+            for h in shards:
+                h.close()
+
+
+def test_resume_republishes_under_a_higher_version(tmp_path):
+    """``restore(republish=True)`` with a weight bus publishes the restored
+    params (the reference's layout) under a version above every one the
+    dead learner published, counted ``ha_resume_publishes``."""
+    from blendjax_torch.weights import WeightPublisher, WeightSubscriber
+
+    buf = ReplayBuffer(256, seed=0)
+    _fill(buf, 128)
+    ck = TrainCheckpointer(str(tmp_path), counters=EventCounters())
+    with WeightPublisher(version_base=10).start() as pub:
+        al = ActorLearner(None, 4, 3, replay=buf, device="cpu", weight_bus=pub,
+                          checkpointer=ck)
+        al.run_offline(num_updates=3, batch_size=32)
+        ck.checkpoint(al, block=True)
+        dead_version = pub.version
+        assert al.last_published_version == dead_version == 13
+    man = latest_manifest(str(tmp_path))
+    assert man["aux"]["last_published_version"] == 13
+    counters = EventCounters()
+    with WeightPublisher(version_base=100).start() as pub:
+        sub = WeightSubscriber(pub.address)
+        try:
+            al2 = ActorLearner(None, 4, 3, replay=restore_replay(man), device="cpu",
+                               weight_bus=pub)
+            TrainCheckpointer(str(tmp_path), counters=counters).restore(al2, man)
+            assert al2.last_published_version == 101 > dead_version
+            assert counters.get("ha_resume_publishes") == 1
+            deadline = time.monotonic() + 10
+            snap = None
+            while snap is None and time.monotonic() < deadline:
+                snap = sub.poll()
+                time.sleep(0.02)
+            assert snap is not None and snap.version == 101
+            for a, b in zip(jax.tree.leaves(snap.tree()),
+                            jax.tree.leaves(convert.params_to_jax(al.state.params))):
+                np.testing.assert_array_equal(a, b)
+        finally:
+            sub.close()
 
 
 def test_learner_without_producers_exits_2(tmp_path):
@@ -409,8 +535,11 @@ def test_supervised_learner_kill_respawn_resume(fake_blender, tmp_path):
                 os.kill(lp.launch_info.processes[0].pid, signal.SIGKILL)
                 assert sup.await_deaths(1, 30)
                 assert sup.await_respawns(1, 30)
+                # past the resume point too: a cut taken after ``pre`` was
+                # read resumes the child beyond ``pre["updates"]`` already
                 post = _await_stats(lp, lambda s: s.get("pid") not in (None, pre["pid"])
-                                    and s.get("updates", 0) > pre["updates"],
+                                    and s.get("updates", 0)
+                                    > max(pre["updates"], s.get("resumed_from") or 0),
                                     120, "post-respawn progress")
     assert post["resumed_from"] >= pre["last_ckpt_update"] >= 2
     assert post["updates"] > pre["updates"]
@@ -421,3 +550,85 @@ def test_supervised_learner_kill_respawn_resume(fake_blender, tmp_path):
     doc = json.loads(open(sup.last_postmortem).read())
     assert doc["extra"]["target"] == "learner"
     assert doc["extra"]["stats"]["updates"] >= pre["updates"]
+
+
+@pytest.mark.chaos
+def test_supervised_sharded_learner_kill_respawn_resume(fake_blender, tmp_path):
+    """SIGKILL the supervised learner over two replay shard processes and a
+    weight bus, with a policy server subscribed and a client stepping: the
+    respawned child reconciles the sharded cut, records the probe digest of
+    its first draw, and republishes; the client sees strictly increasing
+    weight versions across the respawn and no error.  Every wait is
+    bounded."""
+    from blendjax_torch.btt.launcher import BlenderLauncher
+    from blendjax_torch.ha import LearnerProcess, LearnerSupervisor
+    from blendjax_torch.models import policy as tpol
+    from blendjax_torch.replay.service import ShardFleet
+    from blendjax_torch.replay.shard_client import free_port
+    from blendjax_torch.serve import PolicyModel, ServeClient, start_server_thread
+    from blendjax_torch.weights import WeightSubscriber
+
+    counters = EventCounters()
+    bus = f"tcp://127.0.0.1:{free_port()}"
+    observed, errors = [], []
+    stop = threading.Event()
+
+    def client_loop(address):
+        c = ServeClient(address, timeoutms=10000)
+        try:
+            c.reset()
+            while not stop.is_set():
+                v = c.step(np.zeros(1, np.float32)).get("weight_version")
+                if v is not None and (not observed or observed[-1] != v):
+                    observed.append(v)
+                time.sleep(0.005)
+        except Exception as exc:  # noqa: BLE001 - the assertion's subject
+            errors.append(f"{type(exc).__name__}: {exc}")
+        finally:
+            c.close()
+
+    params = tpol.init(torch.Generator().manual_seed(5), 1, 2, device="cpu")
+    with ShardFleet(2, capacity_per_shard=128, data_dir=str(tmp_path / "shards")) as fleet, \
+            BlenderLauncher(scene="", script=ENV_SCRIPT, num_instances=2, named_sockets=["GYM"],
+                            background=True, start_port=_free_block(2),
+                            instance_args=[["--horizon", "1000000"]] * 2) as bl, \
+            start_server_thread(PolicyModel(params, 1), subscriber=WeightSubscriber(bus)) as srv:
+        t = threading.Thread(target=client_loop, args=(srv.address,), daemon=True)
+        t.start()
+        try:
+            with LearnerProcess(ckpt_dir=str(tmp_path / "ck"),
+                                env_addresses=bl.launch_info.addresses["GYM"],
+                                replay_shards=fleet.addresses, shard_capacity=128,
+                                weight_bus=bus, publish_every=1, obs_dim=1, num_actions=2,
+                                rollout_len=8, seed=1, ckpt_every=2, chunk_updates=2,
+                                action_values=[0.0, 1.0], probe_batch=8, device="cpu") as lp:
+                with LearnerSupervisor(lp, interval=0.3, counters=counters,
+                                       postmortem_dir=str(tmp_path / "pm")) as sup:
+                    pre = _await_stats(lp, lambda s: s.get("updates", 0) >= 4
+                                       and s.get("last_ckpt_update", 0) >= 2,
+                                       90, "warm-up and the first checkpoint")
+                    deadline = time.monotonic() + 30
+                    while not observed and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                    assert observed, "the server never adopted a version before the kill"
+                    os.kill(lp.launch_info.processes[0].pid, signal.SIGKILL)
+                    assert sup.await_deaths(1, 30)
+                    assert sup.await_respawns(1, 30)
+                    post = _await_stats(lp, lambda s: s.get("pid") not in (None, pre["pid"])
+                                        and s.get("updates", 0) > pre["updates"]
+                                        and "probe_digest" in s,
+                                        120, "post-respawn progress")
+                    deadline = time.monotonic() + 30
+                    while (observed[-1] <= pre["last_published_version"]
+                           and time.monotonic() < deadline):
+                        time.sleep(0.05)
+        finally:
+            stop.set()
+            t.join(timeout=20)
+    assert not t.is_alive()
+    assert errors == []
+    assert post["resumed_from"] >= pre["last_ckpt_update"] >= 2
+    assert len(post["probe_digest"]) == 16, post["probe_digest"]  # drew a full batch
+    assert observed == sorted(set(observed)), observed  # strictly increasing
+    assert observed[-1] > pre["last_published_version"]
+    assert counters.get("ha_learner_deaths") == 1 and counters.get("ha_learner_respawns") == 1

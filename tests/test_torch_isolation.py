@@ -68,7 +68,9 @@ def test_sources_name_neither_jax_nor_blendjax():
 def test_producer_side_imports_without_torch():
     """The producer side (the shm ring writer too), a serving client (with
     the snapshot format and the ShmRPC transport), the checkpoint files, the
-    watchdog and the replay buffer import neither torch nor JAX."""
+    watchdog, the replay buffer, the replay shard service and its client,
+    the weight bus, the telemetry hub and the fleet supervisor import
+    neither torch nor JAX."""
     code = (
         "import json, sys\n"
         "import blendjax_torch, blendjax_torch.btb as btb\n"
@@ -91,6 +93,12 @@ def test_producer_side_imports_without_torch():
         "import blendjax_torch.btt.shm_rpc, blendjax_torch.btt.transport\n"
         "import blendjax_torch.btt.rpc, blendjax_torch.btt.env_rendering\n"
         "import blendjax_torch.btt.apps.launch\n"
+        "import blendjax_torch.obs.hub, blendjax_torch.btt.chaos, blendjax_torch.btt.supervise\n"
+        "import blendjax_torch.replay.service, blendjax_torch.replay.shard_client\n"
+        "import blendjax_torch.weights.bus\n"
+        "from blendjax_torch.replay import ShardedReplay, ShardFleet\n"
+        "from blendjax_torch.weights import WeightPublisher, WeightSubscriber\n"
+        "from blendjax_torch.obs import TelemetryHub\n"
         "assert ring.native_available(), ring.load_error()\n"
         "import os\n"
         "addr = 'shm://bjx-test-t-iso-%d' % os.getpid()\n"
@@ -98,6 +106,25 @@ def test_producer_side_imports_without_torch():
         "assert pub.publish(x=1)\n"
         "pub.close()\n"
         "ring.unlink_address(addr)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
+    )
+    assert _run(code) == []
+
+
+@pytest.mark.parametrize("module", ["blendjax_torch.replay.service",
+                                    "blendjax_torch.weights.bus"])
+def test_spawned_services_help_without_torch(module):
+    """The processes the port spawns for the replay service and the weight
+    bus start without torch: ``--help`` runs the whole module import and
+    the argument parser, and leaves torch (and JAX) out of
+    ``sys.modules``."""
+    code = (
+        "import json, runpy, sys\n"
+        f"sys.argv = ['{module}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('{module}', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 0, exc.code\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
     )
     assert _run(code) == []

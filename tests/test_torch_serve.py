@@ -579,16 +579,51 @@ def test_server_process_on_cpu_serves_the_jax_client():
 
 
 def test_parts_not_ported_name_their_roadmap_item():
-    from blendjax_torch.serve import PolicyServer, ServerFleet, ServerProcess
-    from blendjax_torch.serve.server import main
+    from blendjax_torch.serve import ServerFleet, ServerProcess
 
     for cls in (ServerProcess, ServerFleet):
         with pytest.raises(NotImplementedError, match="item 9"):
             cls()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PolicyServer("tcp://127.0.0.1:*", LinearModel(), subscriber=object())
-    with pytest.raises(SystemExit, match="item 9"):
-        main(["--address", "tcp://127.0.0.1:*", "--subscribe", "tcp://127.0.0.1:1"])
+
+
+def test_subscriber_and_subscribe_flag_adopt_published_weights():
+    """``PolicyServer(subscriber=)`` in process and ``--subscribe`` on the
+    server process: a published linear tree is adopted between ticks and
+    the next replies carry its version and its weights (exact up to f32)."""
+    from blendjax_torch.weights import WeightPublisher, WeightSubscriber, linear_tree
+
+    obs = np.arange(8, dtype=np.float32)
+    with WeightPublisher(version_base=40).start() as pub:
+        v = pub.publish(linear_tree(41, 8))
+        w = linear_tree(41, 8)["w"]
+        with start_server_thread(LinearModel(obs_dim=8, slots=2),
+                                 subscriber=WeightSubscriber(pub.address)) as h:
+            deadline = time.monotonic() + 10
+            while h.server.weight_version != v and time.monotonic() < deadline:
+                time.sleep(0.02)
+            c = ServeClient(h.address, timeoutms=5000)
+            c.reset()
+            r = c.step(obs)
+            assert r["weight_version"] == v == c.weight_version
+            np.testing.assert_allclose(r["pred"], obs @ w, rtol=1e-6)
+            c.close()
+        address = f"tcp://127.0.0.1:{_free_port()}"
+        proc = subprocess.Popen([sys.executable, "-m", "blendjax_torch.serve.server",
+                                 "--address", address, "--model", "linear", "--device", "cpu",
+                                 "--obs-dim", "8", "--subscribe", pub.address], cwd=REPO)
+        try:
+            c = ServeClient(address, timeoutms=20000)
+            c.reset()
+            deadline = time.monotonic() + 30
+            r = c.step(obs)
+            while r.get("weight_version") != v and time.monotonic() < deadline:
+                r = c.step(obs)
+            assert r["weight_version"] == v
+            np.testing.assert_allclose(r["pred"], obs @ w + np.float32(r["pos"]), rtol=1e-6)
+            c.close()
+        finally:
+            proc.terminate()
+            proc.wait(timeout=30)
 
 
 def test_shm_base_flag_names_the_server_prefix():
