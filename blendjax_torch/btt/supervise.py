@@ -81,8 +81,8 @@ class FleetSupervisor:
         This fleet's index in a multi-fleet (Sebulba) deployment — the
         breakdown key :func:`aggregate_health` reports per-fleet
         counters under.  Give each fleet's supervisor its OWN
-        ``EventCounters`` so the per-fleet slices stay disjoint
-        (the reference's ``FleetSet`` does; the port's is ROADMAP item 9).
+        ``EventCounters`` so the per-fleet slices stay disjoint (as
+        :class:`~blendjax_torch.parallel.podracer.FleetSet` does).
     timer: StageTimer | None
         Attach the fleet's stage timer (the one its feed/replay path
         records into) so :meth:`health` reports per-stage latency

@@ -54,13 +54,23 @@ What differs from the reference, and why:
 ``replay=`` takes an in-process ``ReplayBuffer`` or a
 :class:`~blendjax_torch.replay.ShardedReplay` over shard processes;
 ``hub=`` registers the replay (each shard as a remote), the loop's
-``stats`` and the checkpointer with a
-:class:`~blendjax_torch.obs.TelemetryHub`.
+``stats``, the scenario plane and the checkpointer with a
+:class:`~blendjax_torch.obs.TelemetryHub`.  Pools come as one ``EnvPool``,
+a list of them or a :class:`~blendjax_torch.parallel.podracer.FleetSet`.
+
+The scenario plane (docs/scenarios.md): ``scenarios=`` (a
+:class:`~blendjax_torch.scenario.DomainRandomizer`) stamps every
+transition with its env's scenario and carries the stamps into the replay
+strata, re-pushes a re-admitted env's scenario, and counts env steps and
+updates per scenario; ``curriculum=`` (a
+:class:`~blendjax_torch.scenario.CurriculumScheduler`) is ticked once per
+on-policy update and drives a changed mix through the randomizer;
+``fanin_min_ready=`` lets the fan-in collect a batch before a slow fleet's
+segment lands.  With all three None the loop is the plain one, step for
+step.
 
 Not ported, each refused with the ROADMAP item it waits for: ``mesh=`` and
-``pipeline_stages=`` (item 7), ``scenarios=``, ``curriculum=`` and
-``fanin_min_ready=`` (item 9).  Pools come as one ``EnvPool`` or a list;
-the reference's ``FleetSet`` is item 9.
+``pipeline_stages=`` (item 7).
 """
 
 from __future__ import annotations
@@ -89,20 +99,17 @@ _NOT_PORTED = {
             "(ROADMAP Queue 1, item 7)",
     "pipeline_stages": "the MPMD pipeline learner waits for the parallel "
                        "layer (ROADMAP Queue 1, item 7)",
-    "scenarios": "the scenario plane waits for the control plane "
-                 "(ROADMAP Queue 1, item 9)",
-    "curriculum": "the scenario curriculum waits for the control plane "
-                  "(ROADMAP Queue 1, item 9)",
-    "fanin_min_ready": "the heterogeneous-fleet fan-in waits for the "
-                       "scenario plane (ROADMAP Queue 1, item 9)",
 }
 
 
 def _as_pools(pool):
-    """One EnvPool, a sequence of them (one per fleet), or None
+    """One EnvPool, a sequence of them (one per fleet), a
+    :class:`~blendjax_torch.parallel.podracer.FleetSet`, or None
     (fleet-less, for :meth:`ActorLearner.run_offline`)."""
     if pool is None:
         return []
+    if hasattr(pool, "pools"):  # FleetSet
+        return list(pool.pools)
     if isinstance(pool, (list, tuple)):
         return list(pool)
     return [pool]
@@ -121,10 +128,10 @@ class ActorLearner:
 
     Params
     ------
-    pool: EnvPool | sequence[EnvPool] | None
+    pool: EnvPool | sequence[EnvPool] | FleetSet | None
         Connected fleet(s) (autoreset recommended); the caller owns them.
-        A sequence runs one actor thread per fleet with the segments
-        fanned into a single env-major batch per update.  None is allowed
+        A sequence (or a FleetSet) runs one actor thread per fleet with the
+        segments fanned into a single env-major batch per update.  None is allowed
         for the pure off-policy path (:meth:`run_offline`).
     obs_dim, num_actions: int
         Policy sizes (``continuous=True`` for a Gaussian head).
@@ -178,6 +185,20 @@ class ActorLearner:
         is logged; training goes on.
     publish_every: int
         Updates between bus publishes (1 = every update).
+    scenarios: blendjax_torch.scenario.DomainRandomizer | None
+        The scenario plane: transitions are stamped with their env's
+        scenario (the producer's in-band echo, else the fleet's
+        assignment), per-scenario env-step and update counts accumulate
+        (:meth:`stats`), re-admitted envs get their scenario re-pushed, and
+        replay appends carry the stamps into the per-scenario strata.
+    curriculum: blendjax_torch.scenario.CurriculumScheduler | None
+        Ticked once per on-policy update: on its interval it reweights the
+        mix from the replay strata and (with ``scenarios``) drives the new
+        per-fleet assignment through the randomizer.
+    fanin_min_ready: int | None
+        Multi-fleet only: collect a global batch as soon as this many live
+        fleets contributed a segment (absent fleets zero-masked) instead of
+        waiting for every live fleet.  None keeps the all-live barrier.
 
     The reference's other arguments raise ``NotImplementedError`` naming
     their ROADMAP item (see the module docstring).
@@ -188,7 +209,7 @@ class ActorLearner:
                  action_map=None, pipeline=False, num_fleets=None,
                  replay=None, replay_ratio=0, replay_batch=64, device="cuda",
                  checkpointer=None, hub=None, weight_bus=None, publish_every=1,
-                 **not_ported):
+                 scenarios=None, curriculum=None, fanin_min_ready=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"ActorLearner got an unexpected keyword argument {name!r}")
@@ -275,7 +296,7 @@ class ActorLearner:
         self.timer = StageTimer()
         self._q: queue.Queue = queue.Queue(maxsize=queue_size)
         self._fanin = None
-        self._pending_group_batches = []  # (ArenaBatch, segment reward)
+        self._pending_group_batches = []  # (ArenaBatch, segment reward, fleets)
         self._stop = threading.Event()
         self._threads = []
         nf = max(1, self.num_fleets)
@@ -290,6 +311,15 @@ class ActorLearner:
         self._fleet_restarts = [0] * nf
         self._fleet_restart_allowed = [0.0] * nf
         self._fleet_restart_steps = [0] * nf
+        #: the scenario plane; with all three None every scenario branch is
+        #: skipped and the loop is the plain one
+        self.randomizer = scenarios
+        self.curriculum = curriculum
+        self.fanin_min_ready = None if fanin_min_ready is None else max(1, int(fanin_min_ready))
+        # per-fleet dicts, each written by exactly one actor thread
+        self._scenario_steps_by_fleet = [{} for _ in range(nf)]
+        self._updates_by_scenario = {}  # learner thread only
+        self._last_update_fleets = ()
         if hub is not None:
             self._register_with_hub(hub)
 
@@ -301,18 +331,26 @@ class ActorLearner:
             hub.register(replay.name, counters=replay.counters, timer=replay.timer,
                          probe=replay.stats)
         hub.register("actor_learner", probe=self.stats)
-        ckpt = self.checkpointer
-        if ckpt is not None:
-            # one EventCounters shared with the replay must not fold twice
-            dup = replay is not None and ckpt.counters is replay.counters
-            hub.register("ha_checkpointer", counters=None if dup else ckpt.counters,
-                         timer=ckpt.timer, probe=ckpt.stats)
+        # one EventCounters shared by several components (the common setup)
+        # must not fold twice: counters are deduplicated by identity
+        seen = {id(replay.counters)} if replay is not None else set()
+        for name, comp in (("scenario_randomizer", self.randomizer),
+                           ("scenario_curriculum", self.curriculum),
+                           ("ha_checkpointer", self.checkpointer)):
+            if comp is None:
+                continue
+            dup = id(comp.counters) in seen
+            seen.add(id(comp.counters))
+            hub.register(name, counters=None if dup else comp.counters, timer=comp.timer,
+                         probe=comp.stats)
 
     # -- aggregate views -----------------------------------------------------
 
     def stats(self):
-        """Live training-loop accounting, readable mid-run."""
-        return {
+        """Live training-loop accounting, readable mid-run (also the hub
+        probe); with the scenario plane attached, per-scenario env-step and
+        update counts, the assignments and the mix."""
+        out = {
             "env_steps": self._env_steps,
             "unhealthy_env_steps": self._unhealthy_env_steps,
             "env_steps_by_fleet": list(self._env_steps_by_fleet),
@@ -322,14 +360,33 @@ class ActorLearner:
                             if e is not None],
             "last_published_version": self.last_published_version,
         }
+        if self.randomizer is not None or self.curriculum is not None:
+            merged = {}
+            for d in self._scenario_steps_by_fleet:
+                for sid, n in list(d.items()):
+                    merged[sid] = merged.get(sid, 0) + n
+            out["env_steps_by_scenario"] = merged
+            out["updates_by_scenario"] = dict(self._updates_by_scenario)
+            if self.randomizer is not None:
+                out["scenario_assignments"] = self.randomizer.assignments
+            if self.curriculum is not None:
+                out["scenario_mix"] = self.curriculum.mix()
+        return out
 
     def checkpoint_state(self):
         """The learner-side scalars a checkpoint records next to the
-        TrainState, the reference's keys: the update counter, the seed and
-        the last published bus version.  JSON-able: they ride inline in the
-        :class:`~blendjax_torch.ha.checkpoint.TrainCheckpointer` manifest."""
-        return {"updates": self._updates_done, "seed": self._seed,
-                "last_published_version": self.last_published_version}
+        TrainState, the reference's keys: the update counter, the seed, the
+        last published bus version, and with the scenario plane the
+        curriculum's state and the assignments.  JSON-able: they ride inline
+        in the :class:`~blendjax_torch.ha.checkpoint.TrainCheckpointer`
+        manifest."""
+        aux = {"updates": self._updates_done, "seed": self._seed,
+               "last_published_version": self.last_published_version}
+        if self.curriculum is not None:
+            aux["curriculum"] = self.curriculum.state_dict()
+        if self.randomizer is not None:
+            aux["scenario_assignments"] = self.randomizer.assignments
+        return aux
 
     def load_checkpoint_state(self, state, aux):
         """Adopt a restored TrainState and :meth:`checkpoint_state` dict.
@@ -337,8 +394,11 @@ class ActorLearner:
         them already (a :class:`~blendjax_torch.utils.checkpoint.CheckpointManager`
         restore into ``self.state``), so the captured steps keep their
         graphs; the update counter continues from the cut, the actors'
-        snapshot is rebuilt from the restored params, and the checkpoint's
-        seed wins (the actors' sampling streams derive from it)."""
+        snapshot is rebuilt from the restored params, the checkpoint's seed
+        wins (the actors' sampling streams derive from it), the curriculum
+        resumes mid-interval, and the checkpointed per-fleet assignment is
+        pushed again into the producers (a respawned learner's fleets must
+        not keep serving the default scene)."""
         if state is not self.state:
             from blendjax_torch.models import convert
 
@@ -355,6 +415,11 @@ class ActorLearner:
                 int(seed), self._seed,
             )
             self._seed = int(seed)
+        if self.curriculum is not None and aux.get("curriculum"):
+            self.curriculum.load_state_dict(aux["curriculum"])
+        assignment = aux.get("scenario_assignments")
+        if self.randomizer is not None and assignment:
+            self.randomizer.apply_assignment(list(assignment))
 
     @property
     def _env_steps(self):
@@ -498,6 +563,9 @@ class ActorLearner:
                 elif self._degraded_by_fleet[fid]:
                     self._degraded_by_fleet[fid] = False
                     log.warning("actor rollout healthy again (fleet %d)", fid)
+                scen = None
+                if self.randomizer is not None:
+                    scen = self._stamp_scenarios(fid, infos)
                 seg_obs.append(obs)
                 seg_act.append(action)
                 seg_rew.append(np.asarray(rew, np.float32))
@@ -515,6 +583,7 @@ class ActorLearner:
                           "done": seg_done[-1][i]}
                          for i in range(pool.num_envs)),
                         healthy=[inf.get("healthy", True) for inf in infos],
+                        scenarios=scen,
                     )
                 self._env_steps_by_fleet[fid] += pool.num_envs
             seg_lists = (seg_obs, seg_act, seg_rew, seg_done)
@@ -522,6 +591,26 @@ class ActorLearner:
                 pending_seg = seg_lists  # handed over in the next submission's window
             elif not self._enqueue_segment(fid, seg_lists):
                 return
+
+    def _stamp_scenarios(self, fid, infos):
+        """Scenario attribution for one step of fleet ``fid``: the
+        producer's in-band echo wins, a synthetic or pre-push transition
+        falls back to the fleet's assignment.  A re-admitted env gets the
+        fleet's scenario re-pushed.  Returns the per-env stamps for the
+        replay appends."""
+        assigned = self.randomizer.scenario_of(fid)
+        steps = self._scenario_steps_by_fleet[fid]
+        scen = []
+        for i, inf in enumerate(infos):
+            sid = inf.get("scenario") or assigned
+            scen.append(sid)
+            if sid is not None:
+                steps[sid] = steps.get(sid, 0) + 1
+            if inf.get("readmitted"):
+                self.randomizer.reassign(fid, i)
+            self.randomizer.note_info(fid, inf)
+        self.randomizer.maybe_resample(fid)
+        return scen
 
     # -- learner side --------------------------------------------------------
 
@@ -614,6 +703,35 @@ class ActorLearner:
     def _fleet_alive(self, fid):
         return fid < len(self._threads) and self._threads[fid].is_alive()
 
+    # -- scenario plane ------------------------------------------------------
+
+    def _note_update_scenarios(self):
+        """Attribute one completed on-policy update to the scenarios of its
+        contributing fleets (learner thread only)."""
+        if self.randomizer is None and self.curriculum is None:
+            return
+        fleets = self._last_update_fleets or tuple(range(max(1, len(self.pools))))
+        for fid in fleets:
+            sid = self.randomizer.scenario_of(fid) if self.randomizer is not None else None
+            key = sid if sid is not None else "_unlabelled"
+            self._updates_by_scenario[key] = self._updates_by_scenario.get(key, 0) + 1
+
+    def _tick_curriculum(self):
+        """One curriculum tick per completed on-policy update: on its
+        interval the scheduler reweights the mix from the replay strata, and
+        a changed mix is driven through the randomizer as a fresh per-fleet
+        assignment."""
+        if self.curriculum is None:
+            return
+        mix = self.curriculum.tick(self.replay.scenario_stats if self.replay is not None
+                                   else None)
+        if mix is not None and self.randomizer is not None and self.pools:
+            assignment = self.curriculum.assign(len(self.pools))
+            changed = self.randomizer.apply_assignment(assignment)
+            if changed:
+                log.info("curriculum reassigned fleets %s -> %s (mix %s)", changed,
+                         [assignment[f] for f in changed], mix)
+
     def _maybe_restart_fleets(self):
         """Fleet re-admission: a fleet whose actor thread died (every env
         dead -> the pool raised) rejoins once its pool answers again.
@@ -653,10 +771,13 @@ class ActorLearner:
         """One global batch on the device from the fan-in, or ``None`` on
         deadline/stop, or raises once EVERY fleet has failed.  A collect
         whose segments differ in shape yields one batch per shape group;
-        the rest queue for the following calls."""
+        the rest queue for the following calls.  ``fanin_min_ready`` lets
+        the collect return before slow fleets contribute (their rows
+        zero-masked this round)."""
         while True:
             if self._pending_group_batches:
-                batch, seg_reward = self._pending_group_batches.pop(0)
+                batch, seg_reward, fleets = self._pending_group_batches.pop(0)
+                self._last_update_fleets = fleets
                 return self._fanin.to_device(batch), seg_reward
             if deadline is not None and time.perf_counter() >= deadline:
                 return None
@@ -671,24 +792,30 @@ class ActorLearner:
             if deadline is not None:
                 mono_deadline = time.monotonic() + deadline - time.perf_counter()
             segs = self._fanin.collect(self._fleet_alive, self._stop,
-                                       deadline=mono_deadline)
+                                       deadline=mono_deadline, min_ready=self.fanin_min_ready)
             if deadline is not None and time.perf_counter() >= deadline:
                 self._fanin.recycle_segments(segs)
                 return None
             if segs:
+                if self.curriculum is not None and self.randomizer is not None:
+                    # per-scenario return evidence for the curriculum
+                    for f, seg in segs.items():
+                        self.curriculum.observe_return(self.randomizer.scenario_of(f),
+                                                       float(seg.data["rewards"].mean()))
                 rewards = {f: (float(s.data["rewards"].sum()), s.data["rewards"].size)
                            for f, s in segs.items()}
-                queued = []
-                for gid, group in self._fanin.split_groups(segs):
-                    batch = self._fanin.assemble(group, stop_event=self._stop, _group=gid)
-                    if batch is None:
-                        for b, _ in queued:
-                            b.recycle()
-                        return None
+                # split_groups interns each shape once, so this is the
+                # grouping assemble_groups walks, in its order
+                groups = [tuple(group) for _, group in self._fanin.split_groups(segs)]
+                batches = self._fanin.assemble_groups(segs, stop_event=self._stop)
+                if len(batches) < len(groups):  # stopped mid-assembly
+                    for b in batches:
+                        b.recycle()
+                    return None
+                for batch, group in zip(batches, groups):
                     rsum = sum(rewards[f][0] for f in group)
                     rn = sum(rewards[f][1] for f in group)
-                    queued.append((batch, rsum / max(rn, 1)))
-                self._pending_group_batches.extend(queued)
+                    self._pending_group_batches.append((batch, rsum / max(rn, 1), group))
                 continue
             if all(not self._fleet_alive(f) for f in range(len(self.pools))):
                 errs = [e for e in self._actor_errors if e is not None]
@@ -746,6 +873,15 @@ class ActorLearner:
         self._fleet_restart_allowed = [0.0] * n
         self._fleet_restart_steps = [0] * n
         self._pending_group_batches = []
+        self._scenario_steps_by_fleet = [{} for _ in range(n)]
+        self._updates_by_scenario = {}
+        self._last_update_fleets = ()
+        if (self.randomizer is not None and self.curriculum is not None
+                and not any(s is not None for s in self.randomizer.assignments)):
+            # bootstrap: never-assigned fleets get the curriculum's starting
+            # mix before the first rollout, so scenario labels exist from
+            # the first transition
+            self.randomizer.apply_assignment(self.curriculum.assign(n))
         self.timer = StageTimer()
         try:
             while True:
@@ -787,13 +923,15 @@ class ActorLearner:
                 self.timer.add("segment_wait", t2 - t1)
                 self.timer.add("update", time.perf_counter() - t2)
                 seg_rewards.append(seg_reward)
+                self._note_update_scenarios()
+                self._tick_curriculum()
                 if self.replay is not None and self.replay_ratio > 0:
                     self._drain_replay_ratio(replay_losses)
         finally:
             self._stop.set()
             for t in self._threads:
                 t.join(timeout=10)
-            for b, _ in self._pending_group_batches:
+            for b, _, _ in self._pending_group_batches:
                 b.recycle()  # stale-policy leftovers of this run
             self._pending_group_batches = []
         elapsed = time.perf_counter() - t0
@@ -820,4 +958,12 @@ class ActorLearner:
             stats["replay_updates"] = len(replay_losses)
             stats["replay_losses"] = replay_losses
             stats["replay"] = self.replay.stats()
+        if self.randomizer is not None or self.curriculum is not None:
+            live = self.stats()
+            for key in ("env_steps_by_scenario", "updates_by_scenario", "scenario_mix",
+                        "scenario_assignments"):
+                if key in live:
+                    stats[key] = live[key]
+            if self.curriculum is not None:
+                stats["curriculum"] = self.curriculum.stats()
         return stats

@@ -10,17 +10,25 @@ mesh.
 - :func:`make_segment_loss` — the masked env-major REINFORCE loss the
   multi-fleet learner runs (on an all-ones mask, exactly
   :func:`blendjax_torch.models.policy.reinforce_loss` on the transposed
-  batch).
+  batch);
+- :class:`FleetSet` — ``num_fleets`` independent env fleets, each with its
+  own :class:`~blendjax_torch.btt.launcher.BlenderLauncher`,
+  :class:`~blendjax_torch.btt.envpool.EnvPool`,
+  :class:`~blendjax_torch.btt.supervise.FleetSupervisor`, counters and
+  port range, with one aggregate health snapshot; ``ctrl=True`` and
+  ``fleet_env_kwargs=`` make the heterogeneous fleets of the scenario
+  plane (docs/scenarios.md).
 
 Layout: the single-fleet path keeps time-major ``(T, N)`` batches; the
 fan-in path is env-major ``(N, T)``, as the reference's.  The reference
-also shards the global batch over a mesh (``mesh=``, ``P('data')``) and
-launches fleets as a ``FleetSet``; neither is ported (ROADMAP Queue 1,
-items 7 and 9): ``mesh=`` raises, and the caller passes a list of pools.
+also shards the global batch over a mesh (``mesh=``, ``P('data')``); that
+waits for the parallel layer (ROADMAP Queue 1, item 7), and ``mesh=``
+raises.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import time
 
@@ -30,6 +38,8 @@ import torch
 from blendjax_torch.btt.arena import ArenaBatch, ArenaPool
 from blendjax_torch.models import policy
 from blendjax_torch.utils.device import resolve_device
+
+log = logging.getLogger("blendjax_torch")
 
 #: keys of one rollout segment, in assembly order
 SEGMENT_KEYS = ("obs", "actions", "rewards", "dones")
@@ -157,7 +167,7 @@ class SegmentFanIn:
 
     # -- learner side --------------------------------------------------------
 
-    def collect(self, alive_fn, stop_event, deadline=None, poll=0.2):
+    def collect(self, alive_fn, stop_event, deadline=None, poll=0.2, min_ready=None):
         """One segment per live fleet: ``{fleet_id: ArenaBatch}``.
 
         A fleet with ``alive_fn(f)`` False AND an empty queue contributes
@@ -165,13 +175,24 @@ class SegmentFanIn:
         waited on.  Returns the partial dict immediately when
         ``stop_event`` sets or ``deadline`` (``time.monotonic`` seconds)
         passes — the caller must :meth:`recycle_segments` anything it
-        does not assemble."""
+        does not assemble.
+
+        ``min_ready`` (docs/scenarios.md, heterogeneous fleets): return as
+        soon as at least that many live fleets have contributed — the
+        fan-in analog of ``step_wait(min_ready=k)``, so a slow scenario's
+        fleet rides into whichever update its segment lands in instead of
+        stalling every update to its frame rate.  None keeps the all-live
+        barrier."""
         out = {}
         pending = set(range(self.num_fleets))
         while pending:
             if stop_event.is_set():
                 break
             if deadline is not None and time.monotonic() >= deadline:
+                break
+            if min_ready is not None and len(out) >= min(
+                    min_ready,
+                    max(1, sum(1 for f in range(self.num_fleets) if alive_fn(f)))):
                 break
             progressed = False
             for f in sorted(pending):
@@ -223,6 +244,27 @@ class SegmentFanIn:
             groups.setdefault(gid, {})[f] = segs[f]
         return sorted(groups.items())
 
+    def assemble_groups(self, segs, stop_event=None, timeout=30.0):
+        """:meth:`assemble` tolerant of per-scenario obs shapes: the
+        segments are partitioned by shape signature and each group is
+        assembled into its OWN full-width global batch (the other groups'
+        fleet rows zero-masked), so a mixed-resolution fleet set never
+        forces one global shape.  Returns a list of ``ArenaBatch``
+        (singleton, and byte-equal to :meth:`assemble`, whenever shapes
+        agree)."""
+        out = []
+        try:
+            for gid, group in self.split_groups(segs):
+                out.append(self.assemble(group, stop_event=stop_event, timeout=timeout,
+                                         _group=gid))
+                if out[-1] is None:
+                    out.pop()
+        except BaseException:
+            for b in out:
+                b.recycle()
+            raise
+        return out
+
     def assemble(self, segs, stop_event=None, timeout=30.0, _group=0):
         """Scatter per-fleet segments into one env-major global batch.
 
@@ -231,7 +273,8 @@ class SegmentFanIn:
         absent fleets zero-filled and carried at ``mask`` 0.  Fleet
         arenas recycle as soon as their rows are copied; the global arena
         recycles after the device copy (:meth:`to_device`).  Segments
-        must share one shape signature (:meth:`split_groups`)."""
+        must share one shape signature: route mixed-scenario sets through
+        :meth:`assemble_groups`."""
         if not segs:
             raise ValueError("assemble needs at least one fleet segment")
         arena = self.arena_pool.acquire(timeout=timeout, stop_event=stop_event)
@@ -293,3 +336,138 @@ class SegmentFanIn:
         event.synchronize()
         batch.recycle()
         return _hand_over(dev, event, self.device)
+
+
+class FleetSet:
+    """N independent env fleets with one aggregate health surface.
+
+    Launches ``num_fleets`` fleets of ``envs_per_fleet`` producers each:
+    fleet ``f`` binds ports from ``start_port + f * port_stride`` (so
+    fleets never collide), steps through its own
+    :class:`~blendjax_torch.btt.envpool.EnvPool` (quarantining, per-fleet
+    ``EventCounters``) and is watched by its own
+    :class:`~blendjax_torch.btt.supervise.FleetSupervisor` carrying
+    ``fleet_id=f``, which respawns a dead producer (every fleet is
+    supervised, and its producers run under ``--background``).  :meth:`health`
+    aggregates every fleet's snapshot — counters summed, quarantine masks
+    concatenated — via :func:`blendjax_torch.btt.supervise.aggregate_health`.
+
+    Use as a context manager; pass the set (or ``fleet_set.pools``) to
+    :class:`~blendjax_torch.models.actor_learner.ActorLearner`.
+
+    Scenario plane (docs/scenarios.md): ``ctrl=True`` allocates a second
+    named socket (``CTRL``) per instance — the duplex control endpoints,
+    per fleet on :attr:`ctrl_addresses` in the shape
+    :class:`~blendjax_torch.scenario.DomainRandomizer` takes — and
+    ``fleet_env_kwargs`` (one dict per fleet, layered over the shared
+    ``**env_kwargs``) launches heterogeneous fleets, e.g.
+    ``fleet_env_kwargs=[spec.env_kwargs() for spec in ...]``.
+    """
+
+    def __init__(self, scene, script, num_fleets, envs_per_fleet, *, start_port=21000,
+                 port_stride=100, timeoutms=None, fault_policy=None, interval=0.5,
+                 ctrl=False, fleet_env_kwargs=None, **env_kwargs):
+        if num_fleets < 1 or envs_per_fleet < 1:
+            raise ValueError("num_fleets and envs_per_fleet must be >= 1")
+        sockets_per_env = 2 if ctrl else 1
+        if envs_per_fleet * 2 * sockets_per_env > port_stride:
+            # each instance binds one port per named socket (launchers may
+            # probe past collisions, hence the 2x margin): a fleet spilling
+            # into the next fleet's range would crosstalk with no useful error
+            raise ValueError(
+                f"envs_per_fleet={envs_per_fleet} does not fit in "
+                f"port_stride={port_stride}; raise port_stride to at least "
+                f"{2 * sockets_per_env}x the fleet size")
+        if fleet_env_kwargs is not None and len(fleet_env_kwargs) != num_fleets:
+            raise ValueError(f"fleet_env_kwargs names {len(fleet_env_kwargs)} fleets, "
+                             f"num_fleets={num_fleets}")
+        self.num_fleets = num_fleets
+        self.envs_per_fleet = envs_per_fleet
+        self._cfg = dict(scene=scene, script=script,
+                         start_port=start_port, port_stride=port_stride, timeoutms=timeoutms,
+                         fault_policy=fault_policy, interval=interval,
+                         ctrl=bool(ctrl), fleet_env_kwargs=fleet_env_kwargs,
+                         env_kwargs=env_kwargs)
+        self.launchers = []
+        self.pools = []
+        self.supervisors = []
+        #: per-fleet CTRL endpoint lists (``ctrl=True`` only)
+        self.ctrl_addresses = []
+        self._stack = []
+
+    def __enter__(self):
+        from blendjax_torch.btt.constants import DEFAULT_TIMEOUTMS
+        from blendjax_torch.btt.env import kwargs_to_cli
+        from blendjax_torch.btt.envpool import EnvPool
+        from blendjax_torch.btt.launcher import BlenderLauncher
+        from blendjax_torch.btt.supervise import FleetSupervisor
+        from blendjax_torch.utils.timing import EventCounters
+
+        cfg = self._cfg
+        sockets = ["GYM"] + (["CTRL"] if cfg["ctrl"] else [])
+        try:
+            for f in range(self.num_fleets):
+                # per-fleet overrides layered over the shared kwargs:
+                # heterogeneous fleets differ only here
+                fkw = dict(cfg["env_kwargs"])
+                if cfg["fleet_env_kwargs"] is not None:
+                    fkw.update(cfg["fleet_env_kwargs"][f] or {})
+                bl = BlenderLauncher(
+                    scene=cfg["scene"], script=cfg["script"],
+                    num_instances=self.envs_per_fleet, named_sockets=sockets,
+                    start_port=cfg["start_port"] + f * cfg["port_stride"],
+                    background=True,
+                    instance_args=[kwargs_to_cli(fkw) for _ in range(self.envs_per_fleet)])
+                bl.__enter__()
+                self._stack.append(bl)
+                self.launchers.append(bl)
+                if cfg["ctrl"]:
+                    self.ctrl_addresses.append(list(bl.launch_info.addresses["CTRL"]))
+            for f, bl in enumerate(self.launchers):
+                counters = EventCounters()
+                pool = EnvPool(bl.launch_info.addresses["GYM"],
+                               timeoutms=cfg["timeoutms"] or DEFAULT_TIMEOUTMS,
+                               fault_policy=cfg["fault_policy"], counters=counters)
+                self.pools.append(pool)
+                sup = FleetSupervisor(bl, pool=pool, interval=cfg["interval"],
+                                      counters=counters, fleet_id=f)
+                sup.start()
+                self.supervisors.append(sup)
+        except BaseException:
+            self.close()
+            raise
+        return self
+
+    def health(self):
+        """Aggregate multi-fleet health snapshot (see
+        :func:`blendjax_torch.btt.supervise.aggregate_health`)."""
+        from blendjax_torch.btt.supervise import aggregate_health
+
+        return aggregate_health(self.supervisors)
+
+    def close(self):
+        """Stop every fleet's supervisor, close its pool and shut its
+        producers down; each step is attempted for every fleet."""
+        for sup in self.supervisors:
+            try:
+                sup.stop()
+            except Exception:
+                log.exception("fleet supervisor stop failed")
+        self.supervisors = []
+        for pool in self.pools:
+            try:
+                pool.close()
+            except Exception:
+                log.exception("fleet pool close failed")
+        self.pools = []
+        while self._stack:
+            bl = self._stack.pop()
+            try:
+                bl.__exit__(None, None, None)
+            except Exception:
+                log.exception("fleet launcher shutdown failed")
+        self.launchers = []
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

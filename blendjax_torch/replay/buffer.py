@@ -26,10 +26,12 @@ architectures, arXiv:2104.06272).
   so either package restores the other's file and the restored buffer
   draws the exact stream the saved one would have.
 
-Not ported: the scenario-strata draw of a non-uniform ``scenario_mix`` (it
-needs ``scenario/curriculum.py``, ROADMAP Queue 1, item 9).  The scenario
-stamps themselves are kept: they are bookkeeping only, and they and their
-names round-trip through a checkpoint.
+- **scenario strata** (docs/scenarios.md): appends may carry a scenario
+  id, kept as a per-slot stamp; a non-uniform ``scenario_mix=`` shapes a
+  draw over the per-scenario strata (rows apportioned by largest
+  remainder, drawn within each stratum by its own priority mass, IS
+  weights for the true under-mix probability), index for index the
+  reference's draw; ``None`` and uniform mixes take the plain draw.
 """
 
 from __future__ import annotations
@@ -347,6 +349,14 @@ class ReplayBuffer:
             weights = np.ones(batch_size, np.float32)
         return idx, weights
 
+    def _drawable_mask_locked(self):
+        """Rows drawable RIGHT NOW (caller holds the lock).  The base
+        buffer draws from every eligible row; :class:`ShardedReplay`
+        overrides this to exclude quarantined-shard and journaled rows,
+        so the scenario-strata draw honors the same degraded-mode
+        eligibility its base draw does."""
+        return self._valid
+
     def _effective_mix_locked(self, scenario_mix):
         """Resolve a requested scenario mix to the strata the draw can
         actually honor (caller holds the lock), or None for the base
@@ -359,11 +369,10 @@ class ReplayBuffer:
         dropped and the rest renormalized (degraded strata, the same
         spirit as shard-outage renormalization); a mix with NO
         satisfiable stratum also falls back to the base path rather
-        than starving the learner.  A mix that resolves to strata
-        raises in :meth:`sample`: the strata draw is not ported."""
+        than starving the learner."""
         if not scenario_mix:
             return None
-        drawable = self._valid
+        drawable = self._drawable_mask_locked()
         vals = [float(v) for v in scenario_mix.values()]
         if max(vals) - min(vals) < 1e-12:
             # uniform — the identity, but ONLY when it spans every
@@ -392,6 +401,43 @@ class ReplayBuffer:
         total = sum(live.values())
         return {n: w / total for n, w in live.items()}
 
+    def _draw_strata_locked(self, batch_size, beta, mix):
+        """Scenario-stratified draw (non-uniform mix only): batch rows
+        apportioned per stratum (largest remainder, mix order), drawn
+        within each stratum by the stratum's own tree-priority mass
+        (uniform inside a stratum when unprioritized).  IS weights use
+        the true under-mix sampling probability
+        ``P(i) = mix[s] * p_i / mass_s``, so the PER bias correction
+        stays exact under the reweighted draw."""
+        from blendjax_torch.scenario.curriculum import apportion
+
+        drawable = self._drawable_mask_locked()
+        counts = {}
+        for name in apportion(mix, batch_size):
+            counts[name] = counts.get(name, 0) + 1
+        idx_parts, prob_parts = [], []
+        for name in mix:
+            k = counts.get(name, 0)
+            if k == 0:
+                continue
+            sid = self._scenario_ids[name]
+            slots = np.flatnonzero(drawable & (self._scenario == sid))
+            if self.tree is not None:
+                p = self.tree.get_many(slots.astype(np.int64))
+                mass = float(p.sum())
+                probs = (p / mass) if mass > 0 else np.full(slots.size, 1.0 / slots.size)
+            else:
+                probs = np.full(slots.size, 1.0 / slots.size)
+            pick = self._rng.choice(slots.size, size=k, p=probs)
+            idx_parts.append(slots[pick].astype(np.int64))
+            prob_parts.append(mix[name] * probs[pick])
+        idx = np.concatenate(idx_parts)
+        probs = np.concatenate(prob_parts)
+        weights = (self._num_valid * np.maximum(probs, 1e-12)) ** -beta
+        weights = (weights / weights.max()).astype(np.float32)
+        self.counters.incr("scenario_strata_draws")
+        return idx, weights
+
     def sample(self, batch_size, *, beta=None, min_size=None, timeout=30.0,
                out=None, stop_event=None, keys=None, scenario_mix=None):
         """Draw one prioritized (or uniform) batch.
@@ -404,10 +450,13 @@ class ReplayBuffer:
         ``keys`` restricts the gather (and any device transfer behind
         it) to the columns the consumer actually reads.
 
-        ``scenario_mix``: ``None`` and UNIFORM mixes (name->weight dicts)
-        take the scenario-less draw, byte-identical to no mix; any other
-        mix would shape the draw over per-scenario strata, which is not
-        ported, and raises NotImplementedError naming ROADMAP item 9.
+        ``scenario_mix`` (docs/scenarios.md): a name->weight dict
+        shapes the draw over per-scenario strata — rows apportioned per
+        stratum, drawn within each by its own priority mass, IS weights
+        corrected for the reweighting.  ``None`` and UNIFORM mixes take
+        the exact scenario-less draw path (byte-identical stream);
+        strata with no eligible rows are dropped and the rest
+        renormalized.
 
         Blocks while fewer than ``min_size`` (default ``batch_size``)
         eligible rows exist — the learner outpacing the actor — timed
@@ -445,15 +494,15 @@ class ReplayBuffer:
                     self._cond.wait(min(0.1, remaining))
                 self.timer.add("sample_wait", time.perf_counter() - t0)
             t0 = time.perf_counter()
-            if self._effective_mix_locked(scenario_mix) is not None:
-                raise NotImplementedError(
-                    "ReplayBuffer.sample(scenario_mix=...): the scenario-"
-                    "strata draw waits for the control plane's "
-                    "scenario/curriculum.py (ROADMAP Queue 1, item 9)"
+            mix = self._effective_mix_locked(scenario_mix)
+            if mix is None:
+                idx, weights = self._draw_locked(
+                    batch_size, self.beta if beta is None else beta
                 )
-            idx, weights = self._draw_locked(
-                batch_size, self.beta if beta is None else beta
-            )
+            else:
+                idx, weights = self._draw_strata_locked(
+                    batch_size, self.beta if beta is None else beta, mix
+                )
             self._drawn_gen[idx] = self._gen[idx]
             data = self.store.gather(idx, out=out, keys=keys)
             self._samples += 1
@@ -630,8 +679,9 @@ class ReplayBuffer:
         """Per-scenario strata snapshot (docs/scenarios.md): for every
         interned scenario, its live ``rows``, sampling-``eligible``
         rows, and ``priority_mass`` (sum of its eligible rows' tree
-        priorities — the evidence a curriculum reweights on;
-        the eligible count itself when unprioritized).  ``_unlabelled``
+        priorities — the evidence the
+        :class:`~blendjax_torch.scenario.CurriculumScheduler` reweights
+        on; the eligible count itself when unprioritized).  ``_unlabelled``
         rows ride under that key so the strata always account for every
         occupied slot.  Computed on demand — stamps cost nothing on the
         append/draw hot paths, and a buffer with NO stamps at all

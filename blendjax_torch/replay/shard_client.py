@@ -30,9 +30,11 @@ Failure model:
 
 :class:`~blendjax_torch.btt.supervise.FleetSupervisor` drives both halves
 when given a :class:`~blendjax_torch.replay.service.ShardFleet` and
-``replay=sharded``.  The reference's live resharding (``adopt_shard``,
-``ReshardAborted``) comes with the autoscaler, and its scenario-strata
-draw with the scenario plane (ROADMAP Queue 1, item 9).
+``replay=sharded``.  A scenario-strata draw (``sample(scenario_mix=)``)
+leaves out the rows of quarantined shards and the journalled rows, as the
+base draw does (:meth:`ShardedReplay._drawable_mask_locked`).  The
+reference's live resharding (``adopt_shard``, ``ReshardAborted``) comes
+with the autoscaler (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -674,6 +676,14 @@ class ShardedReplay(ReplayBuffer):
         if not self._dead.any():
             return super()._draw_locked(batch_size, beta)
         return self._draw_degraded_locked(batch_size, beta)
+
+    def _drawable_mask_locked(self):
+        """Scenario-strata draws honor the same degraded-mode eligibility
+        as the base draw: rows on quarantined shards or waiting in the
+        journal cannot be gathered, so a stratum must not select them."""
+        if not self._dead.any() and not self._pending.any():
+            return self._valid
+        return self._eligible_live_locked()
 
     def _draw_degraded_locked(self, batch_size, beta):
         """The degraded draw: strata renormalized over the LIVE,

@@ -19,8 +19,9 @@ wait), ``collate`` (batch assembly in a worker, collate path),
 host->device copy issue) and ``recycle`` (the wait for an arena's copy to
 complete, and its return to the pool), under the reference's names; the
 policy server records :data:`SERVE_STAGES`, the HA checkpointer
-:data:`HA_STAGES`, the replay service :data:`REPLAY_STAGES` and the
-weight bus :data:`WEIGHT_STAGES`.  :meth:`StageTimer.snapshot` is the
+:data:`HA_STAGES`, the replay service :data:`REPLAY_STAGES`, the
+weight bus :data:`WEIGHT_STAGES` and the scenario plane
+:data:`SCENARIO_STAGES`.  :meth:`StageTimer.snapshot` is the
 mergeable form the :class:`~blendjax_torch.obs.hub.TelemetryHub` folds.
 The chrome-trace export of ``blendjax.utils.timing`` is not ported.
 """
@@ -201,6 +202,34 @@ HA_EVENTS = (
 #: ``ha_restore`` (the train state restored in place from a manifest).
 HA_STAGES = (
     "ha_snapshot", "ha_serialize", "ha_restore",
+)
+
+#: Canonical scenario-plane event names, the reference's
+#: (``docs/scenarios.md``): ``scenario_samples`` — seeded param dicts drawn
+#: from a spec; ``scenario_pushes`` / ``scenario_push_failures`` — duplex
+#: pushes sent, and those that timed out or failed into a dead or stalled
+#: producer; ``scenario_applies`` — pushes confirmed by the first
+#: transition echoing the pushed scenario; ``scenario_reassignments`` —
+#: scenarios re-pushed to a respawned or re-admitted env over the env's
+#: existing channel (ZMQ reconnects it to the respawned producer);
+#: ``scenario_curriculum_updates`` / ``scenario_mix_changes`` —
+#: curriculum reweight passes, and those that changed the mix;
+#: ``scenario_rows_stamped`` — replay rows appended with a scenario id;
+#: ``scenario_strata_draws`` — batches drawn under a non-uniform mix;
+#: ``scenario_serve_requests`` — labelled serve replies a gateway recorded.
+SCENARIO_EVENTS = (
+    "scenario_samples", "scenario_pushes", "scenario_push_failures",
+    "scenario_applies", "scenario_reassignments",
+    "scenario_curriculum_updates", "scenario_mix_changes",
+    "scenario_rows_stamped", "scenario_strata_draws",
+    "scenario_serve_requests",
+)
+
+#: Canonical scenario-plane stage names: ``scenario_sample`` (one seeded
+#: spec sample), ``scenario_push`` (one bounded duplex send of a sample),
+#: ``scenario_reweight`` (one curriculum reweight pass).
+SCENARIO_STAGES = (
+    "scenario_sample", "scenario_push", "scenario_reweight",
 )
 
 #: Process-wide default counter registry.  Component constructors take a

@@ -212,6 +212,32 @@ Phases, each printing JSON lines:
               its layout, and the first captured tick after a further swap
               bit-equal to an eager ``decode_step`` with the new params on
               the same cache.  No kernel is on this path.
+20. scenario — the scenario plane at the reference's configuration
+              (``benchmarks/scenario_benchmark.py``: ``lite`` at 200 us of
+              physics a frame, ``rich`` at 4,000 us): a ``FleetSet(ctrl=
+              True)`` of 3 fleets x 2 echo producers
+              (``tests/blender/torch_env.blend.py``) launched lite, lite,
+              rich -> ``ActorLearner(scenarios=DomainRandomizer, curriculum=
+              CurriculumScheduler, fanin_min_ready=1, device="cuda")`` over a
+              200,000-row ``ReplayBuffer`` at ratio 2.  ``scenario_run``: the
+              uniform curriculum's bootstrap and run, then a
+              ``pin({"rich": 1.0})`` shift: every fleet rich, every push seen
+              applied, both scenarios in the replay strata.
+              ``scenario_fanin``: env-steps/s with learning at
+              ``fanin_min_ready=1`` against the all-live barrier in turns,
+              and the pool's ready-first/lockstep ratio over 2 lite and 2
+              rich producers.  ``scenario_strata``: a replay update on a
+              batch drawn under ``{"lite": 0.25, "rich": 0.75}`` on the card
+              against the CPU (1e-5), captured = eager; ``sample``'s p50 at
+              200,000 rows, strata and plain.  ``scenario_ha``: a cut
+              mid-curriculum resumed in place into a new learner over the
+              same fleets (curriculum equal, assignment re-pushed, no
+              recapture).  ``scenario_chaos``: a producer SIGKILLed and
+              pushed into 12 times within 6 s, respawned by its fleet's
+              supervisor, its scenario following it back; then a quiet kill
+              with nothing pushed in the outage: the respawn holds its
+              launch scene until ``reassign``'s push alone turns it.  No
+              kernel is on this path.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
@@ -3732,6 +3758,454 @@ def flywheel_phase(torch, btt, control, seqformer, serve, al_rates):
     return rec
 
 
+# -- the scenario plane: catalog, randomizer, curriculum, heterogeneous fleets -------
+
+#: the reference's scenario configuration (``benchmarks/scenario_benchmark.py``:
+#: ``lite`` at 200 us of physics a frame, ``rich`` at 4,000, their density
+#: ranges), 3 fleets of 2 envs (the bench's ``--instances 2``) assigned lite,
+#: lite, rich by the uniform curriculum (``tests/test_scenario.py``'s run)
+SCN_PHYSICS_US = {"lite": 200, "rich": 4000}
+SCN_DENSITY = {"lite": (0.1, 0.4), "rich": (0.6, 1.0)}
+SCN_FLEETS, SCN_ENVS = 3, 2
+#: the curriculum's interval in updates, and seconds per timed run
+SCN_INTERVAL = 4
+SCN_RUN_S = 3.0
+#: the fan-in's arms over the same fleet, in turns, and seconds per turn
+SCN_FANIN_ARMS = (1, None, None, 1)
+SCN_FANIN_S = 2.0
+#: the pool-level arms (``scenario_hetero_x``'s), in turns, over 2 lite and 2
+#: rich producers at 4 requests in flight per env
+SCN_POOL_ARMS = ("lockstep", "ready_first", "ready_first", "lockstep")
+SCN_POOL_S = 1.0
+SCN_POOL_DEPTH = 4
+#: the non-uniform mix of the strata draw, and draws timed per arm at
+#: 200,000 rows
+SCN_MIX = {"lite": 0.25, "rich": 0.75}
+SCN_SAMPLE_DRAWS = 50
+#: pushes into the killed producer, and the bound on all of them
+#: (``tests/test_scenario.py``'s chaos case)
+SCN_CHAOS_PUSHES = 12
+SCN_CHAOS_BOUND_S = 6.0
+
+
+def _scenario_catalog():
+    from blendjax_torch.scenario import ScenarioCatalog, ScenarioSpec
+
+    return ScenarioCatalog([ScenarioSpec(n, physics_rate_us=SCN_PHYSICS_US[n],
+                                         ranges={"density": SCN_DENSITY[n]})
+                            for n in ("lite", "rich")])
+
+
+def _poll(cond, timeout):
+    """Call ``cond`` until it returns true (True) or ``timeout`` seconds
+    pass (False)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+    return False
+
+
+def _scenario_counts(counters):
+    from blendjax_torch.utils.timing import SCENARIO_EVENTS
+
+    return {k: counters.get(k) for k in SCENARIO_EVENTS}
+
+
+def _scenario_learner(fs, replay, rnd, cur, seed=0, hub=None):
+    """The al phase's learner over the fleet set, with the scenario plane."""
+    import numpy as np
+
+    from blendjax_torch.models.actor_learner import ActorLearner
+
+    values = np.array([0.0, 1.0])
+    return ActorLearner(fs, 1, 2, rollout_len=AL_ROLLOUT, queue_size=AL_QUEUE, seed=seed,
+                        action_map=lambda a: list(values[np.asarray(a)]), replay=replay,
+                        replay_ratio=AL_REPLAY["ratio"], replay_batch=AL_REPLAY["batch"],
+                        scenarios=rnd, curriculum=cur, fanin_min_ready=1, hub=hub,
+                        device="cuda")
+
+
+def _scenario_pool_ratio(btt):
+    """``scenario_hetero_x``'s arms at the pool level: 2 lite and 2 rich
+    echo producers stepped lockstep (``pool.step``, every step at the rich
+    scene's rate) against ready-first (``step_wait(min_ready=1)``, each env
+    resubmitted as its transition lands), in turns."""
+    from blendjax_torch.btt.env import kwargs_to_cli
+
+    cat = _scenario_catalog()
+    args = [kwargs_to_cli({**cat.get(n).env_kwargs(), "horizon": 1_000_000_000})
+            for n in ("lite", "lite", "rich", "rich")]
+    n = len(args)
+    rates = {arm: [] for arm in SCN_POOL_ARMS}
+    per_scenario = {}
+    with btt.BlenderLauncher(scene="", script=os.path.join(REPO, "tests", "blender",
+                                                           "torch_env.blend.py"),
+                             num_instances=n, named_sockets=["GYM"], start_port=_port_block(n),
+                             background=True, instance_args=args) as bl:
+        with btt.EnvPool(bl.launch_info.addresses["GYM"], timeoutms=30000,
+                         pipeline_depth=SCN_POOL_DEPTH) as pool:
+            pool.reset()
+            for _ in range(8):
+                pool.step([0.5] * n)
+            for arm in SCN_POOL_ARMS:
+                done, t0 = 0, time.perf_counter()
+                if arm == "lockstep":
+                    while time.perf_counter() - t0 < SCN_POOL_S:
+                        pool.step([0.5] * n)
+                        done += n
+                else:
+                    for _ in range(SCN_POOL_DEPTH):
+                        pool.step_async([0.5] * n)
+                    while time.perf_counter() - t0 < SCN_POOL_S:
+                        idx, _, _, _, infos = pool.step_wait(min_ready=1)
+                        pool.step_async([0.5] * len(idx), indices=list(idx))
+                        done += len(idx)
+                        for inf in infos:
+                            sid = inf.get("scenario", "_unlabelled")
+                            per_scenario[sid] = per_scenario.get(sid, 0) + 1
+                rates[arm].append(done / (time.perf_counter() - t0))
+                if arm != "lockstep":
+                    pool.step_wait()  # drained before the next arm
+    lock, ready = statistics.mean(rates["lockstep"]), statistics.mean(rates["ready_first"])
+    return {"arms": rates, "lockstep_mean": lock, "ready_first_mean": ready,
+            "ready_first_x": ready / lock, "per_scenario_steps": per_scenario,
+            "instances": n, "pipeline_depth": SCN_POOL_DEPTH}
+
+
+def _scenario_strata(torch, al, replay, counters):
+    """A replay update on a batch drawn under :data:`SCN_MIX`: the card
+    against the CPU, captured against eager over one Adam in turns; then
+    ``sample``'s p50 at 200,000 rows with the strata draw and the plain one."""
+    import numpy as np
+
+    from blendjax_torch.models import policy
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.replay import ReplayBuffer
+    from blendjax_torch.utils.timing import EventCounters
+
+    before = counters.get("scenario_strata_draws")
+    keys = ("obs", "action", "reward")
+    ids = replay._scenario_ids
+    draws = []
+    for _ in range(8):
+        data, idx, w = replay.sample(AL_REPLAY["batch"], keys=keys, scenario_mix=SCN_MIX)
+        stamps = replay._scenario[idx]
+        draws.append({"obs": data["obs"], "action": data["action"], "reward": data["reward"],
+                      "is_weight": w, "rich": int((stamps == ids["rich"]).sum()),
+                      "lite": int((stamps == ids["lite"]).sum())})
+    split = [(d["lite"], d["rich"]) for d in draws]
+    check(all(x == (16, 48) for x in split) and counters.get("scenario_strata_draws") - before
+          == len(draws), f"scenario_strata: every draw apportioned 16 lite and 48 rich rows "
+          f"under {SCN_MIX} ({split})")
+    batches = [{k: torch.as_tensor(d[k], device="cuda") for k in
+                ("obs", "action", "reward", "is_weight")} for d in draws]
+
+    sides = []
+    for dev in ("cuda", "cpu"):
+        params = {k: v.detach().to(dev) for k, v in al.state.params.items()}
+        b = {k: v.to(dev) for k, v in batches[0].items()}
+        sides.append(_grads(torch, lambda q, b=b: al.replay_loss_fn(q, b), params))
+    diffs = {"loss": _max_diff(torch, sides[0][0], sides[1][0])}
+    for k in sides[0][1]:
+        diffs[f"grad.{k}"] = _max_diff(torch, sides[0][1][k], sides[1][1][k])
+    check(all(d <= RL_ATOL for d in diffs.values()),
+          f"scenario_strata: the card equals the CPU within {RL_ATOL} ({diffs})")
+
+    turns, ref = [], None
+    for turn, form in enumerate(FORMS):
+        state = TrainState.create(policy.init(torch.Generator(device="cuda").manual_seed(1),
+                                              1, 2, device="cuda"), lr=3e-3)
+        step = make_train_step(al.replay_loss_fn, capture=form == "captured")
+        state, losses, times = _timed_steps(torch, step, state, batches)
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        if ref is None:
+            ref = (losses, params)
+        rec = {"turn": turn, "form": form, "graphs": len(step.graphs),
+               "median_step_ms": statistics.median(times),
+               "loss_max_abs_diff": max(abs(a - b) for a, b in zip(losses, ref[0])),
+               "param_max_abs_diff": _max_param_diff(torch, params, ref[1])}
+        turns.append(rec)
+        check(all(math.isfinite(v) for v in losses), f"scenario_strata {form}: losses finite")
+        check(rec["graphs"] == (1 if form == "captured" else 0),
+              f"scenario_strata {form}: one graph")
+        check(rec["loss_max_abs_diff"] == 0 and rec["param_max_abs_diff"] == 0,
+              f"scenario_strata {form} turn {turn}: losses and parameters {CAPTURED_MATCH} "
+              "to the first eager turn")
+
+    rng = np.random.default_rng(3)
+    big = ReplayBuffer(AL_REPLAY["capacity"], seed=1, counters=EventCounters())
+    chunk = 10_000
+    for lo in range(0, AL_REPLAY["capacity"], chunk):
+        obs = rng.random((chunk + 1, 1), dtype=np.float32)
+        act = rng.integers(0, 2, chunk)
+        rew = (act * 0.1).astype(np.float32)
+        scen = np.where(rng.random(chunk) < 0.5, "lite", "rich")
+        big.extend(({"obs": obs[i], "action": act[i], "reward": rew[i], "next_obs": obs[i + 1],
+                     "done": False} for i in range(chunk)), scenarios=list(scen))
+    check(len(big) == AL_REPLAY["capacity"], "scenario_strata: 200,000 rows appended")
+    times = {"strata": [], "plain": []}
+    for _ in range(SCN_SAMPLE_DRAWS):
+        for arm, mix in (("strata", SCN_MIX), ("plain", None)):
+            t0 = time.perf_counter()
+            big.sample(AL_REPLAY["batch"], keys=keys, scenario_mix=mix)
+            times[arm].append((time.perf_counter() - t0) * 1e3)
+    return {"mix": SCN_MIX, "split": split[0], "draws": len(draws), "atol": RL_ATOL,
+            "max_abs_diff": diffs, "turns": turns,
+            "sample_rows": len(big), "sample_batch": AL_REPLAY["batch"],
+            "sample_p50_ms": {k: statistics.median(v) for k, v in times.items()},
+            "sample_strata_x": statistics.median(times["strata"])
+            / statistics.median(times["plain"])}
+
+
+def scenario_phase(torch, btt):
+    """The scenario plane on the card through its entry points:
+    ``FleetSet(ctrl=True)`` of :data:`SCN_FLEETS` x :data:`SCN_ENVS` echo
+    producers (``tests/blender/torch_env.blend.py``, launched lite, lite,
+    rich) -> ``ActorLearner(scenarios=DomainRandomizer, curriculum=
+    CurriculumScheduler, fanin_min_ready=1, device="cuda")`` over a
+    200,000-row ``ReplayBuffer`` at ratio 2.  ``scenario_run``: the uniform
+    curriculum's run, then a ``pin({"rich": 1.0})`` shift; ``scenario_fanin``:
+    ``fanin_min_ready=1`` against the all-live barrier in turns, and the
+    pool-level ready-first/lockstep ratio; ``scenario_strata``;
+    ``scenario_ha``: a cut mid-curriculum resumed in place into a new learner
+    over the same fleets; ``scenario_chaos``: a producer SIGKILLed, pushed
+    into, respawned, its scenario following it back, and a second one killed
+    with nothing pushed, which only ``reassign`` brings back to its
+    scenario."""
+    import tempfile
+
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.btt.faults import FaultPolicy
+    from blendjax_torch.ha import TrainCheckpointer, latest_manifest, restore_replay
+    from blendjax_torch.obs import TelemetryHub
+    from blendjax_torch.parallel import FleetSet
+    from blendjax_torch.replay import ReplayBuffer
+    from blendjax_torch.scenario import CurriculumScheduler, DomainRandomizer
+    from blendjax_torch.utils.timing import EventCounters
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    t_phase = time.perf_counter()
+    cat = _scenario_catalog()
+    script = os.path.join(REPO, "tests", "blender", "torch_env.blend.py")
+    stride = SCN_ENVS * 2 * 2
+    policy = FaultPolicy(max_retries=1, backoff_base=0.05, deadline_s=2.0, circuit_threshold=0,
+                         seed=7)
+    counters = EventCounters()  # the randomizer's, the curriculum's and the replay's
+    hub = TelemetryHub("scenario")
+    kinds = ["lite", "lite", "rich"]
+    with FleetSet("", script, SCN_FLEETS, SCN_ENVS, start_port=_port_block(SCN_FLEETS * stride),
+                  port_stride=stride, timeoutms=30000, fault_policy=policy, interval=0.2,
+                  ctrl=True, horizon=1_000_000_000,
+                  fleet_env_kwargs=[cat.get(k).env_kwargs() for k in kinds]) as fs, \
+            tempfile.TemporaryDirectory(prefix="bjx-scenario-") as tmp:
+        rnd = DomainRandomizer(cat, fs.ctrl_addresses, seed=0, counters=counters)
+        cur = CurriculumScheduler(cat, policy="uniform", interval=SCN_INTERVAL,
+                                  counters=counters)
+        replay = ReplayBuffer(AL_REPLAY["capacity"], seed=0, counters=counters)
+        al = _scenario_learner(fs, replay, rnd, cur, hub=hub)
+        warm = al.run(num_updates=3)
+        check(warm["updates"] == 3 and len(al._step.graphs) == 1,
+              "scenario: the warm-up run captured the on-policy step")
+        assigned_before = rnd.assignments
+        check(assigned_before == kinds,
+              f"scenario_run: the uniform curriculum assigned {kinds} ({assigned_before})")
+        run_a = al.run(seconds=SCN_RUN_S)
+        strata_a = replay.scenario_stats()
+        check(all(strata_a.get(k, {}).get("rows", 0) > 0
+                  and strata_a.get(k, {}).get("eligible", 0) > 0 for k in ("lite", "rich")),
+              f"scenario_run: both scenarios have rows and eligible rows ({strata_a})")
+        check(all(run_a["env_steps_by_scenario"].get(k, 0) > 0 for k in ("lite", "rich")),
+              "scenario_run: both scenarios stepped")
+
+        fanin = {1: [], None: []}
+        for turn, arm in enumerate(SCN_FANIN_ARMS):
+            al.fanin_min_ready = arm
+            st = al.run(seconds=SCN_FANIN_S)
+            fanin[arm].append(st["env_steps_per_sec"])
+            emit(_stamp({"phase": "scenario_fanin_turn", "turn": turn, "fanin_min_ready": arm,
+                         "env_steps_per_s": st["env_steps_per_sec"],
+                         "updates_per_s": st["updates_per_sec"],
+                         "env_steps_by_scenario": st["env_steps_by_scenario"],
+                         "updates_by_scenario": st["updates_by_scenario"],
+                         "segment_wait_p50_ms": _stage_p50(st["stages"], "segment_wait")}))
+            check(st["updates"] > 0 and all(math.isfinite(v) for v in st["losses"]),
+                  f"scenario_fanin turn {turn}: updates, losses finite")
+        al.fanin_min_ready = 1
+
+        cur.pin({"rich": 1.0})
+        run_b = al.run(seconds=SCN_RUN_S)
+        assigned_after = rnd.assignments
+        confirmed = rnd.stats()["confirmed"]
+        counts = _scenario_counts(counters)
+        scrape = hub.scrape()
+        run = {"updates": [warm["updates"], run_a["updates"], run_b["updates"]],
+               "env_steps_per_s": [run_a["env_steps_per_sec"], run_b["env_steps_per_sec"]],
+               "env_steps_by_scenario": [run_a["env_steps_by_scenario"],
+                                         run_b["env_steps_by_scenario"]],
+               "updates_by_scenario": [run_a["updates_by_scenario"],
+                                       run_b["updates_by_scenario"]],
+               "assignments_before": assigned_before, "assignments_after": assigned_after,
+               "confirmed": confirmed, "counters": counts, "scenario_stats": strata_a,
+               "scenario_stats_after": replay.scenario_stats(),
+               "mix_after": cur.mix(), "curriculum": cur.stats(),
+               "hub_scenario_counters": {k: scrape["counters"][k] for k in counts},
+               "push_ms": rnd.timer.percentiles("scenario_push")}
+        emit(_stamp({"phase": "scenario_run", **run}))
+        check(assigned_after == ["rich"] * SCN_FLEETS,
+              f"scenario_run: the pinned shift made every fleet rich ({assigned_after})")
+        check(confirmed == [True] * SCN_FLEETS,
+              "scenario_run: every pushed scenario was seen applied on the data plane")
+        check(counts["scenario_mix_changes"] >= 1 and counts["scenario_pushes"]
+              >= SCN_ENVS * (SCN_FLEETS + 2) and counts["scenario_applies"] >= SCN_FLEETS + 2
+              and counts["scenario_push_failures"] == 0,
+              f"scenario_run: the bootstrap and the shift pushed and applied ({counts})")
+        check(counts["scenario_rows_stamped"] == replay.stats()["appends"],
+              "scenario_run: every replay row stamped")
+        check(run_b["updates_by_scenario"].get("rich", 0) > 0,
+              "scenario_run: updates attributed to rich after the shift")
+        check(run["hub_scenario_counters"] == counts, "scenario_run: the hub holds the counts")
+
+        pool_ratio = _scenario_pool_ratio(btt)
+        emit(_stamp({"phase": "scenario_fanin", "arms": {str(k): v for k, v in fanin.items()},
+                     "min_ready_1_mean": statistics.mean(fanin[1]),
+                     "barrier_mean": statistics.mean(fanin[None]),
+                     "min_ready_x": statistics.mean(fanin[1]) / statistics.mean(fanin[None]),
+                     "pool": pool_ratio}))
+
+        strata = _scenario_strata(torch, al, replay, counters)
+        emit(_stamp({"phase": "scenario_strata", **strata}))
+
+        # a cut mid-curriculum, resumed in place into a new learner
+        ck = TrainCheckpointer(os.path.join(tmp, "ha"), every_updates=10**9,
+                               counters=EventCounters())
+        for _ in range(SCN_INTERVAL):
+            if cur.state_dict()["ticks"] % SCN_INTERVAL:
+                break
+            al.run(num_updates=1)
+        cut = ck.checkpoint(al, block=True)
+        cut_state = cur.state_dict()
+        check(cut_state["ticks"] % SCN_INTERVAL != 0, "scenario_ha: the cut is mid-interval")
+        man = latest_manifest(ck.directory)
+        rnd.close()
+        counters2 = EventCounters()
+        rnd2 = DomainRandomizer(cat, fs.ctrl_addresses, seed=1, counters=counters2)
+        cur2 = CurriculumScheduler(cat, policy="uniform", interval=SCN_INTERVAL,
+                                   counters=counters2)
+        t0 = time.perf_counter()
+        buf2 = restore_replay(man, counters=counters2)
+        al2 = _scenario_learner(fs, buf2, rnd2, cur2, seed=7)
+        warm2 = al2.run(num_updates=3)  # the new learner's bootstrap and captures
+        graphs = [g for step in (al2._step, al2._replay_step) for g in step.graphs.values()]
+        pushes = counters2.get("scenario_pushes")
+        TrainCheckpointer(ck.directory, counters=EventCounters()).restore(al2, man)
+        restore_s = time.perf_counter() - t0
+        repushed = counters2.get("scenario_pushes") - pushes
+        restored_state = cur2.state_dict()
+        resumed = al2.run(num_updates=SCN_INTERVAL)
+        ha = {"cut": cut, "cut_ticks": cut_state["ticks"], "replay_rows": len(buf2),
+              "restore_s": restore_s, "warmup_updates": warm2["updates"],
+              "curriculum_equal": restored_state == cut_state, "repushed": repushed,
+              "assignments": rnd2.assignments, "confirmed": rnd2.stats()["confirmed"],
+              "graphs": len(graphs),
+              "recaptured": [g for step in (al2._step, al2._replay_step)
+                             for g in step.graphs.values()] != graphs,
+              "updates_done": al2._updates_done, "resumed_updates": resumed["updates"],
+              "resumed_env_steps_by_scenario": resumed["env_steps_by_scenario"],
+              "ticks_after": cur2.state_dict()["ticks"]}
+        emit(_stamp({"phase": "scenario_ha", **ha}))
+        check(ha["curriculum_equal"], "scenario_ha: the restored curriculum equals the cut's")
+        check(repushed == 2 * SCN_ENVS and ha["assignments"] == ["rich"] * SCN_FLEETS,
+              f"scenario_ha: the cut's assignment re-pushed to the 2 changed fleets ({repushed})")
+        check(ha["confirmed"] == [True] * SCN_FLEETS,
+              "scenario_ha: the re-pushed scenarios were seen applied")
+        check(ha["graphs"] == 2 and not ha["recaptured"],
+              "scenario_ha: restored in place, the two captured graphs kept (no recapture)")
+        check(resumed["updates"] == SCN_INTERVAL and al2._updates_done
+              == cut + resumed["updates"] + resumed["replay_updates"],
+              "scenario_ha: the update counter resumed from the cut")
+        check(ha["ticks_after"] == cut_state["ticks"] + SCN_INTERVAL,
+              "scenario_ha: the curriculum ticked on from the cut")
+        check(all(bool(torch.isfinite(v).all()) for v in al2.state.params.values()),
+              "scenario_ha: parameters finite")
+
+        # SIGKILL a producer, push into it, and follow its scenario back
+        pool, sup = fs.pools[0], fs.supervisors[0]
+        deaths = sup.health()["deaths"]
+        t_kill = time.perf_counter()
+        kill_instance(fs.launchers[0], 0)
+        push_s = []
+        for _ in range(SCN_CHAOS_PUSHES):
+            t0 = time.perf_counter()
+            rnd2.assign(0, "rich")
+            push_s.append(time.perf_counter() - t0)
+        check(sum(push_s) < SCN_CHAOS_BOUND_S,
+              f"scenario_chaos: {SCN_CHAOS_PUSHES} pushes returned within "
+              f"{SCN_CHAOS_BOUND_S} s ({sum(push_s):.2f} s)")
+        check(sup.await_deaths(deaths + 1, timeout=30) and sup.await_healthy(timeout=30),
+              "scenario_chaos: the supervisor saw the death and respawned the producer")
+        t_healthy = time.perf_counter()
+        echoes, back = [], None
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            _, _, _, infos = pool.step([0.5] * SCN_ENVS)
+            for i, inf in enumerate(infos):
+                if inf.get("readmitted"):
+                    rnd2.reassign(0, i)
+                rnd2.note_info(0, inf)
+            echoes.append(infos[0].get("scenario"))
+            if infos[0].get("readmitted") is None and echoes[-1] == "rich" and \
+                    counters2.get("scenario_reassignments") >= 1:
+                back = time.perf_counter()
+                break
+        chaos = {"pushes": SCN_CHAOS_PUSHES, "push_total_s": sum(push_s),
+                 "push_max_ms": max(push_s) * 1e3,
+                 "push_failures": counters2.get("scenario_push_failures"),
+                 "reassignments": counters2.get("scenario_reassignments"),
+                 "deaths": sup.health()["deaths"] - deaths,
+                 "kill_to_healthy_s": t_healthy - t_kill,
+                 "kill_to_scenario_back_s": None if back is None else back - t_kill,
+                 "echoes_after_respawn": sorted(set(e for e in echoes if e is not None)),
+                 "steps_after_respawn": len(echoes)}
+        # the quiet drill: kill env 1 with nothing pushed in the outage, so
+        # nothing is queued for the new incarnation; it must come back at
+        # the fleet's launch scene (lite) and turn to the assigned rich by
+        # reassign's push alone
+        _poll(lambda: pool.step([0.5] * SCN_ENVS)[3][1].get("scenario") == "rich", 30)
+        deaths = sup.health()["deaths"]
+        reassigned = counters2.get("scenario_reassignments")
+        t_kill = time.perf_counter()
+        kill_instance(fs.launchers[0], 1)
+        quiet_respawn = sup.await_deaths(deaths + 1, timeout=30) and sup.await_healthy(timeout=30)
+        readmitted = quiet_respawn and _poll(
+            lambda: pool.step([0.5] * SCN_ENVS)[3][1].get("readmitted"), 30)
+        held = [pool.step([0.5] * SCN_ENVS)[3][1].get("scenario") for _ in range(3)] \
+            if readmitted else []
+        quiet_ok = readmitted and rnd2.reassign(0, 1)
+        quiet_back = quiet_ok and _poll(
+            lambda: pool.step([0.5] * SCN_ENVS)[3][1].get("scenario") == "rich", 30)
+        chaos["quiet"] = {"respawned": quiet_respawn, "readmitted": bool(readmitted),
+                          "held_before_reassign": held, "reassign_ok": bool(quiet_ok),
+                          "reassignments": counters2.get("scenario_reassignments") - reassigned,
+                          "kill_to_scenario_back_s":
+                              time.perf_counter() - t_kill if quiet_back else None}
+        emit(_stamp({"phase": "scenario_chaos", **chaos}))
+        check(back is not None and chaos["reassignments"] >= 1,
+              "scenario_chaos: the respawned producer's scenario followed it back")
+        check(quiet_respawn and readmitted,
+              "scenario_chaos: the quiet kill's producer was respawned and re-admitted")
+        check(held == ["lite"] * 3,
+              f"scenario_chaos: with nothing queued the respawn held its launch scene ({held})")
+        check(quiet_ok and quiet_back and chaos["quiet"]["reassignments"] == 1,
+              "scenario_chaos: reassign's push alone turned the respawned producer rich")
+        rnd2.close()
+        health = fs.health()
+    emit({"phase": "scenario_seconds", "seconds": time.perf_counter() - t_phase,
+          "fleet_health": {k: health[k] for k in ("num_fleets", "num_envs", "healthy_envs",
+                                                   "deaths", "restarts", "quarantines")}})
+
+
 def main():
     import torch
 
@@ -3814,6 +4288,7 @@ def main():
                            pendulum)
     replay_service_phase(torch)
     flywheel_phase(torch, btt, control, seqformer, serve, al_rates)
+    scenario_phase(torch, btt)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",

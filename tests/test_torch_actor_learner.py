@@ -30,7 +30,10 @@
    on with its rows masked); and its re-admission case without the
    supervisor (the killed producer relaunched on its address, the pool's
    probes re-admit it, the learner restarts the fleet's actor).
-7. **Refused arguments** name their ROADMAP item.
+7. **Refused arguments** name their ROADMAP item; the scenario plane's
+   (``scenarios=``, ``curriculum=``, ``fanin_min_ready=``) are taken as the
+   reference takes them (``tests/test_torch_scenario.py`` holds the plane
+   itself).
 """
 
 import inspect
@@ -360,13 +363,43 @@ def test_snapshot_is_a_copy_that_survives_the_next_update():
 # -- refused arguments and validation ---------------------------------------------
 
 
-@pytest.mark.parametrize("name, item", [
-    ("mesh", "item 7"), ("pipeline_stages", "item 7"), ("scenarios", "item 9"),
-    ("curriculum", "item 9"), ("fanin_min_ready", "item 9")])
+@pytest.mark.parametrize("name, item", [("mesh", "item 7"), ("pipeline_stages", "item 7")])
 def test_not_ported_arguments_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         ActorLearner(None, D, A, device="cpu", **{name: object()})
     ActorLearner(None, D, A, device="cpu", **{name: None})  # the default is accepted
+
+
+def _scenario_option(name):
+    from blendjax_torch.scenario import CurriculumScheduler, DomainRandomizer, ScenarioCatalog
+    from blendjax_torch.scenario import ScenarioSpec
+
+    cat = ScenarioCatalog([ScenarioSpec("lite"), ScenarioSpec("rich", physics_rate_us=9)])
+    return {"scenarios": lambda: DomainRandomizer(cat, [["tcp://127.0.0.1:1"]] * 2,
+                                                  counters=EventCounters()),
+            "curriculum": lambda: CurriculumScheduler(cat, counters=EventCounters()),
+            "fanin_min_ready": lambda: 0}[name]()
+
+
+@pytest.mark.parametrize("name", ["scenarios", "curriculum", "fanin_min_ready"])
+def test_scenario_arguments_are_accepted_as_the_references(name):
+    """The scenario plane's arguments are taken as the reference takes
+    them: the learner keeps the randomizer and the curriculum, clamps
+    ``fanin_min_ready`` to at least 1, and its stats and checkpoint carry
+    the same scenario keys as the reference learner's."""
+    value = _scenario_option(name)
+    kw = {"fanin_min_ready": 0} if name == "fanin_min_ready" else {name: value}
+    al = ActorLearner([object(), object()], D, A, device="cpu", **kw)
+    ref = JActorLearner([object(), object()], D, A, **kw)
+    if name == "fanin_min_ready":
+        assert al.fanin_min_ready == ref.fanin_min_ready == 1
+    else:
+        attr = "randomizer" if name == "scenarios" else "curriculum"
+        assert getattr(al, attr) is getattr(ref, attr) is value
+    assert sorted(al.stats()) == sorted(set(ref.stats()) | {"last_published_version"})
+    assert al.checkpoint_state().keys() == ref.checkpoint_state().keys()
+    if name == "scenarios":
+        value.close()
 
 
 def _filled_buffer(buf, n=128, seed=1):

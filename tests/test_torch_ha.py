@@ -19,9 +19,13 @@ reference's ``tests/test_ha.py``, on the CPU.
   replay shard processes and a weight bus, a subscribed policy server and
   its client seeing strictly increasing versions across the respawn.
 
-Not ported: the curriculum case, the benchmark cases and the full-stack
-acceptance (the scenario plane, the benchmarks and ``ServerProcess`` are
-ROADMAP items 9 and 10).
+- the curriculum rides the cut: a resumed learner's scheduler continues
+  mid-interval and the checkpointed assignment is pushed again into the
+  producers; a cut of either package's learner restores the other's
+  curriculum and assignment.
+
+Not ported: the benchmark cases and the full-stack acceptance (the
+benchmarks and ``ServerProcess`` are ROADMAP items 10 and 9).
 """
 
 import json
@@ -231,6 +235,107 @@ def test_a_stop_request_ends_a_single_fleet_run_at_once():
     finally:
         release.set()
     assert time.monotonic() - t0 < 5 and st["updates"] == 0
+
+
+def _curriculum_mid_interval(cls):
+    cur = cls(["lite", "rich"], interval=4, counters=EventCounters())
+    cur.pin({"lite": 0.7, "rich": 0.3})
+    cur.update()
+    cur.observe_return("rich", 1.5)
+    for _ in range(3):
+        cur.tick()  # mid-interval: the gate state must survive too
+    return cur
+
+
+def test_checkpoint_state_carries_curriculum(tmp_path):
+    """The cut includes the curriculum: a restored learner's scheduler
+    continues mid-interval with the pinned mix, tick counters and return
+    EMAs, never restarted at the uniform mix; a foreign catalog's cut is
+    refused."""
+    from blendjax_torch.scenario import CurriculumScheduler
+
+    buf = ReplayBuffer(64, seed=0)
+    _fill(buf, 32)
+    cur = _curriculum_mid_interval(CurriculumScheduler)
+    al = ActorLearner(None, 4, 3, replay=buf, curriculum=cur, seed=0, device="cpu")
+    al._updates_done = 9
+    aux = al.checkpoint_state()
+    json.dumps(aux)  # rides inline in the manifest
+
+    cur2 = CurriculumScheduler(["lite", "rich"], interval=4, counters=EventCounters())
+    al2 = ActorLearner(None, 4, 3, replay=buf, curriculum=cur2, seed=0, device="cpu")
+    al2.load_checkpoint_state(al.state, aux)
+    assert al2._updates_done == 9
+    assert cur2.policy == "pinned"
+    assert cur2.mix() == cur.mix()
+    assert cur2.stats()["returns_ema"] == cur.stats()["returns_ema"]
+    assert cur2._ticks == cur._ticks
+    assert cur2.tick() is not None and cur.tick() is not None  # due on the same tick
+    with pytest.raises(ValueError, match="same catalog"):
+        CurriculumScheduler(["other"]).load_state_dict(aux["curriculum"])
+
+
+@pytest.mark.parametrize("direction", ["torch->jax", "jax->torch"])
+def test_resumed_learner_restores_curriculum_and_repushes_assignment(tmp_path, direction):
+    """A cut written by either package's checkpointer over a learner with a
+    curriculum and a randomizer restores into the other package's learner:
+    the curriculum's state equal, and the checkpointed assignment pushed
+    again into the producers (counted, and received)."""
+    from blendjax.btb.duplex import DuplexChannel as ProducerDuplex
+    from blendjax.scenario import CurriculumScheduler as JCurriculumScheduler
+    from blendjax.scenario import DomainRandomizer as JDomainRandomizer
+    from blendjax.scenario import ScenarioCatalog as JScenarioCatalog
+    from blendjax.scenario import ScenarioSpec as JScenarioSpec
+    from blendjax_torch.scenario import (CurriculumScheduler, DomainRandomizer,
+                                         ScenarioCatalog, ScenarioSpec)
+
+    addrs = [f"tcp://127.0.0.1:{_free_block(1)}" for _ in range(3)]
+    prods = [ProducerDuplex(a, btid=i) for i, a in enumerate(addrs)]
+    port_side = dict(al=lambda **kw: ActorLearner(None, 4, 3, device="cpu", **kw),
+                     ck=TrainCheckpointer, cur=CurriculumScheduler, rnd=DomainRandomizer,
+                     cat=ScenarioCatalog([ScenarioSpec("lite"), ScenarioSpec("rich")]),
+                     buf=ReplayBuffer)
+    ref_side = dict(al=lambda **kw: JActorLearner(None, 4, 3, **kw), ck=JTrainCheckpointer,
+                    cur=JCurriculumScheduler, rnd=JDomainRandomizer,
+                    cat=JScenarioCatalog([JScenarioSpec("lite"), JScenarioSpec("rich")]),
+                    buf=JReplayBuffer)
+    src, dst = (port_side, ref_side) if direction == "torch->jax" else (ref_side, port_side)
+    rnds = []
+    try:
+        buf = src["buf"](128, seed=0)
+        _fill(buf, 64)
+        cur = _curriculum_mid_interval(src["cur"])
+        # the source's fleets were assigned by its randomizer; no producer
+        # is dialled on that side
+        rnd = src["rnd"](src["cat"], [[a] for a in addrs], counters=EventCounters())
+        rnd._assigned = ["rich", "lite", "rich"]
+        rnds.append(rnd)
+        ck = src["ck"](str(tmp_path), every_updates=100, counters=EventCounters())
+        al = src["al"](replay=buf, seed=0, checkpointer=ck, curriculum=cur, scenarios=rnd)
+        al.run_offline(num_updates=3, batch_size=16)
+        assert ck.checkpoint(al, block=True) == 3
+
+        counters = EventCounters()
+        cur2 = dst["cur"](["lite", "rich"], interval=4, counters=EventCounters())
+        rnd2 = dst["rnd"](dst["cat"], [[a] for a in addrs], counters=counters)
+        rnds.append(rnd2)
+        man = (latest_manifest if dst is port_side else j_latest_manifest)(str(tmp_path))
+        buf2 = (restore_replay if dst is port_side else j_restore_replay)(
+            man, counters=EventCounters())
+        al2 = dst["al"](replay=buf2, seed=0, curriculum=cur2, scenarios=rnd2)
+        kw = {} if dst is port_side else {"republish": False}
+        dst["ck"](str(tmp_path), counters=EventCounters()).restore(al2, man, **kw)
+        assert al2._updates_done == 3
+        assert cur2.state_dict() == cur.state_dict()
+        assert rnd2.assignments == ["rich", "lite", "rich"]
+        assert counters.get("scenario_pushes") == 3  # re-pushed, every fleet
+        got = [p.recv(timeoutms=5000) for p in prods]
+        assert [m["scenario"] for m in got] == ["rich", "lite", "rich"]
+    finally:
+        for r in rnds:
+            r.close()
+        for p in prods:
+            p.close()
 
 
 def test_learner_supervisor_postmortem_names_learner(tmp_path):

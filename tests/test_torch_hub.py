@@ -34,6 +34,8 @@ from blendjax_torch.utils.timing import (
     HA_STAGES,
     REPLAY_EVENTS,
     REPLAY_STAGES,
+    SCENARIO_EVENTS,
+    SCENARIO_STAGES,
     SERVE_EVENTS,
     SERVE_STAGES,
     WEIGHT_EVENTS,
@@ -209,6 +211,58 @@ def _doc_table_names(path, heading):
     return names
 
 
+def test_scenario_vocabulary_zero_filled_in_a_scrape():
+    """Every scenario counter and stage is in a scrape from a hub whose
+    components never counted one, at zero, in JSON and in Prometheus."""
+    hub = TelemetryHub()
+    hub.register("fresh", counters=EventCounters(), timer=StageTimer())
+    snap = hub.scrape()
+    for name in SCENARIO_EVENTS:
+        assert snap["counters"][name] == 0, name
+    for stage in SCENARIO_STAGES:
+        assert snap["stages"][stage]["count"] == 0, stage
+    prom = hub.to_prometheus(snap)
+    for name in SCENARIO_EVENTS:
+        assert f'blendjax_events_total{{event="{name}"}} 0' in prom, name
+    for stage in SCENARIO_STAGES:
+        assert (f'blendjax_stage_latency_seconds{{stage="{stage}",'
+                'quantile="0.99"} 0') in prom, stage
+
+
+def test_scenario_plane_counts_merge_in_both_hubs():
+    """A randomizer's and a curriculum's counts and stages, registered with
+    the port's hub, scrape to what the reference's hub reports for them."""
+    from blendjax_torch.scenario import CurriculumScheduler
+
+    counters, timer = EventCounters(), StageTimer()
+    cur = CurriculumScheduler(["a", "b"], counters=counters, timer=timer)
+    cur.pin({"a": 0.25, "b": 0.75})
+    cur.update()
+    counters.incr("scenario_pushes", 3)
+    counters.incr("scenario_push_failures")
+    port, ref = TelemetryHub(), JTelemetryHub()
+    port.register("scenario_curriculum", counters=counters, timer=timer, probe=cur.stats)
+    ref.register_remote("scenario_curriculum", lambda: {
+        "counters": counters.snapshot(), "stages": timer.snapshot_serialized()})
+    snap, ref_snap = port.scrape(), ref.scrape()
+    for name in SCENARIO_EVENTS:
+        assert snap["counters"][name] == ref_snap["counters"][name], name
+    assert snap["counters"]["scenario_mix_changes"] == 1
+    assert snap["counters"]["scenario_pushes"] == 3
+    for stage in SCENARIO_STAGES:
+        assert snap["stages"][stage] == ref_snap["stages"][stage], stage
+    assert snap["stages"]["scenario_reweight"]["count"] == 1
+    assert snap["components"]["scenario_curriculum"]["probe"]["policy"] == "pinned"
+
+
+def test_documented_scenario_counters_and_stages_exist_in_tuples():
+    path = os.path.join(REPO_ROOT, "docs", "scenarios.md")
+    for heading, vocab in (("## Counter vocabulary", SCENARIO_EVENTS),
+                           ("## Stage vocabulary", SCENARIO_STAGES)):
+        names = _doc_table_names(path, heading)
+        assert sorted(names) == sorted(vocab), heading
+
+
 def test_documented_weight_counters_exist_in_tuples():
     names = _doc_table_names(os.path.join(REPO_ROOT, "docs", "weight_bus.md"),
                              "## Counter vocabulary")
@@ -231,7 +285,7 @@ def test_documented_weight_stages_exist_in_tuples():
 def test_tuples_are_the_references():
     for name in ("FEED_STAGES", "FLEET_EVENTS", "REPLAY_EVENTS", "REPLAY_STAGES",
                  "WEIGHT_EVENTS", "WEIGHT_STAGES", "SERVE_EVENTS", "SERVE_STAGES",
-                 "HA_EVENTS", "HA_STAGES"):
+                 "HA_EVENTS", "HA_STAGES", "SCENARIO_EVENTS", "SCENARIO_STAGES"):
         from blendjax_torch.utils import timing
 
         assert getattr(timing, name) == getattr(jtiming, name), name

@@ -96,6 +96,10 @@ def test_producer_side_imports_without_torch():
         "import blendjax_torch.obs.hub, blendjax_torch.btt.chaos, blendjax_torch.btt.supervise\n"
         "import blendjax_torch.replay.service, blendjax_torch.replay.shard_client\n"
         "import blendjax_torch.weights.bus\n"
+        "import blendjax_torch.scenario, blendjax_torch.scenario.catalog\n"
+        "import blendjax_torch.scenario.curriculum, blendjax_torch.scenario.randomize\n"
+        "from blendjax_torch.scenario import ScenarioCatalog, DomainRandomizer\n"
+        "from blendjax_torch.scenario import CurriculumScheduler, apportion\n"
         "from blendjax_torch.replay import ShardedReplay, ShardFleet\n"
         "from blendjax_torch.weights import WeightPublisher, WeightSubscriber\n"
         "from blendjax_torch.obs import TelemetryHub\n"
@@ -126,6 +130,31 @@ def test_spawned_services_help_without_torch(module):
         "except SystemExit as exc:\n"
         "    assert exc.code == 0, exc.code\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
+    )
+    assert _run(code) == []
+
+
+def test_scenario_plane_imports_neither_torch_nor_any_jax_module():
+    """``blendjax_torch.scenario`` stays import-light, as the reference's:
+    numpy, and zmq only once a channel is dialled.  A catalog, a curriculum
+    and a randomizer work without torch, JAX or the JAX package (and
+    without zmq until the first push)."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from blendjax_torch.scenario import CurriculumScheduler, DomainRandomizer\n"
+        "from blendjax_torch.scenario import ScenarioCatalog, ScenarioSpec, apportion\n"
+        "cat = ScenarioCatalog([ScenarioSpec('a'), ScenarioSpec('b', physics_rate_us=5)])\n"
+        "cat = ScenarioCatalog.from_json(cat.to_json())\n"
+        "cur = CurriculumScheduler(cat)\n"
+        "cur.pin({'b': 1.0}); cur.update()\n"
+        "assert cur.assign(2) == ['b', 'b'] == apportion(cur.mix(), 2)\n"
+        "rnd = DomainRandomizer(cat, [['tcp://127.0.0.1:1']])\n"
+        "assert cat.sample('a', np.random.default_rng(0))['scenario'] == 'a'\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('torch', 'jax', 'blendjax', 'zmq'))\n"
+        "rnd.close()\n"
+        "print(json.dumps(mods))\n"
     )
     assert _run(code) == []
 

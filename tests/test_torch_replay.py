@@ -394,12 +394,18 @@ def test_update_priorities_skips_slots_overwritten_since_draw():
     assert buf.tree.get(int(idx2[0])) == pytest.approx((9.0 + buf.eps) ** buf.alpha)
 
 
-def test_not_ported_parts_name_their_roadmap_item(tmp_path):
-    buf = ReplayBuffer(8, seed=0)
-    for k in range(8):
-        buf.append(_tr(k), scenario="a" if k % 2 else "b")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        buf.sample(4, scenario_mix={"a": 0.7, "b": 0.3})
+def test_nonuniform_scenario_mix_draws_the_references():
+    """A non-uniform ``scenario_mix`` draws the reference's strata: the same
+    indices and IS weights, stratum by stratum."""
+    bufs = (ReplayBuffer(8, seed=0), JReplayBuffer(8, seed=0))
+    for buf in bufs:
+        for k in range(8):
+            buf.append(_tr(k), scenario="a" if k % 2 else "b")
+    (da, ia, wa), (db, ib, wb) = (b.sample(4, scenario_mix={"a": 0.7, "b": 0.3}) for b in bufs)
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_array_equal(wa, wb)
+    np.testing.assert_array_equal(da["obs"], db["obs"])
+    assert (ia % 2 == 1).sum() == 3  # apportioned 3 : 1 by largest remainder
 
 
 def test_determinism_across_save_restore_roundtrip(tmp_path):
