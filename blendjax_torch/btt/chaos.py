@@ -8,10 +8,11 @@ module provides:
 
 - :class:`ChaosProxy` — a TCP relay to park between a client and one
   endpoint.  It can **stall** (stop forwarding: the client sees silence,
-  like a hung peer) and **cut** (close live connections mid-message: a
-  crashed peer at the TCP layer).  The reference's per-chunk schedule
-  (drop, duplicate, garble, delay) has no caller in the port's tests and
-  is not ported.
+  like a hung peer), **cut** (close live connections mid-message: a
+  crashed peer at the TCP layer), and **drop** or **duplicate** the next
+  chunk of one direction (the gateway's wire-fault tests).  The
+  reference's garble, close-next and delay have no caller in the port's
+  tests and are not ported.
 - :func:`wait_env_ready` — the startup barrier: every env endpoint
   answers a ``reset``.
 - :func:`kill_instance` — SIGKILL a launched process's whole group (no
@@ -65,6 +66,10 @@ class ChaosProxy:
         self._open.set()
         self._lock = threading.Lock()
         self._conns = []  # live (client, upstream) socket pairs
+        self._sched = {"up": {}, "down": {}}  # chunk index -> action
+        self.chunks = {"up": 0, "down": 0}
+        self.dropped = 0
+        self.duplicated = 0
         self.cuts = 0
 
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -80,6 +85,20 @@ class ChaosProxy:
         self._threads[0].start()
 
     # -- control ---------------------------------------------------------------
+
+    def _next(self, action, direction):
+        with self._lock:
+            self._sched[direction][self.chunks[direction]] = action
+
+    def drop_next(self, direction="down"):
+        """Discard the next chunk of ``direction`` ('up' = client to
+        endpoint, 'down' = endpoint to client): a lost reply or request."""
+        self._next("drop", direction)
+
+    def dup_next(self, direction="down"):
+        """Forward the next chunk of ``direction`` twice (duplicated
+        delivery)."""
+        self._next("dup", direction)
 
     def stall(self):
         """Stop forwarding in both directions (hung peer): the client sees
@@ -125,7 +144,7 @@ class ChaosProxy:
                 (client, up, "up"), (up, client, "down"),
             ):
                 t = threading.Thread(
-                    target=self._pump, args=(src, dst, pair),
+                    target=self._pump, args=(src, dst, direction, pair),
                     daemon=True, name=f"bjx-chaos-{direction}",
                 )
                 t.start()
@@ -147,7 +166,7 @@ class ChaosProxy:
             except OSError:
                 pass
 
-    def _pump(self, src, dst, pair):
+    def _pump(self, src, dst, direction, pair):
         try:
             while not self._stop.is_set():
                 try:
@@ -160,8 +179,20 @@ class ChaosProxy:
                 while not self._open.wait(0.05):
                     if self._stop.is_set():
                         return
+                with self._lock:
+                    idx = self.chunks[direction]
+                    self.chunks[direction] = idx + 1
+                    action = self._sched[direction].pop(idx, None)
+                if action == "drop":
+                    self.dropped += 1
+                    continue
                 try:
                     dst.sendall(data)
+                    if action == "dup":
+                        # counted before the second send: a reader that
+                        # sees the duplicate has already seen the count
+                        self.duplicated += 1
+                        dst.sendall(data)
                 except OSError:
                     return
         finally:

@@ -449,14 +449,18 @@ class ShmClientChannel:
     frame-layer fault injection (a wire with no TCP segment to drop).
     Replies are copied out of the ring before their record is released."""
 
-    def __init__(self, name, server_bell_path, *, chaos=None):
+    def __init__(self, name, server_bell_path, *, bell=None, chaos=None):
         from blendjax_torch.native.ring import DoorBell, ShmRingWriter
 
         self.name = name
         self.writer = ShmRingWriter(f"shm://{name}.c2s",
                                     capacity_bytes=REQ_CAPACITY)
-        #: the reply-wake bell, one per channel
-        self.bell = DoorBell(f"/dev/shm/{name}.cbell", create=True)
+        #: the reply-wake bell: one per channel, unless the caller
+        #: multiplexes many channels in one loop (the gateway's replica
+        #: backends) and passes its shared bell
+        self._own_bell = bell is None
+        self.bell = bell if bell is not None else DoorBell(
+            f"/dev/shm/{name}.cbell", create=True)
         self.server_bell = DoorBell(server_bell_path)
         self.reader = None  # until finish()
         self.chaos = chaos
@@ -555,7 +559,8 @@ class ShmClientChannel:
             self.writer.close(unlink=unlink)
         except Exception:  # noqa: BLE001
             pass
-        self.bell.close(unlink=unlink)
+        if self._own_bell:
+            self.bell.close(unlink=unlink)
         self.server_bell.close(unlink=False)
 
 

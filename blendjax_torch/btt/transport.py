@@ -29,11 +29,11 @@ Selection is automatic and conservative:
    channel re-upgrades onto a fresh ring generation once the server
    answers again.
 
-``BJX_NO_SHM_RPC=1`` (or ``shm=False``) pins the channel to ZMQ.  The
-reference's ``redirect`` (a sharded gateway's worker handoff) waits for the
-gateway (ROADMAP Queue 1, item 9); its forced ``shm=True``, per-channel
-ring size, zero-copy reply views and ``shm_active`` have no caller in the
-port.
+``BJX_NO_SHM_RPC=1`` (or ``shm=False``) pins the channel to ZMQ.
+:meth:`RpcChannel.redirect` re-points a channel at a new peer (a sharded
+gateway's worker handoff).  The reference's forced ``shm=True``,
+per-channel ring size, zero-copy reply views and ``shm_active`` have no
+caller in the port.
 """
 
 from __future__ import annotations
@@ -274,5 +274,19 @@ class RpcChannel:
         self._next_try = 0.0
         self._backoff_s = 1.0
         self._alive = False
+
+    def redirect(self, address):
+        """Re-point the channel at a new peer (a sharded gateway's worker
+        handoff: the front's reset reply names the worker that owns the
+        lease).  Both transports drop as in :meth:`reset`; a permanent shm
+        refusal is cleared too, since it belonged to the old peer (a
+        pure-ZMQ front refuses, the worker it hands off to accepts)."""
+        if address == self.address:
+            return
+        self.reset()
+        if self._state == "off":
+            self._state = "idle"
+        self._rpcs = 0
+        self.address = address
 
     close = reset

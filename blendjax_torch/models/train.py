@@ -160,6 +160,8 @@ class Captured:
         self.graphs = {}  # signature -> _Graph
         self._warm = {}  # signature -> eager warm-up steps run
         self._bound = None  # (bound, made) as _pinned_down at the last call
+        #: graphs captured so far, recaptures included
+        self.captures = 0
 
     def __call__(self, run, batch, bound, made=None):
         """``run(batch) -> tensor`` does one step's device work on the
@@ -186,6 +188,7 @@ class Captured:
                 self._warm[sig] = done + 1
                 return _on_side_stream(run, batch, leaves, device)
             entry = self.graphs[sig] = _capture(run, batch, leaves, device)
+            self.captures += 1
         for (_, src), dst in zip(leaves, entry.inputs):
             dst.copy_(src, non_blocking=True)
         entry.graph.replay()

@@ -9,9 +9,12 @@ demand into one snapshot:
 
 - :meth:`TelemetryHub.scrape` — a JSON-able dict with every canonical
   counter (``FLEET_EVENTS`` + ``REPLAY_EVENTS`` + ``SERVE_EVENTS`` +
-  ``WEIGHT_EVENTS`` + ``SCENARIO_EVENTS`` + ``HA_EVENTS``) and every
-  canonical stage (``FEED_STAGES`` + ``REPLAY_STAGES`` + ``SERVE_STAGES``
-  + ``WEIGHT_STAGES`` + ``SCENARIO_STAGES`` + ``HA_STAGES``) zero-filled,
+  ``GATEWAY_EVENTS`` + ``WEIGHT_EVENTS`` + ``SCENARIO_EVENTS`` +
+  ``HA_EVENTS`` + ``AUTOSCALE_EVENTS``) and every canonical stage
+  (``FEED_STAGES`` + ``REPLAY_STAGES`` + ``SERVE_STAGES`` +
+  ``GATEWAY_STAGES`` + ``WEIGHT_STAGES`` + ``SCENARIO_STAGES`` +
+  ``HA_STAGES`` + ``AUTOSCALE_STAGES``) zero-filled, in the reference's
+  order,
   histograms merged across components so the aggregate p99 is a quantile
   of the union;
 - :meth:`TelemetryHub.to_prometheus` — the same snapshot in Prometheus
@@ -23,9 +26,8 @@ demand into one snapshot:
   process (a replay shard's ``telemetry`` RPC) and merge it like a local
   component; a fetch failure lands in ``remote_errors``, never raised.
 
-The reference also zero-fills its gateway, autoscale and pipeline
-vocabularies, whose modules are not ported yet (ROADMAP item 9 and item
-7).  Imports neither torch nor numpy.
+The reference also zero-fills its pipeline vocabulary, whose module is
+not ported yet (ROADMAP item 7).  Imports neither torch nor numpy.
 """
 
 from __future__ import annotations
@@ -48,16 +50,18 @@ def _canonical_counters():
     from blendjax_torch.utils import timing
 
     return (timing.FLEET_EVENTS + timing.REPLAY_EVENTS
-            + timing.SERVE_EVENTS + timing.WEIGHT_EVENTS + timing.SCENARIO_EVENTS
-            + timing.HA_EVENTS)
+            + timing.SERVE_EVENTS + timing.GATEWAY_EVENTS
+            + timing.WEIGHT_EVENTS + timing.SCENARIO_EVENTS
+            + timing.HA_EVENTS + timing.AUTOSCALE_EVENTS)
 
 
 def _canonical_stages():
     from blendjax_torch.utils import timing
 
     return (timing.FEED_STAGES + timing.REPLAY_STAGES
-            + timing.SERVE_STAGES + timing.WEIGHT_STAGES + timing.SCENARIO_STAGES
-            + timing.HA_STAGES)
+            + timing.SERVE_STAGES + timing.GATEWAY_STAGES
+            + timing.WEIGHT_STAGES + timing.SCENARIO_STAGES
+            + timing.HA_STAGES + timing.AUTOSCALE_STAGES)
 
 
 def _zero_stage():

@@ -36,11 +36,12 @@ start and a fast respawn)::
 or in-process via :func:`start_shard_thread`, or as a supervised fleet via
 :class:`ShardFleet` (a launcher-compatible surface, so
 :class:`~blendjax_torch.btt.supervise.FleetSupervisor` respawns dead shard
-processes and drives the client's re-admission probes).  The reference's
-live resharding (``ShardFleet.grow``/``retire``) comes with the autoscaler
-(ROADMAP Queue 1, item 9), and its zero-copy gather straight into the
-reply ring is not ported: a gather over shm is copied once into recycled
-buffers and once into the ring.
+processes and drives the client's re-admission probes).
+``ShardFleet.grow(restore_ckpt=)`` and ``retire`` are the storage half of
+live resharding (:func:`blendjax_torch.autoscale.reshard_replay`).  The
+reference's zero-copy gather straight into the reply ring is not ported: a
+gather over shm is copied once into recycled buffers and once into the
+ring.
 """
 
 from __future__ import annotations
@@ -684,25 +685,29 @@ class ShardFleet:
         """Block until every shard answers ``hello`` — the deterministic
         startup barrier (counters measured after it reflect injected
         faults only, never shard boot time)."""
+        deadline = time.monotonic() + timeout
+        for i, addr in enumerate(self.addresses):
+            self._wait_one(i, addr, deadline - time.monotonic())
+
+    @staticmethod
+    def _wait_one(i, addr, timeout):
         from blendjax_torch.replay.shard_client import ShardClient
 
         deadline = time.monotonic() + timeout
-        for i, addr in enumerate(self.addresses):
-            while True:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    raise TimeoutError(
-                        f"replay shard {i} at {addr} not ready within "
-                        f"{timeout:.1f}s"
-                    )
-                client = ShardClient(addr, i, timeoutms=500)
-                try:
-                    client.rpc("hello", timeout_ms=500)
-                    break
-                except TimeoutError:
-                    continue
-                finally:
-                    client.close()
+        while True:
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"replay shard {i} at {addr} not ready within "
+                    f"{timeout:.1f}s"
+                )
+            client = ShardClient(addr, i, timeoutms=500)
+            try:
+                client.rpc("hello", timeout_ms=500)
+                return
+            except TimeoutError:
+                continue
+            finally:
+                client.close()
 
     def respawn(self, idx):
         """Relaunch shard ``idx`` with its original command line (the
@@ -711,11 +716,97 @@ class ShardFleet:
         incarnation's ``/dev/shm`` objects (rings, bells — a SIGKILL
         runs no cleanup) are swept FIRST, so generations cannot pile up
         across a chaos run's kill/respawn cycles."""
+        if (self.launch_info is not None
+                and self.launch_info.processes[idx] is None):
+            raise RuntimeError(
+                f"replay shard {idx} is retired; a retired slot is "
+                "never respawned"
+            )
         if self.shm_bases[idx] is not None:
             shm_rpc.unlink_base(self.shm_bases[idx])
         proc = self._spawn(self._cmds[idx])
         self.launch_info.processes[idx] = proc
         return proc
+
+    def grow(self, restore_ckpt=None):
+        """Spawn one more shard process (the storage half of live replay
+        resharding).  With ``restore_ckpt`` the new shard boots holding a
+        source shard's rows: the checkpoint file is copied under the new
+        shard's own name before launch, so its restore adopts it (the
+        restore checks format and capacity, not the shard id).  Without it
+        any stale state for the new index is removed and the shard boots
+        empty.  Blocks until the shard answers ``hello``; on failure the
+        process is retired.  Returns ``(idx, address)``."""
+        import shutil
+
+        from blendjax_torch.replay.shard_client import free_port
+
+        if self.launch_info is None:
+            raise RuntimeError("ShardFleet.grow before __enter__")
+        idx = self.num_shards
+        os.makedirs(self.data_dir, exist_ok=True)
+        ckpt = os.path.join(self.data_dir, f"shard_{idx:02d}.ckpt.npz")
+        for stale in glob.glob(os.path.join(
+                self.data_dir, f"shard_{idx:02d}.spill-*.btr")):
+            os.remove(stale)
+        if restore_ckpt is not None:
+            shutil.copyfile(restore_ckpt, ckpt)
+        elif os.path.exists(ckpt):
+            os.remove(ckpt)
+        addr = f"tcp://127.0.0.1:{free_port()}"
+        base = shm_rpc.new_base(f"sf{idx}") if shm_rpc.enabled() else None
+        cmd = [
+            sys.executable, "-m", "blendjax_torch.replay.service",
+            "--address", addr,
+            "--capacity", str(self.capacity_per_shard),
+            "--shard-id", str(idx),
+            "--dir", str(self.data_dir),
+            "--checkpoint-every", str(self.checkpoint_every),
+        ]
+        if base is not None:
+            cmd += ["--shm-base", base]
+        proc = self._spawn(cmd)
+        self.shm_bases.append(base)
+        self._cmds.append(cmd)
+        self.num_shards = idx + 1
+        self.addresses.append(addr)  # aliased by launch_info (REPLAY)
+        self.launch_info.processes.append(proc)
+        if base is not None:
+            self.launch_info.addresses["REPLAY_SHM"].append(f"shm://{base}")
+        try:
+            self._wait_one(idx, addr, READY_TIMEOUT_S)
+        except BaseException:
+            self.retire(idx)
+            raise
+        logger.info("replay shard %d grown at %s (restore_ckpt=%s)",
+                    idx, addr, restore_ckpt)
+        return idx, addr
+
+    def retire(self, idx):
+        """Stop shard ``idx`` and mark its slot retired (``None``): the
+        watchdog skips it and :meth:`respawn` refuses it.  Sweeps its
+        ``/dev/shm`` objects.  Idempotent; returns True when a live process
+        was stopped."""
+        procs = self.launch_info.processes if self.launch_info else []
+        p = procs[idx] if 0 <= idx < len(procs) else None
+        if p is not None:
+            # the slot goes None before the kill: a watchdog polling
+            # between the two must see a retired slot, not a death
+            procs[idx] = None
+            try:
+                p.terminate()
+                p.wait(timeout=5)
+            except Exception:  # noqa: BLE001
+                try:
+                    p.kill()
+                    p.wait(timeout=5)
+                except Exception:  # noqa: BLE001
+                    pass
+        if idx < len(self.shm_bases) and self.shm_bases[idx] is not None:
+            shm_rpc.unlink_base(self.shm_bases[idx])
+        if p is not None:
+            logger.info("replay shard %d retired", idx)
+        return p is not None
 
     def close(self):
         info = self.launch_info

@@ -32,9 +32,11 @@ Failure model:
 when given a :class:`~blendjax_torch.replay.service.ShardFleet` and
 ``replay=sharded``.  A scenario-strata draw (``sample(scenario_mix=)``)
 leaves out the rows of quarantined shards and the journalled rows, as the
-base draw does (:meth:`ShardedReplay._drawable_mask_locked`).  The
-reference's live resharding (``adopt_shard``, ``ReshardAborted``) comes
-with the autoscaler (ROADMAP Queue 1, item 9).
+base draw does (:meth:`ShardedReplay._drawable_mask_locked`).
+:meth:`ShardedReplay.adopt_shard` admits a new shard live, handing it a
+slot range of a source shard (``ReshardAborted`` when it aborts whole);
+total capacity, the SumTree and the RNG never change, so the draw stream
+continues bit-identically.
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ logger = logging.getLogger("blendjax_torch")
 #: ``blendjax_torch.replay.shard/1``).
 SHARDED_FORMAT = "blendjax.replay.sharded/1"
 
+#: Share of a source shard's owned slots that a live handoff
+#: (:meth:`ShardedReplay.adopt_shard`) moves: the upper half, an even split.
+RESHARD_FRACTION = 0.5
+
 
 def free_port():
     """An OS-assigned free TCP port (the usual bind-then-close probe)."""
@@ -67,6 +73,13 @@ def free_port():
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+class ReshardAborted(RuntimeError):
+    """A live shard handoff (:meth:`ShardedReplay.adopt_shard`) aborted
+    whole: the client's ownership map is untouched and the source shard
+    keeps serving its full range.  The caller retires the would-be shard
+    process."""
 
 
 class ShardRPCError(TimeoutError):
@@ -110,6 +123,11 @@ class ShardClient:
         self.spans = span_recorder
         self._shm_mode = shm
         self._chan = None
+        #: one request at a time on the channel: a ZMQ socket or a ring
+        #: pair read by two threads at once hands one thread the other's
+        #: reply (the buffer's appends and a reshard's checkpoint cut
+        #: share a shard's client)
+        self._lock = threading.Lock()
 
     def _channel(self):
         if self._chan is None:
@@ -146,24 +164,25 @@ class ShardClient:
 
         msg = dict(payload or {})
         msg["cmd"] = cmd
-        return exactly_once_rpc(
-            self._channel(), msg,
-            policy=self.policy, state=self.state,
-            counters=self.counters,
-            wait_ms=(self.timeoutms if timeout_ms is None
-                     else int(timeout_ms)),
-            raw_buffers=raw_buffers, spans=self.spans,
-            remote_name=f"replay shard {self.shard_id}",
-            span_label=f"shard{self.shard_id}_rpc",
-            span_cat="replay_client",
-            span_args={"shard": self.shard_id},
-            rpc_name=f"replay-shard-{self.shard_id}:{cmd}",
-            exc_factory=lambda text: ShardRPCError(
-                f"replay shard {self.shard_id} ({self.address}): "
-                f"{text}", self.shard_id,
-            ),
-            retryable=(ShardRPCError,),
-        )
+        with self._lock:
+            return exactly_once_rpc(
+                self._channel(), msg,
+                policy=self.policy, state=self.state,
+                counters=self.counters,
+                wait_ms=(self.timeoutms if timeout_ms is None
+                         else int(timeout_ms)),
+                raw_buffers=raw_buffers, spans=self.spans,
+                remote_name=f"replay shard {self.shard_id}",
+                span_label=f"shard{self.shard_id}_rpc",
+                span_cat="replay_client",
+                span_args={"shard": self.shard_id},
+                rpc_name=f"replay-shard-{self.shard_id}:{cmd}",
+                exc_factory=lambda text: ShardRPCError(
+                    f"replay shard {self.shard_id} ({self.address}): "
+                    f"{text}", self.shard_id,
+                ),
+                retryable=(ShardRPCError,),
+            )
 
 
 class _ShardedStore:
@@ -964,6 +983,178 @@ class ShardedReplay(ReplayBuffer):
             "until the resumed actors rewrite them", self.name, s,
             int(reply["seq"]), int(acked_at_cut), reason, rolled,
         )
+
+    # -- live resharding -----------------------------------------------------
+
+    def adopt_shard(self, new_shard, *, source, cut_seq, timeoutms=5000):
+        """Admit a NEW storage shard by handing it a slot range from a
+        live ``source`` shard — the replay half of live autoscaling
+        (:func:`blendjax_torch.autoscale.reshard_replay`).
+
+        The caller has already (1) checkpointed the source at
+        ``cut_seq`` (its ``save`` RPC) and (2) spawned ``new_shard``
+        restored FROM that checkpoint (:meth:`~blendjax_torch.replay.service.
+        ShardFleet.grow` with ``restore_ckpt=``), so the new shard
+        holds every source row up to the cut.  This method verifies
+        that, copies only the rows the source appended PAST the cut
+        into the moving range (reconciled via ``written_since`` — the
+        same machinery re-admission trusts), and flips ownership of the
+        upper :data:`RESHARD_FRACTION` of the source's slots under the
+        buffer lock (appends block for the cutover, draws never stop).
+
+        Total capacity, the SumTree and the RNG are untouched: draws
+        over unmoved ranges are bit-identical, draws over moved ranges
+        gather the same rows from a different process.
+
+        ABORTS WHOLE on any verification or copy failure
+        (:class:`ReshardAborted`, ``autoscale_reshard_aborts``): the
+        ownership map is untouched, the source keeps serving its full
+        range, and the caller retires the would-be shard.  The source
+        is never quarantined by a handoff failure — direct RPCs here
+        bypass the write-path quarantine machinery on purpose.
+
+        Params
+        ------
+        new_shard: str | ShardClient
+            Endpoint (or prepared client) of the restored new shard.
+        source: int
+            Live shard index surrendering a slot range.
+        cut_seq: int
+            The source's durability cursor at the checkpoint the new
+            shard restored (``save`` RPC's ``seq``).
+        Returns the new shard's index.
+        """
+        s = int(source)
+        cut_seq = int(cut_seq)
+        t0 = time.perf_counter()
+        if isinstance(new_shard, ShardClient):
+            client = new_shard
+            if client.spans is None:
+                client.spans = self.spans
+        else:
+            client = ShardClient(
+                new_shard, self.num_shards,
+                fault_policy=self.fault_policy, counters=self.counters,
+                timeoutms=timeoutms, span_recorder=self.spans,
+            )
+
+        def _abort(why, exc=None):
+            self.counters.incr("autoscale_reshard_aborts")
+            flight_recorder.note(
+                "autoscale_reshard_aborted", target=f"shard{s}",
+                reason=why, buffer=self.name,
+            )
+            client.reset_channel()
+            logger.error(
+                "%s: shard handoff from %d aborted (%s); ownership map "
+                "untouched, source keeps serving", self.name, s, why,
+            )
+            err = ReshardAborted(f"{self.name}: shard handoff aborted: {why}")
+            if exc is not None:
+                raise err from exc
+            raise err
+
+        # phase 1 (unlocked): verify the new shard restored the cut
+        try:
+            hello = client.rpc("hello")
+        except ShardRPCError as exc:
+            _abort(f"new shard unreachable: {exc}", exc)
+        if int(hello["capacity"]) != self.shard_capacity:
+            _abort(
+                f"new shard capacity {hello['capacity']} != "
+                f"{self.shard_capacity}"
+            )
+        if int(hello["seq"]) != cut_seq:
+            _abort(
+                f"new shard restored seq {hello['seq']}, expected the "
+                f"cut at {cut_seq} (wrong/stale checkpoint)"
+            )
+
+        # phase 2 (locked): appends block while ownership flips; draws
+        # keep flowing the moment the lock drops
+        with self._cond:
+            if s < 0 or s >= self.num_shards:
+                _abort(f"no such source shard {s}")
+            if self._dead[s]:
+                _abort(f"source shard {s} is quarantined")
+            owned = self._owned_slots(s)
+            k = int(len(owned) * RESHARD_FRACTION)
+            if k < 1 or k >= len(owned):
+                _abort(
+                    f"fraction {RESHARD_FRACTION} of {len(owned)} owned slots "
+                    "leaves nothing to move (or nothing behind)"
+                )
+            moved = owned[len(owned) - k:]
+            if self._pending[moved].any():
+                _abort("journaled rows in the moving range")
+            # rows the source appended past the cut: exactly these are
+            # missing from the checkpoint the new shard restored
+            try:
+                since = self.clients[s].rpc(
+                    "written_since", {"seq": cut_seq}
+                )
+            except ShardRPCError as exc:
+                _abort(f"source written_since failed: {exc}", exc)
+            if not since["complete"]:
+                _abort(
+                    "source cannot enumerate rows past the cut (tail "
+                    "rotated); re-checkpoint and retry"
+                )
+            inv = self._local_to_global(s)
+            moving = set(int(g) for g in moved)
+            delta = sorted({
+                int(slot) for slot in since["slots"]
+                if int(slot) in inv and inv[int(slot)] in moving
+            })
+            new_seq = cut_seq
+            if delta:
+                keys = list(self.store._schema or {})
+                if not keys:
+                    _abort(
+                        f"{len(delta)} rows past the cut but no schema "
+                        "fixed client-side (state mismatch)"
+                    )
+                try:
+                    got = self.clients[s].rpc(
+                        "gather", {"indices": delta, "keys": keys},
+                        raw_buffers=True,
+                    )
+                    rows = [
+                        {key: got["data"][key][i] for key in keys}
+                        for i in range(len(delta))
+                    ]
+                    reply = client.rpc(
+                        "append", {"rows": rows, "slots": delta},
+                        raw_buffers=True,
+                    )
+                except ShardRPCError as exc:
+                    _abort(f"delta copy failed: {exc}", exc)
+                new_seq = int(reply["seq"])
+            # commit: the new shard joins the draw domain owning the
+            # moved range; everything before this line was reversible
+            t = self.num_shards
+            client.shard_id = t
+            self.clients.append(client)
+            self.num_shards = t + 1
+            self._dead = np.append(self._dead, False)
+            self._acked.append(int(new_seq))
+            self._owner[moved] = t
+            self._cond.notify_all()
+        dt = time.perf_counter() - t0
+        self.timer.add("autoscale_handoff", dt)
+        self.counters.incr("autoscale_reshard_handoffs")
+        self.counters.incr("autoscale_reshard_rows_copied", len(delta))
+        flight_recorder.note(
+            "autoscale_reshard_handoff", target=f"shard{t}",
+            source=s, moved=len(moved), copied=len(delta),
+            cut_seq=cut_seq, buffer=self.name,
+        )
+        logger.warning(
+            "%s: shard %d adopted %d slots from shard %d (%d rows "
+            "copied past the cut, %.3fs); draw stream continuous",
+            self.name, t, len(moved), s, len(delta), dt,
+        )
+        return t
 
     # -- observability -------------------------------------------------------
 

@@ -3,7 +3,8 @@
 
     from blendjax_torch.serve import (
         PolicyServer, ServeClient, ServeRPCError, SeqFormerModel,
-        PolicyModel, LinearModel, start_server_thread,
+        PolicyModel, LinearModel, start_server_thread, ServerFleet,
+        ServeGateway, start_gateway_thread, start_sharded_gateway_thread,
     )
 
 One :class:`~blendjax_torch.serve.server.PolicyServer` owns a model (the
@@ -11,9 +12,13 @@ SeqFormer world model over a KV-cache slot pool, the MLP policy, or the
 numpy linear stand-in) and serves ``step()``/``reset()``/``close()`` to
 many concurrent episode clients with continuous batching; retries are
 exactly-once via the ``wire.BTMID_KEY`` reply cache.  The wire is the JAX
-package's: each package's client talks to the other's server.  The
-gateway is not ported (ROADMAP Queue 1, item 9).  Attribute access is
-lazy, so a client-only consumer never imports the model stack.
+package's: each package's client talks to the other's server and gateway.
+:class:`~blendjax_torch.serve.server.ServerFleet` runs N replica processes
+(on the card unless ``device="cpu"``), and
+:class:`~blendjax_torch.serve.gateway.ServeGateway` (or the sharded
+gateway, :func:`start_sharded_gateway_thread`) routes clients over them.
+Attribute access is lazy, so a client-only consumer or a gateway never
+imports the model stack.
 """
 
 _LAZY = {
@@ -27,6 +32,9 @@ _LAZY = {
     "default_buckets": "blendjax_torch.serve.server",
     "ServeClient": "blendjax_torch.serve.client",
     "ServeRPCError": "blendjax_torch.serve.client",
+    "ServeGateway": "blendjax_torch.serve.gateway",
+    "start_gateway_thread": "blendjax_torch.serve.gateway",
+    "start_sharded_gateway_thread": "blendjax_torch.serve.gateway",
 }
 
 __all__ = sorted(_LAZY)

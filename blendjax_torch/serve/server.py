@@ -43,8 +43,14 @@ Run a server as a process::
 :func:`start_server_thread`.  ``serial=True`` (a REP socket, one request
 per exchange) is the baseline continuous batching is measured against.
 
-Not ported yet, raising an error that names its ROADMAP item: the
-supervised ``ServerProcess`` / ``ServerFleet`` (Queue 1, item 9).
+Supervised processes: :class:`ServerProcess` runs one server as a child
+process with a launcher-compatible surface (``launch_info`` and
+``respawn(idx)``), so ``FleetWatchdog(restart=True)`` or a
+``FleetSupervisor`` respawns it after a SIGKILL; :class:`ServerFleet` is N
+such replicas behind one surface (the :mod:`blendjax_torch.serve.gateway`'s
+fleet), with ``grow``/``retire`` for the autoscaler.  Their replicas run on
+the card unless ``device="cpu"`` is given.  This module imports torch only
+where a model needs it, so a linear replica starts without it.
 """
 
 from __future__ import annotations
@@ -53,60 +59,30 @@ import argparse
 import logging
 import os
 import signal
+import subprocess
+import sys
+import tempfile
 import threading
 import time
 from collections import OrderedDict, deque
 
 import numpy as np
-import torch
 
 from blendjax_torch import wire
 from blendjax_torch.btt import shm_rpc
 from blendjax_torch.obs.spans import make_span, now_us
+from blendjax_torch.serve.protocol import MUTATING_CMDS, REPLY_CACHE_DEPTH, drain_socket
 from blendjax_torch.utils.timing import StageTimer, fleet_counters
 
-logger = logging.getLogger("blendjax_torch")
+__all__ = ["MUTATING_CMDS", "REPLY_CACHE_DEPTH", "drain_socket", "LinearModel",
+           "PolicyModel", "SeqFormerModel", "PolicyServer", "start_server_thread",
+           "ServerProcess", "ServerFleet", "default_buckets", "build_model", "main"]
 
-#: Commands whose replies enter the exactly-once reply cache.
-MUTATING_CMDS = ("step", "reset", "close")
+logger = logging.getLogger("blendjax_torch")
 
 #: Idle horizon after which a stateless episode leaves the admission
 #: window's live count (window targeting only; its steps are never refused).
 STATELESS_TTL_S = 30.0
-
-#: Default bound on the reply cache (each client keeps one RPC in flight).
-REPLY_CACHE_DEPTH = 1024
-
-_SUPERVISED_MISSING = ("ServerProcess and ServerFleet wait for the supervisor and "
-                       "watchdog (ROADMAP Queue 1, item 9)")
-
-
-def drain_socket(recv, handle, counters, who, what):
-    """Drain every message on a socket: ``recv()`` (NOBLOCK) until
-    ``zmq.Again``, dispatching each to ``handle``.  A closed socket
-    propagates; an undecodable frame, or a message whose handling raises,
-    is dropped and counted — it never stops the serving thread."""
-    import zmq
-
-    while True:
-        try:
-            out = recv()
-        except zmq.Again:
-            return
-        except zmq.ZMQError:
-            raise
-        except Exception as exc:  # noqa: BLE001 - the tier survives
-            counters.incr("serve_errors")
-            logger.warning("%s: undecodable %s dropped (%s: %s)",
-                           who, what, type(exc).__name__, exc)
-            continue
-        try:
-            handle(out)
-        except zmq.ZMQError:
-            raise
-        except Exception:  # noqa: BLE001 - the tier survives
-            counters.incr("serve_errors")
-            logger.exception("%s: handling a %s failed (dropped)", who, what)
 
 
 def _check_tree_like(cur, new, what):
@@ -145,13 +121,17 @@ def default_buckets(max_batch):
 class LinearModel:
     """Stateful numpy stand-in: ``pred = obs @ W + pos`` with a per-slot
     position counter, deterministic from ``seed`` and position-sensitive (a
-    double-applied step shifts every later prediction)."""
+    double-applied step shifts every later prediction).  ``work_us`` adds a
+    sleep of that many microseconds per row to each step, a stand-in for
+    model compute that batching does not amortize (the gateway's scale and
+    p99-regression cases need replicas whose requests cost something)."""
 
     kind = "linear"
 
-    def __init__(self, obs_dim=8, slots=16, seed=0):
+    def __init__(self, obs_dim=8, slots=16, seed=0, work_us=0):
         self.obs_dim = int(obs_dim)
         self.slots = int(slots)
+        self.work_us = float(work_us)
         rng = np.random.default_rng(seed)
         self.w = rng.standard_normal((self.obs_dim, self.obs_dim)).astype(np.float32)
         # +1: the pad row batched ticks scatter their padding into
@@ -169,6 +149,8 @@ class LinearModel:
         self.pos[idx] = 0
 
     def step_rows(self, idx, obs):
+        if self.work_us:
+            time.sleep(len(idx) * self.work_us / 1e6)
         pred = obs.astype(np.float32) @ self.w + self.pos[idx, None].astype(np.float32)
         self.pos[idx] += 1
         return pred
@@ -198,6 +180,8 @@ class _TorchModel:
         self.device = next(iter(params.values())).device
 
     def _adopt(self, tree, what):
+        import torch
+
         from blendjax_torch.models.convert import params_from_jax
 
         new = params_from_jax(tree, device=self.device)
@@ -239,6 +223,8 @@ class PolicyModel(_TorchModel):
         pass
 
     def step_rows(self, idx, obs):
+        import torch
+
         from blendjax_torch.models import policy
 
         with torch.no_grad():
@@ -261,6 +247,8 @@ class SeqFormerModel(_TorchModel):
     kind = "seqformer"
 
     def __init__(self, params, slots, length, *, window=None, int8=False, capture=None):
+        import torch
+
         from blendjax_torch.models import seqformer
         from blendjax_torch.models.train import Captured
         from blendjax_torch.ops.quant import quantize_seqformer
@@ -289,6 +277,8 @@ class SeqFormerModel(_TorchModel):
     def _tick(self, batch):
         """Gather the rows' caches, decode one position, scatter them back;
         the padding rows all write the pad row, which is never read."""
+        import torch
+
         from blendjax_torch.models import seqformer
 
         idx, cache = batch["idx"], self._cache
@@ -305,7 +295,20 @@ class SeqFormerModel(_TorchModel):
                 c[idx] = n
         return pred
 
+    def warm(self, buckets):
+        """Run every bucket's tick through its eager warm-ups and its
+        capture on the pad row, which no episode reads, so no capture lands
+        in served traffic."""
+        from blendjax_torch.models.train import WARMUP_STEPS
+
+        for b in buckets:
+            for _ in range(WARMUP_STEPS + 1):
+                self.step_rows(np.full(b, self.pad_slot, np.int64),
+                               np.zeros((b, self.obs_dim), np.float32))
+
     def step_rows(self, idx, obs):
+        import torch
+
         batch = {"idx": torch.from_numpy(np.asarray(idx, np.int64)).to(self.device),
                  "obs": torch.from_numpy(np.asarray(obs, np.float32)).to(self.device)}
         if self.captured:
@@ -318,6 +321,8 @@ class SeqFormerModel(_TorchModel):
         """Admit a T-step prefix into slot ``idx`` with one teacher-forced
         pass; returns the prediction for position T (what the T'th serial
         step would have returned), and the slot's next step decodes at T."""
+        import torch
+
         from blendjax_torch.models import seqformer
 
         t0 = int(prefix.shape[0])
@@ -347,6 +352,8 @@ class SeqFormerModel(_TorchModel):
         self._adopt(tree, "seqformer")
 
     def reset_rows(self, idx):
+        import torch
+
         # rewinding the position is the reset: the previous tenant's k/v
         # sit at negative slot positions and never attend
         self._cache["pos"][torch.as_tensor(np.asarray(idx, np.int64), device=self.device)] = 0
@@ -651,6 +658,10 @@ class PolicyServer:
                 for s in self._models.values()
             },
             "counters": self.counters.snapshot(),
+            # per hosted model, the CUDA graphs its ticks captured so far
+            # (a recapture after a weight swap would raise it)
+            "captures": {s.mid: s.model.graphs.captures for s in self._models.values()
+                         if hasattr(s.model, "graphs")},
             "pid": os.getpid(),
         }
 
@@ -667,7 +678,7 @@ class PolicyServer:
             "hello": self._capabilities(st),
             "pid": os.getpid(),
             "counters": self.counters.snapshot(),
-            "stages": self.timer.summary(),
+            "stages": self.timer.snapshot_serialized(),
         }
 
     def _control_reply(self, msg):
@@ -1088,15 +1099,282 @@ def start_server_thread(model, *, address="tcp://127.0.0.1:*", serial=False,
     return _LocalServerHandle(server, thread, stop)
 
 
+class _ServeLaunchInfo:
+    """Duck-typed ``launch_info``, so
+    :class:`~blendjax_torch.btt.watchdog.FleetWatchdog` and
+    :class:`~blendjax_torch.btt.supervise.FleetSupervisor` supervise server
+    processes as they do producers and replay shards."""
+
+    def __init__(self, processes, addresses):
+        self.processes = processes
+        self.addresses = {"SERVE": addresses}
+
+
 class ServerProcess:
-    """Not ported yet: the supervised server process."""
+    """One policy-server process with a launcher-compatible surface
+    (``launch_info`` and ``respawn(idx)``), so ``FleetWatchdog(restart=True)``
+    respawns it after a SIGKILL with its original command line.  The model
+    is rebuilt from ``--seed``; slots are fresh, which is the contract
+    clients see: a step against a restarted server errors and the client
+    resumes with ``reset()``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SUPERVISED_MISSING)
+    ``device`` is passed as ``--device``: the replica runs on the card
+    unless ``device="cpu"``.  A child that cannot have its device exits,
+    and :meth:`wait_ready` raises with the tail of the child's stderr.
+    ``extra_args`` are appended to the command line (``--d-model`` and the
+    other model widths, ``--int8``).  The parent allocates the server's
+    ``/dev/shm`` base (``--shm-base``) and sweeps it at a respawn and at close.
+    """
+
+    def __init__(self, *, model="linear", address=None, seed=0, obs_dim=8, slots=16,
+                 length=64, tick_ms=2.0, max_batch=64, work_us=0, subscribe=None,
+                 device="cuda", ready_timeout=60.0, extra_args=()):
+        from blendjax_torch.replay.shard_client import free_port
+
+        self.address = address or f"tcp://127.0.0.1:{free_port()}"
+        self.device = str(device)
+        self.ready_timeout = float(ready_timeout)
+        self.shm_base = shm_rpc.new_base("sp") if shm_rpc.enabled() else None
+        self._cmd = [
+            sys.executable, "-m", "blendjax_torch.serve.server",
+            "--address", self.address, "--model", model, "--device", self.device,
+            "--seed", str(seed), "--obs-dim", str(obs_dim), "--slots", str(slots),
+            "--length", str(length), "--tick-ms", str(tick_ms),
+            "--max-batch", str(max_batch),
+        ]
+        if self.shm_base is not None:
+            self._cmd += ["--shm-base", self.shm_base]
+        if work_us:
+            self._cmd += ["--work-us", str(work_us)]
+        if subscribe:
+            self._cmd += ["--subscribe", subscribe]
+        self._cmd += [str(a) for a in extra_args]
+        self._stderr = None
+        self.launch_info = None
+        #: seconds from the last spawn to the first answered ``hello``
+        self.ready_s = None
+        self._spawned_at = None
+
+    def _spawn(self):
+        from blendjax_torch.btt.launcher import child_env
+
+        # the child's stderr goes to an unnamed temporary file, so a child
+        # that dies at startup can be quoted in wait_ready's error
+        if self._stderr is not None:
+            self._stderr.close()
+        self._stderr = tempfile.TemporaryFile()
+        self._spawned_at = time.monotonic()
+        return subprocess.Popen(self._cmd, env=child_env(), stderr=self._stderr,
+                                start_new_session=True)
+
+    def stderr_tail(self, nbytes=4000):
+        """The last ``nbytes`` of the current incarnation's stderr."""
+        f = self._stderr
+        if f is None:
+            return ""
+        f.flush()
+        size = f.seek(0, os.SEEK_END)
+        f.seek(max(0, size - nbytes))
+        return f.read().decode(errors="replace")
+
+    def start(self):
+        """Spawn the process without waiting for it (see :meth:`wait_ready`)."""
+        self.launch_info = _ServeLaunchInfo([self._spawn()], [self.address])
+        return self
+
+    def __enter__(self):
+        self.start()
+        try:
+            self.wait_ready(self.ready_timeout)
+        except BaseException:
+            self.close()
+            raise
+        return self
+
+    def wait_ready(self, timeout=60.0):
+        """Block until the server answers ``hello``; raises RuntimeError
+        with the child's stderr if it exits first, TimeoutError after
+        ``timeout`` seconds."""
+        from blendjax_torch.serve.client import ServeClient
+
+        deadline = time.monotonic() + timeout
+        while True:
+            proc = self.launch_info.processes[0] if self.launch_info else None
+            if proc is not None and proc.poll() is not None:
+                raise RuntimeError(
+                    f"policy server at {self.address} exited with code "
+                    f"{proc.returncode} before it was ready:\n{self.stderr_tail()}")
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"policy server at {self.address} not ready within "
+                                   f"{timeout:.1f}s:\n{self.stderr_tail()}")
+            client = ServeClient(self.address, timeoutms=500, shm=False)
+            try:
+                client.hello(timeout_ms=500)
+                self.ready_s = time.monotonic() - self._spawned_at
+                return
+            except TimeoutError:
+                continue
+            finally:
+                client.close()
+
+    def respawn(self, idx=0):
+        """Relaunch with the original command line (the watchdog's
+        contract), after sweeping the dead incarnation's ``/dev/shm``
+        objects (a SIGKILL runs no cleanup)."""
+        if self.shm_base is not None:
+            shm_rpc.unlink_base(self.shm_base)
+        proc = self._spawn()
+        self.launch_info.processes[idx] = proc
+        return proc
+
+    def close(self):
+        info = self.launch_info
+        if info is not None:
+            for p in info.processes:
+                try:
+                    p.terminate()
+                except Exception:  # noqa: BLE001
+                    pass
+            for p in info.processes:
+                try:
+                    p.wait(timeout=10)
+                except Exception:  # noqa: BLE001
+                    try:
+                        p.kill()
+                        p.wait(timeout=5)
+                    except Exception:  # noqa: BLE001
+                        pass
+        if self.shm_base is not None:
+            shm_rpc.unlink_base(self.shm_base)
+        if self._stderr is not None:
+            self._stderr.close()
+            self._stderr = None
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
-class ServerFleet(ServerProcess):
-    """Not ported yet: a fleet of supervised server processes."""
+def _wait_all(procs):
+    """``wait_ready`` on every started process at once; raises the first
+    failure."""
+    errors = []
+
+    def wait(p):
+        try:
+            p.wait_ready(p.ready_timeout)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=wait, args=(p,), daemon=True) for p in procs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+class ServerFleet:
+    """N policy-server replica processes behind one launcher-compatible
+    surface (a ``launch_info`` over every replica, and ``respawn(idx)``), so
+    one watchdog or supervisor covers the whole serve fleet behind a
+    :class:`~blendjax_torch.serve.gateway.ServeGateway`.  Every replica
+    shares ``seed`` and so serves the same weights (what lease failover
+    needs).  Keyword arguments go to each :class:`ServerProcess`
+    (``device`` included: the card by default).
+
+    Indices are stable: :meth:`grow` appends, :meth:`retire` leaves a
+    ``None`` in its slot, so fleet index ``i`` is always the gateway's
+    replica ``r<i>``."""
+
+    def __init__(self, replicas, **kwargs):
+        #: each replica's keyword arguments, newcomers' too
+        self._kwargs = dict(kwargs)
+        self._procs = [ServerProcess(**kwargs) for _ in range(int(replicas))]
+        self.launch_info = None
+
+    @property
+    def addresses(self):
+        return [None if p is None else p.address for p in self._procs]
+
+    def __enter__(self):
+        try:
+            # spawn every replica, then wait for each in its own thread: the
+            # boots overlap, and each replica's ready_s is its own
+            for p in self._procs:
+                p.start()
+            _wait_all(self._procs)
+        except BaseException:
+            self.close()
+            raise
+        self.launch_info = _ServeLaunchInfo(
+            [p.launch_info.processes[0] for p in self._procs], self.addresses)
+        return self
+
+    def respawn(self, idx):
+        """Relaunch replica ``idx`` with its original command line."""
+        if self._procs[idx] is None:
+            raise RuntimeError(f"replica {idx} is retired; a retired slot is never "
+                               "respawned (grow() to add capacity)")
+        proc = self._procs[idx].respawn(0)
+        self.launch_info.processes[idx] = proc
+        return proc
+
+    def grow(self, n=1):
+        """Spawn ``n`` new replicas into the live fleet (autoscale
+        scale-up), appended so existing indices never move; the spawns
+        overlap, then each is waited ready.  Returns ``[(idx, address),
+        ...]`` for the gateway's admission.  A newcomer that never comes up
+        is retired on the spot and the error raised."""
+        if self.launch_info is None:
+            raise RuntimeError("grow() needs an entered fleet")
+        added = []
+        for _ in range(int(n)):
+            p = ServerProcess(**self._kwargs)
+            self._procs.append(p)
+            idx = len(self._procs) - 1
+            p.start()
+            self.launch_info.processes.append(p.launch_info.processes[0])
+            self.launch_info.addresses["SERVE"].append(p.address)
+            added.append((idx, p.address))
+        try:
+            _wait_all([self._procs[idx] for idx, _ in added])
+        except BaseException:
+            for idx, _ in added:
+                self.retire(idx)
+            raise
+        return added
+
+    def retire(self, idx):
+        """Retire replica ``idx`` for good (autoscale scale-down, after its
+        gateway drain reached zero leases): terminate it and sweep its
+        ``/dev/shm``.  The slot is kept as ``None`` so a watchdog skips it.
+        Idempotent: returns False for a slot already retired."""
+        p = self._procs[idx]
+        if p is None:
+            return False
+        # the slot goes None before the kill: a watchdog polling between
+        # the two must see a retired slot, not a death to respawn
+        self._procs[idx] = None
+        if self.launch_info is not None:
+            self.launch_info.processes[idx] = None
+        p.close()
+        return True
+
+    def shrink(self, victims):
+        """Retire every index in ``victims``; returns those retired."""
+        return [idx for idx in victims if self.retire(idx)]
+
+    def close(self):
+        for p in self._procs:
+            if p is not None:
+                p.close()
+        self.launch_info = None
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -1108,13 +1386,20 @@ def build_model(args, kind=None, seed=None):
     """Deterministic model construction from CLI args (params drawn from a
     generator seeded ``--seed`` on ``--device``).  ``kind``/``seed``
     override the args' own (the ``--extra-model`` path)."""
-    from blendjax_torch.utils.device import resolve_device
-
     kind = args.model if kind is None else kind
     seed = args.seed if seed is None else seed
+    device = "cpu"
+    if str(args.device) != "cpu":
+        from blendjax_torch.utils.device import resolve_device
+
+        # a replica asked for the card fails here when there is none,
+        # whatever its model: nothing carries on quietly on the CPU
+        device = resolve_device(args.device)
     if kind == "linear":
-        return LinearModel(obs_dim=args.obs_dim, slots=args.slots, seed=seed)
-    device = resolve_device(args.device)
+        return LinearModel(obs_dim=args.obs_dim, slots=args.slots, seed=seed,
+                           work_us=getattr(args, "work_us", 0))
+    import torch
+
     gen = torch.Generator(device=device).manual_seed(seed)
     if kind == "policy":
         from blendjax_torch.models import policy
@@ -1151,6 +1436,9 @@ def main(argv=None):
     ap.add_argument("--serial", action="store_true")
     ap.add_argument("--tick-ms", type=float, default=2.0)
     ap.add_argument("--max-batch", type=int, default=64)
+    ap.add_argument("--work-us", type=float, default=0,
+                    help="linear model only: a sleep of this many microseconds per row "
+                         "and step, standing in for model compute")
     ap.add_argument("--shm-base", default=None,
                     help="/dev/shm name prefix for the ShmRPC transport (default: a "
                          "fresh one; BJX_NO_SHM_RPC=1 turns the transport off)")
@@ -1181,6 +1469,11 @@ def main(argv=None):
     server = PolicyServer(args.address, model, serial=args.serial, tick_ms=args.tick_ms,
                           max_batch=args.max_batch, shm_base=args.shm_base,
                           subscriber=subscriber)
+    # a captured model captures every bucket's tick before it serves, so its
+    # first requests never pay a capture
+    for m in (model.values() if isinstance(model, dict) else [model]):
+        if getattr(m, "captured", False):
+            m.warm(server.buckets)
     stop = threading.Event()
 
     def _term(signum, frame):

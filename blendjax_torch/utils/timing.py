@@ -20,8 +20,9 @@ host->device copy issue) and ``recycle`` (the wait for an arena's copy to
 complete, and its return to the pool), under the reference's names; the
 policy server records :data:`SERVE_STAGES`, the HA checkpointer
 :data:`HA_STAGES`, the replay service :data:`REPLAY_STAGES`, the
-weight bus :data:`WEIGHT_STAGES` and the scenario plane
-:data:`SCENARIO_STAGES`.  :meth:`StageTimer.snapshot` is the
+weight bus :data:`WEIGHT_STAGES`, the scenario plane
+:data:`SCENARIO_STAGES`, the serve gateway :data:`GATEWAY_STAGES` and the
+autoscaler :data:`AUTOSCALE_STAGES`.  :meth:`StageTimer.snapshot` is the
 mergeable form the :class:`~blendjax_torch.obs.hub.TelemetryHub` folds.
 The chrome-trace export of ``blendjax.utils.timing`` is not ported.
 """
@@ -108,7 +109,8 @@ REPLAY_EVENTS = (
 )
 
 #: Canonical weight-bus event names, the reference's (the canary names
-#: are counted by the gateway's controller, ROADMAP item 9):
+#: are counted by :class:`blendjax_torch.weights.controller.WeightBusController`
+#: and the gateway it steers):
 #: ``weight_published`` / ``weight_publish_bytes`` — snapshots streamed
 #: and their payload bytes; ``weight_syncs`` — full catch-ups for late
 #: joiners; ``weight_adopted`` — verified snapshots hot-swapped into a
@@ -230,6 +232,70 @@ SCENARIO_EVENTS = (
 #: ``scenario_reweight`` (one curriculum reweight pass).
 SCENARIO_STAGES = (
     "scenario_sample", "scenario_push", "scenario_reweight",
+)
+
+#: Canonical serve-gateway event names, the reference's
+#: (:class:`blendjax_torch.serve.gateway.ServeGateway`):
+#: ``gateway_requests`` / ``gateway_replies`` / ``gateway_errors`` —
+#: client requests in, replies out, and requests errored or dropped;
+#: ``gateway_cache_hits`` — retries answered from the gateway's own reply
+#: cache; ``gateway_dup_inflight`` — retries of a forward still in flight,
+#: re-sent to the same replica; ``gateway_routed`` — requests forwarded to
+#: a replica; ``gateway_affinity_hits`` — step/close requests routed by a
+#: live episode lease; ``gateway_rebalances`` — fresh-episode routes where
+#: the scraped load overrode plain rotation; ``gateway_replica_quarantined``
+#: / ``gateway_replica_respawns`` — a replica isolated (scrape timeout or
+#: reported death) and re-admitted; ``gateway_stale_lease_redirects`` —
+#: requests answered with the actionable stale-lease error;
+#: ``gateway_drains`` — replicas put into drain.  The sharded data plane
+#: adds ``gateway_worker_deaths`` / ``gateway_worker_respawns`` (worker
+#: processes), ``gateway_lease_rehash`` (lease-owned requests the front
+#: answered for a dead worker), ``gateway_snapshot_applies`` /
+#: ``gateway_snapshot_publishes`` (versioned control-state snapshots) and
+#: ``gateway_front_relays`` (requests the front relayed to a worker).
+GATEWAY_EVENTS = (
+    "gateway_requests", "gateway_replies", "gateway_errors",
+    "gateway_cache_hits", "gateway_dup_inflight",
+    "gateway_routed", "gateway_affinity_hits", "gateway_rebalances",
+    "gateway_replica_quarantined", "gateway_replica_respawns",
+    "gateway_stale_lease_redirects", "gateway_drains",
+    "gateway_worker_deaths", "gateway_worker_respawns",
+    "gateway_lease_rehash", "gateway_snapshot_applies",
+    "gateway_snapshot_publishes", "gateway_front_relays",
+)
+
+#: Canonical serve-gateway stage names: ``gw_route`` (request decode and
+#: routing decision), ``gw_forward`` (re-encode and send to the replica),
+#: ``gw_reply`` (replica reply received and sent back to the client).
+GATEWAY_STAGES = (
+    "gw_route", "gw_forward", "gw_reply",
+)
+
+#: Canonical autoscale event names, the reference's
+#: (:class:`blendjax_torch.autoscale.AutoscaleController` and the live
+#: replay reshard): ticks, holds (a decision against a bound or a
+#: cooldown), committed scale-ups and -downs, rollbacks, drain timeouts,
+#: replicas spawned and retired, in-flight transitions adopted by a
+#: restarted controller, and shard handoffs committed, aborted whole, and
+#: the rows their reconcile copied.
+AUTOSCALE_EVENTS = (
+    "autoscale_ticks", "autoscale_holds",
+    "autoscale_scale_ups", "autoscale_scale_downs",
+    "autoscale_rollbacks", "autoscale_drain_timeouts",
+    "autoscale_replica_spawns", "autoscale_replicas_retired",
+    "autoscale_adoptions",
+    "autoscale_reshard_handoffs", "autoscale_reshard_aborts",
+    "autoscale_reshard_rows_copied",
+)
+
+#: Canonical autoscale stage names: ``autoscale_tick`` (one decision
+#: pass), ``autoscale_resize`` (decision to the fleet healthy at its new
+#: size, the ``resize_settle_s`` metric), ``autoscale_drain`` (drain issued
+#: to the victim's leases at zero), ``autoscale_handoff`` (a shard
+#: handoff, source checkpoint to client map cutover).
+AUTOSCALE_STAGES = (
+    "autoscale_tick", "autoscale_resize", "autoscale_drain",
+    "autoscale_handoff",
 )
 
 #: Process-wide default counter registry.  Component constructors take a

@@ -238,6 +238,45 @@ Phases, each printing JSON lines:
               with nothing pushed in the outage: the respawn holds its
               launch scene until ``reassign``'s push alone turns it.  No
               kernel is on this path.
+21. serve_fleet — the flagship (``SERVE``'s widths) in 3 replica processes
+              on the card (``ServerFleet(device="cuda")``, one seed, each
+              subscribed to one ``WeightPublisher``) behind the gateway, 16
+              client threads of 32-step episodes in a child process.
+              ``fleet_boot``: spawn-to-ready per replica, the card's memory
+              before and after, every bucket captured before serving
+              (the server warms a captured model), one seeded episode
+              bit-equal on all three.
+              ``gateway_scale``: 1-replica (r1, r2 drained) and 3-replica
+              windows in turns and a direct-dial arm to r0, the 16 client
+              threads spread over 4 processes that start together
+              (``gateway_scale_x``, p50/p99, each arm's ``bound_by`` from
+              the clients' and the gateway loop's CPU shares, the
+              gateway counters; no error, every step on its lease's replica,
+              no capture in a window, a seeded episode through the gateway
+              bit-equal to it dialled straight).  ``gateway_sharded``:
+              ``start_sharded_gateway_thread(workers=2)`` with 2 active
+              workers and 1 in turns (``gateway_shard_x``; relays after the
+              rendezvous at most resets plus retries; no ``/dev/shm`` left).
+              ``gateway_chaos``: r1 SIGKILLed under ``FleetWatchdog``; at
+              most one stale-lease error per client, the kill to the first
+              answered scrape, every acknowledged prediction against the
+              episode replayed on one in-process flagship
+              (``FLEET_REPLAY_ATOL``) beside a double-applied step's gap.
+              ``canary``: ``WeightBusController`` promotes v2 under traffic;
+              v3, on a canary replica of its own (a canary bus) admitted
+              drained and so given no traffic, is rolled back by its verdict
+              timeout and the stable weights republished to every replica;
+              each swap's first captured tick bit-equal to eager, no
+              recapture.
+              ``autoscale``: ``AutoscaleController`` (always up) grows a
+              fourth replica on the card and commits it after its healthy
+              window; the always-down controller then chooses a replica
+              (its least-loaded), drains it and retires it
+              (``resize_settle_s``, the card's memory; no client error).
+              ``reshard``: ``reshard_replay`` 2 -> 3 shards under appends,
+              the draws on the card bit-identical to an unresharded twin's,
+              then the new shard SIGKILLed mid-handoff: aborted whole, the
+              map unchanged.  No kernel is on this path.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
@@ -678,6 +717,9 @@ def _forms(torch, phase, make_state, loss, batches, counts, profile_kernels):
 
 #: steps of each form under torch.profiler
 PROFILED_STEPS = 3
+#: seconds of the profiler's capture window left empty before and after
+#: the profiled steps (:func:`_device_profile`)
+PROFILE_MARGIN_S = 0.05
 
 
 def _check_forms(phase, turns):
@@ -1062,15 +1104,21 @@ def serve_clients_main(spec):
     """The serving arm's clients, in a process of their own (``python3
     chip_smoke.py --serve-clients '<json>'``): first one seeded check
     episode alone (unless ``check`` is false), then ``clients`` threads
-    stepping episodes for ``seconds`` or until ``stop_file`` exists (a
-    ``prefix`` of 0 admits episodes without one); prints one JSON line (the
-    check episode's predictions, per-thread steps and latencies, each
+    stepping episodes for ``seconds`` (from the wall-clock ``start_at``
+    where given) or until ``stop_file`` exists (a ``prefix`` of 0 admits
+    episodes without one); prints one JSON line (the
+    check episode's predictions, per-thread steps and latencies, the
+    process's CPU seconds over the window, each
     client's wire and channel generations and demotions, each client's
-    weight versions in the order they arrived, errors)."""
+    weight versions in the order they arrived, errors; behind a gateway
+    also the resets, the retries, the steps each replica stamped and the
+    steps stamped by another replica than the one that admitted their
+    episode)."""
     import numpy as np
 
     sys.path.insert(0, REPO)
     from blendjax_torch.serve.client import ServeClient
+    from blendjax_torch.utils.timing import fleet_counters
 
     cfg = json.loads(spec)
     shm = cfg["shm"]
@@ -1092,6 +1140,7 @@ def serve_clients_main(spec):
     n = cfg["clients"]
     lat, steps, versions = [[] for _ in range(n)], [0] * n, [[] for _ in range(n)]
     wires, errors = [None] * n, []
+    resets, breaks, stamped = [0] * n, [0] * n, [{} for _ in range(n)]
     ready, go = threading.Barrier(n + 1), threading.Barrier(n + 1)
     deadline = [None]
 
@@ -1103,21 +1152,29 @@ def serve_clients_main(spec):
                 client.reset(prefix=e[:cfg["prefix"]])
             else:
                 client.reset()
+            resets[i] += 1
+            owner = client.replica
             t = cfg["prefix"]
             ready.wait(timeout=120)
             go.wait(timeout=60)
             while time.perf_counter() < deadline[0] and not (
                     stop_file and os.path.exists(stop_file)):
                 t0 = time.perf_counter()
-                v = client.step(e[t]).get("weight_version")
+                reply = client.step(e[t])
                 lat[i].append(time.perf_counter() - t0)
                 steps[i] += 1
+                v, rep = reply.get("weight_version"), reply.get("replica")
                 if v is not None and (not versions[i] or versions[i][-1] != v):
                     versions[i].append(v)
+                if rep is not None:
+                    stamped[i][rep] = stamped[i].get(rep, 0) + 1
+                    breaks[i] += rep != owner
                 t += 1
                 if t == cfg["episode_len"]:
                     client.close_episode()
                     client.reset()
+                    resets[i] += 1
+                    owner = client.replica
                     t = 0
             client.close_episode()
             chan = client._chan
@@ -1135,17 +1192,99 @@ def serve_clients_main(spec):
         t.start()
     try:
         ready.wait(timeout=120)
+        if cfg.get("start_at"):  # the wall-clock start shared with sibling processes
+            time.sleep(max(0.0, cfg["start_at"] - time.time()))
         deadline[0] = time.perf_counter() + cfg["seconds"]
         go.wait(timeout=60)
     except threading.BrokenBarrierError:
         pass
-    t0 = time.perf_counter()
+    t0, cpu0 = time.perf_counter(), time.process_time()
     for t in threads:
         t.join(timeout=cfg["seconds"] + 60)
     elapsed = time.perf_counter() - t0
+    cpu_s = time.process_time() - cpu0
+    replica_steps = {}
+    for per in stamped:
+        for rep, k in per.items():
+            replica_steps[rep] = replica_steps.get(rep, 0) + k
     print(json.dumps({"check_preds": check_preds, "steps": steps, "elapsed": elapsed,
+                      "cpu_s": cpu_s,
                       "latencies": [x for per in lat for x in per], "wires": wires,
-                      "versions": versions, "errors": errors}), flush=True)
+                      "versions": versions, "errors": errors, "resets": sum(resets),
+                      "retries": fleet_counters.get("retries"),
+                      "affinity_breaks": sum(breaks), "replica_steps": replica_steps}),
+          flush=True)
+    return 0
+
+
+def chaos_clients_main(spec):
+    """The gateway chaos drill's clients, in a process of their own
+    (``python3 chip_smoke.py --chaos-clients '<json>'``): ``clients``
+    threads step seeded episodes through the gateway until ``stop_file``
+    exists.  A transport timeout re-sends the same observation; the
+    actionable stale-lease error (``reset() and resume``) ends the episode
+    and the client resets.  Prints one JSON line: per episode its seed, the
+    predictions acknowledged in order and how it ended, and the errors that
+    were neither."""
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    from blendjax_torch.btt.faults import FaultPolicy
+    from blendjax_torch.serve.client import ServeClient
+
+    cfg = json.loads(spec)
+    n, stop_file = cfg["clients"], cfg["stop_file"]
+    episodes, errors = [[] for _ in range(n)], []
+
+    def run(i):
+        client = ServeClient(cfg["address"], timeoutms=cfg["timeout_ms"],
+                             fault_policy=FaultPolicy(max_retries=2, backoff_base=0.05,
+                                                      backoff_max=0.2, circuit_threshold=0,
+                                                      seed=i))
+        k = 0
+        try:
+            while not os.path.exists(stop_file):
+                seed = cfg["seed"] + 1000 * i + k
+                k += 1
+                obs = np.random.default_rng(seed).standard_normal(
+                    (cfg["episode_len"], cfg["obs_dim"])).astype(np.float32)
+                rec = {"seed": seed, "preds": [], "end": "closed", "timeouts": 0}
+                episodes[i].append(rec)
+                while True:
+                    try:
+                        client.reset(timeout_ms=cfg["timeout_ms"])
+                        rec["replica"] = client.replica
+                        break
+                    except (TimeoutError, RuntimeError):
+                        time.sleep(0.1)
+                t = 0
+                while t < len(obs) and not os.path.exists(stop_file):
+                    try:
+                        rec["preds"].append(client.step(obs[t])["pred"].tolist())
+                        t += 1
+                    except TimeoutError:
+                        rec["timeouts"] += 1
+                    except RuntimeError as exc:
+                        if "reset() and resume" not in str(exc):
+                            raise
+                        rec["end"] = "stale"
+                        break
+                if rec["end"] == "closed":
+                    try:
+                        client.close_episode()
+                    except (TimeoutError, RuntimeError):
+                        rec["end"] = "open"
+        except Exception as exc:  # noqa: BLE001 - reported to the parent
+            errors.append(f"client {i}: {type(exc).__name__}: {exc}")
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    print(json.dumps({"episodes": episodes, "errors": errors}), flush=True)
     return 0
 
 
@@ -1153,7 +1292,8 @@ def _serve_clients(address, cfg, shm, seconds, seed):
     """One window of the child-process clients; returns its JSON record."""
     spec = json.dumps({"address": address, "shm": shm, "seconds": seconds, "seed": seed,
                        **{k: cfg[k] for k in ("clients", "episode_len", "prefix", "obs_dim",
-                                              "check", "stop_file") if k in cfg}})
+                                              "check", "stop_file", "start_at")
+                          if k in cfg}})
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-clients", spec],
                           capture_output=True, text=True, timeout=seconds + 240, cwd=REPO)
     check(proc.returncode == 0,
@@ -1524,11 +1664,17 @@ def _device_profile(torch, run_step, steps, median_ms, phase, form):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the profiler keeps only the device events that fall inside its
+        # capture window, on the host's clock: a kernel launched in the
+        # window's first microseconds can land before it, launched and
+        # counted but not seen, so the steps run PROFILE_MARGIN_S inside it
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(steps):
             run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        time.sleep(PROFILE_MARGIN_S)
     by_name, runs, events = {}, {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1539,6 +1685,7 @@ def _device_profile(torch, run_step, steps, median_ms, phase, form):
     flash_ms = sum(v for n, v in by_name.items() if "bjx_flash" in n)  # K2-K4
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     rec = {"phase": phase, "form": form, "steps": steps, "device_events": events,
+           "window_margin_s": PROFILE_MARGIN_S,
            "wall_ms_per_step": wall_ms, "median_step_ms": median_ms,
            "busy_ms_per_step": busy if events else "not measured",
            "idle_share": 1 - busy / wall_ms if events else None,
@@ -2760,6 +2907,16 @@ DREAM = dict(batch=8, prefix=64, steps=448)
 #: card against CPU on small models (f32); int8 keypoints after K1
 SERVE_ATOL = 1e-5
 INFER_INT8_ATOL = 1e-3
+#: the int8 layer walk's limits (``_int8_layer_walk``): the two devices'
+#: activation scales for the same float input, relative; the float epilogue
+#: on the same int32 accumulator; a differing int8 activation is a rounding
+#: tie when it lies this close to its boundary, in quantization steps
+INT8_SCALE_RTOL = 1e-6
+INT8_EPILOGUE_ATOL = 1e-5
+INT8_TIE_STEPS = 1e-4
+#: the CPU's own chain, its ties resolved the card's way, against the card's
+#: keypoints
+INT8_CHAIN_ATOL = 1e-5
 
 
 def _stamp(rec):
@@ -3131,6 +3288,138 @@ def dream_phase(torch, seqformer, worldmodel, quant, pendulum, state):
                  "card_vs_cpu_err": errs, "atol": SERVE_ATOL}))
 
 
+def _boundary_steps(np, x, scale):
+    """Distance of ``x / scale`` from the nearest rounding boundary (k +
+    0.5), in quantization steps, computed in float64."""
+    v = np.asarray(x, np.float64) / np.asarray(scale, np.float64)
+    return np.abs(v - np.floor(v) - 0.5)
+
+
+def _int8_layer_walk(torch, qp, images, qp_ref, images_ref, xy, want):
+    """``detector_apply_int8`` on ``qp``/``images``'s device (the device
+    under test) against the CPU's ``qp_ref``/``images_ref``, layer by layer.
+    Both chains are run by ``detector.apply`` itself, with the int8 layers
+    of ``ops/quant.py`` in its seams, so the glue between the layers (GELU,
+    the pool, the sigmoid) is the model's own.
+
+    - The device's frames must equal the CPU's decode, its chain must give
+      ``xy`` (its own ``detector_apply_int8``) bit for bit, and the CPU's
+      chain run plainly must give ``want`` (the CPU's) bit for bit: the walk
+      is the path under test on both devices.
+    - At each int8 layer the device's float input is quantized on both
+      devices: the scales agree within :data:`INT8_SCALE_RTOL`, relative,
+      and every int8 value that differs lies within
+      :data:`INT8_TIE_STEPS` of its rounding boundary under either scale.
+      The device's own int8 activation and scale then go through the
+      CPU's same layer: the int32 accumulators must be equal and the float
+      epilogues within :data:`INT8_EPILOGUE_ATOL`.
+    - The CPU's own chain quantizes its own input.  Each int8 value that
+      differs from the device's must be one step away and lie within
+      :data:`INT8_TIE_STEPS` of its boundary under the CPU's own input and
+      scale; the tie is then resolved the device's way and the CPU's chain
+      goes on.  So resolved, it must land within :data:`INT8_CHAIN_ATOL`
+      of ``xy``: the end-to-end gap is then the ties' and nothing else's.
+
+    Returns the per-layer records and the verdicts."""
+    import numpy as np
+
+    from blendjax_torch.models import detector
+    from blendjax_torch.models import layers as L
+    from blendjax_torch.ops import quant
+
+    names = [f"convs.{i}" for i in range(L.num_layers(qp, "convs"))] + ["fc", "head"]
+    card = []  # per layer: the device's float input, int8 activation, scale, output
+
+    def card_layer(apply_int8, accumulate):
+        def fn(p, x, *stride):
+            xq, xs = quant.quantize_act(x)
+            y = apply_int8(p, x, *stride)
+            card.append({"x": x, "xq": xq, "xs": xs, "acc": accumulate(xq, p["w_q"], *stride),
+                         "out": y, "accumulate": accumulate, "stride": stride})
+            return y
+        return fn
+
+    def cpu_layer(accumulate, chain):
+        """The CPU's layer on its own input; with ``chain`` a list, its
+        differing int8 values are recorded and resolved the device's way."""
+        def fn(p, x, *stride):
+            cq, cs = quant.quantize_act(x)
+            if chain is not None:
+                dq = card[len(chain)]["xq"].cpu()
+                diff = cq != dq
+                dist = _boundary_steps(np, x.numpy(), np.broadcast_to(cs.numpy(), x.shape))
+                far = (dist > INT8_TIE_STEPS) | ((cq.int() - dq.int()).abs() > 1).numpy()
+                chain.append({"differing": int(diff.sum()),
+                              "non_ties": int((far & diff.numpy()).sum()),
+                              "boundary_steps": sorted(float(d) for d in dist[diff.numpy()])[-64:]})
+                cq = torch.where(diff, dq, cq)
+            return accumulate(cq, p["w_q"], *stride).to(torch.float32) * (cs * p["w_scale"]) \
+                + p["b"]
+        return fn
+
+    def run(params, imgs, conv, dense):
+        return detector.apply(params, imgs, compute_dtype=torch.float32, conv_fn=conv,
+                              dense_fn=dense)
+
+    chain = []
+    with torch.no_grad():
+        got = run(qp, images, card_layer(quant.conv_apply_int8, quant.conv_accumulate),
+                  card_layer(quant.dense_apply_int8, quant.dense_accumulate))
+        plain = run(qp_ref, images_ref, cpu_layer(quant.conv_accumulate, None),
+                    cpu_layer(quant.dense_accumulate, None))
+        resolved = run(qp_ref, images_ref, cpu_layer(quant.conv_accumulate, chain),
+                       cpu_layer(quant.dense_accumulate, chain))
+        recs = []
+        for name, c, ch in zip(names, card, chain):
+            p_ref = L.layer(qp_ref, name)
+            x_host = c["x"].cpu()
+            xq_ref, xs_ref = quant.quantize_act(x_host)
+            diff = (c["xq"].cpu() != xq_ref).numpy()
+            dist = np.minimum(
+                _boundary_steps(np, x_host.numpy(), np.broadcast_to(c["xs"].cpu().numpy(),
+                                                                    x_host.shape)),
+                _boundary_steps(np, x_host.numpy(), np.broadcast_to(xs_ref.numpy(),
+                                                                    x_host.shape)))
+            acc_ref = c["accumulate"](c["xq"].cpu(), p_ref["w_q"], *c["stride"])
+            out_ref = acc_ref.to(torch.float32) * (c["xs"].cpu() * p_ref["w_scale"]) + p_ref["b"]
+            recs.append({"layer": name,
+                         "scale_rel_err": float(((c["xs"].cpu() - xs_ref).abs() / xs_ref).max()),
+                         "differing": int(diff.sum()),
+                         "non_ties": int((dist[diff] > INT8_TIE_STEPS).sum()),
+                         # the farthest ones, at most 64
+                         "boundary_steps": sorted(float(d) for d in dist[diff])[-64:],
+                         "acc_equal": bool(torch.equal(c["acc"].cpu(), acc_ref)),
+                         "epilogue_err": float((c["out"].cpu() - out_ref).abs().max()),
+                         "chain_differing": ch["differing"], "chain_non_ties": ch["non_ties"],
+                         "chain_boundary_steps": ch["boundary_steps"]})
+    walk = {"layers": recs,
+            "frames_equal": bool(torch.equal(images.cpu(), images_ref)),
+            "card_chain_equal": bool(torch.equal(got.cpu(), xy.cpu())),
+            "cpu_chain_equal": bool(torch.equal(plain, want)),
+            "acc_equal": all(r["acc_equal"] for r in recs),
+            "scales_ok": all(r["scale_rel_err"] <= INT8_SCALE_RTOL for r in recs),
+            "epilogue_ok": all(r["epilogue_err"] <= INT8_EPILOGUE_ATOL for r in recs),
+            "non_ties": sum(r["non_ties"] for r in recs),
+            "chain_non_ties": sum(r["chain_non_ties"] for r in recs),
+            "resolved_err": float((resolved - xy.cpu()).abs().max())}
+    walk["explained"] = (walk["frames_equal"] and walk["card_chain_equal"]
+                         and walk["cpu_chain_equal"] and walk["acc_equal"] and walk["scales_ok"]
+                         and walk["epilogue_ok"] and walk["non_ties"] == 0
+                         and walk["chain_non_ties"] == 0
+                         and walk["resolved_err"] <= INT8_CHAIN_ATOL)
+    return walk
+
+
+def _int8_verdict(err, walk):
+    """The end-to-end int8 check: the card within :data:`INFER_INT8_ATOL`
+    of the CPU, or a gap that the layer walk explains as rounding ties
+    (``walk["explained"]``: the walk is the path under test on both
+    devices, every layer holds on the same quantized inputs, every int8
+    value in which the two chains differ is a tie, and the CPU's chain with
+    those ties resolved the card's way lands on the card's keypoints)."""
+    return err <= INFER_INT8_ATOL or walk["explained"]
+
+
 def infer_int8_phase(torch, btt, datagen, image):
     """``generate.py --infer-int8``'s path: the stream's first batch held
     back, the detector trained on the rest, then K1's decode to f32 and the
@@ -3158,12 +3447,44 @@ def infer_int8_phase(torch, btt, datagen, image):
                             optimizer=None)
     want = datagen.infer_int8(cpu_state, hold["image"].cpu())
     err = float((xy.cpu() - want).abs().max())
+    from blendjax_torch.ops.quant import quantize_detector
+
+    with torch.no_grad():
+        qp = quantize_detector({k: v.detach() for k, v in state.params.items()})
+        qp_ref = quantize_detector(cpu_state.params)
+        images = image.decode_frames(hold["image"], dtype=torch.float32)
+        images_ref = image.decode_frames(hold["image"].cpu(), dtype=torch.float32)
+    walk = _int8_layer_walk(torch, qp, images, qp_ref, images_ref, xy, want)
     emit(_stamp({"phase": "infer_int8", "batches_trained": len(losses),
                  "keypoints": list(xy.shape), "seconds": sec, "launches": {"decode_u8": launches},
-                 "card_vs_cpu_err": err, "atol": INFER_INT8_ATOL}))
+                 "card_vs_cpu_err": err, "atol": INFER_INT8_ATOL,
+                 "weights_equal": all(torch.equal(qp[k].cpu(), qp_ref[k]) for k in qp_ref),
+                 "limits": {"scale_rtol": INT8_SCALE_RTOL, "epilogue_atol": INT8_EPILOGUE_ATOL,
+                            "tie_steps": INT8_TIE_STEPS, "chain_atol": INT8_CHAIN_ATOL},
+                 "layer_walk": walk}))
     check(tuple(xy.shape) == (MAIN_SHAPE[0], 8, 2) and bool(torch.isfinite(xy).all()),
           "int8 inference: finite keypoints of the expected shape")
-    check(err <= INFER_INT8_ATOL, "int8 inference: card == CPU on the same frames")
+    check(walk["frames_equal"], "int8 inference: the card's decoded frames equal the CPU's")
+    check(walk["card_chain_equal"], "int8 inference: the layer walk's card chain gives the "
+                                    "card's keypoints bit for bit")
+    check(walk["cpu_chain_equal"], "int8 inference: the layer walk's CPU chain gives the CPU's "
+                                   "keypoints bit for bit")
+    check(walk["acc_equal"], "int8 inference: every int32 accumulator equals the CPU's on the "
+                             "card's own quantized activations")
+    check(walk["scales_ok"], "int8 inference: activation scales within "
+                             f"{INT8_SCALE_RTOL} of the CPU's on the same inputs")
+    check(walk["epilogue_ok"], f"int8 inference: float epilogues within {INT8_EPILOGUE_ATOL}")
+    check(walk["non_ties"] == 0, "int8 inference: every int8 activation that differs from "
+                                 f"the CPU's lies within {INT8_TIE_STEPS} of a step from its "
+                                 "rounding boundary")
+    check(walk["chain_non_ties"] == 0, "int8 inference: every int8 activation in which the "
+                                       "CPU's own chain differs from the card's is one step off "
+                                       f"and within {INT8_TIE_STEPS} of a step from its boundary")
+    check(walk["resolved_err"] <= INT8_CHAIN_ATOL,
+          "int8 inference: the CPU's chain with its ties resolved the card's way within "
+          f"{INT8_CHAIN_ATOL} of the card's keypoints")
+    check(_int8_verdict(err, walk), "int8 inference: card == CPU on the same frames (within "
+                                    f"{INFER_INT8_ATOL}, or the gap is a rounding tie)")
     check(launches >= 1, "the infer_int8 path launched decode_u8")
     return launches
 
@@ -4206,6 +4527,790 @@ def scenario_phase(torch, btt):
                                                    "deaths", "restarts", "quarantines")}})
 
 
+# -- serve_fleet: replica processes behind the gateway, on the card ---------------------
+
+#: the serve fleet: the flagship at SERVE's widths in 3 replica processes on
+#: the card, one seed (so every replica serves the same weights), 16 client
+#: threads of 32-step episodes (``benchmarks/serve_benchmark.py --gateway``'s
+#: arms: all replicas but r0 drained for the 1-replica arm)
+FLEET = dict(replicas=3, obs_dim=SERVE["obs_dim"], d_model=SERVE["d_model"],
+             n_heads=SERVE["n_heads"], n_layers=SERVE["n_layers"], length=SERVE["length"],
+             slots=16, max_batch=16, tick_ms=1.0, seed=0, clients=16, episode_len=32,
+             window_s=3.0, rounds=2, shard_window_s=2.0, scrape_s=0.1, device="cuda",
+             client_procs=4, start_lead_s=2.0)
+#: a process (the clients') or a thread (the gateway's loop) using this
+#: share of a core over a window is what bounds that window's rate: each is
+#: one Python interpreter under its GIL
+FLEET_SATURATED = 0.9
+#: the buckets a replica's ticks pad to (``default_buckets(16)``), each one
+#: graph captured before the replica serves (the server warms a captured model)
+FLEET_BUCKETS = (1, 2, 4, 8, 16)
+#: acknowledged predictions against the same episodes replayed on one
+#: in-process flagship, eager, many episodes a tick: the batch shapes differ
+#: from the replicas' ticks, so the float sums may differ in their last bits
+FLEET_REPLAY_ATOL = 1e-4
+#: the canary controller's settings on the card
+FLEET_CANARY = dict(fraction=0.25, healthy_window_s=2.0, min_requests=20,
+                    verdict_timeout_s=3.0)
+#: the autoscale bench's two configurations (benchmarks/autoscale_benchmark.py).
+#: A scale-up's healthy window runs from the decision, so it covers the
+#: newcomer's spawn: a flagship replica boots in about 10 s and then syncs
+#: the bus's 403 MB version
+FLEET_AUTOSCALE = dict(up_window_s=30.0, down_window_s=3.0, min_requests=10,
+                       drain_grace_s=30.0)
+#: the reshard drill: the replay_service phase's rows in 2 shards of 512 slots
+FLEET_RESHARD = dict(capacity_per_shard=512, fill=384, during=256, batches=8)
+
+
+def _wait_for(cond, timeout, what):
+    """Poll ``cond`` every 20 ms until it holds; a timeout fails the run."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out after {timeout} s: {what}")
+        time.sleep(0.02)
+
+
+def _fleet_args():
+    """The replicas' command line as ``build_model`` reads it: the same
+    seeded flagship in process (eager, 32 slots, for the replays)."""
+    import argparse
+
+    return argparse.Namespace(model="seqformer", device=FLEET["device"], seed=FLEET["seed"],
+                              obs_dim=FLEET["obs_dim"], num_actions=4, slots=32,
+                              length=FLEET["length"], window=None, d_model=FLEET["d_model"],
+                              n_heads=FLEET["n_heads"], n_layers=FLEET["n_layers"], int8=False,
+                              work_us=0)
+
+
+def _card_memory(torch):
+    """The card's memory in use (``mem_get_info``) and per process
+    (``nvidia-smi --query-compute-apps``)."""
+    free, total = torch.cuda.mem_get_info()
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    return {"used_mib": (total - free) / 2**20, "apps": apps}
+
+
+def _replica_stats(serve, address):
+    c = serve.ServeClient(address, timeoutms=30000, shm=False)
+    try:
+        return c.stats()
+    finally:
+        c.close()
+
+
+def _captures(serve, addresses):
+    return [_replica_stats(serve, a)["captures"].get("seqformer") for a in addresses]
+
+
+def _episode_preds(serve, np, address, obs):
+    """One episode alone: reset, a step per observation, close; returns the
+    predictions and the replica stamp (None when dialled straight)."""
+    c = serve.ServeClient(address, timeoutms=30000)
+    try:
+        c.reset()
+        preds = np.stack([c.step(o)["pred"] for o in obs])
+        c.close_episode()
+        return preds, c.replica
+    finally:
+        c.close()
+
+
+def _clients_async(address, cfg, seconds, seed):
+    """``_serve_clients`` in a thread: returns (thread, result dict); a
+    failed check lands under ``failure``."""
+    out = {}
+
+    def run():
+        try:
+            out.update(_serve_clients(address, cfg, "auto", seconds, seed))
+        except SystemExit as exc:
+            out["failure"] = str(exc)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, out
+
+
+def _fleet_clients_cfg(**kw):
+    return {"clients": FLEET["clients"], "episode_len": FLEET["episode_len"], "prefix": 0,
+            "obs_dim": FLEET["obs_dim"], "check": False, **kw}
+
+
+def _rate(out):
+    return sum(out["steps"]) / out["elapsed"]
+
+
+def _thread_cpu_s(thread):
+    """CPU seconds a running thread has used (its own clock)."""
+    return time.clock_gettime(time.pthread_getcpuclockid(thread.ident))
+
+
+def _spread_clients(address, seconds, seed, gateway_thread):
+    """One measured window of ``FLEET["clients"]`` client threads spread
+    over ``FLEET["client_procs"]`` child processes that start stepping at
+    one wall-clock instant: their rates summed, their records merged, each
+    process's CPU share and the gateway loop thread's over the window."""
+    procs = FLEET["client_procs"]
+    cfg = _fleet_clients_cfg(clients=FLEET["clients"] // procs,
+                             start_at=time.time() + FLEET["start_lead_s"])
+    outs, threads = [None] * procs, []
+    for k in range(procs):
+        def run(k=k):
+            try:
+                outs[k] = _serve_clients(address, cfg, "auto", seconds, seed + 1000 * k)
+            except SystemExit as exc:
+                outs[k] = {"failure": str(exc)}
+        threads.append(threading.Thread(target=run, daemon=True))
+    for t in threads:
+        t.start()
+    time.sleep(max(0.0, cfg["start_at"] - time.time()))
+    g0 = _thread_cpu_s(gateway_thread) if gateway_thread is not None else None
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=seconds + 300)
+    wall = time.perf_counter() - t0
+    fails = ["lost" if o is None else o["failure"] for o in outs if o is None or "failure" in o]
+    check(not fails, f"spread serve clients: {fails}")
+    merged = {"rate": sum(_rate(o) for o in outs),
+              "latencies": [x for o in outs for x in o["latencies"]],
+              "resets": sum(o["resets"] for o in outs),
+              "retries": sum(o["retries"] for o in outs),
+              "affinity_breaks": sum(o["affinity_breaks"] for o in outs),
+              "client_cpu_share": [o["cpu_s"] / o["elapsed"] for o in outs],
+              "replica_steps": {}}
+    for o in outs:
+        for rep, k in o["replica_steps"].items():
+            merged["replica_steps"][rep] = merged["replica_steps"].get(rep, 0) + k
+    if g0 is not None:
+        merged["gateway_cpu_share"] = (_thread_cpu_s(gateway_thread) - g0) / wall
+    return merged
+
+
+def _bound_by(arm):
+    """What bounds a window, by the measured CPU shares: the clients or the
+    gateway loop when either is saturated, else the replicas."""
+    if min(arm["client_cpu_share"]) >= FLEET_SATURATED:
+        return "clients"
+    if arm.get("gateway_cpu_share", 0.0) >= FLEET_SATURATED:
+        return "gateway"
+    return "replicas"
+
+
+def _gateway_scale(serve, np, fleet, gw, counters):
+    qps = {"3": [], "1": [], "direct": []}
+    lat = {k: [] for k in qps}
+    shares = {k: {"client_cpu_share": [], "gateway_cpu_share": []} for k in qps}
+    breaks, stamped = 0, {"3": {}, "1": {}}
+    before = counters.snapshot()
+    for r in range(FLEET["rounds"]):
+        for arm in (("1", "3", "direct") if r % 2 == 0 else ("direct", "3", "1")):
+            if arm == "1":
+                for rid in gw.gateway.replica_ids()[1:]:
+                    gw.gateway.drain(rid)
+            address = fleet.addresses[0] if arm == "direct" else gw.address
+            out = _spread_clients(address, FLEET["window_s"], 100 * (r + 1), gw._thread)
+            if arm == "1":
+                for rid in gw.gateway.replica_ids()[1:]:
+                    gw.gateway.undrain(rid)
+            qps[arm].append(out["rate"])
+            lat[arm].extend(out["latencies"])
+            shares[arm]["client_cpu_share"].extend(out["client_cpu_share"])
+            shares[arm]["gateway_cpu_share"].append(out["gateway_cpu_share"])
+            if arm != "direct":
+                breaks += out["affinity_breaks"]
+                for rep, k in out["replica_steps"].items():
+                    stamped[arm][rep] = stamped[arm].get(rep, 0) + k
+    after = counters.snapshot()
+    pairs = [a / b for a, b in zip(qps["3"], qps["1"]) if b]
+    pct = {arm: {"p50_ms": float(np.percentile(v, 50)) * 1e3,
+                 "p99_ms": float(np.percentile(v, 99)) * 1e3} for arm, v in lat.items()}
+    names = ("gateway_affinity_hits", "gateway_rebalances", "gateway_routed",
+             "gateway_errors", "gateway_stale_lease_redirects")
+    return {"gateway_qps": float(np.median(qps["3"])),
+            "gateway_qps_1replica": float(np.median(qps["1"])),
+            "direct_qps": float(np.median(qps["direct"])),
+            "gateway_scale_x": float(np.median(pairs)), "pair_ratios": pairs,
+            "bound_by": {arm: _bound_by({"client_cpu_share": v["client_cpu_share"],
+                                         "gateway_cpu_share": max(v["gateway_cpu_share"])})
+                         for arm, v in shares.items()},
+            "cpu_shares": shares, "client_procs": FLEET["client_procs"],
+            "qps_turns": qps, "latency": pct,
+            "gateway_hop_x": float(np.median(qps["1"])) / float(np.median(qps["direct"])),
+            "counters": {k: after.get(k, 0) - before.get(k, 0) for k in names},
+            "affinity_breaks": breaks, "replica_steps": stamped}
+
+
+def _gateway_sharded(serve, np, fleet, shm_rpc):
+    from blendjax_torch.utils.timing import EventCounters
+
+    counters = EventCounters()
+    qps = {1: [], 2: []}
+    relays, shares = [], {1: [], 2: []}
+    with serve.start_sharded_gateway_thread(fleet.addresses, workers=2, counters=counters,
+                                            scrape_interval_s=FLEET["scrape_s"]) as sg:
+        bases = list(sg.gateway._wbases)
+        for r in range(FLEET["rounds"]):
+            for n in ((2, 1) if r % 2 == 0 else (1, 2)):
+                sg.set_active_workers(n)
+                r0 = counters.get("gateway_front_relays")
+                out = _spread_clients(sg.address, FLEET["shard_window_s"], 300 + 10 * r + n,
+                                      sg._thread)
+                qps[n].append(out["rate"])
+                shares[n].append({k: out[k] for k in ("client_cpu_share", "gateway_cpu_share")})
+                if n == 2:
+                    relays.append({"relays": counters.get("gateway_front_relays") - r0,
+                                   "resets": out["resets"], "retries": out["retries"]})
+        merged = sg.gateway.gateway_counters()
+    leaked = {b: shm_rpc.leaked_objects(b) for b in bases if b is not None}
+    pairs = [a / b for a, b in zip(qps[2], qps[1]) if b]
+    return {"gateway_qps_2workers": float(np.median(qps[2])),
+            "gateway_qps_1worker": float(np.median(qps[1])),
+            "gateway_shard_x": float(np.median(pairs)), "pair_ratios": pairs,
+            "qps_turns": {str(k): v for k, v in qps.items()},
+            "cpu_shares": {str(k): v for k, v in shares.items()},
+            "gateway_front_relays": merged.get("gateway_front_relays", 0),
+            "direct_windows": relays, "leaked": leaked,
+            "counters": {k: merged.get(k, 0) for k in (
+                "gateway_worker_deaths", "gateway_snapshot_applies",
+                "gateway_snapshot_publishes", "gateway_errors")}}
+
+
+def _replay_episodes(torch, np, ref, episodes):
+    """Replay acknowledged episodes on the in-process flagship, eager, up to
+    its slot count at a time; returns the largest gap to the acked
+    predictions and how many steps were held."""
+    gap, held = 0.0, 0
+    rows = ref.slots
+    for k in range(0, len(episodes), rows):
+        group = episodes[k:k + rows]
+        obs = [np.random.default_rng(e["seed"]).standard_normal(
+            (FLEET["episode_len"], FLEET["obs_dim"])).astype(np.float32) for e in group]
+        acked = [np.asarray(e["preds"], np.float32) for e in group]
+        ref.reset_rows(np.arange(len(group)))
+        for t in range(max(len(a) for a in acked)):
+            live = [j for j, a in enumerate(acked) if len(a) > t]
+            preds = ref.step_rows(np.asarray(live), np.stack([obs[j][t] for j in live]))
+            for row, j in enumerate(live):
+                gap = max(gap, float(np.abs(preds[row] - acked[j][t]).max()))
+                held += 1
+    return gap, held
+
+
+def _double_step_gap(np, ref, episode):
+    """The gap one double-applied step opens: the episode replayed with its
+    middle observation applied twice, against its acknowledged
+    predictions."""
+    obs = np.random.default_rng(episode["seed"]).standard_normal(
+        (FLEET["episode_len"], FLEET["obs_dim"])).astype(np.float32)
+    acked = np.asarray(episode["preds"], np.float32)
+    mid = len(acked) // 2
+    ref.reset_rows(np.asarray([0]))
+    gap = 0.0
+    for t in range(len(acked)):
+        pred = ref.step_rows(np.asarray([0]), obs[t][None])[0]
+        if t == mid:
+            pred = ref.step_rows(np.asarray([0]), obs[t][None])[0]
+        if t >= mid:
+            gap = max(gap, float(np.abs(pred - acked[t]).max()))
+    return gap
+
+
+def _gateway_chaos(torch, np, serve, fleet, gw, counters, ref, tmp):
+    """SIGKILL r1 under traffic with a watchdog over the fleet."""
+    from blendjax_torch.btt.chaos import kill_instance
+
+    stop_file = os.path.join(tmp, "chaos.stop")
+    spec = json.dumps({"address": gw.address, "clients": FLEET["clients"],
+                       "episode_len": FLEET["episode_len"], "obs_dim": FLEET["obs_dim"],
+                       "seed": 7000, "timeout_ms": 3000, "stop_file": stop_file})
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--chaos-clients", spec],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+    replies0 = counters.get("gateway_replies")
+    _wait_for(lambda: counters.get("gateway_replies") - replies0 >= 20 * FLEET["clients"], 60,
+              "gateway_chaos: traffic before the kill")
+    respawns0 = counters.get("gateway_replica_respawns")
+    t_kill = time.perf_counter()
+    kill_instance(fleet, 1)
+    _wait_for(lambda: counters.get("gateway_replica_respawns") > respawns0, 120,
+              "gateway_chaos: the killed replica's first answered scrape")
+    t_scrape = time.perf_counter() - t_kill
+    replies1 = counters.get("gateway_replies")
+    _wait_for(lambda: counters.get("gateway_replies") - replies1 >= 20 * FLEET["clients"], 60,
+              "gateway_chaos: traffic after the respawn")
+    open(stop_file, "w").close()
+    out, err = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"gateway_chaos clients exited {proc.returncode}: {err[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    eps = [e for per in res["episodes"] for e in per]
+    stale = [sum(e["end"] == "stale" for e in per) for per in res["episodes"]]
+    acked = [e for e in eps if e["preds"]]
+    # the episodes that crossed the kill first, then the rest, at most 96
+    acked.sort(key=lambda e: (e["end"] != "stale" and not e["timeouts"], e["seed"] % 1000))
+    chosen = acked[:96]
+    gap, held = _replay_episodes(torch, np, ref, chosen)
+    full = next(e for e in chosen if len(e["preds"]) >= 8)
+    return {"kill_to_first_scrape_s": t_scrape,
+            "episodes": len(eps), "acked_steps": sum(len(e["preds"]) for e in eps),
+            "stale_errors_per_client": stale, "timeouts": sum(e["timeouts"] for e in eps),
+            "client_errors": res["errors"], "replayed_episodes": len(chosen),
+            "replayed_steps": held, "replay_gap": gap, "atol": FLEET_REPLAY_ATOL,
+            "double_step_gap": _double_step_gap(np, ref, full),
+            "counters": {k: counters.get(k) for k in (
+                "gateway_replica_quarantined", "gateway_replica_respawns",
+                "gateway_stale_lease_redirects", "gateway_errors")}}
+
+
+def _swap_probe(serve, np, ref, addresses, obs, before_tree):
+    """Open one episode on each replica, alone, and step it twice before a
+    swap; ``finish(after_tree)`` steps it once after the swap and holds all
+    three predictions bit-equal to the in-process flagship, eager, with
+    ``before_tree`` then ``after_tree``."""
+    clients = [serve.ServeClient(a, timeoutms=30000) for a in addresses]
+    pre = []
+    for c in clients:
+        c.reset()
+        pre.append([c.step(o)["pred"] for o in obs[:2]])
+    caps = _captures(serve, addresses)
+
+    def finish(after_tree):
+        post = [c.step(obs[2])["pred"] for c in clients]
+        for c in clients:
+            c.close_episode()
+            c.close()
+        ref.apply_weights(before_tree)
+        ref.reset_rows(np.asarray([0]))
+        want = [ref.step_rows(np.asarray([0]), o[None])[0] for o in obs[:2]]
+        ref.apply_weights(after_tree)
+        want.append(ref.step_rows(np.asarray([0]), obs[2][None])[0])
+        got = [np.stack(p + [q]) for p, q in zip(pre, post)]
+        return {"bit_equal": [bool(np.array_equal(g, np.stack(want))) for g in got],
+                "max_abs_diff": [float(np.abs(g - np.stack(want)).max()) for g in got],
+                "captures_before": caps, "captures_after": _captures(serve, addresses)}
+
+    return finish
+
+
+def _publish_adopted(serve, pub, addresses, tree, model=None):
+    """Publish ``tree`` and wait for every replica to report its version;
+    returns (version, seconds from the publish to each adoption)."""
+    t0 = time.perf_counter()
+    v = pub.publish(tree, model=model)
+    when = {}
+    deadline = time.monotonic() + 120
+    while len(when) < len(addresses) and time.monotonic() < deadline:
+        for i, a in enumerate(addresses):
+            if i not in when and _replica_stats(serve, a).get("weight_version") == v:
+                when[i] = time.perf_counter() - t0
+        time.sleep(0.02)
+    check(len(when) == len(addresses), f"canary: every replica adopted v{v} ({when})")
+    return v, [when[i] for i in range(len(addresses))]
+
+
+def _drive_ctl(ctl, until, deadline_s=120.0):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < deadline_s:
+        action = ctl.tick()
+        if action in until:
+            return action, time.monotonic() - t0
+        time.sleep(0.1)
+    raise SystemExit(f"chip_smoke: FAILED: the controller never reached {until}")
+
+
+def _canary(torch, np, serve, fleet, fleet_kwargs, gw, pub, ref, tmp):
+    from blendjax_torch.models.convert import params_to_jax
+    from blendjax_torch.weights.controller import WeightBusController
+
+    addrs = [a for a in fleet.addresses if a is not None]
+    ctl = WeightBusController(gw.gateway, pub, **FLEET_CANARY)
+    rng = np.random.default_rng(21)
+    tree1 = params_to_jax(ref.params)
+    obs = rng.standard_normal((3, FLEET["obs_dim"])).astype(np.float32)
+    swaps, adoption = {}, {}
+    # v1: the replicas' own seeded weights
+    finish = _swap_probe(serve, np, ref, addrs, obs, tree1)
+    v1, adoption["v1"] = _publish_adopted(serve, pub, addrs, tree1)
+    swaps["v1"] = finish(tree1)
+    _wait_for(lambda: set(gw.gateway.fleet_versions().values()) == {v1}, 30,
+              "canary: the gateway scraped v1 on every replica")
+    check(ctl.tick() is None and gw.gateway.stable_version == v1,
+          "canary: the first version is adopted as stable")
+    # v2: a seeded perturbation, promoted under traffic
+    tree2 = _perturbed(np, tree1, 22)
+    finish = _swap_probe(serve, np, ref, addrs, obs, tree1)
+    v2, adoption["v2"] = _publish_adopted(serve, pub, addrs, tree2)
+    swaps["v2"] = finish(tree2)
+    _wait_for(lambda: set(gw.gateway.fleet_versions().values()) == {v2}, 30,
+              "canary: the gateway scraped v2 on every replica")
+    check(ctl.tick() == "canary" and gw.gateway.canary_version == v2,
+          "canary: a window opened at v2")
+    stop = os.path.join(tmp, "canary2.stop")
+    t, out = _clients_async(gw.address, _fleet_clients_cfg(stop_file=stop), 600, 500)
+    promoted, promote_s = _drive_ctl(ctl, {"promote", "rollback"})
+    open(stop, "w").close()
+    t.join(timeout=300)
+    check("failure" not in out and not out.get("errors"), f"canary: clients under v2 ({out})")
+    check(promoted == "promote" and gw.gateway.stable_version == v2,
+          f"canary: v2 promoted after its healthy window ({promoted})")
+    stats_v2 = gw.gateway.version_stats()
+    # v3: a canary replica of its own (the same flagship and seed) on a
+    # canary bus, admitted drained, so the window sees the fleet serve v2 and
+    # no reply at v3 (a wedged canary): the verdict timeout rolls it back,
+    # and the stable weights are republished on the fleet's bus
+    from blendjax_torch.weights import WeightPublisher
+
+    finish = _swap_probe(serve, np, ref, addrs, obs, tree2)
+    canary_pub = WeightPublisher(version_base=pub.version + 1).start()
+    cp = serve.ServerProcess(subscribe=canary_pub.address, **fleet_kwargs)
+    try:
+        with cp:
+            rid = gw.gateway.add_replica(cp.address, rid="canary")
+            # no client runs until the drain: the admission applies on the
+            # gateway's loop, then the drain gives the canary no traffic
+            _wait_for(lambda: rid in gw.gateway.replica_ids(), 10,
+                      "canary: the canary replica admitted")
+            gw.gateway.drain(rid)
+            v3, adoption["v3"] = _publish_adopted(serve, canary_pub, [cp.address],
+                                                  _perturbed(np, tree2, 23))
+            _wait_for(lambda: gw.gateway.fleet_versions().get(rid) == v3, 30,
+                      "canary: the gateway scraped v3 on the canary replica")
+            check(ctl.tick() == "canary" and gw.gateway.canary_version == v3,
+                  "canary: a window opened at v3")
+            stop = os.path.join(tmp, "canary3.stop")
+            t, out = _clients_async(gw.address, _fleet_clients_cfg(stop_file=stop), 600, 600)
+            rolled, rollback_s = _drive_ctl(ctl, {"promote", "rollback"})
+            open(stop, "w").close()
+            t.join(timeout=300)
+            canary_requests = gw.gateway.version_stats().get(v3, {}).get("requests", 0)
+            gw.gateway.remove_replica(rid)
+    finally:
+        canary_pub.close()
+    check("failure" not in out and not out.get("errors"), f"canary: clients under v3 ({out})")
+    v4 = gw.gateway.stable_version
+    check(rolled == "rollback" and gw.gateway.rejected_version == v3 and v4 == pub.version
+          and canary_requests == 0,
+          f"canary: v3, given no traffic, rolled back by the verdict timeout, v{v4} "
+          f"republished ({rolled}, {canary_requests} canary replies)")
+    t0 = time.perf_counter()
+    _wait_for(lambda: all(_replica_stats(serve, a).get("weight_version") == v4 for a in addrs),
+              60, f"canary: the rollback republish v{v4} reached every replica")
+    adoption["v4"] = time.perf_counter() - t0
+    swaps["v4"] = finish(tree2)
+    stats = gw.gateway.version_stats()
+    counters = {k: gw.gateway.counters.get(k) for k in (
+        "weight_canary_starts", "weight_canary_routes", "weight_canary_promotions",
+        "weight_canary_rollbacks")}
+    counters["weight_rollback_publishes"] = pub.counters.get("weight_rollback_publishes")
+    counters["weight_published"] = pub.counters.get("weight_published")
+    # each replica's bus counters: torn streams re-synced, snapshots adopted
+    replicas = {}
+    for a in addrs:
+        c = _replica_stats(serve, a)["counters"]
+        replicas[a] = {k: c.get(k, 0) for k in ("weight_adopted", "weight_torn_discarded",
+                                                  "weight_syncs", "weight_apply_failed")}
+    return {"versions": {"v1": v1, "v2": v2, "v3": v3, "v4": v4},
+            "canary_replica_ready_s": cp.ready_s,
+            "snapshot_mb": sum(a.nbytes for a in _leaves(tree1)) / 1e6,
+            "adoption_s": adoption, "promote_s": promote_s, "rollback_s": rollback_s,
+            "version_stats_at_promote": {str(k): v for k, v in stats_v2.items()},
+            "version_stats": {str(k): v for k, v in stats.items()},
+            "counters": counters, "replica_bus_counters": replicas, "swaps": swaps,
+            "settings": FLEET_CANARY}
+
+
+def _perturbed(np, tree, seed):
+    """``tree`` with seeded noise of 1e-3 added to every float leaf."""
+    rng = np.random.default_rng(seed)
+    if isinstance(tree, dict):
+        return {k: _perturbed(np, v, rng.integers(2**31)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_perturbed(np, v, rng.integers(2**31)) for v in tree)
+    arr = np.asarray(tree)
+    if arr.dtype.kind != "f":
+        return arr
+    return (arr + np.float32(1e-3) * rng.standard_normal(arr.shape, dtype=np.float32)
+            ).astype(arr.dtype)
+
+
+def _autoscale(torch, np, serve, fleet, gw, counters, tmp):
+    from blendjax_torch.autoscale import AutoscaleController
+    from blendjax_torch.utils.timing import StageTimer
+
+    timer = StageTimer()
+    stop = os.path.join(tmp, "autoscale.stop")
+    t, out = _clients_async(gw.address, _fleet_clients_cfg(stop_file=stop), 900, 700)
+    _wait_for(lambda: len(gw.gateway.replica_ids()) == FLEET["replicas"], 10,
+              "autoscale: the canary replica left the route set")
+    n0 = len(gw.gateway.replica_ids())
+    mem = {"before_grow": _card_memory(torch)}
+    up = AutoscaleController(gw.gateway, fleet, min_replicas=n0, max_replicas=n0 + 1,
+                             up_queue_depth=-1.0, cooldown_up_s=0.0, cooldown_down_s=0.0,
+                             max_p99_x=1e9, counters=counters, timer=timer,
+                             healthy_window_s=FLEET_AUTOSCALE["up_window_s"],
+                             min_requests=FLEET_AUTOSCALE["min_requests"])
+    t0 = time.monotonic()
+    _drive_ctl(up, {"grow"}, 300)
+    grown = up._transition["rid"]
+    action, _ = _drive_ctl(up, {"scale_up", "rollback"}, 120)
+    settle_up = time.monotonic() - t0
+    check(action == "scale_up" and len(gw.gateway.replica_ids()) == n0 + 1,
+          f"autoscale: the grown replica {grown} committed ({action})")
+    mem["after_grow"] = _card_memory(torch)
+    down = AutoscaleController(gw.gateway, fleet, min_replicas=n0, max_replicas=n0 + 1,
+                               up_queue_depth=1e9, up_p99_ms=1e9, down_queue_depth=1e9,
+                               down_p99_ms=1e9, cooldown_up_s=0.0, cooldown_down_s=0.0,
+                               counters=counters, timer=timer,
+                               healthy_window_s=FLEET_AUTOSCALE["down_window_s"],
+                               min_requests=FLEET_AUTOSCALE["min_requests"],
+                               drain_grace_s=FLEET_AUTOSCALE["drain_grace_s"])
+    # the always-down controller picks its own victim (the least-loaded
+    # replica, whichever it is), drains it and carries it to the retire
+    check(not any(r["draining"] for r in gw.gateway.replica_snapshots().values()),
+          "autoscale: no replica is draining before the scale-down")
+    t0 = time.monotonic()
+    decided = down.tick()
+    victim = down._transition["rid"] if down._transition else None
+    check(decided == "drain" and victim in gw.gateway.replica_ids(),
+          f"autoscale: the always-down controller chose a replica and drained it ({decided})")
+    action, _ = _drive_ctl(down, {"scale_down", "rollback"}, 120)
+    settle_down = time.monotonic() - t0
+    check(action == "scale_down" and len(gw.gateway.replica_ids()) == n0
+          and victim not in gw.gateway.replica_ids()
+          and fleet._procs[int(victim[1:])] is None,
+          f"autoscale: {victim} drained and retired ({action})")
+    mem["after_retire"] = _card_memory(torch)
+    open(stop, "w").close()
+    t.join(timeout=300)
+    check("failure" not in out and not out.get("errors"),
+          f"autoscale: no client-visible error through both resizes ({out.get('errors')})")
+    return {"grown": grown, "retired": victim, "resize_settle_s": {"up": settle_up,
+                                                                    "down": settle_down},
+            "card_memory": mem, "client_steps": sum(out["steps"]),
+            "client_errors": len(out["errors"]),
+            "counters": {k: counters.get(k) for k in (
+                "autoscale_scale_ups", "autoscale_scale_downs", "autoscale_rollbacks",
+                "autoscale_replica_spawns", "autoscale_replicas_retired", "gateway_drains")}}
+
+
+def _reshard(torch, np, tmp):
+    """2 -> 3 shards under appends against an unresharded twin; then the new
+    shard SIGKILLed mid-handoff."""
+    from blendjax_torch.autoscale import reshard_replay
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.btt.faults import FaultPolicy
+    from blendjax_torch.replay import ShardedReplay
+    from blendjax_torch.replay.service import ShardFleet
+    from blendjax_torch.replay.shard_client import ReshardAborted
+    from blendjax_torch.utils.timing import EventCounters
+
+    cfg = FLEET_RESHARD
+    rng = np.random.default_rng(5)
+    rows = [_rs_transition(np, rng) for _ in range(64)]
+    counters = EventCounters()
+    policy = FaultPolicy(max_retries=1, backoff_base=0.02, backoff_max=0.1, deadline_s=2.0,
+                         circuit_threshold=0, seed=3)
+    with ShardFleet(2, capacity_per_shard=cfg["capacity_per_shard"],
+                    data_dir=os.path.join(tmp, "a"), checkpoint_every=0) as fleet, \
+            ShardFleet(2, capacity_per_shard=cfg["capacity_per_shard"],
+                       data_dir=os.path.join(tmp, "b"), checkpoint_every=0) as twin_fleet:
+        buf = ShardedReplay(fleet.addresses, seed=9, counters=counters, fault_policy=policy,
+                            timeoutms=2000)
+        twin = ShardedReplay(twin_fleet.addresses, seed=9, timeoutms=2000)
+        for k in range(cfg["fill"]):
+            buf.append(rows[k % len(rows)])
+            twin.append(rows[k % len(rows)])
+        appended = []
+
+        def appender():
+            for k in range(cfg["fill"], cfg["fill"] + cfg["during"]):
+                buf.append(rows[(3 * k) % len(rows)])
+                twin.append(rows[(3 * k) % len(rows)])
+                appended.append(k)
+
+        writer = threading.Thread(target=appender)
+        writer.start()
+        t0 = time.perf_counter()
+        shard, _ = reshard_replay(buf, fleet, counters=counters)
+        reshard_s = time.perf_counter() - t0
+        writer.join(timeout=120)
+        owned = buf.stats()["shards"]["owned_slots"]
+        feeds = (_CardFeed(torch, np), _CardFeed(torch, np))
+        equal = []
+        for _ in range(cfg["batches"]):
+            (a, ia, wa), (b, ib, wb) = feeds[0].sample(buf, RS["batch"]), \
+                feeds[1].sample(twin, RS["batch"])
+            equal.append(bool(np.array_equal(ia, ib) and np.array_equal(wa, wb)
+                              and all(torch.equal(a[k], b[k]) for k in b)))
+        on_card = all(t.is_cuda for t in feeds[0].card.values())
+        # the new shard SIGKILLed between its restore-spawn and the handoff
+        before = buf.stats()["shards"]["owned_slots"]
+        cut = buf.clients[0].rpc("save")
+        idx, addr = fleet.grow(restore_ckpt=cut["path"])
+        kill_instance(fleet, idx)
+        aborted = False
+        try:
+            buf.adopt_shard(addr, source=0, cut_seq=int(cut["seq"]), timeoutms=500)
+        except ReshardAborted:
+            aborted = True
+        after = buf.stats()["shards"]["owned_slots"]
+        retired = fleet.retire(idx)
+        _, i, _ = buf.sample(RS["batch"])
+        buf.close()
+        twin.close()
+    return {"shards": shard + 1, "reshard_s": reshard_s, "owned_slots": owned,
+            "appended_during": len(appended), "draws_equal": equal, "on_card": on_card,
+            "rows_copied": counters.get("autoscale_reshard_rows_copied"),
+            "handoffs": counters.get("autoscale_reshard_handoffs"),
+            "aborted": aborted, "aborts": counters.get("autoscale_reshard_aborts"),
+            "map_before_kill": before, "map_after_abort": after, "retired": retired,
+            "draws_after_abort": len(i)}
+
+
+def serve_fleet_phase(torch, serve):
+    """The serve fleet on the card through the reference's entry points:
+    ``ServerFleet(3, model="seqformer", device="cuda", subscribe=<bus>)`` at
+    :data:`FLEET`'s widths behind ``start_gateway_thread``, then
+    ``start_sharded_gateway_thread(workers=2)``, ``WeightBusController`` and
+    ``AutoscaleController`` over the gateway, and ``reshard_replay``.
+    ``fleet_boot``: spawn-to-ready per replica, the card's memory, one
+    seeded episode bit-equal on every replica.  ``gateway_scale``: 1-replica
+    and 3-replica windows in turns and a direct-dial arm (no client error,
+    every step on its lease's replica, a seeded episode through the gateway
+    bit-equal to it dialled straight).  ``gateway_sharded``: 2 active
+    workers and 1 in turns (direct dial after the rendezvous, no
+    ``/dev/shm`` left).  ``gateway_chaos``: r1 SIGKILLed under a watchdog,
+    the acknowledged predictions replayed on one in-process flagship.
+    ``canary``: v1, v2 promoted under traffic, v3 rolled back by the verdict
+    timeout and the stable weights republished; each swap's first captured
+    tick bit-equal to eager, no recapture.  ``autoscale``: a fourth replica
+    grown and committed, then the always-down controller's own victim
+    drained and retired, no client error.
+    ``reshard``: 2 -> 3 shards under appends, draws on the card bit-equal
+    to an unresharded twin's, and the new shard SIGKILLed mid-handoff.  No
+    kernel is on this path."""
+    import tempfile
+
+    import numpy as np
+
+    from blendjax_torch.btt import shm_rpc
+    from blendjax_torch.btt.watchdog import FleetWatchdog
+    from blendjax_torch.utils.timing import EventCounters, StageTimer
+    from blendjax_torch.weights import WeightPublisher
+
+    t_phase = time.perf_counter()
+    pub = WeightPublisher(counters=EventCounters()).start()
+    fleet_kwargs = dict(
+        model="seqformer", device=FLEET["device"], seed=FLEET["seed"],
+        obs_dim=FLEET["obs_dim"], slots=FLEET["slots"], length=FLEET["length"],
+        tick_ms=FLEET["tick_ms"], max_batch=FLEET["max_batch"], ready_timeout=300.0,
+        extra_args=["--d-model", str(FLEET["d_model"]), "--n-heads", str(FLEET["n_heads"]),
+                    "--n-layers", str(FLEET["n_layers"])])
+    fleet = serve.ServerFleet(FLEET["replicas"], subscribe=pub.address, **fleet_kwargs)
+    gw = None
+    wd = None
+    mem0 = _card_memory(torch)
+    fleet.__enter__()  # spawns every replica on the card and waits for each
+    try:
+        mem1 = _card_memory(torch)
+        ready_s = [p.ready_s for p in fleet._procs]
+        addrs = list(fleet.addresses)
+        caps = _captures(serve, addrs)
+        obs = np.random.default_rng(77).standard_normal(
+            (FLEET["episode_len"], FLEET["obs_dim"])).astype(np.float32)
+        direct = [_episode_preds(serve, np, a, obs)[0] for a in addrs]
+        boot = {"ready_s": ready_s, "card_memory_before": mem0, "card_memory_after": mem1,
+                "captures_after_warmup": caps,
+                "episode_bit_equal": [bool(np.array_equal(direct[0], d)) for d in direct]}
+        emit(_stamp({"phase": "fleet_boot", **boot}))
+        check(all(boot["episode_bit_equal"]),
+              "fleet_boot: one seeded episode bit-equal on every replica")
+        check(caps == [len(FLEET_BUCKETS)] * len(addrs),
+              f"fleet_boot: every bucket of every replica captured before serving ({caps})")
+
+        counters = EventCounters()
+        gw = serve.start_gateway_thread(addrs, counters=counters, timer=StageTimer(),
+                                        scrape_interval_s=FLEET["scrape_s"])
+        _wait_for(lambda: all(s["pid"] is not None
+                              for s in gw.gateway.replica_snapshots().values()), 30,
+                  "gateway_scale: the gateway's first scrape of every replica")
+        scale = _gateway_scale(serve, np, fleet, gw, counters)
+        via, rep = _episode_preds(serve, np, gw.address, obs)
+        straight, _ = _episode_preds(serve, np, addrs[int(rep[1:])], obs)
+        scale["episode_bit_equal"] = bool(np.array_equal(via, straight))
+        scale["captures_after"] = _captures(serve, addrs)
+        emit(_stamp({"phase": "gateway_scale", **scale}))
+        check(scale["counters"]["gateway_errors"] == 0, "gateway_scale: no client error")
+        check(scale["affinity_breaks"] == 0,
+              "gateway_scale: every step of a lease landed on the replica that owns it")
+        check(set(scale["replica_steps"]["1"]) == {"r0"},
+              "gateway_scale: the 1-replica arm served from r0 alone")
+        check(scale["episode_bit_equal"],
+              "gateway_scale: a seeded episode through the gateway == dialled straight")
+        check(scale["captures_after"] == caps,
+              "gateway_scale: no capture landed in a measured window")
+
+        sharded = _gateway_sharded(serve, np, fleet, shm_rpc)
+        emit(_stamp({"phase": "gateway_sharded", **sharded}))
+        check(all(w["relays"] <= w["resets"] + w["retries"] for w in sharded["direct_windows"]),
+              "gateway_sharded: after the rendezvous the clients dialled their worker directly")
+        check(not any(sharded["leaked"].values()),
+              "gateway_sharded: no /dev/shm object left under a worker's base")
+
+        from blendjax_torch.serve.server import build_model
+
+        ref = build_model(_fleet_args())
+        ref.captured = False  # the replays run eager
+        wd = FleetWatchdog(fleet, interval=0.2, restart=True,
+                           on_death=gw.gateway.notify_replica_death,
+                           on_respawn=gw.gateway.notify_replica_respawn).start()
+        with tempfile.TemporaryDirectory(prefix="bjx-fleet-") as tmp:
+            chaos = _gateway_chaos(torch, np, serve, fleet, gw, counters, ref, tmp)
+            emit(_stamp({"phase": "gateway_chaos", **chaos}))
+            check(not chaos["client_errors"], f"gateway_chaos: {chaos['client_errors']}")
+            check(chaos["counters"]["gateway_replica_respawns"] >= 1,
+                  "gateway_chaos: the killed replica respawned and answered a scrape")
+            check(max(chaos["stale_errors_per_client"]) <= 1
+                  and sum(chaos["stale_errors_per_client"]) >= 1,
+                  "gateway_chaos: each client saw at most one stale-lease error, and the "
+                  "victim's clients one")
+            check(chaos["replay_gap"] <= FLEET_REPLAY_ATOL,
+                  f"gateway_chaos: every acked prediction within {FLEET_REPLAY_ATOL} of the "
+                  "episode replayed on one in-process flagship")
+            check(chaos["double_step_gap"] > 10 * FLEET_REPLAY_ATOL,
+                  "gateway_chaos: a double-applied step opens a gap the check would see")
+            # the respawned r1 has the seeded weights again; the bus brings
+            # every replica to each version from here on
+            canary = _canary(torch, np, serve, fleet, fleet_kwargs, gw, pub, ref, tmp)
+            emit(_stamp({"phase": "canary", **canary}))
+            for name, rec in canary["swaps"].items():
+                check(all(rec["bit_equal"]),
+                      f"canary: the first captured tick after the {name} swap == eager "
+                      f"({rec['max_abs_diff']})")
+                check(rec["captures_after"] == rec["captures_before"],
+                      f"canary: no recapture across the {name} swap")
+            del ref
+            torch.cuda.empty_cache()
+            scaled = _autoscale(torch, np, serve, fleet, gw, counters, tmp)
+            emit(_stamp({"phase": "autoscale", **scaled}))
+            resh = _reshard(torch, np, tmp)
+        emit(_stamp({"phase": "reshard", **resh}))
+        check(resh["shards"] == 3 and resh["handoffs"] == 1 and all(resh["draws_equal"])
+              and resh["on_card"],
+              "reshard: 2 -> 3 shards, the draws on the card bit-identical to the twin's")
+        check(resh["aborted"] and resh["aborts"] == 1
+              and resh["map_after_abort"] == resh["map_before_kill"] and resh["retired"],
+              "reshard: the killed new shard's handoff aborted whole, the map unchanged")
+    finally:
+        if wd is not None:
+            wd.stop()
+        if gw is not None:
+            gw.close()
+        fleet.close()
+        pub.close()
+    emit({"phase": "serve_fleet_seconds", "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     import torch
 
@@ -4289,6 +5394,7 @@ def main():
     replay_service_phase(torch)
     flywheel_phase(torch, btt, control, seqformer, serve, al_rates)
     scenario_phase(torch, btt)
+    serve_fleet_phase(torch, serve)
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",
@@ -4339,4 +5445,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-clients"]:
         sys.exit(serve_clients_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--chaos-clients"]:
+        sys.exit(chaos_clients_main(sys.argv[2]))
     sys.exit(main())

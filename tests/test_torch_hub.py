@@ -7,7 +7,8 @@ form and its counter and stage vocabulary, against the reference's
    components as the union's quantile, remote fetches and their errors,
    the ZMQ scrape socket, a failing probe, a replay shard's ``telemetry``
    RPC merged as a remote with its spans, a shard quarantine in the flight
-   recorder, and the weight vocabulary locked to ``docs/weight_bus.md``.
+   recorder, the weight vocabulary locked to ``docs/weight_bus.md``, and
+   the gateway and autoscale vocabularies zero-filled in a scrape.
 2. **Across the packages**: the port's ``to_prometheus`` renders a snapshot
    line for line as the reference's does (string equality), the port's
    counters and stages zero-filled under the reference's names, and
@@ -28,8 +29,12 @@ from blendjax_torch.obs.flight import flight_recorder
 from blendjax_torch.obs.histogram import LatencyHistogram, fold_stage_snapshot, stage_records
 from blendjax_torch.obs.hub import TelemetryHub, scrape_socket
 from blendjax_torch.utils.timing import (
+    AUTOSCALE_EVENTS,
+    AUTOSCALE_STAGES,
     FEED_STAGES,
     FLEET_EVENTS,
+    GATEWAY_EVENTS,
+    GATEWAY_STAGES,
     HA_EVENTS,
     HA_STAGES,
     REPLAY_EVENTS,
@@ -255,6 +260,36 @@ def test_scenario_plane_counts_merge_in_both_hubs():
     assert snap["components"]["scenario_curriculum"]["probe"]["policy"] == "pinned"
 
 
+def test_gateway_and_autoscale_vocabularies_zero_filled_in_a_scrape():
+    """Every gateway and autoscale counter and stage is in a scrape from a
+    hub whose components never counted one, at zero, in JSON and in
+    Prometheus, in the reference's order among the canonical names."""
+    from blendjax_torch.obs import hub as port_hub
+
+    hub = TelemetryHub()
+    hub.register("fresh", counters=EventCounters(), timer=StageTimer())
+    snap = hub.scrape()
+    prom = hub.to_prometheus(snap)
+    for name in GATEWAY_EVENTS + AUTOSCALE_EVENTS:
+        assert snap["counters"][name] == 0, name
+        assert f'blendjax_events_total{{event="{name}"}} 0' in prom, name
+    for stage in GATEWAY_STAGES + AUTOSCALE_STAGES:
+        assert snap["stages"][stage]["count"] == 0, stage
+        assert (f'blendjax_stage_latency_seconds{{stage="{stage}",'
+                'quantile="0.99"} 0') in prom, stage
+    # the reference's canonical order, less its pipeline vocabulary (item 7)
+    ref_counters = [n for n in (jtiming.FLEET_EVENTS + jtiming.REPLAY_EVENTS
+                                + jtiming.SERVE_EVENTS + jtiming.GATEWAY_EVENTS
+                                + jtiming.WEIGHT_EVENTS + jtiming.SCENARIO_EVENTS
+                                + jtiming.HA_EVENTS + jtiming.AUTOSCALE_EVENTS)]
+    ref_stages = [n for n in (jtiming.FEED_STAGES + jtiming.REPLAY_STAGES
+                              + jtiming.SERVE_STAGES + jtiming.GATEWAY_STAGES
+                              + jtiming.WEIGHT_STAGES + jtiming.SCENARIO_STAGES
+                              + jtiming.HA_STAGES + jtiming.AUTOSCALE_STAGES)]
+    assert list(port_hub._canonical_counters()) == ref_counters
+    assert list(port_hub._canonical_stages()) == ref_stages
+
+
 def test_documented_scenario_counters_and_stages_exist_in_tuples():
     path = os.path.join(REPO_ROOT, "docs", "scenarios.md")
     for heading, vocab in (("## Counter vocabulary", SCENARIO_EVENTS),
@@ -285,7 +320,9 @@ def test_documented_weight_stages_exist_in_tuples():
 def test_tuples_are_the_references():
     for name in ("FEED_STAGES", "FLEET_EVENTS", "REPLAY_EVENTS", "REPLAY_STAGES",
                  "WEIGHT_EVENTS", "WEIGHT_STAGES", "SERVE_EVENTS", "SERVE_STAGES",
-                 "HA_EVENTS", "HA_STAGES", "SCENARIO_EVENTS", "SCENARIO_STAGES"):
+                 "HA_EVENTS", "HA_STAGES", "SCENARIO_EVENTS", "SCENARIO_STAGES",
+                 "GATEWAY_EVENTS", "GATEWAY_STAGES", "AUTOSCALE_EVENTS",
+                 "AUTOSCALE_STAGES"):
         from blendjax_torch.utils import timing
 
         assert getattr(timing, name) == getattr(jtiming, name), name

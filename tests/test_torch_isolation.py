@@ -116,7 +116,9 @@ def test_producer_side_imports_without_torch():
 
 
 @pytest.mark.parametrize("module", ["blendjax_torch.replay.service",
-                                    "blendjax_torch.weights.bus"])
+                                    "blendjax_torch.weights.bus",
+                                    "blendjax_torch.serve.gateway",
+                                    "blendjax_torch.serve.gateway_worker"])
 def test_spawned_services_help_without_torch(module):
     """The processes the port spawns for the replay service and the weight
     bus start without torch: ``--help`` runs the whole module import and
@@ -130,6 +132,31 @@ def test_spawned_services_help_without_torch(module):
         "except SystemExit as exc:\n"
         "    assert exc.code == 0, exc.code\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
+    )
+    assert _run(code) == []
+
+
+def test_gateway_worker_and_autoscaler_import_without_torch():
+    """The gateway, its worker, the canary controller and the autoscaler
+    are routers and controllers: they import neither torch nor JAX nor any
+    module of the JAX package, and a gateway in a thread routes a linear
+    replica without them."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "import blendjax_torch.serve.gateway, blendjax_torch.serve.gateway_worker\n"
+        "import blendjax_torch.autoscale, blendjax_torch.weights.controller\n"
+        "from blendjax_torch.autoscale import AutoscaleController, reshard_replay\n"
+        "from blendjax_torch.serve import (ServeClient, LinearModel, start_server_thread,\n"
+        "                                  start_gateway_thread)\n"
+        "h = start_server_thread(LinearModel(obs_dim=4, slots=2))\n"
+        "g = start_gateway_thread([h.address])\n"
+        "c = ServeClient(g.address, timeoutms=20000)\n"
+        "c.reset()\n"
+        "assert c.step(np.zeros(4, np.float32))['replica'] == 'r0'\n"
+        "c.close(); g.close(); h.close()\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "                        if m.split('.')[0] in ('torch', 'jax', 'blendjax'))))\n"
     )
     assert _run(code) == []
 

@@ -23,6 +23,13 @@ on the CPU.
    the reference's over its own (uniform, as ``test_torch_actor_learner``
    holds it: the first loss within 1e-5, later losses and the params within
    1e-4).
+3. **Live resharding** (the reference's ``tests/test_autoscale.py`` replay
+   cases): 2 -> 3 shards with rows past the checkpoint cut in the moving
+   range, draws bit-identical to an unresharded twin; the new shard
+   SIGKILLed mid-handoff aborting whole; ``reshard_replay`` end to end and
+   its abort on a dead source; and the resharded stream against the
+   reference's unresharded ``ShardedReplay`` (indices and rows exactly, IS
+   weights within 1e-6).
 """
 
 import os
@@ -43,6 +50,7 @@ from blendjax_torch.replay import ReplayBuffer, ShardedReplay
 from blendjax_torch.replay.service import ReplayShard, ShardFleet, start_shard_thread
 from blendjax_torch.utils.timing import EventCounters
 from helpers import REPO_ROOT
+from helpers.time_limit import time_limit
 
 
 def _row(i, d=4):
@@ -58,6 +66,13 @@ def _row(i, d=4):
 def _fill(buf, n, start=0):
     for i in range(start, start + n):
         buf.append(_row(i))
+
+
+def _wait_until(cond, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.01)
 
 
 def _assert_same_draw(a, b):
@@ -559,3 +574,248 @@ def test_shard_serves_a_client_without_torch():
                          text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+# -- live resharding (the reference's tests/test_autoscale.py cases) -------------------
+
+
+@pytest.mark.chaos
+@time_limit(120)
+def test_reshard_two_to_three_bit_identical_draws(tmp_path):
+    """Grow 2 -> 3 shards with rows appended past the checkpoint cut landing
+    in the moving range: the draw stream stays bit-identical to an
+    unresharded twin's, moved rows serve byte-equal, and the ownership map
+    records the split."""
+    counters = EventCounters()
+    with ShardFleet(2, capacity_per_shard=24, data_dir=str(tmp_path / "a"),
+                    checkpoint_every=1000) as fleet, \
+            ShardFleet(2, capacity_per_shard=24, data_dir=str(tmp_path / "b"),
+                       checkpoint_every=1000) as twin_fleet:
+        buf = ShardedReplay(fleet.addresses, seed=5, counters=counters)
+        twin = ShardedReplay(twin_fleet.addresses, seed=5)
+        # slots 0..11 before the cut, 12..23 (shard 0's moving upper half)
+        # after it: the delta the restored checkpoint cannot hold
+        _fill(buf, 12)
+        _fill(twin, 12)
+        cut = buf.clients[0].rpc("save")
+        _fill(buf, 12, start=12)
+        _fill(twin, 12, start=12)
+        idx, addr = fleet.grow(restore_ckpt=cut["path"])
+        shard = buf.adopt_shard(addr, source=0, cut_seq=int(cut["seq"]))
+        assert shard == 2 and buf.num_shards == 3
+        assert counters.get("autoscale_reshard_handoffs") == 1
+        assert counters.get("autoscale_reshard_rows_copied") == 12
+        assert counters.get("autoscale_reshard_aborts") == 0
+        assert buf.stats()["shards"]["owned_slots"] == [12, 24, 12]
+        for slot in range(12, 24):
+            got, want = buf.get(slot), twin.get(slot)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key])
+        for _ in range(5):
+            _assert_same_draw(buf.sample(8), twin.sample(8))
+        _fill(buf, 30, start=24)
+        _fill(twin, 30, start=24)
+        for _ in range(5):
+            _assert_same_draw(buf.sample(8), twin.sample(8))
+        buf.close()
+        twin.close()
+
+
+@time_limit(90)
+def test_shard_client_carries_one_request_at_a_time(tmp_path):
+    """A shard's client used by two threads at once (the buffer's appends,
+    and checkpoint cuts as a reshard takes them): every RPC gets its own
+    reply, none is dropped as stale, and the shard is never quarantined."""
+    counters = EventCounters()
+    policy = FaultPolicy(max_retries=1, backoff_base=0.02, backoff_max=0.1, deadline_s=2.0,
+                         circuit_threshold=0, seed=3)
+    with ShardFleet(1, capacity_per_shard=128, data_dir=str(tmp_path),
+                    checkpoint_every=0) as fleet:
+        buf = ShardedReplay(fleet.addresses, seed=9, counters=counters, fault_policy=policy,
+                            timeoutms=1000)
+        for k in range(128):
+            buf.append(_row(k, d=16384))
+        stop, appended = threading.Event(), []
+
+        def appender():
+            k = 128
+            while not stop.is_set():
+                buf.append(_row(k, d=16384))
+                appended.append(k)
+                k += 1
+
+        writer = threading.Thread(target=appender)
+        writer.start()
+        try:
+            cuts = []
+            for _ in range(30):
+                _wait_until(lambda n=len(appended): len(appended) > n)
+                cuts.append(buf.clients[0].rpc("save")["seq"])
+        finally:
+            stop.set()
+            writer.join(timeout=60)
+        assert cuts == sorted(cuts) and len(set(cuts)) == len(cuts)
+        assert counters.get("replay_shard_quarantined") == 0
+        assert counters.get("stale_replies") == 0
+        assert not buf._pending.any()
+        buf.close()
+
+
+@time_limit(90)
+def test_reshard_replay_under_concurrent_appends(tmp_path):
+    """``reshard_replay`` while another thread appends: the source's
+    checkpoint cut and the appends share the source's channel, so neither
+    loses its reply (no quarantine, no journalled row), the handoff lands,
+    and the draws equal an unresharded twin's that took the same appends."""
+    from blendjax_torch.autoscale import reshard_replay
+
+    counters = EventCounters()
+    policy = FaultPolicy(max_retries=1, backoff_base=0.02, backoff_max=0.1, deadline_s=2.0,
+                         circuit_threshold=0, seed=3)
+    with ShardFleet(2, capacity_per_shard=64, data_dir=str(tmp_path / "a"),
+                    checkpoint_every=0) as fleet, \
+            ShardFleet(2, capacity_per_shard=64, data_dir=str(tmp_path / "b"),
+                       checkpoint_every=0) as twin_fleet:
+        buf = ShardedReplay(fleet.addresses, seed=9, counters=counters, fault_policy=policy,
+                            timeoutms=1000)
+        twin = ShardedReplay(twin_fleet.addresses, seed=9, timeoutms=1000)
+        # 64 KiB rows: the source's cut takes long enough for appends to
+        # queue behind it
+        for k in range(96):
+            buf.append(_row(k, d=16384))
+            twin.append(_row(k, d=16384))
+
+        stop, appended = threading.Event(), []
+
+        def appender():
+            k = 96
+            while not stop.is_set():
+                buf.append(_row(k, d=16384))
+                twin.append(_row(k, d=16384))
+                appended.append(k)
+                k += 1
+
+        writer = threading.Thread(target=appender)
+        writer.start()
+        _wait_until(lambda: len(appended) >= 8)
+        shard, _ = reshard_replay(buf, fleet, counters=counters)
+        stop.set()
+        writer.join(timeout=60)
+        assert not writer.is_alive()
+        assert shard == 2 and buf.num_shards == 3
+        assert counters.get("autoscale_reshard_handoffs") == 1
+        assert counters.get("autoscale_reshard_aborts") == 0
+        assert counters.get("replay_shard_quarantined") == 0
+        assert not buf._pending.any()
+        for _ in range(8):
+            _assert_same_draw(buf.sample(16), twin.sample(16))
+        buf.close()
+        twin.close()
+
+
+@pytest.mark.chaos
+@pytest.mark.slow  # process-heavy, as the reference's
+@time_limit(120)
+def test_kill_new_shard_mid_handoff_aborts_whole(tmp_path):
+    """SIGKILL the new shard between its restore-spawn and the handoff:
+    ``ReshardAborted``, the ownership map untouched, the source serving its
+    full range, draws going on, and the half-born process retired."""
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.replay.shard_client import ReshardAborted
+
+    counters = EventCounters()
+    policy = FaultPolicy(max_retries=1, backoff_base=0.02, backoff_max=0.1,
+                         deadline_s=1.0, circuit_threshold=0, seed=3)
+    with ShardFleet(2, capacity_per_shard=24, data_dir=str(tmp_path / "shards"),
+                    checkpoint_every=1000) as fleet:
+        buf = ShardedReplay(fleet.addresses, seed=5, fault_policy=policy,
+                            counters=counters, timeoutms=1000)
+        _fill(buf, 30)
+        owned_before = buf.stats()["shards"]["owned_slots"]
+        cut = buf.clients[0].rpc("save")
+        idx, addr = fleet.grow(restore_ckpt=cut["path"])
+        kill_instance(fleet, idx)
+        with pytest.raises(ReshardAborted):
+            buf.adopt_shard(addr, source=0, cut_seq=int(cut["seq"]), timeoutms=500)
+        assert counters.get("autoscale_reshard_aborts") == 1
+        assert counters.get("autoscale_reshard_handoffs") == 0
+        assert buf.num_shards == 2
+        assert buf.stats()["shards"]["owned_slots"] == owned_before
+        _, i, _ = buf.sample(8)
+        assert len(i) == 8
+        for slot in (0, 13, 29):
+            np.testing.assert_array_equal(buf.get(slot)["obs"], _row(slot)["obs"])
+        assert fleet.retire(idx) is True
+        with pytest.raises(RuntimeError, match="retired"):
+            fleet.respawn(idx)
+        buf.close()
+
+
+@pytest.mark.chaos
+@pytest.mark.slow  # process-heavy, as the reference's
+@time_limit(120)
+def test_reshard_replay_orchestration_retires_newcomer_on_abort(tmp_path):
+    """``reshard_replay`` end to end (save, grow, adopt), then a dead
+    source: the handoff fails whole and nothing is spawned or changed."""
+    from blendjax_torch.autoscale import reshard_replay
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.replay.shard_client import ReshardAborted
+
+    counters = EventCounters()
+    policy = FaultPolicy(max_retries=0, deadline_s=1.0, circuit_threshold=0, seed=1)
+    with ShardFleet(2, capacity_per_shard=24, data_dir=str(tmp_path / "shards"),
+                    checkpoint_every=1000) as fleet:
+        buf = ShardedReplay(fleet.addresses, seed=7, fault_policy=policy,
+                            counters=counters, timeoutms=1000)
+        _fill(buf, 40)
+        shard, addr = reshard_replay(buf, fleet, counters=counters)
+        assert shard == 2 and buf.num_shards == 3
+        assert counters.get("autoscale_reshard_handoffs") == 1
+        buf.sample(8)
+        kill_instance(fleet, 1)
+        procs = fleet.launch_info.processes
+        n_procs = sum(1 for p in procs if p is not None)
+        with pytest.raises(ReshardAborted):
+            reshard_replay(buf, fleet, source=1, counters=counters)
+        assert counters.get("autoscale_reshard_aborts") >= 1
+        assert buf.num_shards == 3
+        assert sum(1 for p in procs if p is not None) <= n_procs
+        buf.close()
+
+
+@pytest.mark.parametrize("source", [0, 1])
+@time_limit(120)
+def test_resharded_draws_equal_the_reference_sharded_replay(tmp_path, source):
+    """The port's ``ShardedReplay`` resharded 2 -> 3 by ``reshard_replay``
+    under appends draws the reference's unresharded ``ShardedReplay``
+    stream: indices and rows exactly, IS weights within 1e-6."""
+    from blendjax_torch.autoscale import reshard_replay
+
+    ref = [j_start_shard_thread(32, shard_id=i) for i in range(2)]
+    counters = EventCounters()
+    try:
+        with ShardFleet(2, capacity_per_shard=32, data_dir=str(tmp_path / "shards"),
+                        checkpoint_every=1000) as fleet:
+            a = ShardedReplay(fleet.addresses, seed=13, counters=counters)
+            b = JShardedReplay([h.address for h in ref], seed=13)
+            _fill(a, 40)
+            _fill(b, 40)
+            reshard_replay(a, fleet, source=source, counters=counters)
+            assert a.num_shards == 3
+            assert counters.get("autoscale_reshard_handoffs") == 1
+            for r in range(8):
+                (da, ia, wa), (db, ib, wb) = a.sample(8), b.sample(8)
+                np.testing.assert_array_equal(ia, ib)
+                np.testing.assert_allclose(wa, wb, rtol=0, atol=1e-6)
+                for key in db:
+                    np.testing.assert_array_equal(da[key], db[key])
+                prio = np.linspace(0.5, 2.0, len(ia)) * (r + 1)
+                a.update_priorities(ia, prio)
+                b.update_priorities(ib, prio)
+                _fill(a, 5, start=40 + 5 * r)
+                _fill(b, 5, start=40 + 5 * r)
+            a.close()
+            b.close()
+    finally:
+        for h in ref:
+            h.close()

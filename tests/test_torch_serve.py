@@ -42,6 +42,7 @@ from blendjax_torch.serve import (
     start_server_thread,
 )
 from blendjax_torch.utils.timing import SERVE_EVENTS, SERVE_STAGES, EventCounters, StageTimer
+from helpers.time_limit import time_limit
 
 REPO = Path(__file__).resolve().parent.parent
 NO_RETRY = FaultPolicy(max_retries=0)
@@ -578,12 +579,75 @@ def test_server_process_on_cpu_serves_the_jax_client():
     _close(got, want)
 
 
-def test_parts_not_ported_name_their_roadmap_item():
+@time_limit(120)
+def test_server_process_and_fleet_boot_respawn_grow_retire():
+    """``ServerProcess`` and ``ServerFleet`` on the CPU: replicas boot and
+    answer ``hello``, a SIGKILLed replica respawns under the watchdog's
+    call with its command line (and answers again), ``grow`` appends with
+    stable indices, and ``retire`` leaves a slot that is never respawned."""
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.btt.shm_rpc import leaked_objects
     from blendjax_torch.serve import ServerFleet, ServerProcess
 
-    for cls in (ServerProcess, ServerFleet):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cls()
+    with ServerProcess(model="linear", obs_dim=4, slots=2, device="cpu") as sp:
+        assert ServeClient(sp.address, timeoutms=10000).hello()["obs_dim"] == 4
+    with ServerFleet(2, model="linear", obs_dim=4, slots=2, device="cpu") as fleet:
+        addrs = list(fleet.addresses)
+        pids = [ServeClient(a, timeoutms=10000).hello()["pid"] for a in addrs]
+        assert len(set(pids)) == 2
+        kill_instance(fleet, 1)
+        fleet.launch_info.processes[1].wait(timeout=10)
+        fleet.respawn(1)
+        fleet._procs[1].wait_ready(30)
+        assert ServeClient(addrs[1], timeoutms=10000).hello()["pid"] not in pids
+        [(idx, addr)] = fleet.grow(1)
+        assert idx == 2 and fleet.addresses == addrs + [addr]
+        assert ServeClient(addr, timeoutms=10000).hello()["obs_dim"] == 4
+        assert fleet.retire(1) is True and fleet.retire(1) is False
+        assert fleet.addresses == [addrs[0], None, addr]
+        assert fleet.launch_info.processes[1] is None
+        with pytest.raises(RuntimeError, match="retired"):
+            fleet.respawn(1)
+        bases = [p.shm_base for p in fleet._procs if p is not None]
+    for base in bases:
+        if base is not None:
+            assert not leaked_objects(base)
+
+
+def test_warm_touches_only_the_pad_row():
+    """``SeqFormerModel.warm`` (the server's, for a captured model) runs every bucket's
+    tick on the pad row: a live episode's predictions and positions are
+    those of a model that was never warmed."""
+    tree, params = _params()
+    obs = _episodes(3, (6,))[0]
+    cold = SeqFormerModel(params, slots=4, length=16)
+    warm = SeqFormerModel({k: v.clone() for k, v in params.items()}, slots=4, length=16)
+    for m in (cold, warm):
+        m.reset_rows(np.asarray([1]))
+        m.step_rows(np.asarray([1]), obs[:1])
+    warm.warm((1, 2, 4))
+    for t in range(1, len(obs)):
+        np.testing.assert_array_equal(warm.step_rows(np.asarray([1]), obs[t:t + 1]),
+                                      cold.step_rows(np.asarray([1]), obs[t:t + 1]))
+    assert torch.equal(warm._cache["pos"][:warm.pad_slot], cold._cache["pos"][:cold.pad_slot])
+
+
+@time_limit(120)
+def test_server_process_on_the_card_does_not_fall_back_to_the_cpu():
+    """A replica asked for the card (the default) runs there or fails its
+    ``wait_ready`` with the child's own error: it never serves from the
+    CPU."""
+    from blendjax_torch.serve import ServerProcess
+
+    sp = ServerProcess(model="linear", obs_dim=4, slots=2)
+    assert "--device" in sp._cmd and sp._cmd[sp._cmd.index("--device") + 1] == "cuda"
+    if torch.cuda.is_available():
+        with sp:
+            assert ServeClient(sp.address, timeoutms=10000).hello()["obs_dim"] == 4
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            with sp:
+                pass
 
 
 def test_subscriber_and_subscribe_flag_adopt_published_weights():

@@ -17,6 +17,12 @@
    package's server holding the same weights.  With ``quantize=`` the
    port's ``w_q`` and scales on the wire equal the reference's
    ``quantize_for_wire`` bit for bit (``np.array_equal``).
+3. **The canary controller** (``blendjax_torch.weights.controller``): the
+   reference's four cases (promotion after a healthy window, rollback on a
+   p99 regression with the stable weights republished, the verdict
+   timeout of a wedged canary, a respawned replica kept out of canary
+   traffic until it has caught up), and both packages' controllers taking
+   the same action at every tick over the same scripted stats.
 """
 
 import subprocess
@@ -38,6 +44,7 @@ from blendjax_torch.serve.client import ServeRPCError
 from blendjax_torch.utils.timing import EventCounters, StageTimer
 from blendjax_torch.weights import WeightPublisher, WeightSubscriber, linear_tree
 from helpers import REPO_ROOT
+from helpers.time_limit import time_limit
 from test_torch_serve import _episodes, _run_episodes
 
 
@@ -367,3 +374,289 @@ def test_quantized_wire_equals_the_reference_quantizer(kind):
         got = snap.leaves[path]
         assert got.dtype == arr.dtype and got.shape == arr.shape, path
         np.testing.assert_array_equal(got, arr, err_msg=path)
+
+
+# -- the gateway's canary and the controller (the reference's cases) -------------------
+
+
+def _episode(gw_address, obs_dim=4, steps=3, timeoutms=10000):
+    """One fresh episode through the gateway: (replica, weight versions)."""
+    c = ServeClient(gw_address, timeoutms=timeoutms)
+    try:
+        c.reset()
+        obs = np.zeros(obs_dim, np.float32)
+        vs = [c.step(obs).get("weight_version") for _ in range(steps)]
+        c.close_episode()
+        return c.replica, vs
+    finally:
+        c.close()
+
+
+@time_limit(90)
+def test_controller_promotes_after_healthy_window():
+    """Both replicas subscribe; a new version opens a canary window, traffic
+    accumulates its stats, and the healthy window promotes it."""
+    from blendjax_torch.serve.gateway import start_gateway_thread
+    from blendjax_torch.weights.controller import WeightBusController
+
+    counters = EventCounters()
+    with WeightPublisher(counters=counters).start() as pub:
+        servers = [start_server_thread(LinearModel(obs_dim=4, slots=8, seed=0),
+                                       counters=EventCounters(),
+                                       subscriber=WeightSubscriber(pub.address,
+                                                                   counters=counters))
+                   for _ in range(2)]
+        gw = start_gateway_thread([s.address for s in servers], counters=counters,
+                                  scrape_interval_s=0.1)
+        ctl = WeightBusController(gw.gateway, pub, fraction=0.5, healthy_window_s=0.4,
+                                  min_requests=5)
+        try:
+            v1 = pub.publish(linear_tree(1, 4))
+            _wait(lambda: set(gw.gateway.fleet_versions().values()) == {v1},
+                  msg="fleet at v1")
+            assert ctl.tick() is None
+            assert gw.gateway.stable_version == v1  # bootstrap
+            v2 = pub.publish(linear_tree(2, 4))
+            _wait(lambda: set(gw.gateway.fleet_versions().values()) == {v2},
+                  msg="fleet at v2")
+            assert ctl.tick() == "canary"
+            assert gw.gateway.canary_version == v2
+            promoted = False
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                _episode(gw.address)
+                if ctl.tick() == "promote":
+                    promoted = True
+                    break
+            assert promoted, gw.gateway.version_stats()
+            assert gw.gateway.stable_version == v2
+            assert gw.gateway.canary_version is None
+            snap = _weight_counts(counters)
+            assert snap["weight_canary_starts"] >= 1
+            assert snap["weight_canary_promotions"] == 1
+            assert snap.get("weight_canary_rollbacks", 0) == 0
+            assert snap.get("weight_canary_routes", 0) >= 1
+        finally:
+            gw.close()
+            for s in servers:
+                s.close()
+
+
+@time_limit(120)
+def test_controller_rolls_back_on_p99_regression_and_republishes():
+    """The canary's replica is slow (``work_us``), its scraped p99 passes
+    the limit, the canary is rolled back, fresh episodes avoid the rejected
+    version, and the stable weights are republished under a fresh id."""
+    from blendjax_torch.serve.gateway import start_gateway_thread
+    from blendjax_torch.weights.controller import WeightBusController
+
+    counters = EventCounters()
+    with WeightPublisher(counters=counters, version_base=0).start() as pub_a, \
+            WeightPublisher(version_base=10, counters=counters).start() as pub_b:
+        s0 = start_server_thread(LinearModel(obs_dim=4, slots=8, seed=0),
+                                 counters=EventCounters(),
+                                 subscriber=WeightSubscriber(pub_a.address, counters=counters))
+        s1 = start_server_thread(LinearModel(obs_dim=4, slots=8, seed=0, work_us=20000),
+                                 counters=EventCounters(),
+                                 subscriber=WeightSubscriber(pub_b.address, counters=counters))
+        gw = start_gateway_thread([s0.address, s1.address], counters=counters,
+                                  scrape_interval_s=0.1)
+        ctl = WeightBusController(gw.gateway, pub_a, fraction=0.5, healthy_window_s=30.0,
+                                  min_requests=5, max_p99_x=3.0)
+        try:
+            va = pub_a.publish(linear_tree(1, 4))
+            vb = pub_b.publish(linear_tree(11, 4))
+            _wait(lambda: sorted(v for v in gw.gateway.fleet_versions().values()
+                                 if v is not None) == [va, vb], msg="mixed fleet")
+            gw.gateway.set_stable(va)
+            assert ctl.tick() == "canary"
+            assert gw.gateway.canary_version == vb
+            rolled = False
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                _episode(gw.address, timeoutms=20000)
+                if ctl.tick() == "rollback":
+                    rolled = True
+                    break
+            assert rolled, gw.gateway.version_stats()
+            assert gw.gateway.rejected_version == vb
+            snap = _weight_counts(counters)
+            assert snap["weight_canary_rollbacks"] == 1
+            assert snap["weight_rollback_publishes"] == 1
+            assert gw.gateway.stable_version == pub_a.version > va
+            for _ in range(4):
+                rep, vs = _episode(gw.address)
+                assert rep == "r0", (rep, vs)
+                assert vb not in vs
+        finally:
+            gw.close()
+            s0.close()
+            s1.close()
+
+
+class _GatewayStub:
+    """The controller-facing slice of the gateway, deterministic: the test
+    writes fleet versions and per-version stats, and the calls are kept."""
+
+    def __init__(self):
+        self.stable_version = None
+        self.canary_version = None
+        self.rejected_version = None
+        self.versions = {}
+        self.stats = {}
+        self.calls = []
+
+    def fleet_versions(self):
+        return dict(self.versions)
+
+    def version_stats(self):
+        return {v: dict(r) for v, r in self.stats.items()}
+
+    def set_stable(self, version):
+        self.calls.append(("set_stable", version))
+        self.stable_version = version
+
+    def canary(self, version, fraction):
+        self.calls.append(("canary", version, fraction))
+        self.canary_version = version
+
+    def promote(self):
+        self.calls.append(("promote",))
+        self.stable_version = self.canary_version
+        self.canary_version = None
+
+    def rollback(self):
+        self.calls.append(("rollback",))
+        self.rejected_version = self.canary_version
+        self.canary_version = None
+
+
+def test_controller_verdict_timeout_rolls_back_wedged_canary():
+    """A canary that never replies is rolled back after the verdict
+    timeout, but only if the fleet served enough traffic meanwhile; an idle
+    fleet keeps the window open."""
+    from blendjax_torch.weights.controller import WeightBusController
+
+    gw = _GatewayStub()
+    ctl = WeightBusController(gw, None, fraction=0.5, min_requests=10,
+                              healthy_window_s=60.0, verdict_timeout_s=0.05)
+    gw.versions = {"r0": 1, "r1": 1}
+    gw.stats = {1: {"requests": 0, "errors": 0}}
+    assert ctl.tick() is None and gw.stable_version == 1  # bootstrap
+    gw.versions = {"r0": 2, "r1": 1}
+    assert ctl.tick() == "canary" and gw.canary_version == 2
+    _wait(lambda: time.monotonic() - ctl._canary_t0 > 0.05, msg="the verdict timeout")
+    assert ctl.tick() is None  # idle fleet: nothing to judge by
+    assert gw.canary_version == 2
+    gw.stats[1]["requests"] = 100  # the stable side served, the canary never
+    assert ctl.tick() == "rollback"
+    assert gw.rejected_version == 2
+    assert gw.canary_version is None
+
+
+class _Republisher:
+    def __init__(self):
+        self.version = 40
+
+    def republish(self, version):
+        self.version += 1
+        return self.version
+
+
+def _controller_script(package):
+    """One scripted run over a gateway stub: every tick's action and every
+    call the controller made."""
+    if package == "port":
+        from blendjax_torch.weights.controller import WeightBusController
+    else:
+        from blendjax.weights.controller import WeightBusController
+
+    gw = _GatewayStub()
+    ctl = WeightBusController(gw, _Republisher(), fraction=0.25, min_requests=4,
+                              healthy_window_s=0.0, max_error_rate=0.1, max_p99_x=2.0,
+                              verdict_timeout_s=3600.0)
+    actions = []
+    steps = [
+        ({"r0": None}, {}),                                    # no version yet
+        ({"r0": 1, "r1": 1}, {1: (10, 0, 5.0)}),               # bootstrap stable
+        ({"r0": 2, "r1": 1}, {1: (10, 0, 5.0)}),               # canary v2
+        ({"r0": 2, "r1": 1}, {1: (20, 0, 5.0), 2: (2, 0, 5.0)}),   # too few
+        ({"r0": 2, "r1": 1}, {1: (20, 0, 5.0), 2: (8, 0, 6.0)}),   # promote
+        ({"r0": 3, "r1": 2}, {2: (8, 0, 6.0)}),                # canary v3
+        ({"r0": 3, "r1": 2}, {2: (9, 0, 6.0), 3: (9, 3, 6.0)}),    # errors: rollback
+        ({"r0": 41, "r1": 41}, {2: (9, 0, 6.0), 3: (9, 3, 6.0)}),  # republished
+        ({"r0": 42, "r1": 41}, {41: (5, 0, 4.0)}),             # canary v42
+        ({"r0": 43, "r1": 41}, {41: (5, 0, 4.0)}),             # superseded: v43
+        ({"r0": 43, "r1": 41}, {41: (9, 0, 4.0), 43: (9, 0, 20.0)}),  # p99: rollback
+    ]
+    for versions, stats in steps:
+        gw.versions = versions
+        gw.stats = {v: {"requests": r, "errors": e, "p50_ms": p / 2, "p99_ms": p}
+                    for v, (r, e, p) in stats.items()}
+        actions.append(ctl.tick())
+    return actions, gw.calls
+
+
+def test_controller_takes_the_reference_actions_on_scripted_stats():
+    """Both packages' ``WeightBusController`` take the same action at every
+    tick, and make the same gateway calls, over the same scripted fleet
+    versions and per-version stats."""
+    port, ref = _controller_script("port"), _controller_script("reference")
+    assert port == ref
+    assert port[0] == [None, None, "canary", None, "promote", "canary", "rollback",
+                       None, "canary", "canary", "rollback"]
+
+
+@pytest.mark.chaos
+@time_limit(150)
+def test_respawned_replica_catches_up_before_canary_readmission():
+    """Kill one subscribed replica process of two: the watchdog respawns it
+    and the gateway re-admits it, but while a canary window is open no
+    fresh episode reaches it until a scrape shows it caught up (the bus is
+    silenced to hold it behind)."""
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.btt.watchdog import FleetWatchdog
+    from blendjax_torch.serve import ServerFleet
+    from blendjax_torch.serve.gateway import start_gateway_thread
+
+    counters = EventCounters()
+    pub = WeightPublisher(counters=counters).start()
+    with ServerFleet(2, model="linear", obs_dim=4, slots=8, subscribe=pub.address,
+                     device="cpu") as fleet:
+        gw = start_gateway_thread(fleet.addresses, counters=counters, scrape_interval_s=0.15)
+        wd = FleetWatchdog(fleet, interval=0.2, restart=True,
+                           on_death=gw.gateway.notify_replica_death,
+                           on_respawn=gw.gateway.notify_replica_respawn)
+        try:
+            with wd:
+                v1 = pub.publish(linear_tree(1, 4))
+                _wait(lambda: set(gw.gateway.fleet_versions().values()) == {v1},
+                      timeout=30, msg="fleet at v1")
+                gw.gateway.set_stable(v1)
+                v2 = pub.publish(linear_tree(2, 4))
+                _wait(lambda: set(gw.gateway.fleet_versions().values()) == {v2},
+                      timeout=30, msg="fleet at v2")
+                gw.gateway.canary(v2, fraction=0.5)
+                pub.stop()
+                kill_instance(fleet, 1)
+                _wait(lambda: counters.get("gateway_replica_respawns") >= 1, timeout=30,
+                      msg="respawn re-admission")
+                _wait(lambda: gw.gateway.fleet_versions().get("r1", "missing") is None,
+                      timeout=20, msg="respawned replica reports no version")
+                for _ in range(6):
+                    rep, vs = _episode(gw.address)
+                    assert rep == "r0", (rep, vs)
+                    assert set(vs) == {v2}
+                pub.start()
+                _wait(lambda: gw.gateway.fleet_versions().get("r1") == v2, timeout=30,
+                      msg="r1 caught up")
+                reps = set()
+                deadline = time.monotonic() + 30
+                while time.monotonic() < deadline and "r1" not in reps:
+                    rep, vs = _episode(gw.address)
+                    assert set(vs) == {v2}
+                    reps.add(rep)
+                assert "r1" in reps, "caught-up replica never rejoined"
+        finally:
+            gw.close()
+            pub.close()
