@@ -16,8 +16,8 @@ arena buffers when it is given an :class:`~blendjax_torch.btt.arena.ArenaPool`
 Leaves of 64 KiB or more a row are gathered by the native GIL-released
 ``gather_into`` (:mod:`blendjax_torch.native.ring`), smaller ones row by
 row.  ``shm://`` addresses read same-host shared-memory rings instead of
-the socket: rings are single-consumer, so worker ``w`` of ``n`` reads
-``addresses[w::n]``, and each record is copied into its batch buffer
+the socket: rings are single-consumer, so worker ``w`` of ``n`` (counted
+over every data-parallel shard) reads ``addresses[w::n]``, and each record is copied into its batch buffer
 before the ring slot is released.  zmq is imported where a stream opens
 its socket, so the replay side (:class:`FileDataset`) works without pyzmq.
 """
@@ -39,6 +39,14 @@ from blendjax_torch.btt.collate import _NATIVE_STACK_MIN_BYTES
 from blendjax_torch.btt.constants import DEFAULT_TIMEOUTMS
 from blendjax_torch.btt.file import FileReader, FileRecorder
 from blendjax_torch.utils.timing import fleet_counters
+
+
+def _global_worker(worker_id, num_workers, shard_id, num_shards):
+    """A (shard, worker) pair as one worker of ``num_shards * num_workers``:
+    its id and the total."""
+    if not 0 <= shard_id < num_shards:
+        raise ValueError(f"shard_id {shard_id} outside [0, {num_shards})")
+    return shard_id * num_workers + worker_id, num_workers * num_shards
 
 
 def _identity(x):
@@ -105,19 +113,23 @@ class RemoteIterableDataset:
             return self.stream(worker_id=wi[0], num_workers=wi[1])
         return self.stream()
 
-    def stream(self, worker_id=0, num_workers=1, stop_event=None):
-        """Generator yielding ``max_items // num_workers`` transformed
-        items for this worker.
+    def stream(self, worker_id=0, num_workers=1, shard_id=0, num_shards=1, stop_event=None):
+        """Generator yielding ``max_items // (num_workers * num_shards)``
+        transformed items for this (shard, worker): a data-parallel rank
+        reads shard ``shard_id`` of ``num_shards``.
 
         ``stop_event`` (a ``threading.Event``) aborts the stream promptly —
         the poll loop checks it between messages so loaders can shut down
         without waiting out ``timeoutms``.
 
         ``shm://`` addresses take the native shared-memory path: rings are
-        single-consumer, so they are partitioned
-        ``addresses[worker_id::num_workers]`` instead of the ZMQ
-        connect-to-all fan-in; use ``num_workers <= len(addresses)``.
+        single-consumer, so they are partitioned over the (shard, worker)
+        pairs, ``addresses[g::num_shards * num_workers]`` for the global
+        worker ``g = shard_id * num_workers + worker_id``, instead of the
+        ZMQ connect-to-all fan-in; use ``num_shards * num_workers <=
+        len(addresses)``.
         """
+        worker_id, num_workers = _global_worker(worker_id, num_workers, shard_id, num_shards)
         if self._is_shm():
             yield from self._stream_shm(worker_id, num_workers, stop_event)
             return
@@ -288,8 +300,8 @@ class RemoteIterableDataset:
             and type(self)._item is RemoteIterableDataset._item
         )
 
-    def stream_batches(self, batch_size, worker_id=0, num_workers=1, stop_event=None,
-                       drop_last=True, timer=None, arena_pool=None):
+    def stream_batches(self, batch_size, worker_id=0, num_workers=1, shard_id=0, num_shards=1,
+                       stop_event=None, drop_last=True, timer=None, arena_pool=None):
         """Yield collated batches, bypassing per-item materialization.
 
         Each message's frames are held as zero-copy views until its batch
@@ -301,6 +313,9 @@ class RemoteIterableDataset:
         (normally the device feed) recycles each one once its bytes have
         been consumed; pool exhaustion backpressures the stream
         (``arena_wait`` stage).
+
+        ``shard_id``/``num_shards`` split the stream over data-parallel
+        ranks as :meth:`stream` does.
 
         Falls back to :meth:`stream` + ``collate`` when
         :meth:`supports_batched_stream` is False.  Schema drift between
@@ -316,6 +331,7 @@ class RemoteIterableDataset:
         if not self.supports_batched_stream():
             batch = []
             for item in self.stream(worker_id=worker_id, num_workers=num_workers,
+                                    shard_id=shard_id, num_shards=num_shards,
                                     stop_event=stop_event):
                 batch.append(item)
                 if len(batch) == batch_size:
@@ -328,9 +344,13 @@ class RemoteIterableDataset:
                     out = collate(batch)
                 yield out
             return
-        impl = self._stream_shm_batches if self._is_shm() else self._stream_zmq_batches
-        yield from impl(batch_size, worker_id, num_workers, stop_event, drop_last, timer,
-                        arena_pool)
+        g, total = _global_worker(worker_id, num_workers, shard_id, num_shards)
+        if self._is_shm():
+            yield from self._stream_shm_batches(batch_size, g, total, stop_event, drop_last,
+                                                timer, arena_pool)
+        else:
+            yield from self._stream_zmq_batches(batch_size, g, total, stop_event, drop_last,
+                                                timer, arena_pool, parallel=num_workers > 1)
 
     def _acquire_arena(self, arena_pool, timer, stop_event):
         """Next free arena from the pool (None without a pool).  Blocks
@@ -360,13 +380,14 @@ class RemoteIterableDataset:
         return ArenaBatch(data, arena)
 
     def _stream_zmq_batches(self, batch_size, worker_id, num_workers, stop_event,
-                            drop_last, timer, arena_pool):
+                            drop_last, timer, arena_pool, parallel):
         """Batched ZMQ fan-in: the builder keeps each message's zero-copy
         frames until the batch completes, then gathers each leaf in one
-        copy into the (optionally pooled) batch buffer."""
+        copy into the (optionally pooled) batch buffer.  ``parallel``: other
+        stream threads of this process gather at the same time."""
         socket, poller = self._open_socket()
         # the decode plan is shared across this stream's batches
-        builder = _BatchBuilder(batch_size, schema_cache={}, parallel=num_workers > 1)
+        builder = _BatchBuilder(batch_size, schema_cache={}, parallel=parallel)
         pending = False  # builder holds an unyielded (possibly empty) batch
         arena = None
         try:

@@ -10,6 +10,10 @@ num_workers)``.  Batches are assembled inside the worker threads
 per batch: straight from the wire frames (into recycled arenas with
 ``arena_pool``), or by ``stream()`` + collate where a per-item transform or
 recording is set.
+
+A data-parallel rank passes ``shard=(rank, n)``: the stream is then split
+ranks x workers, each (rank, worker) taking ``max_items // (num_workers *
+n)`` items of the fan-in.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ class BatchLoader:
     batch_size: int
     num_workers: int
         Stream threads; each takes ``1/num_workers`` of ``max_items``.
+    shard: (int, int)
+        ``(shard_id, num_shards)``: this process's share of the stream when
+        several data-parallel ranks read it.
     drop_last: bool
         Drop the final partial batch.
     gate: TransferGate | None
@@ -51,6 +58,7 @@ class BatchLoader:
         dataset,
         batch_size,
         num_workers=1,
+        shard=(0, 1),
         drop_last=True,
         gate=None,
         arena_pool=None,
@@ -60,6 +68,7 @@ class BatchLoader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
+        self.shard = shard
         self.drop_last = drop_last
         self.gate = gate
         self.arena_pool = arena_pool
@@ -74,12 +83,12 @@ class BatchLoader:
         # stream when batch_size exceeds the per-worker item count.
         max_items = getattr(dataset, "max_items", None)
         if drop_last and max_items is not None:
-            per_worker = max_items // num_workers
+            per_worker = max_items // (num_workers * shard[1])
             if per_worker < batch_size:
                 raise ValueError(
                     f"batch_size={batch_size} exceeds the per-worker item "
                     f"count {per_worker} ({max_items} items / {num_workers} "
-                    f"workers); every batch would be "
+                    f"workers / {shard[1]} shards); every batch would be "
                     "dropped. Lower batch_size/num_workers or pass "
                     "drop_last=False."
                 )
@@ -105,6 +114,8 @@ class BatchLoader:
                 self.batch_size,
                 worker_id=worker_id,
                 num_workers=self.num_workers,
+                shard_id=self.shard[0],
+                num_shards=self.shard[1],
                 stop_event=self._stop,
                 drop_last=self.drop_last,
                 timer=self.timer,

@@ -21,6 +21,13 @@ On the CPU, ``torch.from_numpy`` would alias the host batch, so a producer
 that reuses its buffers (a recycled arena) would rewrite batches already
 handed out; CPU batches are therefore copied into memory they own, and an
 arena is recycled as soon as that copy is made.
+
+With a ``sharding`` (:func:`blendjax_torch.parallel.mesh.data_sharding`)
+each batch leaf becomes a DTensor on the mesh: with more than one rank the
+batch a rank reads is its shard of the global batch
+(``DTensor.from_local``, no communication), as the reference's
+``make_array_from_process_local_data``; in a one-rank world the batch is
+the global one and is placed by ``distribute_tensor``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from blendjax_torch.btt.arena import ArenaBatch, ArenaPool
 from blendjax_torch.utils.device import resolve_device
@@ -254,8 +262,59 @@ def _hand_over(dev_batch, event, device):
     return dev_batch
 
 
+def _check_shardable(shape, sharding):
+    """Raise, in the reference's words, when a dimension ``sharding``
+    splits does not divide over its mesh axis."""
+    mesh = sharding.mesh
+    for i, (axis, placement) in enumerate(zip(mesh.mesh_dim_names, sharding.placements)):
+        dim = getattr(placement, "dim", None)  # a Shard's
+        if dim is None:
+            continue
+        n = mesh.size(i)
+        if dim >= len(shape) or shape[dim] % n:
+            why = (f"dimension {dim} of size {shape[dim]} does not divide over mesh "
+                   f"axis {axis!r} of size {n}" if dim < len(shape)
+                   else f"no dimension {dim} to shard over mesh axis {axis!r}")
+            raise ValueError(
+                f"batch of shape {tuple(shape)} not shardable as {sharding.spec}: {why}; "
+                "pick batch/sequence sizes divisible by the mesh axes they shard over")
+
+
+def _shard_leaves(batch, sharding):
+    """A device batch's tensors as DTensors on ``sharding``'s mesh (module
+    docstring: a rank's shard with several ranks, the global batch with
+    one)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    mesh, placements = sharding.mesh, sharding.placements
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return _map_leaves(
+            lambda t: DTensor.from_local(t, mesh, placements, run_check=False),
+            batch, torch.Tensor)
+
+    def place(t):
+        _check_shardable(t.shape, sharding)
+        return distribute_tensor(t, mesh, placements)
+
+    return _map_leaves(place, batch, torch.Tensor)
+
+
+def put_batch(batch, sharding=None, device="cuda"):
+    """Place one host batch (a numpy or tensor tree) on ``device``, the card
+    unless the caller asks for the CPU; with ``sharding``, on its mesh's
+    device as DTensors (module docstring).  A global batch whose sharded
+    dimension does not divide over its mesh axis is refused."""
+    if sharding is not None:
+        device = sharding.mesh.device_type
+    dev = resolve_device(device)
+    placed = _map_leaves(
+        lambda a: torch.tensor(a, device=dev) if isinstance(a, np.ndarray) else a.to(dev),
+        batch, (np.ndarray, torch.Tensor))
+    return placed if sharding is None else _shard_leaves(placed, sharding)
+
+
 def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
-                    gate=None):
+                    gate=None, sharding=None):
     """Wrap ``iterator`` (host batches) into an iterator of device batches.
 
     Params
@@ -275,10 +334,13 @@ def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
     gate: TransferGate | None
         When set, the gate is held closed for each transfer, including its
         completion — see :class:`TransferGate`.
+    sharding: NamedSharding | None
+        Each batch's tensors become DTensors on its mesh (module docstring),
+        placed on the mesh's device type, which then replaces ``device``.
     """
     if size < 1:
         raise ValueError("prefetch size must be >= 1")
-    device = resolve_device(device)
+    device = resolve_device(device if sharding is None else sharding.mesh.device_type)
     timer = timer or StageTimer()
     q: queue.Queue = queue.Queue(maxsize=size)
     stop = threading.Event()
@@ -350,6 +412,8 @@ def device_prefetch(iterator, size=2, device="cuda", transform=None, timer=None,
             dev_batch, event = item
             if event is not None:
                 dev_batch = _hand_over(dev_batch, event, device)
+            if sharding is not None:
+                dev_batch = _shard_leaves(dev_batch, sharding)
             yield dev_batch
     finally:
         stop.set()
@@ -369,10 +433,13 @@ class TorchStream:
         for batch in stream:          # torch tensors already on the card
             state, loss = train_step(state, batch)
 
-    The counterpart of ``blendjax.btt.prefetch.JaxStream``: ``device=``
-    takes the place of ``sharding=`` (one device; multi-device placement
-    is not ported).  ``transform`` is applied to each collated host batch
-    before it is staged (e.g. a cast to float16 that halves the copy).
+    The counterpart of ``blendjax.btt.prefetch.JaxStream``.  ``device=``
+    places every batch on one device (the card unless the caller asks for
+    the CPU); ``sharding=`` (``data_sharding(mesh)``) makes each batch
+    DTensors on the mesh instead, and a data-parallel rank reads its
+    ``shard=(rank, n)`` of the stream (:func:`device_prefetch`).
+    ``transform`` is applied to each collated host batch before it is
+    staged (e.g. a cast to float16 that halves the copy).
     ``stream.timer.summary()`` exposes the per-stage feed times (recv /
     scatter / arena_wait / device_put / recycle on the arena path, recv /
     collate / device_put on the collate path).
@@ -391,6 +458,8 @@ class TorchStream:
         batch_size,
         num_workers=1,
         device="cuda",
+        sharding=None,
+        shard=(0, 1),
         prefetch=2,
         drop_last=True,
         transfer_gate="auto",
@@ -399,13 +468,15 @@ class TorchStream:
     ):
         from blendjax_torch.btt.loader import BatchLoader
 
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.device = resolve_device(device if sharding is None else sharding.mesh.device_type)
         self.gate = _resolve_gate(transfer_gate, num_workers, self.device)
         self.arena_pool = _resolve_arena(arena, dataset, num_workers, prefetch)
         self.loader = BatchLoader(
             dataset,
             batch_size,
             num_workers=num_workers,
+            shard=shard,
             drop_last=drop_last,
             gate=self.gate,
             arena_pool=self.arena_pool,
@@ -422,6 +493,7 @@ class TorchStream:
             transform=self.transform,
             timer=self.timer,
             gate=self.gate,
+            sharding=self.sharding,
         )
 
     def close(self):

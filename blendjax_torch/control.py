@@ -141,7 +141,10 @@ def train_reinforce(pool, obs_dim=3, num_actions=2, iterations=50, horizon=64, l
     """
     if mesh is not None:
         raise NotImplementedError("train_reinforce(mesh=...): the sharded REINFORCE update "
-                                  "waits for the parallel layer (ROADMAP Queue 1, item 7)")
+                                  "waits for the learner half of the parallel layer "
+                                  "(ROADMAP Queue 1, item 7, part 7b: each rank owning "
+                                  "its envs; the mesh and make_sharded_train_step are "
+                                  "ported)")
     device = resolve_device(device)
     gen = generator or torch.Generator(device=device).manual_seed(0)
     params = policy.init(torch.Generator(device=device).manual_seed(1), obs_dim, num_actions,

@@ -18,11 +18,22 @@ at a Blender, or at ``tests/helpers/fake_blender.py`` with
 no ``bpy``) stands in for it where the feed and the trainer are what is
 being measured.  The training loop is :func:`train_on_stream`, usable
 with any iterator of device batches.
+
+Data-parallel ranks: started as ``torchrun --nproc-per-node N -m
+blendjax_torch.datagen ...`` (or with ``RANK``/``WORLD_SIZE``/
+``MASTER_ADDR``/``MASTER_PORT`` set by hand), each rank joins a gloo
+process group (ranks may share one card, which NCCL refuses), launches
+its own producers and streams its ``shard=(rank, N)`` of their items as
+DTensors sharded over a ``data_mesh()``, and the replicated detector
+trains on the global batch, as ``generate.py`` shards its stream over a
+data mesh.  One rank keeps the single-device path.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 from pathlib import Path
 
 import numpy as np
@@ -72,15 +83,27 @@ def make_loss(dtype=torch.bfloat16):
 
 
 def train_on_stream(batches, state=None, log_every=8, dtype=torch.bfloat16,
-                    device="cuda"):
+                    device="cuda", mesh=None):
     """Train TinyDetector over an iterator of device batches; returns
     ``(state, losses)``.  Without ``state``, params come from a generator
-    seeded 0 on ``device``."""
-    if state is None:
-        device = resolve_device(device)
-        state = make_state(torch.Generator(device=device).manual_seed(0),
-                           device=device)
-    step = make_train_step(make_loss(dtype))
+    seeded 0 on ``device``.  With ``mesh`` the batches are DTensors sharded
+    over it (``TorchStream(sharding=data_sharding(mesh))``): the params are
+    replicated over the mesh and the step is
+    :func:`~blendjax_torch.parallel.sharding.make_sharded_train_step`'s
+    (eager)."""
+    if mesh is not None:
+        from blendjax_torch.parallel.sharding import make_sharded_train_step
+
+        init_sharded, step = make_sharded_train_step(make_loss(dtype), mesh)
+        if state is None:
+            gen = torch.Generator(device=mesh.device_type).manual_seed(0)
+            state = init_sharded(detector.init(gen, device=mesh.device_type))
+    else:
+        if state is None:
+            device = resolve_device(device)
+            state = make_state(torch.Generator(device=device).manual_seed(0),
+                               device=device)
+        step = make_train_step(make_loss(dtype))
     losses = []
     for i, batch in enumerate(batches):
         state, loss = step(state, batch)
@@ -103,6 +126,21 @@ def infer_int8(state, raw_frames):
         return detector_apply_int8(qparams, images)
 
 
+def _data_parallel():
+    """``(mesh, rank, world)``: a data mesh over the ranks when the process
+    group holds more than one (joined here, over gloo, when
+    ``WORLD_SIZE`` > 1 names one), else ``(None, 0, 1)``."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dist.init_process_group("gloo")
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None, 0, 1
+    from blendjax_torch.parallel.mesh import data_mesh
+
+    return data_mesh(), dist.get_rank(), dist.get_world_size()
+
+
 def main():
     from blendjax_torch import btt
     from blendjax_torch.btt.collate import collate
@@ -122,6 +160,13 @@ def main():
                          "on the live stream")
     args = ap.parse_args()
 
+    mesh, rank, world = _data_parallel()
+    sharding = None
+    if mesh is not None:
+        from blendjax_torch.parallel.mesh import data_sharding
+
+        sharding = data_sharding(mesh)
+
     if args.replay:
         ds = btt.FileDataset(args.replay, item_transform=item_transform)
 
@@ -139,6 +184,8 @@ def main():
         num_instances=args.instances,
         named_sockets=["DATA"],
         background=args.background,
+        # each rank launches its own producers, on ports of its own
+        start_port=11000 + rank * args.instances,
     ) as bl:
         ds = btt.RemoteIterableDataset(
             bl.launch_info.addresses["DATA"],
@@ -146,15 +193,23 @@ def main():
             item_transform=item_transform,
             record_path_prefix=args.record,
         )
-        with btt.TorchStream(ds, batch_size=args.batch,
-                             num_workers=args.workers) as stream:
+        with btt.TorchStream(ds, batch_size=args.batch, num_workers=args.workers,
+                             sharding=sharding, shard=(rank, world)) as stream:
             it = iter(stream)
             # the inference batch is held back before training, which
             # drains the finite stream
             hold = next(it, None) if args.infer_int8 else None
-            state, _ = train_on_stream(it)
+            state, _ = train_on_stream(it, mesh=mesh)
             if hold is not None:
-                xy = infer_int8(state, hold["image"])
+                frames = hold["image"]
+                if mesh is not None:
+                    # each rank infers on its own held-back rows; the
+                    # data-parallel params replicate, so their local
+                    # tensors are whole
+                    state = dataclasses.replace(
+                        state, params={k: v.to_local() for k, v in state.params.items()})
+                    frames = frames.to_local()
+                xy = infer_int8(state, frames)
                 print(f"int8 inference: {xy.shape[0]} frames -> keypoints "
                       f"{tuple(xy.shape[1:])}")
             elif args.infer_int8:

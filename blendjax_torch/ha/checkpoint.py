@@ -42,6 +42,9 @@ What differs from the reference, and why:
   them in the reference's layout under a fresh, higher version.
 - The stats mirror also records ``first_update_ts``, when this process
   completed its first update: the end of a respawned learner's recovery.
+- Its ``last_ckpt_update`` is the last cut whose manifest is committed, so
+  a learner killed at any moment resumes from it or later; the cut taken
+  but perhaps not yet written is ``last_ckpt_taken``.
 """
 
 from __future__ import annotations
@@ -197,7 +200,12 @@ class TrainCheckpointer:
         self._inflight = None
         #: host buffers of the barrier's copy, reused from cut to cut
         self._staging = {}
+        #: the update of the last cut taken (the cadence counts from it)
         self._last_ckpt_update = 0
+        #: the update of the last cut whose manifest is committed: what the
+        #: stats report as ``last_ckpt_update``, since a crash may lose a cut
+        #: taken but not yet written
+        self._last_durable_update = 0
         self._last_ckpt_time = time.monotonic()
         self._last_stats_write = 0.0
         self._next_stall_warn = 0.0
@@ -313,6 +321,7 @@ class TrainCheckpointer:
             }
             _write_json_durable(os.path.join(self.directory, f"manifest_{update:08d}.json"),
                                 manifest)
+            self._last_durable_update = max(self._last_durable_update, update)
             self._retain()
             self._saves += 1
             self.counters.incr("ha_ckpt_saves")
@@ -368,7 +377,7 @@ class TrainCheckpointer:
         t0 = time.perf_counter()
         state = self.train_mgr.restore(learner.state, step=int(manifest["update"]))
         learner.load_checkpoint_state(state, manifest.get("aux") or {})
-        self._last_ckpt_update = int(manifest["update"])
+        self._last_ckpt_update = self._last_durable_update = int(manifest["update"])
         self._last_ckpt_time = time.monotonic()
         self.counters.incr("ha_restores")
         self.timer.add("ha_restore", time.perf_counter() - t0)
@@ -406,7 +415,8 @@ class TrainCheckpointer:
                 "pid": os.getpid(),
                 "updates": learner._updates_done,
                 "last_published_version": learner.last_published_version,
-                "last_ckpt_update": self._last_ckpt_update,
+                "last_ckpt_update": self._last_durable_update,
+                "last_ckpt_taken": self._last_ckpt_update,
             }
             try:
                 doc["stats"] = learner.stats()
@@ -431,7 +441,8 @@ class TrainCheckpointer:
             "saves": self._saves,
             "skipped": self._skipped,
             "failures": self._failures,
-            "last_ckpt_update": self._last_ckpt_update,
+            "last_ckpt_update": self._last_durable_update,
+            "last_ckpt_taken": self._last_ckpt_update,
             "manifests": len(_manifest_paths(self.directory)),
             "serialize_inflight": inflight,
         }

@@ -69,8 +69,10 @@ on-policy update and drives a changed mix through the randomizer;
 segment lands.  With all three None the loop is the plain one, step for
 step.
 
-Not ported, each refused with the ROADMAP item it waits for: ``mesh=`` and
-``pipeline_stages=`` (item 7).
+Not ported, each refused with the ROADMAP item it waits for: ``mesh=``
+(item 7, the learner half of 7b: the mesh, the sharding rules and the
+sharded train step are ported, but with ranks as processes each rank must
+own its fleets) and ``pipeline_stages=`` (item 7, part 7d).
 """
 
 from __future__ import annotations
@@ -95,10 +97,11 @@ log = logging.getLogger("blendjax_torch")
 #: the reference's constructor arguments that the port refuses, with what
 #: each waits for
 _NOT_PORTED = {
-    "mesh": "the sharded learner waits for the parallel layer "
-            "(ROADMAP Queue 1, item 7)",
+    "mesh": "the sharded learner waits for the learner half of the parallel layer "
+            "(ROADMAP Queue 1, item 7, part 7b: each rank owning its fleets; the mesh "
+            "and make_sharded_train_step are ported)",
     "pipeline_stages": "the MPMD pipeline learner waits for the parallel "
-                       "layer (ROADMAP Queue 1, item 7)",
+                       "layer's pipeline (ROADMAP Queue 1, item 7, part 7d)",
 }
 
 

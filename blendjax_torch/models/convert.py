@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from blendjax_torch.utils.device import resolve_device
 
@@ -86,7 +87,11 @@ def _lists(node):
 # Adam's ``exp_avg`` and ``exp_avg_sq`` and ``count`` is Adam's per-parameter
 # ``step`` (a float32 tensor, on the card when Adam is ``capturable``; exact
 # up to 2**24), which must agree across the parameters.  Conv kernels and
-# their moments cross as HWIO.
+# their moments cross as HWIO.  A mesh-sharded state (DTensor parameters and
+# moments) crosses whole: its tensors are gathered from the mesh on the way
+# out (a collective where a tensor is sharded, so every rank of its mesh
+# calls it; replicated tensors are read locally), and each rank writes its
+# own shard of the whole arrays on the way in.
 
 
 def jax_order(names):
@@ -129,6 +134,25 @@ def _from_jax(arr):
     return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr  # HWIO -> OIHW
 
 
+def _whole(t):
+    """``t`` whole: a DTensor gathered from its mesh."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _copy_in(dst, arr):
+    """Write the whole array ``arr`` into ``dst``: into its local shard
+    when ``dst`` is a DTensor (no communication)."""
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if isinstance(dst, DTensor):
+        mesh = dst.device_mesh
+        for mesh_dim, placement in enumerate(dst.placements):
+            if placement.is_shard():
+                src = src.chunk(mesh.size(mesh_dim), dim=placement.dim)[
+                    mesh.get_local_rank(mesh_dim)]
+        dst = dst.to_local()
+    dst.copy_(src)
+
+
 def _adam(state):
     opt = state.optimizer
     if not isinstance(opt, torch.optim.Adam) or any(g["amsgrad"] for g in opt.param_groups):
@@ -164,6 +188,7 @@ def train_state_arrays(state, staging=None):
     if adam and adam[0]:
         tensors += [s["exp_avg"] for s in adam] + [s["exp_avg_sq"] for s in adam]
         tensors += [s["step"] for s in adam]
+    tensors = [_whole(t) for t in tensors]
     staging = {} if staging is None else staging
     host = []
     for i, t in enumerate(tensors):
@@ -249,7 +274,7 @@ def load_train_state_arrays(state, arrays):
             st = _adam_state(opt, param)
             leaves = (arrays[i], arrays[p + 1 + i], arrays[2 * p + 1 + i])
             for dst, arr in zip((param, st["exp_avg"], st["exp_avg_sq"]), leaves):
-                dst.copy_(torch.from_numpy(np.ascontiguousarray(_from_jax(np.asarray(arr)))))
+                _copy_in(dst, _from_jax(np.asarray(arr)))
             st["step"].fill_(count)
     state.step = int(arrays[-1])
     return state

@@ -26,8 +26,11 @@ dict, so the int8 params of
 :func:`blendjax_torch.ops.quant.quantize_seqformer` serve through the same
 code.
 
-Not ported yet: the mixture-of-experts MLP (ROADMAP Queue 1, item 7,
-with ``models/moe.py``).
+The optional mixture-of-experts MLP (``init(n_experts=...)``: a block's
+``moe`` in place of its ``mlp``, expert weights stacked on a leading axis)
+has two apply-time modes over the same parameters: ``moe_impl='dense'``
+(every expert on every token, gate-weighted) and ``moe_impl='topk'``
+(routed, capacity-bounded: :mod:`blendjax_torch.models.moe`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import math
 
 import torch
 
+from blendjax_torch.models import moe
 from blendjax_torch.models.layers import (
     apply_rope,
     apply_rope_rows,
@@ -47,12 +51,6 @@ from blendjax_torch.models.layers import (
 from blendjax_torch.ops.quant import maybe_quantized_einsum
 from blendjax_torch.parallel.ring_attention import full_attention
 from blendjax_torch.utils.device import resolve_device
-
-_MOE_MISSING = (
-    "mixture-of-experts SeqFormer params (a 'moe' block) are not ported "
-    "yet: models/moe.py waits in ROADMAP Queue 1, item 7 (parallel layer)"
-)
-
 
 def _nest(params):
     """Flat ``{path: tensor}`` -> nested dicts (block indices stay string
@@ -69,10 +67,7 @@ def _nest(params):
 
 def _blocks(tree):
     blocks = tree.get("blocks", {})
-    out = [blocks[str(i)] for i in range(len(blocks))]
-    if any("moe" in blk for blk in out):
-        raise ValueError(_MOE_MISSING)
-    return out
+    return [blocks[str(i)] for i in range(len(blocks))]
 
 
 def _dense_mq(p, x, dtype):
@@ -111,6 +106,59 @@ def _ln_apply(p, x):
     return (out * p["scale"] + p["bias"]).to(x.dtype)
 
 
+def _moe_init(n_experts, d, d_ff, generator, device):
+    """An expert-stacked MLP: the gate (d, e), ``w1`` (e, d, d_ff), ``w2``
+    (e, d_ff, d), He-normal, zero biases."""
+    return {
+        "gate": dense_init(d, n_experts, generator=generator, device=device),
+        "w1": torch.randn((n_experts, d, d_ff), generator=generator, device=device)
+        * math.sqrt(2.0 / d),
+        "b1": torch.zeros((n_experts, d_ff), device=device),
+        "w2": torch.randn((n_experts, d_ff, d), generator=generator, device=device)
+        * math.sqrt(2.0 / d_ff),
+        "b2": torch.zeros((n_experts, d), device=device),
+    }
+
+
+def _moe_apply(p, x, dtype):
+    """The dense mixture: every expert on every token, weighted by the f32
+    gate's softmax."""
+    gates = torch.softmax(dense_apply(p["gate"], x, dtype=torch.float32), dim=-1)
+    h = torch.einsum("btd,edf->betf", x.to(dtype), p["w1"].to(dtype))
+    h = gelu(h + p["b1"][None, :, None, :].to(dtype))
+    y = torch.einsum("betf,efd->betd", h, p["w2"].to(dtype))
+    y = y + p["b2"][None, :, None, :].to(dtype)
+    return torch.einsum("bte,betd->btd", gates.to(dtype), y)
+
+
+def _mlp(blk, h, dtype, moe_impl, moe_k, moe_capacity_factor, moe_dispatch, auxs):
+    """A block's MLP on the normed (B, T, d) ``h``: the dense MLP, or its
+    MoE (a routed layer's aux record appended to ``auxs``)."""
+    if "moe" not in blk:
+        return _dense_mq(blk["mlp"]["proj"], gelu(_dense_mq(blk["mlp"]["fc"], h, dtype)), dtype)
+    if moe_impl == "topk":
+        y, aux = moe.moe_apply_topk(blk["moe"], h, dtype, k=moe_k,
+                                    capacity_factor=moe_capacity_factor,
+                                    dispatch=moe_dispatch)
+        auxs.append(aux)
+        return y
+    if moe_impl == "dense":
+        return _moe_apply(blk["moe"], h, dtype)
+    raise ValueError(f"unknown moe_impl {moe_impl!r}")
+
+
+def _drop_free(params, moe_k, moe_capacity_factor):
+    """The capacity factor that gives every routed assignment a slot
+    (``max(cf, e / min(k, e))``): decode-time routing must not depend on
+    how many tokens share the call, so the incremental decode and the
+    teacher-forced prefill agree."""
+    for path, t in params.items():
+        if path.endswith(".moe.w1"):
+            e = t.shape[0]
+            return max(moe_capacity_factor, e / min(moe_k, e))
+    return moe_capacity_factor
+
+
 def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
          n_experts=0, max_len=1024, n_kv_heads=None, pos_encoding="learned",
          device="cuda"):
@@ -119,9 +167,9 @@ def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
 
     ``n_kv_heads < n_heads`` is grouped-query attention.
     ``pos_encoding='rope'`` replaces the learned position table with
-    rotary embeddings on q/k (the params then have no ``pos``)."""
-    if n_experts:
-        raise ValueError(_MOE_MISSING)
+    rotary embeddings on q/k (the params then have no ``pos``).
+    ``n_experts > 0`` gives each block an ``moe`` (gate, w1, b1, w2, b2) in
+    place of its ``mlp``."""
     device = resolve_device(device)
     d_ff = d_ff or 4 * d_model
     if d_model % n_heads:
@@ -160,17 +208,24 @@ def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
         put(f"{blk}.wo", {"w": normal(n_heads, dh, d_model, std=scale),
                           "b": torch.zeros((d_model,), device=device)})
         put(f"{blk}.ln2", _ln_init(d_model, device))
-        put(f"{blk}.mlp.fc", dense(d_model, d_ff))
-        put(f"{blk}.mlp.proj", dense(d_ff, d_model))
+        if n_experts > 0:
+            m = _moe_init(n_experts, d_model, d_ff, generator, device)
+            put(f"{blk}.moe.gate", m.pop("gate"))
+            put(f"{blk}.moe", m)
+        else:
+            put(f"{blk}.mlp.fc", dense(d_model, d_ff))
+            put(f"{blk}.mlp.proj", dense(d_ff, d_model))
     put("ln_f", _ln_init(d_model, device))
     put("head", dense(d_model, obs_dim))
     return params
 
 
-def _forward(params, obs, attn_fn, compute_dtype, kv_sink=None):
-    """The shared forward.  ``kv_sink`` (a list) collects each layer's
-    (k, v), rotated: :func:`rollout`'s prefill fills its caches from one
-    teacher-forced pass."""
+def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
+             moe_capacity_factor=1.25, moe_dispatch="sort", kv_sink=None):
+    """The shared forward: returns (prediction, the routed MoE layers' aux
+    records).  ``kv_sink`` (a list) collects each layer's (k, v), rotated:
+    :func:`rollout`'s prefill fills its caches from one teacher-forced
+    pass."""
     if attn_fn is None:
         def attn_fn(q, k, v):
             return full_attention(q, k, v, causal=True)
@@ -178,6 +233,7 @@ def _forward(params, obs, attn_fn, compute_dtype, kv_sink=None):
     tree = _nest(params)
     blocks = _blocks(tree)
     t = obs.shape[1]
+    auxs = []
     use_rope = "pos" not in tree
     x = _dense_mq(tree["embed"], obs.to(compute_dtype), compute_dtype)
     if use_rope:
@@ -195,26 +251,51 @@ def _forward(params, obs, attn_fn, compute_dtype, kv_sink=None):
             kv_sink.append((k, v))
         a = attn_fn(q, k, v)
         x = x + _proj_mq(blk["wo"], a, "bthk,hkd->btd", compute_dtype)
-        h = _ln_apply(blk["ln2"], x)
-        h = gelu(_dense_mq(blk["mlp"]["fc"], h, compute_dtype))
-        x = x + _dense_mq(blk["mlp"]["proj"], h, compute_dtype)
+        x = x + _mlp(blk, _ln_apply(blk["ln2"], x), compute_dtype, moe_impl, moe_k,
+                     moe_capacity_factor, moe_dispatch, auxs)
     x = _ln_apply(tree["ln_f"], x)
-    return _dense_mq(tree["head"], x, torch.float32)
+    return _dense_mq(tree["head"], x, torch.float32), auxs
 
 
-def apply(params, obs, attn_fn=None, compute_dtype=torch.bfloat16):
+def apply(params, obs, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl="dense",
+          moe_k=2, moe_capacity_factor=1.25, moe_dispatch="sort"):
     """Forward pass: (B, T, obs_dim) -> (B, T, obs_dim) f32 next-obs
     prediction.  ``attn_fn(q, k, v) -> out`` on (B, T, H, Dh) tensors;
-    defaults to causal :func:`full_attention`."""
-    return _forward(params, obs, attn_fn, compute_dtype)
+    defaults to causal :func:`full_attention`.  ``moe_impl``: 'dense'
+    evaluates every expert, 'topk' routes each token to ``moe_k`` experts
+    under a capacity bound (:mod:`blendjax_torch.models.moe`)."""
+    return _forward(params, obs, attn_fn, compute_dtype, moe_impl, moe_k,
+                    moe_capacity_factor, moe_dispatch)[0]
 
 
-def loss_fn(params, batch, attn_fn=None, compute_dtype=torch.bfloat16):
+def loss_fn(params, batch, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl="dense",
+            moe_k=2, moe_capacity_factor=1.25, moe_aux_weight=0.0, moe_dispatch="sort"):
     """MSE next-observation loss over ``batch = {'obs': (B,T,D), 'target':
-    (B,T,D)}``; the target is compared in f32."""
-    pred = _forward(params, batch["obs"], attn_fn, compute_dtype)
+    (B,T,D)}``; the target is compared in f32.  With ``moe_impl='topk'``
+    and ``moe_aux_weight`` the mean over layers of the load-balance loss is
+    added, weighted."""
+    pred, auxs = _forward(params, batch["obs"], attn_fn, compute_dtype, moe_impl, moe_k,
+                          moe_capacity_factor, moe_dispatch)
     err = pred - batch["target"].to(torch.float32)
-    return torch.mean(err * err)
+    loss = torch.mean(err * err)
+    if auxs and moe_aux_weight:
+        loss = loss + moe_aux_weight * sum(a["aux_loss"] for a in auxs) / len(auxs)
+    return loss
+
+
+def moe_stats(params, batch, attn_fn=None, compute_dtype=torch.bfloat16, moe_k=2,
+              moe_capacity_factor=1.25, moe_dispatch="sort"):
+    """Measured routing of the topk path: ``{'dispatch_fraction',
+    'aux_loss'}``, each the mean over layers (0-d tensors) of the share of
+    assignments that won a capacity slot and of the load-balance loss."""
+    _, auxs = _forward(params, batch["obs"], attn_fn, compute_dtype, "topk", moe_k,
+                       moe_capacity_factor, moe_dispatch)
+    if not auxs:
+        raise ValueError("moe_stats needs params built with n_experts > 0: these params "
+                         "hold no MoE block, so there is no routing to measure")
+    n = len(auxs)
+    return {"dispatch_fraction": sum(a["dispatch_fraction"] for a in auxs) / n,
+            "aux_loss": sum(a["aux_loss"] for a in auxs) / n}
 
 
 def make_episode_batch(obs_seq):
@@ -230,16 +311,28 @@ def episode_loss_fn(params, batch, **kwargs):
     return loss_fn(params, make_episode_batch(batch["episode"]), **kwargs)
 
 
-def train_flops(batch_size, seq_len, obs_dim, d_model, n_heads, n_layers, d_ff=None):
-    """Closed-form FLOPs of one training step of the dense model (matmul
-    terms only, training = 3x forward).  Attention is counted over the
-    full T^2, not the causal half the flash kernels compute."""
+def train_flops(batch_size, seq_len, obs_dim, d_model, n_heads, n_layers, d_ff=None,
+                n_experts=0, moe_impl="dense", moe_k=2, moe_capacity_factor=1.25):
+    """Closed-form FLOPs of one training step (matmul terms only, training
+    = 3x forward).  Attention is counted over the full T^2, not the causal
+    half the flash kernels compute.  MoE: 'dense' runs every expert (plus
+    the gate); 'topk' fills ``e * capacity`` arena rows, so its expert
+    compute is that many rows through one MLP whatever the routing."""
     B, T, d = batch_size, seq_len, d_model
     d_ff = d_ff or 4 * d
     tok = B * T
     fwd = 2.0 * tok * obs_dim * d  # embed
     per_layer = 8.0 * d * d + 4.0 * T * d  # qkvo + scores/apply per token
-    fwd += tok * n_layers * (per_layer + 4.0 * d * d_ff)
+    if n_experts > 0:
+        mlp = 2.0 * d * n_experts  # the gate
+        if moe_impl == "topk":
+            rows = n_experts * moe.expert_capacity(tok, n_experts, moe_k, moe_capacity_factor)
+            mlp += 4.0 * d * d_ff * (rows / tok)
+        else:
+            mlp += n_experts * 4.0 * d * d_ff
+    else:
+        mlp = 4.0 * d * d_ff
+    fwd += tok * n_layers * (per_layer + mlp)
     fwd += 2.0 * tok * d * obs_dim  # head
     return 3.0 * fwd
 
@@ -321,7 +414,8 @@ def _attn_one(q, kc, vc, pos, scale, window=None):
     return torch.einsum("bhl,blhd->bhd", p, vc.to(torch.float32))
 
 
-def decode_step(params, cache, obs_t, compute_dtype=torch.bfloat16, window=None):
+def decode_step(params, cache, obs_t, compute_dtype=torch.bfloat16, moe_impl="dense",
+                moe_k=2, moe_capacity_factor=1.25, moe_dispatch="sort", window=None):
     """One incremental step: consume ``obs_t`` (B, obs_dim) at the cache's
     position and return ``(prediction (B, obs_dim) f32, cache)``.  The
     block math is :func:`_forward`'s at one position.
@@ -333,8 +427,14 @@ def decode_step(params, cache, obs_t, compute_dtype=torch.bfloat16, window=None)
     where the reference returns a new one (the counterpart of donating
     it).  With a (B,) ``pos`` every row embeds, rotates, writes and masks
     at its own position; a learned table is read at positions clamped into
-    range, as the reference's lookups clamp."""
+    range, as the reference's lookups clamp.
+
+    Routed MoE layers route drop-free here (:func:`_drop_free`): a
+    capacity that depends on how many tokens share the call would make the
+    incremental decode disagree with the full-sequence forward."""
     tree = _nest(params)
+    if moe_impl == "topk":
+        moe_capacity_factor = _drop_free(params, moe_k, moe_capacity_factor)
     blocks = _blocks(tree)
     pos = cache["pos"]
     per_row = isinstance(pos, torch.Tensor) and pos.ndim == 1
@@ -373,25 +473,29 @@ def decode_step(params, cache, obs_t, compute_dtype=torch.bfloat16, window=None)
         dh = q.shape[-1]
         a = _attn_one(q, kc, vc, pos, 1.0 / math.sqrt(dh), window=window).to(compute_dtype)
         x = x + _proj_mq(blk["wo"], a, "bhk,hkd->bd", compute_dtype)
-        h = _ln_apply(blk["ln2"], x)
-        h = gelu(_dense_mq(blk["mlp"]["fc"], h, compute_dtype))
-        x = x + _dense_mq(blk["mlp"]["proj"], h, compute_dtype)
+        h = _ln_apply(blk["ln2"], x)[:, None]  # the MLPs take (B, T, d)
+        x = x + _mlp(blk, h, compute_dtype, moe_impl, moe_k, moe_capacity_factor,
+                     moe_dispatch, [])[:, 0]
     cache["pos"] = pos + 1
     x = _ln_apply(tree["ln_f"], x)
     return _dense_mq(tree["head"], x, torch.float32), cache
 
 
-def prefill_cache(params, prefix, cache, rows, compute_dtype, window=None):
+def prefill_cache(params, prefix, cache, rows, compute_dtype, window=None,
+                  moe_impl="dense", moe_k=2, moe_capacity_factor=1.25, moe_dispatch="sort"):
     """One teacher-forced pass over ``prefix`` (B, T0, obs_dim) that fills
     rows ``rows`` of ``cache`` (every row for ``rows=None``) with its
     rotated k/v: only the last ``C`` positions that fit the ring, each at
     its slot.  The rows' positions become ``T0``.  Returns the pass's
-    predictions (B, T0, obs_dim) f32."""
+    predictions (B, T0, obs_dim) f32.  Routed MoE layers route drop-free,
+    as in :func:`decode_step`."""
+    if moe_impl == "topk":
+        moe_capacity_factor = _drop_free(params, moe_k, moe_capacity_factor)
     kvs = []
-    preds = _forward(
+    preds, _ = _forward(
         params, prefix,
         lambda q, k, v: full_attention(q, k, v, causal=True, window=window),
-        compute_dtype, kv_sink=kvs)
+        compute_dtype, moe_impl, moe_k, moe_capacity_factor, moe_dispatch, kv_sink=kvs)
     t0 = prefix.shape[1]
     ring = cache["k"][0].shape[1]
     keep_n = min(t0, ring)
@@ -407,7 +511,8 @@ def prefill_cache(params, prefix, cache, rows, compute_dtype, window=None):
     return preds
 
 
-def rollout(params, prefix, n_steps, compute_dtype=torch.bfloat16, window=None,
+def rollout(params, prefix, n_steps, compute_dtype=torch.bfloat16, moe_impl="dense",
+            moe_k=2, moe_capacity_factor=1.25, moe_dispatch="sort", window=None,
             cache_dtype=None):
     """Autoregressive rollout ("dreaming"): consume the ``prefix`` episode
     (B, T0, obs_dim), then feed the model its own next-observation
@@ -416,7 +521,8 @@ def rollout(params, prefix, n_steps, compute_dtype=torch.bfloat16, window=None,
 
     One teacher-forced pass fills the caches (:func:`prefill_cache`), then
     :func:`decode_step` runs ``n_steps - 1`` times; under a ``window`` the
-    cache is a ring of ``window`` slots."""
+    cache is a ring of ``window`` slots.  Routed MoE layers route drop-free
+    in both phases."""
     b, t0, _ = prefix.shape
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
@@ -429,11 +535,13 @@ def rollout(params, prefix, n_steps, compute_dtype=torch.bfloat16, window=None,
     total = t0 + n_steps
     length = total if window is None else min(total, window)
     cache = init_cache(params, b, dtype=cache_dtype or compute_dtype, length=length)
-    preds = prefill_cache(params, prefix, cache, None, compute_dtype, window=window)
+    routing = dict(moe_impl=moe_impl, moe_k=moe_k, moe_capacity_factor=moe_capacity_factor,
+                   moe_dispatch=moe_dispatch)
+    preds = prefill_cache(params, prefix, cache, None, compute_dtype, window=window, **routing)
     obs = preds[:, -1]  # the prediction for position t0
     out = [obs]
     for _ in range(n_steps - 1):
         obs, cache = decode_step(params, cache, obs, compute_dtype=compute_dtype,
-                                 window=window)
+                                 window=window, **routing)
         out.append(obs)
     return torch.stack(out, dim=1)

@@ -37,7 +37,10 @@ With parameters on the CPU both steps run eagerly: that is the device the
 caller asked for, and there is no CUDA graph on a CPU.  ``capture=False``
 runs them eagerly on the card too (an explicit choice, used to hold the
 captured step against the eager one); ``capture=True`` raises unless the
-parameters are on a CUDA device.
+parameters are on a CUDA device.  DTensor parameters (a mesh-sharded state,
+:mod:`blendjax_torch.parallel.sharding`) run eagerly on purpose: their
+collectives go over gloo, which a CUDA graph cannot capture, so
+``capture=None`` resolves to eager for them and ``capture=True`` raises.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from blendjax_torch.utils import launches
 
@@ -64,10 +68,13 @@ class TrainState:
 
     @classmethod
     def create(cls, params, lr=1e-3):
+        """Adam(``lr``) over ``params``, built ``capturable`` for CUDA
+        tensors that a step captures (not for DTensors, which run eager)."""
         params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        on_cuda = bool(params) and all(v.is_cuda for v in params.values())
+        captures = (bool(params) and all(v.is_cuda for v in params.values())
+                    and not any(isinstance(v, DTensor) for v in params.values()))
         return cls(params=params,
-                   optimizer=torch.optim.Adam(params.values(), lr=lr, capturable=on_cuda))
+                   optimizer=torch.optim.Adam(params.values(), lr=lr, capturable=captures))
 
 
 def _captures(capture, tensors):
@@ -75,6 +82,12 @@ def _captures(capture, tensors):
     if capture is False:
         return False
     tensors = list(tensors)
+    if any(isinstance(t, DTensor) for t in tensors):
+        if capture:
+            raise RuntimeError("capture=True over DTensor parameters: their collectives "
+                               "run over gloo, which a CUDA graph cannot capture; the "
+                               "sharded step runs eager")
+        return False
     if tensors and all(t.is_cuda for t in tensors):
         return True
     if capture:

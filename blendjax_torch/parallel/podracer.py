@@ -22,8 +22,9 @@ mesh.
 Layout: the single-fleet path keeps time-major ``(T, N)`` batches; the
 fan-in path is env-major ``(N, T)``, as the reference's.  The reference
 also shards the global batch over a mesh (``mesh=``, ``P('data')``); that
-waits for the parallel layer (ROADMAP Queue 1, item 7), and ``mesh=``
-raises.
+waits for the learner half of the parallel layer (ROADMAP Queue 1, item 7,
+part 7b: the reference drives every shard from one process, and with ranks
+as processes each rank must own its fleets), and ``mesh=`` raises.
 """
 
 from __future__ import annotations
@@ -97,7 +98,8 @@ class SegmentFanIn:
         Envs per fleet, in fleet order; fleet ``f`` owns global rows
         ``[offset_f, offset_f + n_f)``.
     mesh:
-        Not ported (ROADMAP Queue 1, item 7): must be None.
+        Not ported (ROADMAP Queue 1, item 7, the learner half of 7b): must
+        be None.
     queue_size: int
         Segments buffered per fleet (bounds actor-policy staleness
         exactly like the single-fleet queue).
@@ -113,8 +115,9 @@ class SegmentFanIn:
                  fleet_arena_pools=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "SegmentFanIn(mesh=...): the sharded learner waits for the "
-                "parallel layer (ROADMAP Queue 1, item 7)"
+                "SegmentFanIn(mesh=...): the sharded learner waits for the learner "
+                "half of the parallel layer (ROADMAP Queue 1, item 7, part 7b: each "
+                "rank owning its fleets; the mesh and make_sharded_train_step are ported)"
             )
         self.fleet_sizes = [int(n) for n in fleet_sizes]
         if not self.fleet_sizes or min(self.fleet_sizes) < 1:

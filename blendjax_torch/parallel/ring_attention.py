@@ -3,7 +3,7 @@
 and the f32 baseline the flash kernels are held against.
 
 The ring, zigzag and Ulysses schemes of the reference module are not
-ported yet (ROADMAP Queue 1, item 7).
+ported yet (ROADMAP Queue 1, item 7, part 7c).
 """
 
 from __future__ import annotations

@@ -41,7 +41,8 @@ PARALLEL_ATTN = ("ring", "ring_flash", "zigzag_flash", "ulysses", "ulysses_flash
 #: options of the reference example that this port does not have yet, and
 #: the ROADMAP queue item that ports them
 NOT_PORTED = {
-    "--mesh": "the sharded path waits for the parallel layer (ROADMAP Queue 1, item 7)",
+    "--mesh": "the sequence-sharded path waits for ring attention (ROADMAP Queue 1, "
+              "item 7, part 7c: make_seqformer_train_step)",
 }
 
 
@@ -65,9 +66,9 @@ def make_attn(name, seq_len, window=None):
         return windowed_full
     if name != "flash":
         raise ValueError(
-            f"--attn {name} is a parallel scheme; the sharded path is not "
-            "ported yet (ROADMAP Queue 1, item 7; single-device options: "
-            "full, flash)"
+            f"--attn {name} is a parallel scheme; the sequence-sharded path "
+            "is not ported yet (ROADMAP Queue 1, item 7, part 7c; "
+            "single-device options: full, flash)"
         )
     from blendjax_torch.ops.flash_attention import flash_block_size, make_flash_attention
 

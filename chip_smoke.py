@@ -277,11 +277,40 @@ Phases, each printing JSON lines:
               the draws on the card bit-identical to an unresharded twin's,
               then the new shard SIGKILLed mid-handoff: aborted whole, the
               map unchanged.  No kernel is on this path.
+22. moe     — the flagship SeqFormer (``SEQ``'s widths) with 8 experts,
+              top-2, capacity factor 1.25 and a 0.01 load-balance weight
+              (``MOE``; ``benchmarks/suite_device.py``'s ``phase_moe_compare``):
+              the routed layer with sort dispatch, the dense mixture and the
+              routed layer with scatter dispatch, each 8 Adam(1e-4) steps on
+              seeded float16 episodes through K2-K4, eager and captured in
+              turns as the seqformer phase (captured bit-equal to eager, every
+              flash launch on the tensor-core route, 3 profiled steps of each
+              form), with ``moe_stats``'s measured dispatch fraction and
+              ``topk_over_dense``.  Sort and scatter dispatch on the card agree
+              within ``MOE_DISPATCH_ATOL`` on an f32 case; a small f32 MoE
+              model's loss, gradients and rollout on the card (flash, f32
+              route) against the CPU within ``MOE_ATOL``, the routing compared
+              token by token (a differing choice passes only as a tie, its
+              k-th and (k+1)-th probabilities within ``MOE_TIE``).
+23. dp      — 2 rank processes on ``cuda:0`` in a gloo process group (NCCL
+              refuses two ranks on one device), each ``python3 chip_smoke.py
+              --dp-rank '<json>'``: a ``data_mesh()`` on the card; 2 producers
+              per rank through ``BatchLoader(shard=(rank, 2))`` and
+              ``TorchStream(sharding=data_sharding(mesh))`` into
+              ``datagen.train_on_stream(mesh=)`` (the full-width TinyDetector,
+              K1 decoding each rank's shard inside the loss); then 4
+              data-parallel f32 steps on a seeded global (8, 480, 640, 3)
+              batch against one process's eager steps (``DP``'s limits), and
+              the same for a ``{"model": 2}`` tensor-parallel step with
+              ``detector_rules()``, K1 in every held step's loss; the DP
+              step's ms beside one process's, for the record.  The sharded
+              steps run eager: gloo's collectives cannot be captured.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
 decode kernel, the world-model stream for the flash kernels, and the ha
-phase's resumed steps for all four) and read just after; a kernel a path
+phase's resumed steps for all four; the moe arms' turns for the flash
+kernels and each dp rank's stream and held steps for the decode kernel) and read just after; a kernel a path
 never launched fails the run.  The line before the last holds every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 without printing it, as does a host without CUDA or a directory without
@@ -297,11 +326,13 @@ own traffic).
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -682,15 +713,19 @@ def _forms(torch, phase, make_state, loss, batches, counts, profile_kernels):
         if form not in profiled:
             profiled.add(form)
             more = iter(batches)
-            counted = {name: fn.launches for name, fn in profile_kernels.items()}
+            counted = {}
 
             def profiled_step():
                 nonlocal state
                 state, loss = step(state, next(more))
                 float(loss)  # waits for the step, as in the timed steps
 
+            def recording():  # the counters' baseline, after the guard step
+                counted.update({name: fn.launches for name, fn in profile_kernels.items()})
+
             prof = _device_profile(torch, profiled_step, PROFILED_STEPS,
-                                   rec["median_step_ms"], phase + "_profile", form)
+                                   rec["median_step_ms"], phase + "_profile", form,
+                                   on_active=recording)
             rec["profile"] = {k: prof[k] for k in ("busy_ms_per_step", "idle_share",
                                                    "idle_share_of_median_step")}
             per_replay = {fn: n for g in step.graphs.values() for fn, n, _ in g.launches}
@@ -717,9 +752,14 @@ def _forms(torch, phase, make_state, loss, batches, counts, profile_kernels):
 
 #: steps of each form under torch.profiler
 PROFILED_STEPS = 3
-#: seconds of the profiler's capture window left empty before and after
-#: the profiled steps (:func:`_device_profile`)
-PROFILE_MARGIN_S = 0.05
+#: steps the profiler traces and discards before the profiled ones
+#: (:func:`_device_profile`)
+PROFILE_WARMUP_STEPS = 1
+#: the spin that opens a profiled window (about 10 ms at 1.98 GHz), and
+#: the marker spins around its recorded steps (about 5 us)
+#: (:func:`_device_profile`)
+PROFILE_ABSORB_CYCLES = 20_000_000
+PROFILE_MARK_CYCLES = 10_000
 
 
 def _check_forms(phase, turns):
@@ -1653,31 +1693,57 @@ def _route_counts(flash):
     return {n: dict(getattr(flash, n + "_cuda").launches_by_route) for n in FLASH_KERNELS}
 
 
-def _device_profile(torch, run_step, steps, median_ms, phase, form):
-    """``steps`` more train steps under torch.profiler (CUDA activity): the
-    device's busy time per step (the sum of its kernel, copy and set
-    durations), its idle share of the profiled step and of the median
-    unprofiled step, and the flash kernels' share.  Emits the record and
-    returns it, with every device event's name under ``kernels`` and the
-    number of its events under ``runs``."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_profile(torch, run_step, steps, median_ms, phase, form, on_active=None):
+    """``PROFILE_WARMUP_STEPS`` train steps as the profiler's warm-up (traced
+    and discarded), then ``steps`` recorded ones under torch.profiler (CUDA
+    activity): the device's busy time per step (the sum of its kernel, copy
+    and set durations), its idle share of the profiled step and of the
+    median unprofiled step, and the flash kernels' share.  ``on_active()``
+    runs just before the recorded steps.  Emits the record and returns it,
+    with every device event's name under ``kernels`` and the number of its
+    events under ``runs``.
+
+    The recorded window opens with a long device spin and one guard step
+    and then a short marker spin, and closes with another marker; only
+    the device events between the markers (on the card's own clock) are
+    the recorded steps'.  The profiler now and then loses a prefix of a
+    window's device records, warm-up or not (seen three times on an H100:
+    the first decode of the detector's eager step, the first 45 events of
+    the MoE flagship's eager step, the first 312 of the flagship's captured
+    step), so the counted steps must not be the window's first."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # the profiler keeps only the device events that fall inside its
-        # capture window, on the host's clock: a kernel launched in the
-        # window's first microseconds can land before it, launched and
-        # counted but not seen, so the steps run PROFILE_MARGIN_S inside it
-        time.sleep(PROFILE_MARGIN_S)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=PROFILE_WARMUP_STEPS, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(PROFILE_WARMUP_STEPS):
+            run_step()
+            torch.cuda.synchronize()
+            prof.step()
+        torch.cuda._sleep(PROFILE_ABSORB_CYCLES)
+        run_step()
+        torch.cuda._sleep(PROFILE_MARK_CYCLES)
+        torch.cuda.synchronize()
+        if on_active is not None:
+            on_active()
         t0 = time.perf_counter()
         for _ in range(steps):
             run_step()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()  # every recorded kernel done inside the window
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        time.sleep(PROFILE_MARGIN_S)
+        torch.cuda._sleep(PROFILE_MARK_CYCLES)
+        torch.cuda.synchronize()
+        prof.step()  # collects the trace
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = sorted((e.time_range.start, e.time_range.end) for e in device
+                   if "spin_kernel" in e.name and e.time_range.elapsed_us() < 1e3)
+    check(len(marks) == 2, f"{phase} {form}: the profiler kept the recorded steps' two "
+          f"marker spins ({len(marks)} found; it lost records past the guard step)")
+    (_, lead), (trail, _) = marks
     by_name, runs, events = {}, {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for e in device:
+        if e.time_range.start >= lead and e.time_range.end <= trail:
             events += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
             runs[e.name] = runs.get(e.name, 0) + 1
@@ -1685,7 +1751,7 @@ def _device_profile(torch, run_step, steps, median_ms, phase, form):
     flash_ms = sum(v for n, v in by_name.items() if "bjx_flash" in n)  # K2-K4
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     rec = {"phase": phase, "form": form, "steps": steps, "device_events": events,
-           "window_margin_s": PROFILE_MARGIN_S,
+           "warmup_steps": PROFILE_WARMUP_STEPS, "window_events": len(device),
            "wall_ms_per_step": wall_ms, "median_step_ms": median_ms,
            "busy_ms_per_step": busy if events else "not measured",
            "idle_share": 1 - busy / wall_ms if events else None,
@@ -2587,7 +2653,8 @@ def ha_phase(torch, btt, control, datagen, image, seqformer, flash, worldmodel, 
     """State and checkpoints on the card: ``ha_resume`` (the full-width
     detector through K1 and the flagship SeqFormer through K2-K4, resumed
     in place with their graphs), ``ha_al`` and ``ha_drill``.  Returns the
-    kernels' launches in the resumed steps."""
+    kernels' launches in the resumed steps, and the flash kernels' by
+    route (``flash_routes``)."""
     import functools
     import tempfile
 
@@ -2623,9 +2690,12 @@ def ha_phase(torch, btt, control, datagen, image, seqformer, flash, worldmodel, 
         rng = np.random.default_rng(3)
         seq_batches = [_episodes(torch, pendulum, rng, SEQ["batch"]) for _ in range(2 * HA_STEPS)]
 
+        routes = {}
+
         def seq_counts(zero=False):
             if zero:
                 _zero_flash_counts(flash)
+            routes.update(_route_counts(flash))
             return {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}
 
         seq = _resume_model(
@@ -2639,6 +2709,7 @@ def ha_phase(torch, btt, control, datagen, image, seqformer, flash, worldmodel, 
         check(all(n == SEQ["n_layers"] * HA_STEPS for n in seq["launches"].values()),
               "ha_resume seqformer: one launch of each flash kernel per layer and resumed step")
         launches.update(seq["launches"])
+        launches["flash_routes"] = dict(routes)
         del seq_batches
 
         al = _ha_al(torch, btt, control, tmp)
@@ -5311,7 +5382,471 @@ def serve_fleet_phase(torch, serve):
     emit({"phase": "serve_fleet_seconds", "seconds": time.perf_counter() - t_phase})
 
 
+# -- the parallel layer: routed and dense MoE, data/tensor-parallel ranks ------
+
+#: the flagship with experts (``benchmarks/suite_device.py:1161-1300``,
+#: ``phase_moe_compare``; 8 experts, top-2 from ``benchmarks/suite.py:246-247``)
+MOE = dict(n_experts=8, moe_k=2, moe_capacity_factor=1.25, moe_aux_weight=0.01)
+#: the arms, in order: (label, moe_impl, moe_dispatch)
+MOE_ARMS = (("topk_sort", "topk", "sort"), ("dense", "dense", "sort"),
+            ("topk_scatter", "topk", "scatter"))
+#: card against CPU on the small f32 MoE model (loss, gradients, rollout)
+MOE_ATOL = 1e-5
+#: a token whose top-k choice differs between card and CPU passes only as
+#: a tie: its k-th and (k+1)-th router probabilities closer than this
+MOE_TIE = 1e-6
+#: sort against scatter dispatch on the card (``tests/test_moe.py``'s limit)
+MOE_DISPATCH_ATOL = 1e-6
+
+
+def _moe_routes(torch, moe, run, force=None):
+    """``run()`` with the routing of every routed MoE layer call recorded as
+    ``moe_apply_topk`` made it: ``(probs, idx)`` on the CPU, the router
+    probabilities and choice-major expert ids its ``_topk_gates`` got and
+    gave, in call order.  With ``force`` (an iterator of such ids, taken
+    on another device) each call routes by the next of them instead, its
+    gate weights this device's probabilities at those experts."""
+    calls, chosen = [], moe._topk_gates
+
+    def recording(probs, k):
+        idx, gate_w = chosen(probs, k)
+        if force is not None:
+            idx = next(force).to(probs.device)
+            gate_w = probs.gather(1, idx.reshape(k, probs.shape[0]).T)
+            gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        calls.append((probs.detach().cpu(), idx.cpu()))
+        return idx, gate_w
+
+    moe._topk_gates = recording
+    try:
+        out = run()
+    finally:
+        moe._topk_gates = chosen
+    return out, calls
+
+
+def _route_gaps(card, cpu, k):
+    """Tokens whose choices (in order) differ between the card's and the
+    CPU's routing, each with the CPU's probability gap between the expert
+    the CPU chose and the one the card chose, the largest over the choices
+    that differ (for a different k-th choice, the gap between the k-th and
+    (k+1)-th probability)."""
+    gaps = []
+    for call, ((_, ia), (pb, ib)) in enumerate(zip(card, cpu)):
+        n = pb.shape[0]
+        a, b = ia.reshape(k, n).T, ib.reshape(k, n).T
+        for tok in (a != b).any(1).nonzero().flatten().tolist():
+            gap = max(abs(float(pb[tok, b[tok, j]] - pb[tok, a[tok, j]]))
+                      for j in range(k) if a[tok, j] != b[tok, j])
+            gaps.append({"layer_call": call, "token": tok, "gap": gap})
+    return gaps
+
+
+def _moe_vs_cpu(torch, moe, seqformer, flash, pendulum):
+    """The small f32 MoE model on the card (flash kernels, f32 route) and on
+    the CPU (plain attention): topk loss with the aux term, its gradients,
+    and a rollout, with the routing compared token by token.  Where the
+    card routed a token otherwise than the CPU, the gap must be a tie, and
+    the card runs again with the CPU's routing, so that the values are
+    held in full either way."""
+    import numpy as np
+
+    cfg = dict(obs_dim=8, d_model=64, n_heads=2, n_layers=2, max_len=128,
+               n_experts=4)
+    params = seqformer.init(torch.Generator().manual_seed(0), device="cpu", **cfg)
+    ep = torch.from_numpy(pendulum.simulate_episode(np.random.default_rng(1), 2, 128))
+    ep = ep.to(torch.float32)
+    attn = flash.make_flash_attention(causal=True, block_q="auto", block_kv="auto")
+    kw = dict(compute_dtype=torch.float32, moe_impl="topk", moe_k=2,
+              moe_capacity_factor=MOE["moe_capacity_factor"],
+              moe_aux_weight=MOE["moe_aux_weight"])
+
+    def run_on(dev, force=None):
+        p = {k: v.to(dev) for k, v in params.items()}
+        batch = {"episode": ep.to(dev)}
+        (loss, grads), calls = _moe_routes(torch, moe, lambda: _grads(
+            torch, lambda q: seqformer.episode_loss_fn(q, batch, attn_fn=attn, **kw), p),
+            force)
+        with torch.no_grad():
+            roll, roll_calls = _moe_routes(torch, moe, lambda: seqformer.rollout(
+                p, batch["episode"][:, :32], 16, compute_dtype=torch.float32,
+                moe_impl="topk", moe_k=2), force)
+        return loss, grads, calls + roll_calls, roll
+
+    cpu = run_on("cpu")
+    card = run_on("cuda")
+    check(len(card[2]) == len(cpu[2]) > 0,
+          f"moe card vs CPU: as many routed layer calls ({len(card[2])}, {len(cpu[2])})")
+    gaps = _route_gaps(card[2], cpu[2], 2)
+    if gaps:
+        card = run_on("cuda", force=iter([idx for _, idx in cpu[2]]))
+    loss_err = _max_diff(torch, card[0], cpu[0])
+    grad_err = max(_max_diff(torch, card[1][k], g) for k, g in cpu[1].items())
+    roll_err = _max_diff(torch, card[3], cpu[3])
+    rec = {"phase": "moe_reference", "config": cfg, "loss_cpu": float(cpu[0]),
+           "loss_err": loss_err, "grad_err": grad_err, "rollout_err": roll_err,
+           "atol": MOE_ATOL, "routes_compared": len(cpu[2]),
+           "route_differences": gaps, "tie_limit": MOE_TIE,
+           "held_with_cpu_routing": bool(gaps)}
+    emit(rec)
+    for g in gaps:
+        check(g["gap"] < MOE_TIE, f"moe card vs CPU: token {g['token']} routed differently "
+              f"with a probability gap of {g['gap']:.3g} (not a tie)")
+    check(loss_err <= MOE_ATOL and grad_err <= MOE_ATOL and roll_err <= MOE_ATOL,
+          f"moe card vs CPU within {MOE_ATOL}"
+          f"{' (the card on the CPU routing)' if gaps else ''}: loss {loss_err:.3g}, grads "
+          f"{grad_err:.3g}, rollout {roll_err:.3g}")
+
+
+def _moe_dispatch_check(torch, moe):
+    """Sort and scatter dispatch on the card, f32: outputs and gradients
+    within ``MOE_DISPATCH_ATOL`` under capacity pressure and without."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    e, d, f = 8, 256, 1024
+    p = {"gate": {"w": torch.randn((d, e), generator=g, device="cuda") * 0.1,
+                  "b": torch.zeros(e, device="cuda")},
+         "w1": torch.randn((e, d, f), generator=g, device="cuda") * d ** -0.5,
+         "b1": torch.zeros((e, f), device="cuda"),
+         "w2": torch.randn((e, f, d), generator=g, device="cuda") * f ** -0.5,
+         "b2": torch.zeros((e, d), device="cuda")}
+    x = torch.randn((2, 256, d), generator=g, device="cuda")
+    errs = {}
+    for cf in (1.25, 0.5):
+        outs = {}
+        for dispatch in ("sort", "scatter"):
+            leaves = {"gate": {m: w.clone().requires_grad_(True) for m, w in p["gate"].items()},
+                      **{n: p[n].clone().requires_grad_(True) for n in ("w1", "b1", "w2", "b2")}}
+            y, aux = moe.moe_apply_topk(leaves, x, torch.float32, k=2, capacity_factor=cf,
+                                        dispatch=dispatch)
+            (torch.mean(y * y) + 0.01 * aux["aux_loss"]).backward()
+            outs[dispatch] = [y] + [leaves["gate"][m].grad for m in ("w", "b")] + [
+                leaves[n].grad for n in ("w1", "b1", "w2", "b2")] + [aux["dispatch_fraction"]]
+        errs[cf] = max(_max_diff(torch, a, b) for a, b in zip(outs["sort"], outs["scatter"]))
+    emit({"phase": "moe_dispatch", "shape": [2, 256, d], "experts": e, "k": 2,
+          "max_abs_err": {str(k): v for k, v in errs.items()}, "atol": MOE_DISPATCH_ATOL})
+    check(all(v <= MOE_DISPATCH_ATOL for v in errs.values()),
+          f"moe sort and scatter dispatch agree within {MOE_DISPATCH_ATOL}: {errs}")
+
+
+def moe_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState):
+    """The flagship SeqFormer with experts, three arms through K2-K4, each
+    eager and captured in turns as the seqformer phase; returns each flash
+    kernel's launches in the arms' turns, in all and by route."""
+    import functools
+
+    import numpy as np
+
+    from blendjax_torch.models import moe
+
+    _moe_dispatch_check(torch, moe)
+    _moe_vs_cpu(torch, moe, seqformer, flash, pendulum)
+
+    cfg = {k: SEQ[k] for k in ("obs_dim", "d_model", "n_heads", "n_layers")}
+    rng = np.random.default_rng(0)
+    batches = [_episodes(torch, pendulum, rng, SEQ["batch"]) for _ in range(8)]
+    attn = worldmodel.make_attn("flash", SEQ["seq_len"])
+    launched = {n: 0 for n in FLASH_KERNELS}
+    routes = {n: {"tc": 0, "f32": 0} for n in FLASH_KERNELS}
+
+    def make_state():
+        return TrainState.create(seqformer.init(
+            torch.Generator(device="cuda").manual_seed(0), max_len=SEQ["seq_len"],
+            n_experts=MOE["n_experts"], device="cuda", **cfg), lr=SEQ["lr"])
+
+    def counts(zero=False):
+        if zero:
+            _zero_flash_counts(flash)
+        return {"launches": {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS},
+                "launches_by_route": _route_counts(flash)}
+
+    arms = {}
+    for label, impl, dispatch in MOE_ARMS:
+        t0 = time.perf_counter()
+        routing = dict(moe_impl=impl, moe_k=MOE["moe_k"],
+                       moe_capacity_factor=MOE["moe_capacity_factor"], moe_dispatch=dispatch)
+        loss = functools.partial(seqformer.episode_loss_fn, attn_fn=attn,
+                                 moe_aux_weight=MOE["moe_aux_weight"], **routing)
+        turns = _forms(torch, "moe_" + label, make_state, loss, batches, counts,
+                       {f"{n}_tc_kernel": getattr(flash, n + "_cuda") for n in FLASH_KERNELS})
+        _check_forms("moe_" + label, turns)
+        for rec in turns:
+            for n in FLASH_KERNELS:
+                launched[n] += rec["launches"]["launches"][n]
+                for route, c in rec["launches"]["launches_by_route"][n].items():
+                    routes[n][route] += c
+            check(all(r == {"tc": SEQ["n_layers"] * len(batches), "f32": 0}
+                      for r in rec["launches"]["launches_by_route"].values()),
+                  f"moe {label} {rec['form']}: every forward, dQ and dK/dV launch took the "
+                  "tensor-core route, one per layer and step")
+        stats = None
+        if impl == "topk":
+            with torch.no_grad():
+                state = make_state()
+                stats = seqformer.moe_stats(
+                    state.params, seqformer.make_episode_batch(batches[0]["episode"]),
+                    attn_fn=attn, moe_k=MOE["moe_k"],
+                    moe_capacity_factor=MOE["moe_capacity_factor"], moe_dispatch=dispatch)
+                stats = {k: float(v) for k, v in stats.items()}
+                del state
+            torch.cuda.empty_cache()
+        forms = _form_summary(turns)
+        flops = seqformer.train_flops(SEQ["batch"], SEQ["seq_len"], **cfg,
+                                      n_experts=MOE["n_experts"], moe_impl=impl,
+                                      moe_k=MOE["moe_k"],
+                                      moe_capacity_factor=MOE["moe_capacity_factor"])
+        med = forms["captured"]["median_step_ms"]
+        arms[label] = {"moe_impl": impl, "dispatch": dispatch, "params": turns[0]["params"],
+                       "losses": turns[1]["losses"], "forms": forms,
+                       "median_step_ms": med, "train_flops": flops,
+                       "model_tflop_per_s": flops / (med * 1e-3) / 1e12,
+                       "moe_stats": stats, "seconds": time.perf_counter() - t0}
+    rec = {"phase": "moe", "config": {**SEQ, **MOE}, "arms": arms,
+           "captured_match": CAPTURED_MATCH,
+           "topk_over_dense": arms["topk_sort"]["median_step_ms"]
+           / arms["dense"]["median_step_ms"],
+           "topk_scatter_over_sort": arms["topk_scatter"]["median_step_ms"]
+           / arms["topk_sort"]["median_step_ms"],
+           "launches": launched}
+    emit(rec)
+    for label in ("topk_sort", "topk_scatter"):
+        frac = arms[label]["moe_stats"]["dispatch_fraction"]
+        check(0 < frac <= 1, f"moe {label}: a measured dispatch fraction in (0, 1]")
+    return launched, routes
+
+
+#: the dp phase: ranks on the one card, items each rank streams, the held
+#: check's steps, and its limits (f32 compute; each rank's half batch goes
+#: through the whole model and the all-reduce averages the halves'
+#: gradients, in another order than one process over the whole batch: Adam
+#: moves a parameter by about lr = 1e-3 a step, and the held parameters
+#: may differ by 5% of one step)
+DP = dict(ranks=2, producers=2, items=64, local_batch=4, steps=4, param_atol=5e-5,
+          loss_rtol=1e-5, timeout_s=150)
+
+
+def dp_rank_main(spec):
+    """One rank of the dp phase (``python3 chip_smoke.py --dp-rank
+    '<json>'``), on ``cuda:0`` in a gloo process group with the other: its
+    2 producers' frames through ``BatchLoader(shard=(rank, 2))`` and
+    ``TorchStream(sharding=data_sharding(mesh))`` into
+    ``datagen.train_on_stream(mesh=)`` (K1 inside the loss); then the held
+    check, ``DP["steps"]`` data-parallel f32 steps on a seeded global batch
+    against one process's eager steps (rank 0 computes them); then the
+    same for a ``{"model": 2}`` tensor-parallel step with
+    ``detector_rules()``.  Prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from blendjax_torch import btt, datagen
+    from blendjax_torch.btt.prefetch import put_batch
+    from blendjax_torch.models import detector
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.ops import image
+    from blendjax_torch.parallel import (
+        data_mesh,
+        data_sharding,
+        detector_rules,
+        make_mesh,
+        make_sharded_train_step,
+        replicated,
+    )
+
+    cfg = json.loads(spec)
+    rank, world = cfg["rank"], cfg["world"]
+    # a rank that crashes, or sticks in a collective, prints every thread's
+    # stack (the latter before the phase's limit, then exits), so the phase
+    # reports where it stood
+    faulthandler.enable()
+    faulthandler.dump_traceback_later(DP["timeout_s"] - 20, exit=True)
+    t_rank = time.perf_counter()
+
+    def stage(name):
+        print(f"dp rank {rank}: {name} at {time.perf_counter() - t_rank:.1f} s",
+              file=sys.stderr, flush=True)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage("imported")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank}
+    stage("joined")
+    try:
+        mesh = data_mesh()
+        stage("mesh made")
+        out["mesh"] = {"device_type": mesh.device_type, "shape": list(mesh.shape),
+                       "device": torch.cuda.current_device()}
+        _fake_blender()
+        image.decode_frames_cuda.launches = 0
+        with btt.BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT),
+                                 num_instances=DP["producers"], named_sockets=["DATA"],
+                                 start_port=cfg["start_port"], background=True,
+                                 seed=rank) as bl:
+            stage("producers up")
+            ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
+                                           max_items=DP["items"],
+                                           item_transform=datagen.item_transform)
+            with btt.TorchStream(ds, batch_size=DP["local_batch"], num_workers=2,
+                                 sharding=data_sharding(mesh), shard=(rank, world)) as stream:
+                t0 = time.perf_counter()
+                stage("streaming")
+                _, losses = datagen.train_on_stream(stream, mesh=mesh, log_every=0)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        out["stream"] = {"batches": len(losses), "losses": losses, "seconds": seconds,
+                         "global_items_per_s": len(losses) * DP["local_batch"] * world
+                         / seconds, "decode_u8": image.decode_frames_cuda.launches}
+
+        def held(mesh, sharding, rows, rules, label):
+            """``DP["steps"]`` sharded f32 steps against one process's eager
+            steps on the whole batch (each rank runs them, and holds its own
+            shard of every parameter to them: no gather needed)."""
+            g = torch.Generator(device="cuda").manual_seed(7)
+            frames = torch.randint(0, 256, MAIN_SHAPE, dtype=torch.uint8, device="cuda",
+                                   generator=g)
+            xy = torch.rand((MAIN_SHAPE[0], 8, 2), generator=g, device="cuda")
+            loss = datagen.make_loss(torch.float32)
+            init = detector.init(torch.Generator(device="cuda").manual_seed(0))
+            init_sharded, step = make_sharded_train_step(loss, mesh, rules=rules)
+            stage(f"{label}: placing the state")
+            # a state's parameters are updated in place, and a replicated
+            # DTensor shares its local tensor: the reference keeps its own
+            state = init_sharded({k: v.clone() for k, v in init.items()})
+            batch = put_batch({"image": frames[rows], "xy": xy[rows]}, sharding)
+            launches0 = image.decode_frames_cuda.launches
+            stage(f"{label}: stepping")
+            dp_losses, dp_ms = [], []
+            for _ in range(DP["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, value = step(state, batch)
+                dp_losses.append(float(value))
+                dp_ms.append((time.perf_counter() - t0) * 1e3)
+            launched = image.decode_frames_cuda.launches - launches0
+            dist.barrier()
+            ref = TrainState.create({k: v.clone() for k, v in init.items()})
+            ref_step = make_train_step(loss, capture=False)
+            ref_losses, ref_ms = [], []
+            for _ in range(DP["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref, value = ref_step(ref, {"image": frames, "xy": xy})
+                ref_losses.append(float(value))
+                ref_ms.append((time.perf_counter() - t0) * 1e3)
+
+            def shard_of(whole, dt):
+                for mesh_dim, placement in enumerate(dt.placements):
+                    if placement.is_shard():
+                        whole = whole.chunk(dt.device_mesh.size(mesh_dim), dim=placement.dim)[
+                            dt.device_mesh.get_local_rank(mesh_dim)]
+                return whole
+
+            out[label] = {
+                "losses": dp_losses, "step_ms": dp_ms, "decode_u8": launched,
+                "single_losses": ref_losses, "single_step_ms": ref_ms,
+                "param_max_abs_diff": max(
+                    (v.to_local() - shard_of(ref.params[k].detach(), v)).abs().max().item()
+                    for k, v in state.params.items()),
+                "loss_max_rel_diff": max(abs(a - b) / abs(b)
+                                         for a, b in zip(dp_losses, ref_losses)),
+                "placements": {k: [repr(p) for p in v.placements]
+                               for k, v in state.params.items()
+                               if k.startswith(("fc", "head"))}}
+            dist.barrier()
+
+        local = MAIN_SHAPE[0] // world
+        stage("held dp")
+        held(mesh, data_sharding(mesh), slice(rank * local, (rank + 1) * local), {}, "dp")
+        stage("held tp")
+        tp_mesh = make_mesh({"model": world})
+        held(tp_mesh, replicated(tp_mesh), slice(None), detector_rules(), "tp")
+    finally:
+        dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    stage("done")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def dp_phase(torch):
+    """Two rank processes on ``cuda:0`` over gloo (NCCL refuses two ranks
+    on one device): :func:`dp_rank_main` in each.  Checks both ranks'
+    stream and held steps; returns the K1 launches both made."""
+    import tempfile
+
+    port, start = _port_block(1), _port_block(DP["ranks"] * DP["producers"] + 2)
+    logs = tempfile.mkdtemp(prefix="bjx-dp-")
+    procs = []
+    for rank in range(DP["ranks"]):
+        spec = json.dumps({"rank": rank, "world": DP["ranks"], "port": port,
+                           "start_port": start + rank * DP["producers"]})
+        # output to files, not pipes: a rank's producers inherit its
+        # descriptors, and a pipe they hold open would outlive the rank
+        with open(os.path.join(logs, f"{rank}.out"), "w") as out, \
+                open(os.path.join(logs, f"{rank}.err"), "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", spec],
+                stdout=out, stderr=err, cwd=REPO, start_new_session=True))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, DP["timeout_s"] + 10 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    outs = []
+    for rank, p in enumerate(procs):
+        with open(os.path.join(logs, f"{rank}.err")) as f:
+            err = "\n".join(ln for ln in f.read().splitlines() if "redistribut" not in ln)
+        with open(os.path.join(logs, f"{rank}.out")) as f:
+            stdout = f.read()
+        check(p.returncode == 0, f"dp rank {rank} exited {p.returncode}: {err[-6000:]}")
+        outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    shutil.rmtree(logs, ignore_errors=True)
+    r0, r1 = outs
+    rec = {"phase": "dp", "ranks": DP["ranks"], "config": DP, "seconds": time.perf_counter() - t0,
+           "mesh": r0["mesh"], "stream": [o["stream"] for o in outs],
+           "dp": [o["dp"] for o in outs], "tp": [o["tp"] for o in outs],
+           "dp_step_ms": statistics.median(r0["dp"]["step_ms"][1:]),
+           "single_step_ms": statistics.median(r0["dp"]["single_step_ms"][1:]),
+           "decode_u8_by_rank": [o["stream"]["decode_u8"] + o["dp"]["decode_u8"]
+                                 + o["tp"]["decode_u8"] for o in outs]}
+    emit(rec)
+    check(r0["mesh"]["device_type"] == "cuda", "dp: the mesh is on the card")
+    for o in outs:
+        s = o["stream"]
+        check(s["batches"] == DP["items"] // DP["ranks"] // DP["local_batch"],
+              f"dp rank {o['rank']}: its shard of the stream delivered every batch")
+        check(all(math.isfinite(v) for v in s["losses"]), f"dp rank {o['rank']}: losses finite")
+        check(s["decode_u8"] >= 1,
+              f"dp rank {o['rank']}: K1 launched inside the loss on this rank's stream")
+    check(r0["stream"]["losses"] == r1["stream"]["losses"],
+          "dp: both ranks saw one loss per step (the global batch's)")
+    check(r0["dp"]["losses"] == r1["dp"]["losses"], "dp: the held losses agree across ranks")
+    check(r0["tp"]["losses"] == r1["tp"]["losses"], "tp: the held losses agree across ranks")
+    for label in ("dp", "tp"):
+        for o in outs:
+            r = o[label]
+            check(r["decode_u8"] == DP["steps"],
+                  f"{label} rank {o['rank']}: K1 launched inside each held step's loss")
+            check(r["param_max_abs_diff"] <= DP["param_atol"]
+                  and r["loss_max_rel_diff"] <= DP["loss_rtol"],
+                  f"{label} rank {o['rank']}: {DP['steps']} sharded steps within "
+                  f"{DP['param_atol']} (params) and {DP['loss_rtol']} (losses, relative) of "
+                  f"one process's: {r['param_max_abs_diff']:.3g}, "
+                  f"{r['loss_max_rel_diff']:.3g}")
+    return sum(rec["decode_u8_by_rank"])
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5395,18 +5930,24 @@ def main():
     flywheel_phase(torch, btt, control, seqformer, serve, al_rates)
     scenario_phase(torch, btt)
     serve_fleet_phase(torch, serve)
+    t_parallel = time.perf_counter()
+    moe_launches, moe_routes = moe_phase(torch, seqformer, flash, worldmodel, pendulum,
+                                         TrainState)
+    dp_launches = dp_phase(torch)
+    emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t_parallel})
 
     kernels = [{
         "name": "decode_u8", "route": "cuda",
         "source": "blendjax_torch/ops/csrc/decode.cu",
         "replaces": "blendjax/ops/image.py:69",
         "launches": (decode_launches + shm_launches + densityopt_launches + infer_launches
-                     + ha_launches["decode_u8"]),
+                     + ha_launches["decode_u8"] + dp_launches),
         "launches_by_path": {"datagen_stream": decode_launches,
                              "datagen_shm": shm_launches,
                              "densityopt": densityopt_launches,
                              "infer_int8": infer_launches,
-                             "ha_resume": ha_launches["decode_u8"]},
+                             "ha_resume": ha_launches["decode_u8"],
+                             "dp_ranks": dp_launches},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
@@ -5422,20 +5963,29 @@ def main():
                 "flash_dkv": ("flash_bwd_tc.cu", "flash_bwd.cu", 296)}
     for kname, (src, previous_src, line) in replaces.items():
         rec = flash_timing[kname]
+        by_route = {route: (flash_routes[kname].get(route, 0)
+                            + ha_launches["flash_routes"][kname].get(route, 0)
+                            + moe_routes[kname].get(route, 0))
+                    for route in ("tc", "f32")}
+        launched = flash_launches[kname] + ha_launches[kname] + moe_launches[kname]
+        check(sum(by_route.values()) == launched,
+              f"{kname}: every launch of the line counted on a route ({by_route}, {launched})")
         kernels.append({
             "name": kname, "route": "cuda", "source": f"blendjax_torch/ops/csrc/{src}",
             "replaces": f"blendjax/ops/flash_attention.py:{line}",
-            "launches": flash_launches[kname] + ha_launches[kname],
+            "launches": launched,
             "launches_by_path": {"worldmodel_stream": flash_launches[kname],
-                                 "ha_resume": ha_launches[kname]},
+                                 "ha_resume": ha_launches[kname],
+                                 "moe": moe_launches[kname]},
             "max_abs_err": flash_errs[kname],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "ms_clean_l2": rec["ms_clean_l2"], "launches_by_route": flash_routes[kname],
+            "ms_clean_l2": rec["ms_clean_l2"], "launches_by_route": by_route,
             "previous_ms": rec["previous_ms"],
             "previous_source": f"blendjax_torch/ops/csrc/{previous_src}",
         })
     emit({"kernels": kernels})
+    emit({"phase": "smoke_seconds", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5447,4 +5997,6 @@ if __name__ == "__main__":
         sys.exit(serve_clients_main(sys.argv[2]))
     if sys.argv[1:2] == ["--chaos-clients"]:
         sys.exit(chaos_clients_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -12,6 +12,7 @@ fake Blender.
   ``tests/test_launcher.py::test_launch_cli_app``.
 """
 
+import contextlib
 import json
 import os
 import signal
@@ -87,9 +88,25 @@ def test_stream_over_proto_and_sweep_at_exit(fake_blender, proto):
         base = bl._shm_base
         addrs = bl.launch_info.addresses["DATA"]
         assert all(a.startswith(f"{proto}://") for a in addrs)
-        ds = RemoteIterableDataset(addrs, max_items=16, timeoutms=20000, counters=counters)
-        batches = list(ds.stream_batches(4))
-        assert [b["image"].shape for b in batches] == [(4, 16, 24, 3)] * 4
+        if proto == "shm":
+            # the worker rotates over both rings, but the first ring can fill
+            # 16 items before the second producer publishes: read on until
+            # both producers' items have come (a rotation stuck on one ring
+            # runs into the limit and fails)
+            ds = RemoteIterableDataset(addrs, max_items=10**6, timeoutms=20000,
+                                       counters=counters)
+            batches, btids, deadline = [], set(), time.monotonic() + 60
+            with contextlib.closing(ds.stream_batches(4)) as stream:
+                for b in stream:
+                    batches.append(b)
+                    btids |= {int(v) for v in b["btid"]}
+                    if (len(batches) >= 4 and btids == {0, 1}) or time.monotonic() > deadline:
+                        break
+        else:
+            ds = RemoteIterableDataset(addrs, max_items=16, timeoutms=20000, counters=counters)
+            batches = list(ds.stream_batches(4))
+            assert len(batches) == 4
+        assert all(b["image"].shape == (4, 16, 24, 3) for b in batches)
         btids = {int(v) for b in batches for v in b["btid"]}
         assert btids <= {0, 1}
         if proto == "shm":

@@ -182,12 +182,25 @@ def test_params_round_trip_and_init_layout(pos, n_kv_heads):
 
 
 def test_moe_params_are_refused_by_name():
-    with pytest.raises(ValueError, match="ROADMAP Queue 1, item 7"):
-        tseq.init(torch.Generator(), n_experts=4, device="cpu")
-    params = tseq.init(torch.Generator().manual_seed(0), device="cpu", **CFG)
-    params["blocks.1.moe.gate.w"] = torch.zeros(64, 2)  # a JAX MoE block's leaf
-    with pytest.raises(ValueError, match="models/moe.py"):
-        tseq.apply(params, torch.zeros(1, 4, OBS))
+    """MoE params are no longer refused (the model takes them, dense and
+    routed, as the reference's); what stays refused by name is the
+    sequence-sharded SeqFormer step, which waits for ring attention."""
+    from blendjax_torch.parallel import make_seqformer_train_step
+
+    tree = jax.device_get(jseq.init(jax.random.PRNGKey(0), n_experts=4, **CFG))
+    params = params_from_jax(tree, device="cpu")
+    obs = np.random.default_rng(3).standard_normal((B, 8, OBS)).astype(np.float32)
+    for impl in ("dense", "topk"):
+        got = tseq.apply(params, _t(obs), compute_dtype=torch.float32, moe_impl=impl)
+        want = jseq.apply(tree, jnp.asarray(obs), compute_dtype=jnp.float32, moe_impl=impl)
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+    mine = tseq.init(torch.Generator().manual_seed(0), n_experts=4, device="cpu", **CFG)
+    assert {k: tuple(v.shape) for k, v in mine.items()} == {
+        k: tuple(v.shape) for k, v in params.items()}
+    with pytest.raises(ValueError, match="unknown moe_impl"):
+        tseq.apply(params, _t(obs), moe_impl="sparse")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
+        make_seqformer_train_step(None, None)
 
 
 def test_train_flops_matches_reference():

@@ -54,6 +54,8 @@ CASES = {
     "rope": (dict(pos_encoding="rope"), None),
     "rope-windowed": (dict(pos_encoding="rope"), 4),
     "gqa": (dict(n_kv_heads=2), None),
+    # the server decodes an MoE model with decode_step's defaults: the dense mixture
+    "moe": (dict(n_experts=4), None),
 }
 
 
