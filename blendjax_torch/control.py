@@ -36,6 +36,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from blendjax_torch.models import policy
 from blendjax_torch.models.train import TrainState, make_train_step
@@ -138,29 +139,48 @@ def train_reinforce(pool, obs_dim=3, num_actions=2, iterations=50, horizon=64, l
     ``generator`` (on ``device``) draws the actions, seed 0 by default; the
     parameters come from seed 1, as the reference's keys 0 and 1.
     ``on_iteration``, if given, gets each iteration's numbers as a dict.
+
+    With ``mesh`` (a torch DeviceMesh with a ``'data'`` axis, made by every
+    rank) the update is data-parallel over the ranks: each rank steps the
+    pool it owns, on the mesh's device, its default generator seeded with
+    its data index, and feeds its transitions to
+    :func:`~blendjax_torch.parallel.sharding.make_sharded_train_step` with
+    the policy replicated.  The advantage's baseline and std and the mean
+    are the global batch's (``reinforce_loss(reduce=)``), so the update is
+    one process's on every rank's transitions together.  The mean returns
+    are this rank's.
     """
+    reduce = None
     if mesh is not None:
-        raise NotImplementedError("train_reinforce(mesh=...): the sharded REINFORCE update "
-                                  "waits for the learner half of the parallel layer "
-                                  "(ROADMAP Queue 1, item 7, part 7b: each rank owning "
-                                  "its envs; the mesh and make_sharded_train_step are "
-                                  "ported)")
+        from blendjax_torch.parallel.podracer import data_sum
+        from blendjax_torch.parallel.sharding import make_sharded_train_step
+
+        device, reduce = mesh.device_type, data_sum(mesh)
     device = resolve_device(device)
-    gen = generator or torch.Generator(device=device).manual_seed(0)
+    seed = 0 if mesh is None else mesh.get_local_rank("data")
+    gen = generator or torch.Generator(device=device).manual_seed(seed)
     params = policy.init(torch.Generator(device=device).manual_seed(1), obs_dim, num_actions,
                          device=device)
-    state = TrainState.create(params, lr=lr)
 
     def loss_fn(p, batch):
-        return policy.reinforce_loss(p, batch["obs"], batch["actions"], batch["returns"])
+        return policy.reinforce_loss(p, batch["obs"], batch["actions"], batch["returns"],
+                                     reduce=reduce)
 
-    step = make_train_step(loss_fn)
+    if mesh is None:
+        state = TrainState.create(params, lr=lr)
+        step = make_train_step(loss_fn)
+    else:
+        init_sharded, step = make_sharded_train_step(loss_fn, mesh, lr=lr)
+        state = init_sharded(params)
     returns_log = []
     obs, _ = pool.reset()
     for it in range(iterations):
         ro = Rollout(device)
+        # the actors sample from this rank's replica of the parameters
+        local = {k: v.to_local() if isinstance(v, DTensor) else v
+                 for k, v in state.params.items()}
         for _ in range(horizon):
-            obs, _ = ro.step(pool, state.params, gen, obs)
+            obs, _ = ro.step(pool, local, gen, obs)
         t1 = time.perf_counter()
         rewards, dones = ro.tensors()
         returns = policy.discounted_returns(rewards, dones, gamma)

@@ -69,10 +69,24 @@ on-policy update and drives a changed mix through the randomizer;
 segment lands.  With all three None the loop is the plain one, step for
 step.
 
-Not ported, each refused with the ROADMAP item it waits for: ``mesh=``
-(item 7, the learner half of 7b: the mesh, the sharding rules and the
-sharded train step are ported, but with ranks as processes each rank must
-own its fleets) and ``pipeline_stages=`` (item 7, part 7d).
+**The data-parallel learner (``mesh=``) is one process per rank.**  The
+reference drives every shard of its mesh from one process; here every rank
+of the mesh's ``'data'`` axis runs its own ``ActorLearner`` over the fleets
+it owns, its actors sampling on the rank's device from a snapshot, and
+fills its ``Shard(0)`` rows of the global batch
+(:class:`~blendjax_torch.parallel.podracer.SegmentFanIn` over the mesh).
+The parameters replicate, and the updates go through
+:func:`~blendjax_torch.parallel.sharding.make_sharded_train_step`, eager.
+Every batch statistic of the losses (the mask's weight, the baseline, the
+advantage's and the replay reward's normalization) is summed over the
+ranks, and each rank's loss is scaled so that the step's mean over ranks
+is the global batch's loss and gradient, whatever rows each rank holds.
+The ranks stay in step: each update (and each replay update) starts only
+once every rank has its batch, and a rank that stops or fails stops them
+all.
+
+Not ported: ``pipeline_stages=`` (ROADMAP Queue 1, item 7, part 7d), which
+raises naming its item.
 """
 
 from __future__ import annotations
@@ -85,9 +99,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from blendjax_torch.models import policy
-from blendjax_torch.models.train import TrainState, make_train_step
+from blendjax_torch.models.train import TrainState, capture_gate, make_train_step
 from blendjax_torch.obs.flight import flight_recorder
 from blendjax_torch.utils.device import resolve_device
 from blendjax_torch.utils.timing import StageTimer
@@ -97,9 +113,6 @@ log = logging.getLogger("blendjax_torch")
 #: the reference's constructor arguments that the port refuses, with what
 #: each waits for
 _NOT_PORTED = {
-    "mesh": "the sharded learner waits for the learner half of the parallel layer "
-            "(ROADMAP Queue 1, item 7, part 7b: each rank owning its fleets; the mesh "
-            "and make_sharded_train_step are ported)",
     "pipeline_stages": "the MPMD pipeline learner waits for the parallel "
                        "layer's pipeline (ROADMAP Queue 1, item 7, part 7d)",
 }
@@ -202,9 +215,16 @@ class ActorLearner:
         Multi-fleet only: collect a global batch as soon as this many live
         fleets contributed a segment (absent fleets zero-masked) instead of
         waiting for every live fleet.  None keeps the all-live barrier.
+    mesh: torch DeviceMesh | None
+        The data-parallel learner (module docstring): a mesh with a
+        ``'data'`` axis, made by every rank, each passing the pools it owns
+        (or None for :meth:`run_offline`); the parameters and updates live
+        on the mesh's device.  ``replay_batch`` (and ``run_offline``'s
+        ``batch_size``) must divide by the axis's size: each rank samples
+        its share from its own buffer.
 
-    The reference's other arguments raise ``NotImplementedError`` naming
-    their ROADMAP item (see the module docstring).
+    ``pipeline_stages=`` raises ``NotImplementedError`` naming its ROADMAP
+    item (see the module docstring).
     """
 
     def __init__(self, pool, obs_dim, num_actions, *, rollout_len=32,
@@ -212,7 +232,8 @@ class ActorLearner:
                  action_map=None, pipeline=False, num_fleets=None,
                  replay=None, replay_ratio=0, replay_batch=64, device="cuda",
                  checkpointer=None, hub=None, weight_bus=None, publish_every=1,
-                 scenarios=None, curriculum=None, fanin_min_ready=None, **not_ported):
+                 scenarios=None, curriculum=None, fanin_min_ready=None, mesh=None,
+                 **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"ActorLearner got an unexpected keyword argument {name!r}")
@@ -231,19 +252,46 @@ class ActorLearner:
         self.continuous = continuous
         self.pipeline = bool(pipeline)
         self.action_map = action_map or (lambda a: list(np.asarray(a)))
+        self.mesh = mesh
+        self._data_size, self._reduce = 1, None
+        if mesh is not None:
+            from blendjax_torch.parallel.podracer import data_sum
+
+            if "data" not in mesh.mesh_dim_names:
+                raise ValueError(f"mesh {mesh} has no 'data' axis")
+            self._reduce = data_sum(mesh)
+            self._data_size = self._reduce.n_ranks
+            device = mesh.device_type
+            if replay is not None and int(replay_batch) % self._data_size:
+                raise ValueError(
+                    f"replay_batch={replay_batch} does not divide over the mesh's data "
+                    f"axis ({self._data_size} shards); pick batch sizes divisible by the "
+                    "mesh axes they shard over")
         self.device = resolve_device(device)
-        #: env-major fan-in path: more than one fleet
-        self._use_fanin = len(self.pools) > 1
+        #: env-major fan-in path: any mesh, or more than one fleet
+        self._use_fanin = mesh is not None or len(self.pools) > 1
         self._seed = seed
         params = policy.init(torch.Generator(device=self.device).manual_seed(seed),
                              obs_dim, num_actions, continuous=continuous,
                              device=self.device)
-        self.state = TrainState.create(params, lr=lr)
+        if mesh is None:
+            self.state = TrainState.create(params, lr=lr)
+            make_step = make_train_step
+        else:
+            from blendjax_torch.parallel.sharding import make_sharded_train_step
+
+            # replicated parameters; each rank's rows of the batch
+            init_sharded, _ = make_sharded_train_step(None, mesh, lr=lr)
+            self.state = init_sharded(params)
+
+            def make_step(loss):
+                return make_sharded_train_step(loss, mesh, lr=lr)[1]
 
         if self._use_fanin:
             from blendjax_torch.parallel.podracer import make_segment_loss
 
-            self.loss_fn = make_segment_loss(gamma, continuous=continuous)
+            self.loss_fn = make_segment_loss(gamma, continuous=continuous,
+                                             reduce=self._reduce)
         else:
             def loss_fn(p, batch):
                 returns = policy.discounted_returns(batch["rewards"], batch["dones"], gamma)
@@ -267,19 +315,19 @@ class ActorLearner:
                 logp = policy.gaussian_log_prob(p, batch["obs"], batch["action"])
             else:
                 logp = policy.categorical_log_prob(p, batch["obs"], batch["action"])
-            r = batch["reward"]
-            adv = (r - r.mean()) / (r.std(correction=0) + 1e-6)
-            return -torch.mean(batch["is_weight"] * logp * adv.detach())
+            adv, scale = policy.normalized_advantage(batch["reward"], reduce=self._reduce)
+            return -(batch["is_weight"] * logp * adv).sum() * scale
 
         self.replay_loss_fn = replay_loss_fn
-        # two captured steps over the one TrainState (and its one Adam)
-        self._step = make_train_step(self.loss_fn)
+        # two steps (captured on the card without a mesh) over the one
+        # TrainState (and its one Adam)
+        self._step = make_step(self.loss_fn)
         self.replay = replay
         self.replay_ratio = int(replay_ratio)
         self.replay_batch = int(replay_batch)
         if replay_ratio and replay is None:
             raise ValueError("replay_ratio > 0 requires a replay buffer")
-        self._replay_step = make_train_step(replay_loss_fn) if replay is not None else None
+        self._replay_step = make_step(replay_loss_fn) if replay is not None else None
         #: the actors' sampling parameters: (a copy of state.params, the
         #: event after which the copy is complete, or None on the CPU)
         self._actor_params = self._snapshot()
@@ -437,9 +485,11 @@ class ActorLearner:
         return next((e for e in self._actor_errors if e is not None), None)
 
     def _snapshot(self):
-        """A copy of the parameters, made on the learner's stream, and the
-        event it is complete at (None on the CPU)."""
-        params = {k: v.detach().clone() for k, v in self.state.params.items()}
+        """A copy of the parameters (a replicated parameter's local tensor
+        under a mesh), made on the learner's stream, and the event it is
+        complete at (None on the CPU)."""
+        params = {k: (v.to_local() if isinstance(v, DTensor) else v).detach().clone()
+                  for k, v in self.state.params.items()}
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -490,18 +540,22 @@ class ActorLearner:
         actor still reads it."""
         params, event = self._actor_params
         if stream is not None:
-            stream.wait_event(event)
-            for t in params.values():
-                t.record_stream(stream)
+            with capture_gate.device_work():
+                stream.wait_event(event)
+                for t in params.values():
+                    t.record_stream(stream)
         return params
 
     def _sample(self, params, gen, obs):
         """Actions for ``obs`` (numpy, (N, D)) sampled on the device; the
-        actions come back as numpy."""
-        obs_t = torch.as_tensor(obs, device=self.device)
-        with torch.no_grad():
-            action, _ = policy.sample_action(params, gen, obs_t)
-        return action.cpu().numpy()
+        actions come back as numpy.  The copies to and from the card are
+        pageable, so the sampling waits while the learner captures a step
+        (:class:`~blendjax_torch.models.train.CaptureGate`)."""
+        with capture_gate.device_work():
+            obs_t = torch.as_tensor(obs, device=self.device)
+            with torch.no_grad():
+                action, _ = policy.sample_action(params, gen, obs_t)
+            return action.cpu().numpy()
 
     def _actor(self, fid, pool):
         try:
@@ -628,7 +682,12 @@ class ActorLearner:
         self.state, loss = self._replay_step(self.state, batch)
         self._publish_params()
         r = np.asarray(reward, np.float64)
-        self.replay.update_priorities(idx, np.abs(r - r.mean()))
+        if self._reduce is None:
+            mean = r.mean()
+        else:  # the global batch's baseline, as the loss's
+            sums = self._reduce(torch.tensor([r.sum(), r.size], dtype=torch.float64))
+            mean = float(sums[0] / sums[1])
+        self.replay.update_priorities(idx, np.abs(r - mean))
         return float(loss)
 
     def _replay_update(self, data, idx, weights):
@@ -637,16 +696,29 @@ class ActorLearner:
                                  "reward": data["reward"], "is_weight": weights})
         return self._replay_step_and_refresh(batch, idx, data["reward"])
 
+    def _agree(self, flag):
+        """The least of every data rank's ``flag`` (this rank's alone
+        without a mesh): ranks step together or not at all."""
+        if self._reduce is None:
+            return flag
+        t = torch.tensor([flag])
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.mesh.get_group("data"))
+        return int(t)
+
     def _drain_replay_ratio(self, replay_losses):
         """The learner's off-policy tail: up to ``replay_ratio`` sampled
-        updates, skipped (not blocked on) while the buffer is short.
-        ``timeout=0`` makes the shortfall check and the draw one atomic
-        step."""
+        updates, skipped (not blocked on) while the buffer is short (on any
+        rank, under a mesh).  ``timeout=0`` makes the shortfall check and
+        the draw one atomic step."""
         for _ in range(self.replay_ratio):
             try:
                 data, idx, w = self.replay.sample(
-                    self.replay_batch, timeout=0.0, keys=("obs", "action", "reward"))
+                    self.replay_batch // self._data_size, timeout=0.0,
+                    keys=("obs", "action", "reward"))
+                drawn = 1
             except TimeoutError:
+                drawn = 0
+            if not self._agree(drawn):
                 self.replay.counters.incr("replay_sample_skips")
                 return
             t0 = time.perf_counter()
@@ -670,6 +742,12 @@ class ActorLearner:
 
         if self.replay is None:
             raise RuntimeError("run_offline requires a replay buffer")
+        if batch_size % self._data_size:
+            raise ValueError(
+                f"batch_size={batch_size} does not divide over the mesh's data axis "
+                f"({self._data_size} shards); pick batch sizes divisible by the mesh "
+                "axes they shard over")
+        batch_size //= self._data_size  # each rank samples its share
         pool = arena_pool or ArenaPool(pool_size=prefetch + 2)
         stop = threading.Event()
         # gather (and copy) only what the off-policy loss and the priority
@@ -678,17 +756,24 @@ class ActorLearner:
                                          keys=("obs", "action", "reward"))
         losses = []
         t0 = time.perf_counter()
+        sharding = None
+        if self.mesh is not None:
+            from blendjax_torch.parallel.mesh import data_sharding
+
+            sharding = data_sharding(self.mesh)  # this rank's rows of the global batch
         it = device_prefetch(gen, size=prefetch, device=self.device,
-                             timer=self.replay.timer)
+                             timer=self.replay.timer, sharding=sharding)
+
+        def host(t):
+            return (t.to_local() if isinstance(t, DTensor) else t).cpu().numpy()
+
         try:
             for dev_batch in it:
                 # the sampler's indices came back in-band (the prefetcher
                 # unwraps ArenaBatch), keying the priority refresh
                 losses.append(self._replay_step_and_refresh(
                     {k: dev_batch[k] for k in ("obs", "action", "reward", "is_weight")},
-                    dev_batch["replay_idx"].cpu().numpy(),
-                    dev_batch["reward"].cpu().numpy(),
-                ))
+                    host(dev_batch["replay_idx"]), host(dev_batch["reward"])))
                 if len(losses) >= num_updates:
                     break
         finally:
@@ -895,7 +980,7 @@ class ActorLearner:
             from blendjax_torch.parallel.podracer import SegmentFanIn
 
             # fresh fan-in per run: empty queues, recycled arenas
-            self._fanin = SegmentFanIn([p.num_envs for p in self.pools],
+            self._fanin = SegmentFanIn([p.num_envs for p in self.pools], mesh=self.mesh,
                                        queue_size=self.queue_size, device=self.device)
         self._threads = [
             threading.Thread(target=self._actor, args=(fid, p), daemon=True,
@@ -911,12 +996,20 @@ class ActorLearner:
             while True:
                 if num_updates is not None and len(losses) >= num_updates:
                     break
-                if deadline is not None and time.perf_counter() >= deadline:
-                    break
                 t1 = time.perf_counter()
-                got = (self._next_fanin_batch(deadline) if self._fanin is not None
-                       else self._next_queue_batch(deadline))
-                if got is None:
+                try:
+                    if deadline is not None and t1 >= deadline:
+                        got = None  # every stop goes through _agree: ranks stop together
+                    else:
+                        got = (self._next_fanin_batch(deadline) if self._fanin is not None
+                               else self._next_queue_batch(deadline))
+                except Exception:
+                    self._agree(-1)  # a failed rank stops every rank
+                    raise
+                agreed = self._agree(0 if got is None else 1)
+                if agreed < 0:
+                    raise RuntimeError("another data rank's learner failed")
+                if agreed == 0:
                     break
                 batch, seg_reward = got
                 t2 = time.perf_counter()
@@ -951,7 +1044,8 @@ class ActorLearner:
             "elapsed_s": round(elapsed, 3),
             "stages": self.timer.summary(),
         }
-        if len(self.pools) > 1:
+        if len(self.pools) > 1 or self.mesh is not None:
+            stats["sharded"] = self.mesh is not None
             stats["num_fleets"] = len(self.pools)
             stats["env_steps_by_fleet"] = list(self._env_steps_by_fleet)
             stats["dead_fleets"] = [fid for fid, e in enumerate(self._actor_errors)

@@ -160,7 +160,8 @@ def _dispatch_sort(xf, probs, k, capacity, dtype):
     return expert_in, row_slot, keep, gate_w
 
 
-def moe_apply_topk(p, x, dtype, k=2, capacity_factor=1.25, dispatch="sort"):
+def moe_apply_topk(p, x, dtype, k=2, capacity_factor=1.25, dispatch="sort",
+                   token_mean=None):
     """Routed MoE layer forward over the dense mixture's parameters
     (``gate``/``w1``/``b1``/``w2``/``b2``, expert-stacked), so routing is
     an apply-time choice.  ``dispatch`` is ``'sort'`` or ``'scatter'``
@@ -169,7 +170,17 @@ def moe_apply_topk(p, x, dtype, k=2, capacity_factor=1.25, dispatch="sort"):
 
     Returns ``(y, aux)``: ``y`` (b, t, d), and ``aux`` with ``aux_loss``
     (the load balance) and ``dispatch_fraction`` (the share of assignment
-    rows that won a slot)."""
+    rows that won a slot).
+
+    ``token_mean`` (a shard's layer, when the batch's tokens are spread
+    over ranks in equal shares) takes a tensor of per-rank means to the
+    mean over every rank's tokens, without a gradient.  The first-choice
+    fractions ``f`` of the load-balance loss are then global, and its
+    mean probabilities ``p`` stay this rank's: the mean over ranks of the
+    ranks' ``e * sum(f * p)``, which the sharded step takes, is the
+    global loss and its gradient.  Capacity stays per rank
+    (``expert_capacity`` of this rank's tokens), so a capacity drop
+    follows this rank's order of assignments, not the global one."""
     b, t, d = x.shape
     n = b * t
     e = p["w1"].shape[0]
@@ -196,6 +207,12 @@ def moe_apply_topk(p, x, dtype, k=2, capacity_factor=1.25, dispatch="sort"):
     scale = (gate_w.T.reshape(k * n) * keep).to(dtype)
     y = (out_flat.index_select(0, row_slot) * scale[:, None]).reshape(k, n, d).sum(0)
 
-    aux = {"aux_loss": load_balance_loss(probs, torch.argmax(probs, dim=-1)),
-           "dispatch_fraction": keep.to(torch.float32).mean()}
+    fraction = keep.to(torch.float32).mean()
+    if token_mean is None:
+        aux_loss = load_balance_loss(probs, torch.argmax(probs, dim=-1))
+    else:
+        f = token_mean(_one_hot(torch.argmax(probs, dim=-1), e, probs.dtype).mean(0))
+        aux_loss = e * torch.sum(f * probs.mean(0))
+        fraction = token_mean(fraction)
+    aux = {"aux_loss": aux_loss, "dispatch_fraction": fraction}
     return y.reshape(b, t, d), aux

@@ -103,9 +103,40 @@ def discounted_returns(rewards, dones, gamma=0.99):
     return out
 
 
-def reinforce_loss(params, obs, actions, returns, continuous=False):
+def _local(x):
+    return x
+
+
+_local.n_ranks = 1
+
+
+def normalized_advantage(x, weight=None, reduce=None):
+    """``(advantage, scale)`` of a batch of returns ``x``: the advantage is
+    ``x`` less its (``weight``-ed) mean over the batch, over its population
+    std, detached; ``scale`` turns a weighted sum over the rows into the
+    batch mean.  A loss is ``-(weight * logp * advantage).sum() * scale``.
+
+    ``reduce`` (a data-parallel rank's rows of the global batch:
+    :func:`blendjax_torch.parallel.podracer.data_sum`) sums a detached tensor
+    over the ranks: the weight, the mean and the variance are the global
+    batch's, and ``scale`` carries the rank count, so that the sharded
+    step's mean over ranks is the global loss and gradient whatever the
+    ranks' shares.  The count is summed on the device, so a captured step
+    holds no host copy.
+    """
+    reduce = _local if reduce is None else reduce
+    w = torch.ones_like(x) if weight is None else weight
+    wsum = torch.clamp_min(reduce(w.sum()), 1.0)
+    mu = reduce((w * x).sum()) / wsum
+    var = reduce((w * (x - mu) ** 2).sum()) / wsum
+    advantage = (x - mu) / (torch.sqrt(var) + 1e-6)
+    return advantage.detach(), reduce.n_ranks / wsum
+
+
+def reinforce_loss(params, obs, actions, returns, continuous=False, reduce=None):
     """-E[log pi(a|s) * (G - baseline)] with a batch-mean baseline, the
-    advantage scaled by the returns' (population) std and detached.
+    advantage scaled by the returns' (population) std and detached
+    (:func:`normalized_advantage`, over every rank with ``reduce``).
 
     ``obs`` (T*N, obs_dim), ``actions`` (T*N,), ``returns`` (T*N,).
     """
@@ -113,9 +144,8 @@ def reinforce_loss(params, obs, actions, returns, continuous=False):
         logp = gaussian_log_prob(params, obs, actions)
     else:
         logp = categorical_log_prob(params, obs, actions)
-    advantage = returns - returns.mean()
-    advantage = advantage / (returns.std(correction=0) + 1e-6)
-    return -torch.mean(logp * advantage.detach())
+    advantage, scale = normalized_advantage(returns, reduce=reduce)
+    return -(logp * advantage).sum() * scale
 
 
 def value_init(generator, obs_dim, hidden=(64, 64), device="cuda"):

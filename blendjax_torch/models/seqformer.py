@@ -125,13 +125,16 @@ def _moe_apply(p, x, dtype):
     gate's softmax."""
     gates = torch.softmax(dense_apply(p["gate"], x, dtype=torch.float32), dim=-1)
     h = torch.einsum("btd,edf->betf", x.to(dtype), p["w1"].to(dtype))
-    h = gelu(h + p["b1"][None, :, None, :].to(dtype))
+    # contiguous: with the experts sharded over a model axis, torch's DTensor
+    # einsum views a strided local shard here and raises
+    h = gelu(h + p["b1"][None, :, None, :].to(dtype)).contiguous()
     y = torch.einsum("betf,efd->betd", h, p["w2"].to(dtype))
     y = y + p["b2"][None, :, None, :].to(dtype)
     return torch.einsum("bte,betd->btd", gates.to(dtype), y)
 
 
-def _mlp(blk, h, dtype, moe_impl, moe_k, moe_capacity_factor, moe_dispatch, auxs):
+def _mlp(blk, h, dtype, moe_impl, moe_k, moe_capacity_factor, moe_dispatch, auxs,
+         token_mean=None):
     """A block's MLP on the normed (B, T, d) ``h``: the dense MLP, or its
     MoE (a routed layer's aux record appended to ``auxs``)."""
     if "moe" not in blk:
@@ -139,7 +142,7 @@ def _mlp(blk, h, dtype, moe_impl, moe_k, moe_capacity_factor, moe_dispatch, auxs
     if moe_impl == "topk":
         y, aux = moe.moe_apply_topk(blk["moe"], h, dtype, k=moe_k,
                                     capacity_factor=moe_capacity_factor,
-                                    dispatch=moe_dispatch)
+                                    dispatch=moe_dispatch, token_mean=token_mean)
         auxs.append(aux)
         return y
     if moe_impl == "dense":
@@ -221,11 +224,14 @@ def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
 
 
 def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
-             moe_capacity_factor=1.25, moe_dispatch="sort", kv_sink=None):
+             moe_capacity_factor=1.25, moe_dispatch="sort", kv_sink=None, pos_offset=0,
+             token_mean=None):
     """The shared forward: returns (prediction, the routed MoE layers' aux
     records).  ``kv_sink`` (a list) collects each layer's (k, v), rotated:
     :func:`rollout`'s prefill fills its caches from one teacher-forced
-    pass."""
+    pass.  ``pos_offset`` is the global position of ``obs``'s first step
+    (a sequence shard's); ``token_mean`` makes the routed layers' batch
+    statistics global (:func:`blendjax_torch.models.moe.moe_apply_topk`)."""
     if attn_fn is None:
         def attn_fn(q, k, v):
             return full_attention(q, k, v, causal=True)
@@ -237,9 +243,10 @@ def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
     use_rope = "pos" not in tree
     x = _dense_mq(tree["embed"], obs.to(compute_dtype), compute_dtype)
     if use_rope:
-        cos, sin = rope_table(torch.arange(t, device=obs.device), _wq_head_dim(blocks))
+        cos, sin = rope_table(torch.arange(pos_offset, pos_offset + t, device=obs.device),
+                              _wq_head_dim(blocks))
     else:
-        x = x + tree["pos"][:t].to(compute_dtype)[None]
+        x = x + tree["pos"][pos_offset:pos_offset + t].to(compute_dtype)[None]
     for blk in blocks:
         h = _ln_apply(blk["ln1"], x)
         q, k, v = (_proj_mq(blk[n], h, "btd,dhk->bthk", compute_dtype)
@@ -252,7 +259,7 @@ def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
         a = attn_fn(q, k, v)
         x = x + _proj_mq(blk["wo"], a, "bthk,hkd->btd", compute_dtype)
         x = x + _mlp(blk, _ln_apply(blk["ln2"], x), compute_dtype, moe_impl, moe_k,
-                     moe_capacity_factor, moe_dispatch, auxs)
+                     moe_capacity_factor, moe_dispatch, auxs, token_mean)
     x = _ln_apply(tree["ln_f"], x)
     return _dense_mq(tree["head"], x, torch.float32), auxs
 
@@ -269,13 +276,17 @@ def apply(params, obs, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl="den
 
 
 def loss_fn(params, batch, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl="dense",
-            moe_k=2, moe_capacity_factor=1.25, moe_aux_weight=0.0, moe_dispatch="sort"):
+            moe_k=2, moe_capacity_factor=1.25, moe_aux_weight=0.0, moe_dispatch="sort",
+            pos_offset=0, token_mean=None):
     """MSE next-observation loss over ``batch = {'obs': (B,T,D), 'target':
     (B,T,D)}``; the target is compared in f32.  With ``moe_impl='topk'``
     and ``moe_aux_weight`` the mean over layers of the load-balance loss is
-    added, weighted."""
+    added, weighted.  ``pos_offset`` and ``token_mean`` serve a sequence
+    shard's loss (:func:`_forward`; the sequence-sharded step,
+    :func:`blendjax_torch.parallel.sharding.make_seqformer_train_step`)."""
     pred, auxs = _forward(params, batch["obs"], attn_fn, compute_dtype, moe_impl, moe_k,
-                          moe_capacity_factor, moe_dispatch)
+                          moe_capacity_factor, moe_dispatch, pos_offset=pos_offset,
+                          token_mean=token_mean)
     err = pred - batch["target"].to(torch.float32)
     loss = torch.mean(err * err)
     if auxs and moe_aux_weight:

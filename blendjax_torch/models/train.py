@@ -45,6 +45,9 @@ collectives go over gloo, which a CUDA graph cannot capture, so
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -226,6 +229,65 @@ def _on_side_stream(run, batch, leaves, device):
     return out
 
 
+class CaptureGate:
+    """Holds other threads' device work off while a step is captured.
+
+    The feed's threads may run through a capture (see :func:`_capture`),
+    but a thread that copies between pageable host memory and the card
+    while another captures makes torch refuse the copy ("Cannot copy
+    between CPU and CUDA tensors during CUDA graph capture unless the CPU
+    tensor is pinned").  An actor's sampling (obs to the card, actions
+    back) is such work: it runs inside :meth:`device_work`, which waits
+    while a capture is open, and a capture opens only once no such work
+    is in flight.
+
+    While any capture is open, Python's cyclic collector is also held off
+    (``gc.disable``; torch no longer collects before a capture): a dead
+    cycle that holds an old ``CUDAGraph``, collected inside the capturing
+    thread, would destroy that graph mid-capture, which CUDA does not
+    permit, and the capture would fail ("operation failed due to a
+    previous error during capture")."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._capturing = 0
+        self._working = 0
+        self._gc_was_enabled = False
+
+    @contextlib.contextmanager
+    def capturing(self):
+        with self._cond:
+            self._capturing += 1
+            if self._capturing == 1:
+                self._gc_was_enabled = gc.isenabled()
+                gc.disable()
+            self._cond.wait_for(lambda: self._working == 0)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._capturing -= 1
+                if self._capturing == 0 and self._gc_was_enabled:
+                    gc.enable()
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def device_work(self):
+        with self._cond:
+            self._cond.wait_for(lambda: self._capturing == 0)
+            self._working += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._working -= 1
+                self._cond.notify_all()
+
+
+#: the process's one gate (:class:`CaptureGate`)
+capture_gate = CaptureGate()
+
+
 def _capture(run, batch, leaves, device):
     """Capture ``run`` over static copies of ``batch``'s leaves."""
     inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for _, t in leaves]
@@ -241,7 +303,8 @@ def _capture(run, batch, leaves, device):
     # another thread during the capture, would invalidate it.  They touch
     # no tensor of the captured stream, so only this thread's calls are
     # held to the capture's rules.
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    # pageable copies of other threads (an actor's sampling) wait at the gate
+    with capture_gate.capturing(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
         output = run(static)
     per_replay = launches.since(before)
     launches.add(per_replay, times=-1)  # the capture itself launched nothing

@@ -1,10 +1,9 @@
 """blendjax_torch.parallel — meshes over torch ranks, sharding rules and the
-sharded train step, the multi-fleet actor-learner's segment fan-in and
-fleet sets, and attention across the sequence axis.  Of the attention
-schemes only the single-device reference,
-:func:`ring_attention.full_attention`, is ported so far; the ring, zigzag
-and Ulysses schemes, ``make_seqformer_train_step`` and the pipeline wait
-for ROADMAP Queue 1, item 7 (7c and 7d).  Attribute access is lazy."""
+sharded train steps, the multi-fleet actor-learner's segment fan-in and
+fleet sets, and attention across the sequence axis (ring, ring + flash,
+zigzag and Ulysses, :mod:`ring_attention`, over the rank exchange of
+:mod:`p2p`).  The pipeline waits for ROADMAP Queue 1, item 7, part 7d.
+Attribute access is lazy."""
 
 _LAZY = {
     "data_mesh": ("blendjax_torch.parallel.mesh", "data_mesh"),
@@ -23,6 +22,13 @@ _LAZY = {
     "param_specs": ("blendjax_torch.parallel.sharding", "param_specs"),
     "shard_pytree": ("blendjax_torch.parallel.sharding", "shard_pytree"),
     "full_attention": ("blendjax_torch.parallel.ring_attention", "full_attention"),
+    "make_ring_attention": ("blendjax_torch.parallel.ring_attention", "make_ring_attention"),
+    "ring_attention": ("blendjax_torch.parallel.ring_attention", "ring_attention"),
+    "ring_flash_attention": ("blendjax_torch.parallel.ring_attention",
+                             "ring_flash_attention"),
+    "ulysses_attention": ("blendjax_torch.parallel.ring_attention", "ulysses_attention"),
+    "zigzag_flash_attention": ("blendjax_torch.parallel.ring_attention",
+                               "zigzag_flash_attention"),
 }
 
 __all__ = sorted(_LAZY)

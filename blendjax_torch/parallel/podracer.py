@@ -20,11 +20,14 @@ mesh.
   plane (docs/scenarios.md).
 
 Layout: the single-fleet path keeps time-major ``(T, N)`` batches; the
-fan-in path is env-major ``(N, T)``, as the reference's.  The reference
-also shards the global batch over a mesh (``mesh=``, ``P('data')``); that
-waits for the learner half of the parallel layer (ROADMAP Queue 1, item 7,
-part 7b: the reference drives every shard from one process, and with ranks
-as processes each rank must own its fleets), and ``mesh=`` raises.
+fan-in path is env-major ``(N, T)``, as the reference's.
+
+Over a mesh (``mesh=``, the data-parallel learner) ranks are processes:
+where the reference drives every shard from one process, here each rank
+owns its fleets and fills its own ``Shard(0)`` rows of the global batch,
+padded to the rows of the rank with the most envs, and every batch
+statistic of the loss is taken over all ranks (``make_segment_loss(
+reduce=)``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from blendjax_torch.btt.arena import ArenaBatch, ArenaPool
 from blendjax_torch.models import policy
@@ -54,7 +58,7 @@ def padded_size(n, shard_count):
     return -(-n // shard_count) * shard_count
 
 
-def make_segment_loss(gamma=0.99, continuous=False):
+def make_segment_loss(gamma=0.99, continuous=False, reduce=None):
     """Masked REINFORCE over ENV-MAJOR ``(N, T)`` segment batches.
 
     ``batch``: obs ``(N, T, D)``, actions ``(N, T[, A])``, rewards /
@@ -62,6 +66,11 @@ def make_segment_loss(gamma=0.99, continuous=False):
     dead-fleet slices and contribute nothing to the loss, the baseline,
     or the advantage normalization (the population std, as
     ``reinforce_loss``'s).
+
+    ``reduce`` (a data-parallel rank's rows of the global batch;
+    :func:`data_sum`) takes the weight, the baseline and the variance over
+    every rank (:func:`policy.normalized_advantage`), however the real rows
+    fall over the ranks.
     """
 
     def loss_fn(p, batch):
@@ -73,13 +82,25 @@ def make_segment_loss(gamma=0.99, continuous=False):
         else:
             logp = policy.categorical_log_prob(p, batch["obs"], batch["actions"])
         w = batch["mask"].to(torch.float32)[:, None].expand(returns.shape)
-        wsum = torch.clamp_min(w.sum(), 1.0)
-        mu = (w * returns).sum() / wsum
-        var = (w * (returns - mu) ** 2).sum() / wsum
-        adv = (returns - mu) / (torch.sqrt(var) + 1e-6)
-        return -((w * logp * adv.detach()).sum() / wsum)
+        adv, scale = policy.normalized_advantage(returns, w, reduce)
+        return -(w * logp * adv).sum() * scale
 
     return loss_fn
+
+
+def data_sum(mesh, axis="data"):
+    """``sum(x)``: a detached tensor summed over ``mesh``'s ``axis`` (one
+    all-reduce); ``sum.n_ranks`` is the axis's size.  The batch statistics
+    of a data-parallel rank's loss go through it."""
+    group = mesh.get_group(axis)
+
+    def total(x):
+        x = x.detach().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    total.n_ranks = mesh.size(mesh.mesh_dim_names.index(axis))
+    return total
 
 
 class SegmentFanIn:
@@ -95,11 +116,18 @@ class SegmentFanIn:
     Params
     ------
     fleet_sizes: sequence[int]
-        Envs per fleet, in fleet order; fleet ``f`` owns global rows
-        ``[offset_f, offset_f + n_f)``.
-    mesh:
-        Not ported (ROADMAP Queue 1, item 7, the learner half of 7b): must
-        be None.
+        Envs per fleet, in fleet order; fleet ``f`` owns rows
+        ``[offset_f, offset_f + n_f)`` of this process's batch.
+    mesh: torch DeviceMesh | None
+        The data-parallel learner's mesh.  Every rank of ``axis`` makes its
+        own fan-in over the fleets it owns (collectively: the ranks agree on
+        the row count here).  Each rank's batch has ``n_local`` rows, the
+        most envs any rank owns, its own real rows first and the rest
+        zero-filled at mask 0, and lands as that rank's ``Shard(0)`` rows of
+        an ``n_padded = n_local x ranks`` global batch (:meth:`to_device`).
+        None: one process's batch on ``device``.
+    axis: str
+        The mesh axis the batch shards over.
     queue_size: int
         Segments buffered per fleet (bounds actor-policy staleness
         exactly like the single-fleet queue).
@@ -107,26 +135,36 @@ class SegmentFanIn:
         Global-batch pool and per-fleet segment pools; sized from
         ``queue_size`` when omitted.
     device: str | torch.device
-        Where :meth:`to_device` places the batch; CUDA unless the caller
-        asks for the CPU.
+        Where :meth:`to_device` places the batch without a mesh; CUDA unless
+        the caller asks for the CPU.  With a mesh, the mesh's device.
     """
 
-    def __init__(self, fleet_sizes, mesh=None, queue_size=4, arena_pool=None,
+    def __init__(self, fleet_sizes, mesh=None, axis="data", queue_size=4, arena_pool=None,
                  fleet_arena_pools=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SegmentFanIn(mesh=...): the sharded learner waits for the learner "
-                "half of the parallel layer (ROADMAP Queue 1, item 7, part 7b: each "
-                "rank owning its fleets; the mesh and make_sharded_train_step are ported)"
-            )
         self.fleet_sizes = [int(n) for n in fleet_sizes]
         if not self.fleet_sizes or min(self.fleet_sizes) < 1:
             raise ValueError(f"bad fleet sizes {fleet_sizes}")
         self.num_fleets = len(self.fleet_sizes)
         self.offsets = np.concatenate([[0], np.cumsum(self.fleet_sizes)])
+        #: this process's real rows
         self.n_real = int(self.offsets[-1])
-        self.n_padded = self.n_real
-        self.device = resolve_device(device)
+        self.mesh, self.axis, self.sharding = mesh, axis, None
+        if mesh is None:
+            self.shard_count, self.n_local, self.n_real_global = 1, self.n_real, self.n_real
+            self.device = resolve_device(device)
+        else:
+            from blendjax_torch.parallel.mesh import data_sharding
+
+            self.shard_count = mesh.size(mesh.mesh_dim_names.index(axis))
+            self.sharding = data_sharding(mesh, axis)
+            group = mesh.get_group(axis)
+            most, total = (torch.tensor([self.n_real]) for _ in range(2))
+            dist.all_reduce(most, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(total, group=group)
+            self.n_local, self.n_real_global = int(most), int(total)
+            self.device = resolve_device(mesh.device_type)
+        #: rows of the global batch, padding included
+        self.n_padded = self.n_local * self.shard_count
         self.queues = [
             queue.Queue(maxsize=queue_size) for _ in range(self.num_fleets)
         ]
@@ -272,8 +310,8 @@ class SegmentFanIn:
         """Scatter per-fleet segments into one env-major global batch.
 
         Returns an :class:`ArenaBatch` whose data is ``{obs, actions,
-        rewards, dones, mask}`` with leading axis ``n_padded`` — rows of
-        absent fleets zero-filled and carried at ``mask`` 0.  Fleet
+        rewards, dones, mask}`` with leading axis ``n_local`` — rows of
+        absent fleets and padding zero-filled and carried at ``mask`` 0.  Fleet
         arenas recycle as soon as their rows are copied; the global arena
         recycles after the device copy (:meth:`to_device`).  Segments
         must share one shape signature: route mixed-scenario sets through
@@ -299,9 +337,9 @@ class SegmentFanIn:
         for key in SEGMENT_KEYS:
             tail = first[key].shape[2:]
             data[key] = arena.get_buffer(
-                key + suffix, (self.n_padded, t_len) + tail, first[key].dtype
+                key + suffix, (self.n_local, t_len) + tail, first[key].dtype
             )
-        mask = arena.get_buffer("mask" + suffix, (self.n_padded,), np.float32)
+        mask = arena.get_buffer("mask" + suffix, (self.n_local,), np.float32)
         mask[:] = 0.0
         for f, seg in segs.items():
             o, n = int(self.offsets[f]), self.fleet_sizes[f]
@@ -321,24 +359,31 @@ class SegmentFanIn:
         return ArenaBatch(data, arena)
 
     def to_device(self, batch):
-        """Place an assembled global batch on the device and recycle its
-        arena once the copy has completed.  On the card every leaf goes
-        through the feed's pinned staging ring and the arena returns only
-        after the copy's event; on the CPU each leaf is first copied into
-        memory it owns (``torch.from_numpy`` would alias the arena, and the
-        next assembly would rewrite this batch in place)."""
-        from blendjax_torch.btt.prefetch import _hand_over, _owned_cpu_batch, _PinnedStager
+        """Place an assembled batch on the device and recycle its arena once
+        the copy has completed.  On the card every leaf goes through the
+        feed's pinned staging ring and the arena returns only after the
+        copy's event; on the CPU each leaf is first copied into memory it
+        owns (``torch.from_numpy`` would alias the arena, and the next
+        assembly would rewrite this batch in place).  With a mesh the leaves
+        are this rank's ``Shard(0)`` rows of the global batch (DTensors)."""
+        from blendjax_torch.btt.prefetch import (
+            _hand_over,
+            _owned_cpu_batch,
+            _PinnedStager,
+            _shard_leaves,
+        )
 
         if self.device.type != "cuda":
             dev = _owned_cpu_batch(batch.data)
             batch.recycle()
-            return dev
-        if self._stager is None:
-            self._stager = _PinnedStager(self.device)
-        dev, event = self._stager.put(batch.data)
-        event.synchronize()
-        batch.recycle()
-        return _hand_over(dev, event, self.device)
+        else:
+            if self._stager is None:
+                self._stager = _PinnedStager(self.device)
+            dev, event = self._stager.put(batch.data)
+            event.synchronize()
+            batch.recycle()
+            dev = _hand_over(dev, event, self.device)
+        return dev if self.sharding is None else _shard_leaves(dev, self.sharding)
 
 
 class FleetSet:

@@ -1,4 +1,4 @@
-"""Sharding rules and the mesh-sharded train step; the port of
+"""Sharding rules and the mesh-sharded train steps; the port of
 ``blendjax.parallel.sharding``.
 
 - **data axis**: each rank is fed its shard of the stream
@@ -6,6 +6,11 @@
   over ``'data'`` (``TorchStream(sharding=data_sharding(mesh))``), and the
   step computes the loss on this rank's rows and averages the gradients
   over the axis with one all-reduce, as DDP does.
+- **seq axis**: a batch ``P('data', 'seq')`` gives each rank a block of
+  rows and sequence positions; attention crosses the sequence shards
+  (:mod:`blendjax_torch.parallel.ring_attention`), and the gradients are
+  averaged over ``'seq'`` as over ``'data'``
+  (:func:`make_seqformer_train_step`).
 - **model axis**: wide dense layers shard their output features
   (``P(None, 'model')``); DTensor inserts the collectives between them.
 
@@ -28,6 +33,8 @@ CUDA graph; a capture request on DTensor parameters raises
 
 from __future__ import annotations
 
+import functools
+import math
 from contextlib import nullcontext
 
 import torch
@@ -38,7 +45,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from blendjax_torch.btt.prefetch import _map_leaves
 from blendjax_torch.models.train import TrainState
-from blendjax_torch.parallel.mesh import P, placements
+from blendjax_torch.parallel.mesh import NamedSharding, P, placements
+
+#: the mesh axes a batch is split over: its rows ('data') and its sequence
+#: positions ('seq'); parameters replicate over both
+BATCH_AXES = ("data", "seq")
 
 
 def detector_rules(axis="model"):
@@ -134,6 +145,14 @@ class _ReplicatePlain(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+def _batch_axes(mesh):
+    """``(dims, groups, size)`` of ``mesh``'s batch axes (:data:`BATCH_AXES`):
+    their mesh dimensions, process groups, and the product of their sizes."""
+    names = mesh.mesh_dim_names
+    dims = [i for i, n in enumerate(names) if n in BATCH_AXES]
+    return dims, [mesh.get_group(names[i]) for i in dims], math.prod(mesh.size(i) for i in dims)
+
+
 def make_sharded_train_step(loss_fn, mesh, rules=None, lr=1e-3):
     """Build ``(init_sharded, step)`` for SPMD training over ``mesh``.
 
@@ -142,24 +161,26 @@ def make_sharded_train_step(loss_fn, mesh, rules=None, lr=1e-3):
     :class:`~blendjax_torch.models.train.TrainState`; its moments take
     their parameters' placements.  ``step(state, batch) -> (state,
     loss)`` runs eager (module docstring).  The batch arrives as DTensors
-    ``Shard(0)`` over the data axis
+    over the batch axes, ``Shard(0)`` over ``'data'`` and ``Shard(1)``
+    over ``'seq'`` where the mesh has them
     (``TorchStream(sharding=data_sharding(mesh))``, or
     :func:`blendjax_torch.btt.prefetch.put_batch`); ``loss_fn`` gets this
-    rank's rows as plain tensors, and the parameters as plain tensors
+    rank's block as plain tensors, and the parameters as plain tensors
     where they replicate over every other axis, as DTensors over those
     axes where a rule shards them (a plain tensor meeting one of those joins
-    their mesh replicated).  ``loss_fn`` must be a mean over the batch's rows,
-    and the data ranks' rows equal in number: the gradients and the loss
-    are averaged over the data axis, which then equals one process's step
-    on the global batch.  ``loss`` comes back a plain tensor, the same on
-    every rank.  Parameters may not be sharded over the data axis."""
+    their mesh replicated).  ``loss_fn`` must be a mean over its block, and
+    the ranks' blocks equal in size: the gradients and the loss are
+    averaged over the batch axes, which then equals one process's step on
+    the global batch (the mean of equal blocks' means is the global mean;
+    over ``'seq'``, attention's backward sends each rank the gradients its
+    keys and values took in the other ranks' losses).  ``loss`` comes back a
+    plain tensor, the same on every rank.  Parameters may not be sharded
+    over a batch axis."""
     rules = rules or {}
     names = mesh.mesh_dim_names
-    data = names.index("data") if "data" in names else None
-    others = tuple(n for n in names if n != "data")
-    model = None if not others else (mesh if data is None else mesh[others])
-    group = None if data is None else mesh.get_group("data")
-    n_data = 1 if data is None else mesh.size(data)
+    batch_dims, groups, n_batch = _batch_axes(mesh)
+    others = tuple(n for n in names if n not in BATCH_AXES)
+    model = None if not others else (mesh if not batch_dims else mesh[others])
 
     def init_sharded(params):
         return TrainState.create(shard_pytree(params, mesh, param_specs(params, rules)),
@@ -168,25 +189,26 @@ def make_sharded_train_step(loss_fn, mesh, rules=None, lr=1e-3):
     def view(path, p):
         """``p`` as ``loss_fn`` sees it; differentiable into ``p``."""
         kept = list(p.placements)
-        if data is not None:
-            if not kept.pop(data).is_replicate():
-                raise ValueError(f"{path} is sharded over the data axis; the sharded step "
-                                 "replicates parameters there")
+        for i in reversed(batch_dims):
+            if not kept.pop(i).is_replicate():
+                raise ValueError(f"{path} is sharded over the batch axis {names[i]!r}; the "
+                                 "sharded step replicates parameters there")
         if all(q.is_replicate() for q in kept):
             return p.to_local()
         return DTensor.from_local(p.to_local(), model, kept, run_check=False,
                                   shape=p.shape, stride=p.stride())
 
     def average(tensors):
-        """Average ``tensors`` in place over the data axis, one all-reduce
-        per dtype."""
+        """Average ``tensors`` in place over the batch axes, one all-reduce
+        per dtype and axis."""
         by_dtype = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
         for ts in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.all_reduce(flat, group=group)
-            flat /= n_data
+            for group in groups:
+                dist.all_reduce(flat, group=group)
+            flat /= n_batch
             for t, v in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(v.view_as(t))
 
@@ -200,7 +222,7 @@ def make_sharded_train_step(loss_fn, mesh, rules=None, lr=1e-3):
                 loss = loss.full_tensor()
             loss.backward()
         loss = loss.detach().clone()
-        if n_data > 1:
+        if n_batch > 1:
             with torch.no_grad():
                 average([p.grad.to_local() for p in state.params.values()
                          if p.grad is not None] + [loss])
@@ -211,10 +233,84 @@ def make_sharded_train_step(loss_fn, mesh, rules=None, lr=1e-3):
     return init_sharded, step
 
 
-def make_seqformer_train_step(*args, **kwargs):
-    """The reference's 4-way-parallel SeqFormer step shards the sequence
-    over ring or Ulysses attention, which is not ported yet."""
-    raise NotImplementedError(
-        "make_seqformer_train_step shards the sequence through ring attention, which is "
-        "not ported yet: ROADMAP Queue 1, item 7 (7c, ring attention over K2-K4); "
-        "make_sharded_train_step with seqformer_rules() shards the rest")
+def batch_mean(mesh):
+    """``mean(x)``: a tensor of this rank's means to the mean over every
+    rank of ``mesh``'s batch axes (equal shares), with no gradient; the
+    sharded SeqFormer's routed layers take their load-balance fractions
+    through it (``moe_apply_topk(token_mean=)``)."""
+    _, groups, n = _batch_axes(mesh)
+
+    def mean(x):
+        if isinstance(x, DTensor):  # a statistic over a model axis's replicas
+            x = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
+        x = x.detach().clone()
+        for group in groups:
+            dist.all_reduce(x, group=group)
+        return x / n
+
+    return mean
+
+
+def make_seqformer_train_step(mesh, lr=1e-3, model_axis="model", expert_axis=None,
+                              attn_impl="ring", moe_impl="dense", moe_k=2,
+                              moe_capacity_factor=1.25, moe_aux_weight=0.0,
+                              compute_dtype=None, attn_window=None):
+    """The 4-way-parallel SeqFormer step: the batch over ``'data'``, the
+    sequence over ``'seq'``, attention heads and the MLP over
+    ``model_axis`` (ring schemes only), MoE experts over ``expert_axis``
+    (:func:`seqformer_rules`), on whichever of these axes ``mesh`` has.
+
+    ``attn_impl`` picks the sequence scheme
+    (:func:`~blendjax_torch.parallel.ring_attention.make_ring_attention`):
+    ``'ring'``, ``'ring_flash'`` (the flash kernels per ring pair),
+    ``'zigzag_flash'``, ``'ulysses'`` or ``'ulysses_flash'`` (the flash
+    kernels as Ulysses' per-head-group attention).  ``moe_impl='topk'``
+    routes the experts, with their load-balance statistics over the whole
+    batch (:func:`batch_mean`; capacity stays per rank).  ``attn_window``
+    is sliding-window attention through the scheme; ``compute_dtype``
+    passes to the loss (the model's bf16 by default).
+
+    Each rank runs the model on its block ``(B/dp, T/sp)``: the loss reads
+    the positions from ``T/sp`` times its ``'seq'`` index, and the step
+    averages the gradients of the replicated parameters over ``'data'``
+    and ``'seq'`` (:func:`make_sharded_train_step`: the blocks are equal,
+    so the mean of the local MSE means is the global mean).  It runs eager,
+    as every sharded step does.  Returns ``(init_sharded, step,
+    batch_sharding)``; place batches with ``batch_sharding``, ``P('data',
+    'seq')``."""
+    from blendjax_torch.models import seqformer
+    from blendjax_torch.parallel.ring_attention import make_ring_attention
+
+    names = mesh.mesh_dim_names
+    inner_attn = None
+    if attn_impl == "ulysses_flash":
+        from blendjax_torch.ops.flash_attention import flash_attention, flash_block_size
+
+        attn_impl = "ulysses"
+
+        def inner_attn(q, k, v, causal=False, scale=None, window=None):
+            blk = flash_block_size(q.shape[1])
+            return flash_attention(q, k, v, causal, scale, blk, blk, window)
+
+    ring = attn_impl in ("ring", "ring_flash", "zigzag_flash")
+    attn = make_ring_attention(
+        mesh, seq_axis="seq", causal=True, impl=attn_impl,
+        head_axis=model_axis if ring and model_axis in names else None,
+        inner_attn=inner_attn, window=attn_window)
+    kwargs = dict(attn_fn=attn, moe_impl=moe_impl, moe_k=moe_k,
+                  moe_capacity_factor=moe_capacity_factor, moe_aux_weight=moe_aux_weight,
+                  token_mean=batch_mean(mesh))
+    if compute_dtype is not None:
+        kwargs["compute_dtype"] = compute_dtype
+    seq_index = mesh.get_local_rank("seq")
+    loss = functools.partial(seqformer.loss_fn, **kwargs)
+
+    def shard_loss(params, batch):
+        return loss(params, batch, pos_offset=seq_index * batch["obs"].shape[1])
+
+    # a rule naming an axis the mesh lacks replicates (a {"seq": 2} mesh shards nothing)
+    rules = {k: spec for k, spec in seqformer_rules(model_axis, expert_axis).items()
+             if all(a is None or a in names for a in spec)}
+    init_sharded, step = make_sharded_train_step(shard_loss, mesh, rules=rules, lr=lr)
+    spec = P("data" if "data" in names else None, "seq", None)
+    return init_sharded, step, NamedSharding(mesh, spec)

@@ -305,12 +305,34 @@ Phases, each printing JSON lines:
               ``detector_rules()``, K1 in every held step's loss; the DP
               step's ms beside one process's, for the record.  The sharded
               steps run eager: gloo's collectives cannot be captured.
+24. ring    — 2 rank processes on ``cuda:0`` over gloo, mesh ``{"seq": 2}``
+              (``--ring-rank``), each holding (8, 256, 8, 128) of the
+              flagship attention shape (8, 512, 8, 128) bf16: ``ring_flash``
+              causal and not, ``zigzag_flash`` causal, ``ulysses_flash``
+              causal and ``ring_flash`` with a 128 window, each output and
+              q/k/v gradient against one process's K2-K4 on the whole
+              sequence (``RING``'s limits), every K2-K4 launch counted and on
+              the ``tc`` route, the rotations and all-to-alls counted
+              (``parallel/p2p.py``; the rotation staged through the host),
+              ms per call beside one process's; the f32 plain ``ring``
+              against the plain full attention (2e-5, 5e-4); then the
+              flagship SeqFormer (``SEQ``'s widths) takes 4 Adam(1e-4)
+              ``ring_flash`` steps through ``make_seqformer_train_step``,
+              each rank on its T/2 shard, against one process's eager steps.
+25. rl_dp   — 2 rank processes on ``cuda:0``, mesh ``{"data": 2}``
+              (``--rl-dp-rank``): one seeded rollout split 4/2 (rank 1's rows
+              padded) through one sharded ``ActorLearner`` update against
+              one process's (``RL_DP``'s limits); then each rank's
+              ``FleetSet`` of 2 cartpole producers through
+              ``ActorLearner(mesh=)`` and ``control.train_reinforce(mesh=)``,
+              env-steps/s and updates/s beside one process's.  No kernel.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
 decode kernel, the world-model stream for the flash kernels, and the ha
 phase's resumed steps for all four; the moe arms' turns for the flash
-kernels and each dp rank's stream and held steps for the decode kernel) and read just after; a kernel a path
+kernels and each dp rank's stream and held steps for the decode kernel, and each ring
+rank's cases and flagship steps for the flash kernels) and read just after; a kernel a path
 never launched fails the run.  The line before the last holds every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 without printing it, as does a host without CUDA or a directory without
@@ -328,6 +350,7 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import json
+import logging
 import math
 import os
 import re
@@ -4350,6 +4373,19 @@ def _scenario_strata(torch, al, replay, counters):
             / statistics.median(times["plain"])}
 
 
+class _LogLines(logging.Handler):
+    """The messages of the records that contain ``needle``."""
+
+    def __init__(self, needle):
+        super().__init__(logging.WARNING)
+        self.needle, self.lines = needle, []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if self.needle in msg:
+            self.lines.append(msg)
+
+
 def scenario_phase(torch, btt):
     """The scenario plane on the card through its entry points:
     ``FleetSet(ctrl=True)`` of :data:`SCN_FLEETS` x :data:`SCN_ENVS` echo
@@ -4379,6 +4415,10 @@ def scenario_phase(torch, btt):
     _fake_blender()
     os.environ["BLENDJAX_FAKE_BPY"] = "1"
     t_phase = time.perf_counter()
+    # an actor's failure is a warning of the learner's ("actor fleet N
+    # failed (...)"); the phase must see none
+    failed_fleets = _LogLines("actor fleet")
+    logging.getLogger("blendjax_torch").addHandler(failed_fleets)
     cat = _scenario_catalog()
     script = os.path.join(REPO, "tests", "blender", "torch_env.blend.py")
     stride = SCN_ENVS * 2 * 2
@@ -4593,9 +4633,13 @@ def scenario_phase(torch, btt):
               "scenario_chaos: reassign's push alone turned the respawned producer rich")
         rnd2.close()
         health = fs.health()
+    logging.getLogger("blendjax_torch").removeHandler(failed_fleets)
     emit({"phase": "scenario_seconds", "seconds": time.perf_counter() - t_phase,
           "fleet_health": {k: health[k] for k in ("num_fleets", "num_envs", "healthy_envs",
-                                                   "deaths", "restarts", "quarantines")}})
+                                                   "deaths", "restarts", "quarantines")},
+          "failed_fleets": failed_fleets.lines})
+    check(not failed_fleets.lines,
+          f"scenario: no actor fleet failed ({failed_fleets.lines})")
 
 
 # -- serve_fleet: replica processes behind the gateway, on the card ---------------------
@@ -5653,26 +5697,12 @@ def dp_rank_main(spec):
         replicated,
     )
 
-    cfg = json.loads(spec)
-    rank, world = cfg["rank"], cfg["world"]
     # a rank that crashes, or sticks in a collective, prints every thread's
     # stack (the latter before the phase's limit, then exits), so the phase
     # reports where it stood
-    faulthandler.enable()
-    faulthandler.dump_traceback_later(DP["timeout_s"] - 20, exit=True)
-    t_rank = time.perf_counter()
-
-    def stage(name):
-        print(f"dp rank {rank}: {name} at {time.perf_counter() - t_rank:.1f} s",
-              file=sys.stderr, flush=True)
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    stage("imported")
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{cfg['port']}",
-                            rank=rank, world_size=world)
+    cfg, stage = _rank_world(spec, "dp", DP["timeout_s"])
+    rank, world = cfg["rank"], cfg["world"]
     out = {"rank": rank}
-    stage("joined")
     try:
         mesh = data_mesh()
         stage("mesh made")
@@ -5774,42 +5804,11 @@ def dp_phase(torch):
     """Two rank processes on ``cuda:0`` over gloo (NCCL refuses two ranks
     on one device): :func:`dp_rank_main` in each.  Checks both ranks'
     stream and held steps; returns the K1 launches both made."""
-    import tempfile
-
     port, start = _port_block(1), _port_block(DP["ranks"] * DP["producers"] + 2)
-    logs = tempfile.mkdtemp(prefix="bjx-dp-")
-    procs = []
-    for rank in range(DP["ranks"]):
-        spec = json.dumps({"rank": rank, "world": DP["ranks"], "port": port,
-                           "start_port": start + rank * DP["producers"]})
-        # output to files, not pipes: a rank's producers inherit its
-        # descriptors, and a pipe they hold open would outlive the rank
-        with open(os.path.join(logs, f"{rank}.out"), "w") as out, \
-                open(os.path.join(logs, f"{rank}.err"), "w") as err:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-rank", spec],
-                stdout=out, stderr=err, cwd=REPO, start_new_session=True))
     t0 = time.perf_counter()
-    try:
-        for p in procs:
-            try:
-                p.wait(timeout=max(1.0, DP["timeout_s"] + 10 - (time.perf_counter() - t0)))
-            except subprocess.TimeoutExpired:
-                pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.wait()
-    outs = []
-    for rank, p in enumerate(procs):
-        with open(os.path.join(logs, f"{rank}.err")) as f:
-            err = "\n".join(ln for ln in f.read().splitlines() if "redistribut" not in ln)
-        with open(os.path.join(logs, f"{rank}.out")) as f:
-            stdout = f.read()
-        check(p.returncode == 0, f"dp rank {rank} exited {p.returncode}: {err[-6000:]}")
-        outs.append(json.loads(stdout.strip().splitlines()[-1]))
-    shutil.rmtree(logs, ignore_errors=True)
+    outs = _spawn_ranks("--dp-rank", [
+        {"rank": r, "world": DP["ranks"], "port": port, "start_port": start + r * DP["producers"]}
+        for r in range(DP["ranks"])], DP["timeout_s"], "dp")
     r0, r1 = outs
     rec = {"phase": "dp", "ranks": DP["ranks"], "config": DP, "seconds": time.perf_counter() - t0,
            "mesh": r0["mesh"], "stream": [o["stream"] for o in outs],
@@ -5843,6 +5842,512 @@ def dp_phase(torch):
                   f"one process's: {r['param_max_abs_diff']:.3g}, "
                   f"{r['loss_max_rel_diff']:.3g}")
     return sum(rec["decode_u8_by_rank"])
+
+
+def _spawn_ranks(flag, specs, timeout_s, label):
+    """Run ``python3 chip_smoke.py <flag> '<spec>'`` once per spec, the
+    ranks of one gloo world on ``cuda:0``; returns each rank's last stdout
+    line, parsed.  A rank that fails or overstays fails the phase with its
+    stderr's tail."""
+    import tempfile
+
+    logs = tempfile.mkdtemp(prefix=f"bjx-{label}-")
+    procs = []
+    for rank, spec in enumerate(specs):
+        # output to files, not pipes: a rank's producers inherit its
+        # descriptors, and a pipe they hold open would outlive the rank
+        with open(os.path.join(logs, f"{rank}.out"), "w") as out, \
+                open(os.path.join(logs, f"{rank}.err"), "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, json.dumps(spec)],
+                stdout=out, stderr=err, cwd=REPO, start_new_session=True))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, timeout_s + 10 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    outs = []
+    for rank, p in enumerate(procs):
+        with open(os.path.join(logs, f"{rank}.err")) as f:
+            err = "\n".join(ln for ln in f.read().splitlines() if "redistribut" not in ln)
+        with open(os.path.join(logs, f"{rank}.out")) as f:
+            stdout = f.read()
+        check(p.returncode == 0, f"{label} rank {rank} exited {p.returncode}: {err[-6000:]}")
+        outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    shutil.rmtree(logs, ignore_errors=True)
+    return outs
+
+
+def _rank_world(spec, label, timeout_s):
+    """A rank process's start: its gloo process group on ``cuda:0`` with the
+    others, full float32 for the f32 checks, and a stack dump (then exit)
+    if it sticks past the phase's limit.  Returns ``(cfg, stage)``: the
+    rank's spec, and ``stage(name)``, which logs its progress to stderr."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    cfg = json.loads(spec)
+    rank, world = cfg["rank"], cfg["world"]
+    faulthandler.enable()
+    faulthandler.dump_traceback_later(timeout_s - 20, exit=True)
+    t_rank = time.perf_counter()
+
+    def stage(name):
+        print(f"{label} rank {rank}: {name} at {time.perf_counter() - t_rank:.1f} s",
+              file=sys.stderr, flush=True)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                            rank=rank, world_size=world)
+    stage("joined")
+    return cfg, stage
+
+
+#: the ring phase: 2 rank processes on ``cuda:0`` over gloo, mesh {"seq": 2}.
+#: bf16 schemes against one process's K2-K4 on the whole sequence: values
+#: within ``value_atol``, each q/k/v gradient within ``grad_rtol`` of the
+#: largest entry of the rank's own rows of the reference (the ring combines
+#: the kernels' f32 partials in f32 and rounds once to bf16, the single
+#: kernel rounds its own f32 sum once: they differ by bf16 roundings, 2^-8
+#: of an O(1) value; a first run on an H100 read 3.9e-3 and 2.9e-3); the
+#: f32 plain ring against the plain full attention within the reference's
+#: 2e-5 and 5e-4.  The flagship's ``steps`` Adam steps: losses within
+#: ``loss_rtol`` (read: 2.9e-5); the first step's gradient within
+#: ``grad_rtol`` in norm, relative to the reference's (per tensor, a bias
+#: whose gradient is zero but for rounding, as a key bias's is under a
+#: softmax, would compare rounding with rounding); and the parameters within
+#: ``param_atol`` wherever every step's gradient is well determined, its
+#: gap to the reference's under 1/``grad_margin`` of its size: there Adam's
+#: m/sqrt(v) agree within about 2/``grad_margin``, so each step within
+#: 2 lr/``grad_margin``.  Elsewhere a gradient at rounding level can turn
+#: Adam's step (about lr) around; ``well_share`` is the least share of the
+#: parameters that the held set must cover.
+RING = dict(ranks=2, window=128, reps=5, value_atol=1e-2, grad_rtol=1e-2,
+            f32_value_atol=2e-5, f32_grad_atol=5e-4, steps=4, loss_rtol=1e-4,
+            grad_margin=100, param_atol=1e-5, well_share=0.5, timeout_s=300)
+#: (label, impl, causal, window) of the bf16 schemes
+RING_CASES = (("ring_flash_causal", "ring_flash", True, None),
+              ("ring_flash", "ring_flash", False, None),
+              ("zigzag_flash_causal", "zigzag_flash", True, None),
+              ("ulysses_flash_causal", "ulysses_flash", True, None),
+              ("ring_flash_window128", "ring_flash", True, RING["window"]))
+
+
+def _ms_median(torch, fn, reps, barrier=None):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ring_rank_main(spec):
+    """One rank of the ring phase (``python3 chip_smoke.py --ring-rank
+    '<json>'``): the bf16 flash schemes on this rank's half of the flagship
+    attention shape against one process's K2-K4 on the whole sequence, with
+    the kernels' launches by route and the rotations counted per case; the
+    f32 plain ring against the plain full attention; then the flagship
+    SeqFormer's ring_flash step against one process's eager steps.  Prints
+    one JSON line."""
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    cfg, stage = _rank_world(spec, "ring", RING["timeout_s"])
+    from blendjax_torch.btb import pendulum
+    from blendjax_torch.models import seqformer
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.ops import flash_attention as flash
+    from blendjax_torch.parallel import make_mesh, make_ring_attention, make_seqformer_train_step
+    from blendjax_torch.parallel import p2p
+    from blendjax_torch.parallel.ring_attention import full_attention
+
+    out = {"rank": cfg["rank"]}
+    try:
+        mesh = make_mesh({"seq": RING["ranks"]})
+        s = mesh.get_local_rank("seq")
+        b, t, h, d = FLASH_SHAPE
+        cols = slice(s * t // RING["ranks"], (s + 1) * t // RING["ranks"])
+        g = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v, do = (torch.randn((b, t, h, d), generator=g, device="cuda") for _ in range(4))
+
+        def grads_of(attn, qkv, rows):
+            x = [y[:, rows].detach().clone().requires_grad_(True) for y in qkv]
+            o = attn(*x)
+            (o.float() * do[:, rows]).sum().backward()
+            return o.detach(), [y.grad for y in x]
+
+        def inner_flash(q, k, v, causal=False, scale=None, window=None):
+            blk = flash.flash_block_size(q.shape[1])
+            return flash.flash_attention(q, k, v, causal, scale, blk, blk, window)
+
+        def compare(o, gr, ref_o, ref_gr):
+            return {"value_err": (o.float() - ref_o[:, cols].float()).abs().max().item(),
+                    "grad_err": max((a.float() - r[:, cols].float()).abs().max().item()
+                                    / r[:, cols].float().abs().max().item()
+                                    for a, r in zip(gr, ref_gr))}
+
+        bf = [x.to(torch.bfloat16) for x in (q, k, v)]
+        out["cases"] = {}
+        for label, impl, causal, window in RING_CASES:
+            stage(label)
+            attn = make_ring_attention(mesh, causal=causal,
+                                       impl="ulysses" if impl == "ulysses_flash" else impl,
+                                       inner_attn=inner_flash if impl == "ulysses_flash" else None,
+                                       window=window)
+            single = functools.partial(inner_flash, causal=causal, window=window)
+            ref_o, ref_gr = grads_of(single, bf, slice(None))
+            _zero_flash_counts(flash)
+            p2p.reset_counts()
+            o, gr = grads_of(attn, bf, cols)
+            torch.cuda.synchronize()
+            rec = {"launches": {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS},
+                   "launches_by_route": _route_counts(flash), "p2p": dict(p2p.counts),
+                   **compare(o, gr, ref_o, ref_gr)}
+            rec["ms"] = _ms_median(torch, lambda: grads_of(attn, bf, cols), RING["reps"],
+                                   barrier=dist.barrier)
+            dist.barrier()
+            if s == 0:  # one process alone on the card
+                rec["single_ms"] = _ms_median(torch, lambda: grads_of(single, bf, slice(None)),
+                                              RING["reps"])
+            dist.barrier()
+            out["cases"][label] = rec
+
+        stage("f32 plain ring")
+        p2p.reset_counts()
+        o, gr = grads_of(make_ring_attention(mesh, causal=True, impl="ring"), [q, k, v], cols)
+        ref_o, ref_gr = grads_of(functools.partial(full_attention, causal=True), [q, k, v],
+                                 slice(None))
+        out["f32_ring"] = {"value_err": (o - ref_o[:, cols]).abs().max().item(),
+                           "grad_err": max((a - r[:, cols]).abs().max().item()
+                                           for a, r in zip(gr, ref_gr)),
+                           "p2p": dict(p2p.counts)}
+        del q, k, v, do, bf
+
+        stage("flagship ring_flash step")
+        wcfg = {k: SEQ[k] for k in ("obs_dim", "d_model", "n_heads", "n_layers")}
+        init = seqformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              max_len=SEQ["seq_len"], device="cuda", **wcfg)
+        rng = np.random.default_rng(0)
+        episodes = [_episodes(torch, pendulum, rng, SEQ["batch"])["episode"]
+                    for _ in range(RING["steps"])]
+        batches = [seqformer.make_episode_batch(ep) for ep in episodes]
+        init_sharded, step, sharding = make_seqformer_train_step(
+            mesh, lr=SEQ["lr"], attn_impl="ring_flash")
+        from blendjax_torch.btt.prefetch import put_batch
+
+        state = init_sharded({k: x.clone() for k, x in init.items()})
+        names = list(init)
+        _zero_flash_counts(flash)
+        losses, step_ms, step_grads = [], [], []
+        for batch in batches:
+            local = put_batch({k: x[:, cols].contiguous() for k, x in batch.items()}, sharding)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, local)
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_grads.append([state.params[k].grad.to_local().clone() for k in names])
+        torch.cuda.synchronize()
+        launched = {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}
+        routes = _route_counts(flash)
+        try:  # the sharded step runs eager: a capture request raises
+            make_train_step(lambda p, x: p["head.b"].sum(), capture=True)(state, {})
+            capture = "ran"
+        except RuntimeError as exc:
+            capture = str(exc)
+        ref_losses, ref_ms = [], []
+        for turn in range(RING["ranks"]):  # each rank's reference alone on the card
+            dist.barrier()
+            if turn != s:
+                continue
+            ref = TrainState.create({k: x.clone() for k, x in init.items()}, lr=SEQ["lr"])
+            loss_fn = functools.partial(
+                seqformer.loss_fn, attn_fn=flash.make_flash_attention(
+                    causal=True, block_q="auto", block_kv="auto"))
+            ref_step = make_train_step(loss_fn, capture=False)
+            wells, first_gap, first_norm, worst = [True] * len(names), 0.0, 0.0, None
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref, value = ref_step(ref, batch)
+                ref_losses.append(float(value))
+                ref_ms.append((time.perf_counter() - t0) * 1e3)
+                for j, k in enumerate(names):
+                    g = ref.params[k].grad
+                    gap = (step_grads[i][j] - g).abs()
+                    if i == 0:
+                        first_gap += float(gap.square().sum())
+                        first_norm += float(g.square().sum())
+                        rel = (gap.max() / g.abs().max()).item()
+                        if worst is None or rel > worst[1]:
+                            worst = (k, rel, g.abs().max().item())
+                    wells[j] = wells[j] & (g.abs() >= RING["grad_margin"] * gap)
+            torch.cuda.synchronize()
+            gaps = [(state.params[k].to_local() - ref.params[k].detach()).abs() for k in names]
+            well_gap = max(gp[w].max().item() if w.any() else 0.0
+                           for gp, w in zip(gaps, wells))
+            well_share = sum(int(w.sum()) for w in wells) / sum(w.numel() for w in wells)
+            gaps = torch.cat([gp.reshape(-1) for gp in gaps])
+        del step_grads
+        dist.barrier()
+        out["flagship"] = {
+            "losses": losses, "single_losses": ref_losses, "step_ms": step_ms,
+            "single_step_ms": ref_ms, "launches": launched, "launches_by_route": routes,
+            "capture": capture,
+            "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+            "first_grad_err": math.sqrt(first_gap / first_norm),
+            "first_grad_worst_tensor": {"name": worst[0], "max_gap_over_max": worst[1],
+                                        "max_abs_grad": worst[2]},
+            "param_max_abs_diff_where_well": well_gap, "well_share": well_share,
+            "param_max_abs_diff": gaps.max().item(),
+            "param_p999_abs_diff": torch.quantile(gaps[::97].float(), 0.999).item(),
+            "param_median_abs_diff": gaps[::97].median().item(),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    stage("done")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def ring_phase(torch):
+    """The ``ring`` phase: :func:`ring_rank_main` in 2 rank processes.
+    Checks every case on both ranks; returns the flash kernels' launches and
+    launches by route that both ranks made."""
+    t0 = time.perf_counter()
+    port = _port_block(1)
+    outs = _spawn_ranks("--ring-rank", [{"rank": r, "world": RING["ranks"], "port": port}
+                                        for r in range(RING["ranks"])],
+                        RING["timeout_s"], "ring")
+    from blendjax_torch.parallel import p2p
+
+    rec = {"phase": "ring", "config": RING, "ranks": RING["ranks"],
+           "seconds": time.perf_counter() - t0, "p2p_cuda_routes": p2p.CUDA_ROUTES,
+           "cases": {label: [o["cases"][label] for o in outs] for label, *_ in RING_CASES},
+           "f32_ring": [o["f32_ring"] for o in outs], "flagship": [o["flagship"] for o in outs]}
+    emit(rec)
+    launched = {n: 0 for n in FLASH_KERNELS}
+    routes = {n: {"tc": 0, "f32": 0} for n in FLASH_KERNELS}
+    for o in outs:
+        r = o["rank"]
+        for label, *_ in RING_CASES:
+            c = o["cases"][label]
+            check(c["value_err"] <= RING["value_atol"] and c["grad_err"] <= RING["grad_rtol"],
+                  f"ring {label} rank {r}: output within {RING['value_atol']} and gradients "
+                  f"within {RING['grad_rtol']} (of the largest) of one process's K2-K4: "
+                  f"{c['value_err']:.3g}, {c['grad_err']:.3g}")
+            for n in FLASH_KERNELS:
+                check(c["launches"][n] >= 1 and c["launches_by_route"][n]["f32"] == 0
+                      and c["launches_by_route"][n]["tc"] == c["launches"][n],
+                      f"ring {label} rank {r}: {n} launched, every launch on the tc route")
+                launched[n] += c["launches"][n]
+                routes[n]["tc"] += c["launches_by_route"][n]["tc"]
+        for label in ("ring_flash_causal", "ring_flash", "zigzag_flash_causal",
+                      "ring_flash_window128"):
+            check(o["cases"][label]["p2p"]["rotate"] >= 1,
+                  f"ring {label} rank {r}: the ring rotated")
+        check(o["cases"]["ulysses_flash_causal"]["p2p"]["all_to_all"] >= 6,
+              f"ring ulysses rank {r}: q, k, v and the output went through the all-to-all")
+        f = o["f32_ring"]
+        check(f["value_err"] <= RING["f32_value_atol"] and f["grad_err"] <= RING["f32_grad_atol"],
+              f"ring f32 plain ring rank {r}: within {RING['f32_value_atol']} (values) and "
+              f"{RING['f32_grad_atol']} (gradients) of full attention: {f['value_err']:.3g}, "
+              f"{f['grad_err']:.3g}")
+        fl = o["flagship"]
+        check(all(math.isfinite(x) for x in fl["losses"]), f"ring flagship rank {r}: finite")
+        check(fl["loss_max_rel_diff"] <= RING["loss_rtol"]
+              and fl["first_grad_err"] <= RING["grad_rtol"]
+              and fl["param_max_abs_diff_where_well"] <= RING["param_atol"]
+              and fl["well_share"] >= RING["well_share"],
+              f"ring flagship rank {r}: {RING['steps']} ring_flash steps within "
+              f"{RING['loss_rtol']} (losses, relative) and {RING['grad_rtol']} (the first "
+              f"step's gradient, in norm, relative) of one process's, the parameters "
+              f"within {RING['param_atol']} where every gradient is within "
+              f"1/{RING['grad_margin']} of its own, on at least {RING['well_share']} of them: "
+              f"{fl['loss_max_rel_diff']:.3g}, {fl['first_grad_err']:.3g}, "
+              f"{fl['param_max_abs_diff_where_well']:.3g} on {fl['well_share']:.3g}")
+        check("cannot capture" in fl["capture"], f"ring flagship rank {r}: eager, no capture")
+        for n in FLASH_KERNELS:
+            check(fl["launches"][n] >= SEQ["n_layers"] * RING["steps"]
+                  and fl["launches_by_route"][n]["tc"] == fl["launches"][n],
+                  f"ring flagship rank {r}: {n} launched on the tc route in every layer")
+            launched[n] += fl["launches"][n]
+            routes[n]["tc"] += fl["launches_by_route"][n]["tc"]
+    check(outs[0]["flagship"]["losses"] == outs[1]["flagship"]["losses"],
+          "ring flagship: one loss per step on both ranks")
+    return launched, routes
+
+
+#: the rl_dp phase: 2 rank processes on ``cuda:0``, mesh {"data": 2}, each
+#: rank's FleetSet of ``producers`` cartpole producers.  The held update: a
+#: seeded ``held_t``-step rollout of ``held_envs`` envs (rank 0's real rows
+#: and rank 1's, padded to rank 0's count) through one sharded update against
+#: one process's: the loss within 1e-6 (plus 1e-5 relative), the gradients
+#: within 1e-5, the parameters within 1e-5 wherever the single process's
+#: gradient is at least 1e-6 (below that Adam's first step, g/(|g| + eps),
+#: turns a rounding of g into a change of up to lr)
+RL_DP = dict(ranks=2, producers=2, rollout=32, updates=8, iterations=3, horizon=32,
+             held_envs=(4, 2), held_t=32, loss_atol=1e-6, grad_atol=1e-5, param_atol=1e-5,
+             timeout_s=200)
+
+
+def rl_dp_rank_main(spec):
+    """One rank of the rl_dp phase (``python3 chip_smoke.py --rl-dp-rank
+    '<json>'``): the held sharded update against one process's, then its
+    own FleetSet of cartpole producers through ``ActorLearner(mesh=)`` and
+    ``control.train_reinforce(mesh=)``; rank 0 then runs the same alone
+    (no mesh) for the rates.  Prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    cfg, stage = _rank_world(spec, "rl_dp", RL_DP["timeout_s"])
+    from blendjax_torch import control
+    from blendjax_torch.btt.prefetch import put_batch
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.parallel import FleetSet, data_sharding, make_mesh
+
+    rank = cfg["rank"]
+    out = {"rank": rank}
+    try:
+        mesh = make_mesh({"data": RL_DP["ranks"]})
+        stage("held update")
+        rng = np.random.default_rng(5)
+        t_len, n = RL_DP["held_t"], sum(RL_DP["held_envs"])
+        tm = {"obs": rng.random((t_len, n, 3)).astype(np.float32),
+              "actions": rng.integers(0, 2, (t_len, n)),
+              "rewards": rng.random((t_len, n)).astype(np.float32),
+              "dones": rng.random((t_len, n)) < 0.1}
+        first, most = RL_DP["held_envs"][0], max(RL_DP["held_envs"])
+        mine = slice(0, first) if rank == 0 else slice(first, n)
+        local = {k: np.ascontiguousarray(v[:, mine].swapaxes(0, 1)) for k, v in tm.items()}
+        real = local["rewards"].shape[0]
+        local = {k: np.concatenate([v, np.zeros((most - real,) + v.shape[1:], v.dtype)])
+                 for k, v in local.items()}
+        local["mask"] = (np.arange(most) < real).astype(np.float32)
+        al = ActorLearner(None, 3, 2, seed=3, mesh=mesh)
+        state, loss = al._step(al.state, put_batch(local, data_sharding(mesh)))
+        single = ActorLearner(None, 3, 2, seed=3)
+        ref = TrainState.create({k: x.detach().clone() for k, x in single.state.params.items()},
+                                lr=3e-3)
+        ref, ref_loss = make_train_step(single.loss_fn, capture=False)(
+            ref, {k: torch.as_tensor(v, device="cuda") for k, v in tm.items()})
+        well = {k: ref.params[k].grad.abs() >= 1e-6 for k in ref.params}
+        out["held"] = {
+            "loss": float(loss), "single_loss": float(ref_loss),
+            "grad_max_abs_diff": max((state.params[k].grad.to_local() - ref.params[k].grad)
+                                     .abs().max().item() for k in ref.params),
+            "param_max_abs_diff": max((state.params[k].to_local() - ref.params[k].detach())
+                                      .abs().max().item() for k in ref.params),
+            "param_max_abs_diff_where_grad_1e-6": max(
+                (state.params[k].to_local() - ref.params[k].detach())[well[k]].abs().max().item()
+                for k in ref.params),
+            "rows": [real, most]}
+
+        def forces(a):
+            return list((np.asarray(a) * 2 - 1) * control.FORCE_MAG)
+
+        _fake_blender()
+        os.environ["BLENDJAX_FAKE_BPY"] = "1"
+        stage("fleets")
+        with FleetSet("", str(control.SCRIPT), num_fleets=1, envs_per_fleet=RL_DP["producers"],
+                      start_port=cfg["start_port"], real_time=False) as fs:
+            al = ActorLearner(fs, 3, 2, rollout_len=RL_DP["rollout"], mesh=mesh,
+                              action_map=forces)
+            al.run(num_updates=2)  # first updates: the fan-in's and the step's setup
+            st = al.run(num_updates=RL_DP["updates"])
+            out["actor_learner"] = {k: st[k] for k in (
+                "updates", "losses", "env_steps", "env_steps_per_sec", "updates_per_sec",
+                "elapsed_s", "sharded", "dead_fleets")}
+            stage("train_reinforce")
+            recs = []
+            _, returns = control.train_reinforce(
+                fs.pools[0], iterations=RL_DP["iterations"], horizon=RL_DP["horizon"],
+                log_every=0, mesh=mesh, on_iteration=recs.append)
+            out["reinforce"] = {"losses": [r["loss"] for r in recs], "returns": returns,
+                                "update_ms": [r["update_ms"] for r in recs],
+                                "rollout_ms": [r["rollout_ms"] for r in recs]}
+            dist.barrier()
+            if rank == 0:  # one process alone, for the record
+                stage("single process")
+                single = ActorLearner(fs, 3, 2, rollout_len=RL_DP["rollout"],
+                                      action_map=forces)
+                single.run(num_updates=3)  # warm-ups and capture
+                st = single.run(num_updates=RL_DP["updates"])
+                out["single_actor_learner"] = {k: st[k] for k in (
+                    "updates", "env_steps_per_sec", "updates_per_sec", "elapsed_s")}
+                recs = []
+                control.train_reinforce(fs.pools[0], iterations=RL_DP["iterations"],
+                                        horizon=RL_DP["horizon"], log_every=0,
+                                        on_iteration=recs.append)
+                out["single_reinforce"] = {"update_ms": [r["update_ms"] for r in recs],
+                                           "rollout_ms": [r["rollout_ms"] for r in recs]}
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    stage("done")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def rl_dp_phase(torch):
+    """The ``rl_dp`` phase: :func:`rl_dp_rank_main` in 2 rank processes."""
+    t0 = time.perf_counter()
+    port = _port_block(1)
+    start = _port_block(RL_DP["ranks"] * 100)
+    outs = _spawn_ranks("--rl-dp-rank", [
+        {"rank": r, "world": RL_DP["ranks"], "port": port, "start_port": start + 100 * r}
+        for r in range(RL_DP["ranks"])], RL_DP["timeout_s"], "rl_dp")
+    r0, r1 = outs
+    al = [o["actor_learner"] for o in outs]
+    rec = {"phase": "rl_dp", "config": RL_DP, "seconds": time.perf_counter() - t0,
+           "held": [o["held"] for o in outs], "actor_learner": al,
+           "reinforce": [o["reinforce"] for o in outs],
+           "single_actor_learner": r0["single_actor_learner"],
+           "single_reinforce": r0["single_reinforce"],
+           "global_env_steps_per_sec": sum(a["env_steps_per_sec"] for a in al),
+           "updates_per_sec": min(a["updates_per_sec"] for a in al),
+           "reinforce_update_ms": statistics.median(r0["reinforce"]["update_ms"]),
+           "single_reinforce_update_ms": statistics.median(r0["single_reinforce"]["update_ms"])}
+    emit(rec)
+    for o in outs:
+        h, r = o["held"], o["rank"]
+        check(abs(h["loss"] - h["single_loss"]) <= RL_DP["loss_atol"] + 1e-5 * abs(
+              h["single_loss"]) and h["grad_max_abs_diff"] <= RL_DP["grad_atol"]
+              and h["param_max_abs_diff_where_grad_1e-6"] <= RL_DP["param_atol"],
+              f"rl_dp rank {r}: the sharded update of an uneven split held to one process's "
+              f"({h['loss']:.8g} vs {h['single_loss']:.8g}, gradients "
+              f"{h['grad_max_abs_diff']:.3g}, params {h['param_max_abs_diff_where_grad_1e-6']:.3g})")
+        a = o["actor_learner"]
+        check(a["updates"] == RL_DP["updates"] and a["sharded"] and a["dead_fleets"] == []
+              and a["env_steps"] > 0 and all(math.isfinite(x) for x in a["losses"]),
+              f"rl_dp rank {r}: ActorLearner(mesh=) took its updates over live fleets")
+        check(all(math.isfinite(x) for x in o["reinforce"]["losses"]),
+              f"rl_dp rank {r}: train_reinforce(mesh=) losses finite")
+    check(r0["actor_learner"]["losses"] == r1["actor_learner"]["losses"],
+          "rl_dp: one loss per update on both ranks")
+    check(r0["reinforce"]["losses"] == r1["reinforce"]["losses"],
+          "rl_dp: train_reinforce's loss the same on both ranks")
 
 
 def main():
@@ -5934,6 +6439,8 @@ def main():
     moe_launches, moe_routes = moe_phase(torch, seqformer, flash, worldmodel, pendulum,
                                          TrainState)
     dp_launches = dp_phase(torch)
+    ring_launches, ring_routes = ring_phase(torch)
+    rl_dp_phase(torch)
     emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t_parallel})
 
     kernels = [{
@@ -5965,9 +6472,11 @@ def main():
         rec = flash_timing[kname]
         by_route = {route: (flash_routes[kname].get(route, 0)
                             + ha_launches["flash_routes"][kname].get(route, 0)
-                            + moe_routes[kname].get(route, 0))
+                            + moe_routes[kname].get(route, 0)
+                            + ring_routes[kname].get(route, 0))
                     for route in ("tc", "f32")}
-        launched = flash_launches[kname] + ha_launches[kname] + moe_launches[kname]
+        launched = (flash_launches[kname] + ha_launches[kname] + moe_launches[kname]
+                    + ring_launches[kname])
         check(sum(by_route.values()) == launched,
               f"{kname}: every launch of the line counted on a route ({by_route}, {launched})")
         kernels.append({
@@ -5976,7 +6485,8 @@ def main():
             "launches": launched,
             "launches_by_path": {"worldmodel_stream": flash_launches[kname],
                                  "ha_resume": ha_launches[kname],
-                                 "moe": moe_launches[kname]},
+                                 "moe": moe_launches[kname],
+                                 "ring_ranks": ring_launches[kname]},
             "max_abs_err": flash_errs[kname],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -5999,4 +6509,8 @@ if __name__ == "__main__":
         sys.exit(chaos_clients_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ring-rank"]:
+        sys.exit(ring_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--rl-dp-rank"]:
+        sys.exit(rl_dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The moe and dp phases of ``chip_smoke.py`` alone, without the smoke's
-other phases.  Needs one CUDA card.
+"""The moe, dp, ring and rl_dp phases of ``chip_smoke.py`` alone, without
+the smoke's other phases.  Needs one CUDA card.
 
-    python3 probes/parallel.py [moe] [dp]
+    python3 probes/parallel.py [moe] [dp] [ring] [rl_dp]
 
 Builds the kernels (``ops/_build.py``: K1 for the dp ranks' losses, K2-K4
 for the MoE flagship), then runs ``chip_smoke.moe_phase`` (the flagship
@@ -12,9 +12,15 @@ turns through K2-K4; sort against scatter on the card; the card against
 the CPU on a small f32 MoE model) and ``chip_smoke.dp_phase`` (2 rank
 processes on ``cuda:0`` over gloo: each rank's stream shard into the
 data-parallel detector step with K1 in its loss, the held DP and TP steps
-against one process's), printing the card's name and power limit, the
-versions, and the phases' JSON lines.  With no argument both run.  Exits
-nonzero on a failed check, as the smoke does.
+against one process's), ``chip_smoke.ring_phase`` (2 rank processes over
+``{"seq": 2}``: the bf16 ring_flash, zigzag_flash, ulysses_flash and
+windowed schemes through K2-K4 against one process's kernels on the whole
+sequence, the f32 plain ring, the flagship SeqFormer's ring_flash step) and
+``chip_smoke.rl_dp_phase`` (2 rank processes over ``{"data": 2}``, each
+owning 2 cartpole producers: the held sharded update, ``ActorLearner(mesh=)``
+and ``train_reinforce(mesh=)``), printing the card's name and power limit,
+the versions, and the phases' JSON lines.  With no argument all four run.
+Exits nonzero on a failed check, as the smoke does.
 """
 
 import os
@@ -42,7 +48,7 @@ card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=c
                       capture_output=True, text=True).stdout.strip()
 print(card, sys.version.split()[0], torch.__version__, torch.version.cuda, flush=True)
 cs.CARD = card
-phases = sys.argv[1:] or ["moe", "dp"]
+phases = sys.argv[1:] or ["moe", "dp", "ring", "rl_dp"]
 t0 = time.perf_counter()
 _build.load_library()
 cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
@@ -51,4 +57,9 @@ if "moe" in phases:
     cs.emit({"phase": "moe_launches", **launched, "launches_by_route": routes})
 if "dp" in phases:
     cs.emit({"phase": "dp_launches", "decode_u8": cs.dp_phase(torch)})
+if "ring" in phases:
+    launched, routes = cs.ring_phase(torch)
+    cs.emit({"phase": "ring_launches", **launched, "launches_by_route": routes})
+if "rl_dp" in phases:
+    cs.rl_dp_phase(torch)
 cs.emit({"phase": "probe_seconds", "seconds": time.perf_counter() - t0})

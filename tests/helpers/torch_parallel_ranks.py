@@ -1,5 +1,8 @@
 """Rank programs for :mod:`helpers.torch_ranks`: the port's side of the
-twins of ``tests/test_sharding.py`` and ``tests/test_multihost.py``.  Each
+twins of ``tests/test_sharding.py``, ``tests/test_multihost.py``,
+``tests/test_ring_attention.py``, the sharded cases of
+``tests/test_seqformer.py`` and ``tests/test_moe.py``, and
+``tests/test_actor_learner_sharded.py``.  Each
 runs in every gloo rank and reports its cases as it finishes them; the
 inputs (numpy parameters from the JAX package's ``init``, seeded batches)
 come in ``args`` from the test process.  Torch and the port only."""
@@ -8,6 +11,8 @@ from __future__ import annotations
 
 import functools
 import os
+
+import numpy as np
 
 
 def _np(t):
@@ -148,3 +153,378 @@ def multihost_train(rank, world, args, report):
                      "restored_step": fresh.step,
                      "params": {k: _np(v.full_tensor()) for k, v in state.params.items()},
                      "placements": [repr(p) for p in state.params["w1"].placements]})
+
+
+def _seq_block(mesh, x, grad=False, dtype=None):
+    """This rank's block of the global numpy ``x`` (B, S, ...) on a mesh
+    with a 'seq' axis (and maybe 'data'), as a tensor; and where it lies."""
+    import torch
+
+    names = mesh.mesh_dim_names
+
+    def part(axis, length):
+        if axis not in names:
+            return 0, length
+        n, i = mesh.size(names.index(axis)), mesh.get_local_rank(axis)
+        return i * length // n, (i + 1) * length // n
+
+    rows, cols = part("data", x.shape[0]), part("seq", x.shape[1])
+    t = torch.from_numpy(x[rows[0]:rows[1], cols[0]:cols[1]].copy())
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.requires_grad_(grad), {"rows": rows, "cols": cols}
+
+
+def ring_attention_cases(rank, world, args, report):
+    """The port's side of ``tests/test_ring_attention.py``'s 12 tests on 8
+    ranks: each case reports this rank's block of the output (and of the
+    q/k/v gradients of ``sum(out**2)``), or the error a refused case
+    raised; ranks outside a case's mesh report None."""
+    import functools
+
+    import torch
+
+    from blendjax_torch.ops.flash_attention import flash_attention
+    from blendjax_torch.parallel import make_mesh, make_ring_attention, p2p
+
+    meshes = {"seq8": make_mesh({"seq": 8}, device="cpu"),
+              "dp": make_mesh({"data": 2, "seq": 4}, device="cpu"),
+              "seq4": make_mesh({"seq": 4}, device="cpu"),
+              "seq2": make_mesh({"seq": 2}, device="cpu")}
+
+    def run(case, mesh, qkv, grad=False, dtype=None, **kw):
+        mesh = meshes[mesh]
+        if mesh is None:
+            report(case, None)
+            return
+        try:
+            attn = make_ring_attention(mesh, **kw)
+            blocks = [_seq_block(mesh, x, grad, dtype) for x in qkv]
+            before = dict(p2p.counts)
+            out = attn(*(t for t, _ in blocks))
+            rec = {"where": blocks[0][1], "out": _np(out.float())}
+            if grad:
+                (out.float() ** 2).sum().backward()
+                rec["grads"] = [_np(t.grad.float()) for t, _ in blocks]
+            rec["rotations"] = p2p.counts["rotate"] - before["rotate"]
+        except Exception as exc:  # noqa: BLE001 - a refused case reports its error
+            rec = {"error": f"{type(exc).__name__}: {exc}"}
+        report(case, rec)
+
+    qkv = args["qkv"]
+    impls = ("ring", "ring_flash", "zigzag_flash", "ulysses")
+    for impl in impls:
+        for causal in (False, True):
+            run(("full", impl, causal), "seq8", qkv, causal=causal, impl=impl)
+    for impl in impls:
+        run(("grad", impl), "seq8", qkv, grad=True, causal=True, impl=impl)
+    for impl in impls:
+        run(("dp", impl), "dp", qkv, causal=True, impl=impl, batch_axis="data")
+    bad = np.zeros((2, 32, 6, 16), np.float32)
+    run("uneven_heads", "seq8", (bad, bad, bad), impl="ulysses")
+    inner = functools.partial(flash_attention, block_q=32, block_kv=32)
+    run("ulysses_flash", "seq4", args["ulysses_flash_qkv"], impl="ulysses", causal=True,
+        inner_attn=inner)
+    for impl in ("ring_flash", "zigzag_flash"):
+        run(("bf16", impl), "seq8", qkv, dtype=torch.bfloat16, causal=True, impl=impl)
+    for impl in ("ring", "ring_flash", "ulysses"):
+        for window in (1, 3, 4, 7, 1000):
+            run(("window", impl, window), "seq8", qkv, causal=True, impl=impl, window=window)
+    for impl in ("ring", "ring_flash"):
+        run(("window_grad", impl), "seq8", qkv, grad=True, causal=True, impl=impl, window=7)
+    run("traffic", "seq8", args["traffic_qkv"], grad=True, causal=True, impl="ring_flash",
+        window=1)
+    for impl in ("ring_flash", "zigzag_flash"):
+        run(("gqa", impl), "seq8", (qkv[0],) + args["gqa_kv"], causal=True, impl=impl)
+    run("ulysses_gqa", "seq2", args["ulysses_gqa_qkv"], causal=True, impl="ulysses")
+
+
+def seqformer_sharded_cases(rank, world, args, report):
+    """The port's side of the sequence-sharded SeqFormer steps of
+    ``tests/test_seqformer.py`` (the five parity cases, the packaged step
+    trained end to end, the ulysses_flash parity) and ``tests/test_moe.py``'s expert-sharded routed
+    step, on 8 ranks (the ulysses_flash case on the first 4).  Each reports
+    the losses and, for the parity cases, the whole parameters after the
+    step."""
+    import torch
+
+    from blendjax_torch.btt.prefetch import put_batch
+    from blendjax_torch.models.convert import params_from_jax
+    from blendjax_torch.parallel import make_mesh, make_seqformer_train_step
+
+    def steps(case, mesh, tree, batch, n=1, sgd=None, **kw):
+        if mesh is None:
+            report(case, None)
+            return
+        init_sharded, step, sharding = make_seqformer_train_step(mesh, **kw)
+        state = init_sharded(params_from_jax(tree, device="cpu"))
+        if sgd is not None:  # the reference's parity cases step with SGD
+            state.optimizer = torch.optim.SGD(list(state.params.values()), lr=sgd)
+        local = put_batch({k: _seq_block(mesh, v)[0] for k, v in batch.items()}, sharding,
+                          device="cpu")
+        losses = []
+        for _ in range(n):
+            state, loss = step(state, local)
+            losses.append(float(loss))
+        rec = {"losses": losses}
+        if sgd is not None:
+            rec["params"] = {k: _np(v.full_tensor()) for k, v in state.params.items()}
+        report(case, rec)
+
+    f32 = torch.float32
+    mesh3 = make_mesh({"data": 2, "seq": 2, "model": 2}, device="cpu")
+    for n_experts, impl in args["parity_cases"]:
+        steps(("parity", n_experts, impl), mesh3, args["params"][n_experts], args["batch"],
+              sgd=0.1, attn_impl=impl, compute_dtype=f32)
+    steps("packaged", mesh3, args["params"][4], args["batch"], n=8, lr=1e-2)
+    mesh_u = make_mesh({"data": 2, "seq": 2, "model": 1}, device="cpu")
+    for impl in ("ulysses", "ulysses_flash"):
+        steps(("ulysses_flash_parity", impl), mesh_u, args["ulysses_params"],
+              args["ulysses_batch"], lr=1e-3, attn_impl=impl)
+    mesh_e = make_mesh({"data": 2, "seq": 2, "expert": 2}, device="cpu")
+    steps("moe", mesh_e, args["moe_params"], args["moe_batch"], sgd=0.1,
+          model_axis="expert", expert_axis="expert", compute_dtype=f32, moe_impl="topk",
+          moe_k=2, moe_capacity_factor=2.0, moe_aux_weight=0.01)
+
+
+def worldmodel_mesh(rank, world, args, report):
+    """``python -m blendjax_torch.worldmodel --mesh 1,2,1 --attn ring_flash``
+    at a small size on 2 ranks (the first launches the producer and shares
+    its batches), then a ``--mesh`` whose product is not the world's size;
+    reports each run's printed lines or its exit message."""
+    import contextlib
+    import io
+
+    from blendjax_torch import worldmodel
+
+    os.environ["BLENDJAX_BLENDER"] = args["blender"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        worldmodel.main(["--mesh", "1,2,1", "--attn", "ring_flash", "--device", "cpu",
+                         "--instances", "1", "--batch", "2", "--batches", "3",
+                         "--start-port", str(args["port"])])
+    report("ring_flash", out.getvalue().splitlines())
+    try:
+        worldmodel.main(["--mesh", "2,2,2", "--device", "cpu"])
+        report("wrong_size", "ran")
+    except SystemExit as exc:
+        report("wrong_size", str(exc))
+
+
+def _segment(rng, t, n, d, fill=None):
+    obs = [rng.random((n, d)).astype(np.float32) if fill is None
+           else np.full((n, d), fill, np.float32) for _ in range(t)]
+    return (obs, [rng.integers(0, 2, (n,)).astype(np.int32) for _ in range(t)],
+            [rng.random((n,)).astype(np.float32) for _ in range(t)],
+            [np.zeros((n,), bool) for _ in range(t)])
+
+
+def _rows(mesh, x):
+    """This rank's ``Shard(0)`` rows of the global numpy ``x``."""
+    n, i = mesh.size(0), mesh.get_local_rank("data")
+    return x[i * len(x) // n:(i + 1) * len(x) // n]
+
+
+def actor_learner_sharded_cases(rank, world, args, report):
+    """The port's side of ``tests/test_actor_learner_sharded.py``'s mesh
+    cases on 8 ranks, each rank owning its fleets: the DP equivalence and
+    padding updates over ``{"data": 8}``, the fan-in's padding and placement
+    and the multi-fleet runs (live, and with one fleet killed) over
+    ``{"data": 2}`` (ranks 0 and 1) with ``seconds=`` runs of 2 s and 30 s,
+    the offline updates and the
+    indivisible replay batches over ``{"data": 8}``."""
+    import threading
+    import time
+
+    import torch
+
+    from blendjax_torch.btt.chaos import kill_instance
+    from blendjax_torch.btt.faults import FaultPolicy
+    from blendjax_torch.btt.prefetch import put_batch
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.parallel import FleetSet, SegmentFanIn, data_sharding, make_mesh
+    from blendjax_torch.replay import ReplayBuffer
+
+    os.environ["BLENDJAX_BLENDER"] = args["blender"]
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    mesh8 = make_mesh({"data": 8}, device="cpu")
+    mesh2 = make_mesh({"data": 2}, device="cpu")
+
+    for case in ("dp", "padding"):
+        c = args[case]
+        al = ActorLearner(None, obs_dim=3, num_actions=2, seed=3, mesh=mesh8, device="cpu")
+        with torch.no_grad():
+            for k, v in al.state.params.items():
+                v.to_local().copy_(torch.from_numpy(c["params"][k]))
+        local = {k: _rows(mesh8, v) for k, v in c["batch"].items()}
+        batch = put_batch(local, data_sharding(mesh8), device="cpu")
+        state, loss = al._step(al.state, batch)
+        report(case, {"loss": float(loss),
+                      "grads": {k: _np(v.grad.to_local()) for k, v in state.params.items()},
+                      "params": {k: _np(v.to_local()) for k, v in state.params.items()},
+                      "placements": [repr(p) for p in batch["obs"].placements],
+                      "rows": int(batch["obs"].to_local().shape[0])})
+
+    if mesh2 is None:
+        for case in ("fanin", "two_fleets", "seconds", "kill_one_fleet"):
+            report(case, None)
+    else:
+        rng = np.random.default_rng(rank)
+        stop = threading.Event()
+        sizes = [2, 2] if rank == 0 else [2]
+        fanin = SegmentFanIn(sizes, mesh=mesh2, device="cpu")
+        segs = [_segment(rng, 4, 2, 3) for _ in sizes]
+        for f, seg in enumerate(segs):
+            assert fanin.put_segment(f, seg, stop)
+        dev = fanin.to_device(fanin.assemble(fanin.collect(lambda f: True, stop)))
+        obs = dev["obs"]
+        report("fanin", {"n_real": fanin.n_real, "n_real_global": fanin.n_real_global,
+                         "n_local": fanin.n_local, "n_padded": fanin.n_padded,
+                         "mask": dev["mask"].to_local().tolist(),
+                         "global_shape": tuple(obs.shape),
+                         "local_shape": tuple(obs.to_local().shape),
+                         "rewards_shape": tuple(dev["rewards"].shape),
+                         "placements": [repr(p) for p in obs.placements],
+                         "obs": _np(obs.to_local()),
+                         "segments": [np.stack(seg[0]).swapaxes(0, 1) for seg in segs]})
+
+        values = np.array([0.0, 1.0], np.float64)
+
+        def action_map(a):
+            return list(values[np.asarray(a)])
+
+        # 2 fleets of 1 env: 20 ports a rank and FleetSet (port_stride 10)
+        with FleetSet("", args["env_script"], num_fleets=2, envs_per_fleet=1,
+                      start_port=args["port"] + rank * 20, port_stride=10, timeoutms=30000,
+                      horizon=1_000_000) as fs:
+            al = ActorLearner(fs, obs_dim=1, num_actions=2, rollout_len=16, seed=1,
+                              mesh=mesh2, action_map=action_map, device="cpu")
+            stats = al.run(num_updates=30)
+            report("two_fleets", {"stats": stats, "health": fs.health()})
+            # rank 0 runs for 2 s, rank 1 for 30 s (a clock behind), and rank
+            # 1's first batch comes 4 s late: rank 0's budget runs out while
+            # it waits in the first update for rank 1
+            if rank == 1:
+                fetch = al._next_fanin_batch
+
+                def late(deadline, first=[True]):
+                    if first:
+                        first.clear()
+                        time.sleep(4.0)
+                    return fetch(deadline)
+
+                al._next_fanin_batch = late
+            timed = al.run(seconds=2.0 if rank == 0 else 30.0)
+        report("seconds", {"updates": timed["updates"], "losses": timed["losses"]})
+
+        policy = FaultPolicy(max_retries=1, backoff_base=0.05, deadline_s=2.0,
+                             circuit_threshold=0, seed=7)
+        with FleetSet("", args["env_script"], num_fleets=2, envs_per_fleet=1,
+                      start_port=args["port"] + 40 + rank * 20, port_stride=10,
+                      timeoutms=10000, fault_policy=policy, interval=0.2,
+                      horizon=1_000_000) as fs:
+            al = ActorLearner(fs, obs_dim=1, num_actions=2, rollout_len=8, seed=1,
+                              mesh=mesh2, action_map=action_map, device="cpu")
+
+            def killer():
+                while sum(al._env_steps_by_fleet) < 32:
+                    time.sleep(0.02)
+                kill_instance(fs.launchers[1], 0)
+
+            kt = threading.Thread(target=killer, daemon=True)
+            if rank == 1:  # rank 1's fleet 1 dies; its rows go masked
+                kt.start()
+            stats = al.run(num_updates=30)
+            if rank == 1:
+                kt.join(timeout=10)
+            health = fs.health()
+        report("kill_one_fleet", {"stats": stats, "health": health})
+
+    buf = ReplayBuffer(1024, seed=rank)
+    rng = np.random.default_rng(rank)
+    buf.extend({"obs": rng.random(3).astype(np.float32), "action": np.int32(rng.integers(0, 2)),
+                "reward": np.float32(rng.random()), "next_obs": rng.random(3).astype(np.float32),
+                "done": False} for _ in range(512))
+    al = ActorLearner(None, obs_dim=3, num_actions=2, seed=2, mesh=mesh8, replay=buf,
+                      device="cpu")
+    out = al.run_offline(num_updates=5, batch_size=32)
+    report("offline", {"updates": out["updates"], "losses": out["losses"],
+                       "params": {k: _np(v.to_local()) for k, v in al.state.params.items()}})
+    errors = []
+    try:
+        ActorLearner(None, obs_dim=3, num_actions=2, mesh=mesh8, replay=buf, replay_ratio=1,
+                     replay_batch=36, device="cpu")
+    except ValueError as exc:
+        errors.append(str(exc))
+    try:
+        al.run_offline(num_updates=1, batch_size=30)
+    except ValueError as exc:
+        errors.append(str(exc))
+    report("indivisible", errors)
+
+
+def learner_mesh_options(rank, world, args, report):
+    """``ActorLearner(mesh=)`` and ``SegmentFanIn(mesh=)`` on 2 ranks: one
+    sharded update on each rank's row of a seeded env-major batch, the
+    refusal of a mesh without a 'data' axis, and a fan-in's padded rows."""
+    import threading
+
+    import torch
+
+    from blendjax_torch.btt.prefetch import put_batch
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.parallel import SegmentFanIn, data_sharding, make_mesh
+
+    mesh = make_mesh({"data": 2}, device="cpu")
+    model = make_mesh({"model": 2}, device="cpu")
+    al = ActorLearner(None, 3, 2, seed=0, mesh=mesh, device="cpu")
+    local = {k: _rows(mesh, v) for k, v in args["batch"].items()}
+    state, loss = al._step(al.state, put_batch(local, data_sharding(mesh), device="cpu"))
+    try:
+        ActorLearner(None, 3, 2, mesh=model, device="cpu")
+        refused = "ran"
+    except ValueError as exc:
+        refused = str(exc)
+    report("actor_learner", {"loss": float(loss), "step": state.step, "refused": refused,
+                             "params": {k: _np(v.to_local()) for k, v in state.params.items()},
+                             "snapshot": {k: _np(v) for k, v in al._snapshot()[0].items()}})
+    fanin = SegmentFanIn([1 + rank], mesh=mesh, device="cpu")
+    stop = threading.Event()
+    fanin.put_segment(0, _segment(np.random.default_rng(rank), 3, 1 + rank, 2), stop)
+    dev = fanin.to_device(fanin.assemble(fanin.collect(lambda f: True, stop)))
+    report("fanin", {"mask": dev["mask"].to_local().tolist(), "shape": tuple(dev["obs"].shape),
+                     "n_padded": fanin.n_padded})
+
+
+def control_mesh(rank, world, args, report):
+    """``train_reinforce(mesh=)`` on 2 ranks, each stepping its own numpy
+    cartpole pool; then one sharded update (SGD, so that it is linear in the
+    gradient) on an uneven 10/6 split of a seeded batch."""
+    import torch
+
+    from blendjax_torch import control
+    from blendjax_torch.models import policy
+    from blendjax_torch.parallel import make_mesh, make_sharded_train_step
+    from blendjax_torch.parallel.podracer import data_sum
+    from test_torch_control import _NumpyCartpolePool
+
+    mesh = make_mesh({"data": 2}, device="cpu")
+    recs = []
+    state, returns = control.train_reinforce(_NumpyCartpolePool(2, seed=rank), iterations=2,
+                                             horizon=8, log_every=0, mesh=mesh,
+                                             on_iteration=recs.append)
+    report("train", {"returns": returns, "losses": [r["loss"] for r in recs],
+                     "params": {k: _np(v.to_local()) for k, v in state.params.items()}})
+    held = args["held"]
+    total = data_sum(mesh)
+
+    def loss_fn(p, b):
+        return policy.reinforce_loss(p, b["obs"], b["actions"], b["returns"], reduce=total)
+
+    init_sharded, step = make_sharded_train_step(loss_fn, mesh)
+    state = init_sharded({k: torch.from_numpy(v) for k, v in held["params"].items()})
+    state.optimizer = torch.optim.SGD(list(state.params.values()), lr=0.1)
+    rows = slice(0, 10) if rank == 0 else slice(10, 16)
+    state, loss = step(state, {k: torch.from_numpy(v[rows]) for k, v in held["batch"].items()})
+    report("held", {"loss": float(loss),
+                    "params": {k: _np(v.to_local()) for k, v in state.params.items()}})

@@ -12,18 +12,29 @@ case once.  A rank that raises reports its traceback as the case
 ``"error"``, and ``result`` raises it.  ``close()`` joins the ranks and
 kills any still running.
 
+A set of ``EXCLUSIVE_WORLD`` ranks or more first takes an exclusive lock on
+one file under the temporary directory, held until its ranks have exited:
+under ``pytest -n`` one such set runs at a time, so the 8-rank modules do
+not stack their processes up beside the other workers' live-fleet tests.
+
 The programs import torch and the port only, never JAX: the test process
 holds the JAX side.
 """
 
 from __future__ import annotations
 
+import fcntl
 import multiprocessing as mp
 import os
 import queue
 import socket
+import tempfile
 import time
 import traceback
+
+#: rank sets this large run one at a time on a host
+EXCLUSIVE_WORLD = 4
+LOCK_PATH = os.path.join(tempfile.gettempdir(), "blendjax-torch-ranks.lock")
 
 
 def _free_port():
@@ -53,6 +64,10 @@ class Ranks:
     def __init__(self, program, world, args=None):
         ctx = mp.get_context("spawn")
         self.world = world
+        self._lock = None
+        if world >= EXCLUSIVE_WORLD:
+            self._lock = open(LOCK_PATH, "a")  # noqa: SIM115 - held until the ranks exit
+            fcntl.flock(self._lock, fcntl.LOCK_EX)
         self._out = ctx.Queue()
         self._seen = {}
         port = _free_port()
@@ -77,10 +92,13 @@ class Ranks:
                 name, rank, value = self._out.get(timeout=min(left, 1.0))
             except queue.Empty:
                 if not any(p.is_alive() for p in self._procs) and self._out.empty():
+                    self._release()
                     raise RuntimeError(f"case {case!r}: the ranks exited without reporting "
                                        f"it (exit codes {[p.exitcode for p in self._procs]})")
                 continue
             self._seen.setdefault(name, {})[rank] = value
+        if not any(p.is_alive() for p in self._procs):
+            self._release()
         return self._seen[case]
 
     def close(self):
@@ -96,3 +114,9 @@ class Ranks:
             if p.is_alive():
                 p.kill()
             p.join(timeout=5)
+        self._release()
+
+    def _release(self):
+        if self._lock is not None:
+            self._lock.close()  # closing the file drops its lock
+            self._lock = None

@@ -360,14 +360,64 @@ def test_snapshot_is_a_copy_that_survives_the_next_update():
     assert fleet_seed(0, 0) == fleet_seed(0, 0) != fleet_seed(0, 1)
 
 
+def test_sampling_waits_while_a_step_is_captured():
+    """An actor's sampling copies pageable memory to and from the card,
+    which torch refuses while another thread captures a CUDA graph: it
+    waits at the capture gate while a capture is open, and goes on after."""
+    from blendjax_torch.models.train import capture_gate
+
+    al = ActorLearner(None, D, A, device="cpu")
+    params, _ = al._actor_params
+    obs = np.zeros((2, D), np.float32)
+    done = threading.Event()
+
+    def sample():
+        al._sample(params, torch.Generator().manual_seed(0), obs)
+        done.set()
+
+    with capture_gate.capturing():
+        t = threading.Thread(target=sample, daemon=True)
+        t.start()
+        assert not done.wait(0.3), "the actor sampled while a capture was open"
+    assert done.wait(5)
+    t.join(timeout=5)
+
+
 # -- refused arguments and validation ---------------------------------------------
 
 
-@pytest.mark.parametrize("name, item", [("mesh", "item 7"), ("pipeline_stages", "item 7")])
-def test_not_ported_arguments_name_their_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ActorLearner(None, D, A, device="cpu", **{name: object()})
+@pytest.fixture(scope="module")
+def mesh_ranks():
+    """2 gloo ranks running ``helpers.torch_parallel_ranks.learner_mesh_options``."""
+    from helpers import torch_parallel_ranks
+    from helpers.torch_ranks import Ranks
+
+    batch = _env_major(_rollout(3, t=8, n=2), np.ones(2, np.float32))
+    r = Ranks(torch_parallel_ranks.learner_mesh_options, 2, {"batch": batch})
+    try:
+        yield r
+    finally:
+        r.close()
+
+
+@pytest.mark.parametrize("name, item", [("mesh", None), ("pipeline_stages", "item 7")])
+def test_not_ported_arguments_name_their_roadmap_item(name, item, mesh_ranks):
+    """``pipeline_stages=`` still names its item (7d); ``mesh=`` is ported:
+    on 2 ranks one sharded update runs, the ranks hold one replica of the
+    parameters (and their actors' snapshot is its local copy), and a mesh
+    with no 'data' axis is refused."""
     ActorLearner(None, D, A, device="cpu", **{name: None})  # the default is accepted
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            ActorLearner(None, D, A, device="cpu", **{name: object()})
+        return
+    out = mesh_ranks.result("actor_learner", 100)
+    for rec in out.values():
+        assert rec["step"] == 1 and np.isfinite(rec["loss"]) and rec["loss"] == out[0]["loss"]
+        assert "has no 'data' axis" in rec["refused"]
+        for k, v in rec["params"].items():
+            np.testing.assert_array_equal(v, out[0]["params"][k])
+            np.testing.assert_array_equal(rec["snapshot"][k], v)
 
 
 def _scenario_option(name):
@@ -475,7 +525,7 @@ def test_ported_arguments_are_held(name):
             h.close()
 
 
-def test_validation_errors():
+def test_validation_errors(mesh_ranks):
     with pytest.raises(TypeError, match="unexpected keyword"):
         ActorLearner(None, D, A, device="cpu", optimiser=None)
     with pytest.raises(ValueError, match="num_fleets"):
@@ -487,8 +537,11 @@ def test_validation_errors():
         al.run(num_updates=1)
     with pytest.raises(RuntimeError, match="replay buffer"):
         al.run_offline(1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SegmentFanIn([2], mesh=object(), device="cpu")
+    # a fan-in over a mesh: 1 + 2 real rows over 2 ranks pad to 2 each
+    out = mesh_ranks.result("fanin", 100)
+    assert out[0]["mask"] + out[1]["mask"] == [1, 0, 1, 1]
+    assert {rec["shape"] for rec in out.values()} == {(4, 3, 2)}
+    assert {rec["n_padded"] for rec in out.values()} == {4}
 
 
 # -- live, on the port's echo producers -------------------------------------------

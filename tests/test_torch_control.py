@@ -18,6 +18,7 @@ from blendjax_torch.btb import cartpole
 from blendjax_torch.btt.env import launch_env
 from blendjax_torch.btt.envpool import launch_env_pool
 from helpers import FAKE_BLENDER
+from helpers.time_limit import time_limit
 
 
 class _NumpyCartpolePool:
@@ -110,9 +111,43 @@ def test_twins_report_each_iteration(one_thread, capsys):
         assert r["update_ms"] > 0 and np.isfinite(r["loss"])
 
 
+@time_limit(120)
 def test_not_ported_options_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        control.train_reinforce(_NumpyCartpolePool(2), mesh=object(), device="cpu")
+    """``train_reinforce(mesh=)`` is ported: on 2 gloo ranks, each stepping
+    its own numpy cartpole pool, both ranks take the same updates; and one
+    sharded update on an uneven 10/6 split of a seeded batch equals one
+    process's on the whole batch (SGD(0.1): the loss within 1e-6, every
+    parameter within 1e-6)."""
+    from blendjax_torch.models import policy
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from helpers import torch_parallel_ranks
+    from helpers.torch_ranks import Ranks
+
+    rng = np.random.default_rng(4)
+    params = policy.init(torch.Generator().manual_seed(1), 3, 2, device="cpu")
+    batch = {"obs": rng.standard_normal((16, 3)).astype(np.float32),
+             "actions": rng.integers(0, 2, 16).astype(np.int64),
+             "returns": rng.standard_normal(16).astype(np.float32)}
+    ranks = Ranks(torch_parallel_ranks.control_mesh, 2,
+                  {"held": {"params": {k: v.numpy() for k, v in params.items()},
+                            "batch": batch}})
+    try:
+        train, held = ranks.result("train", 100), ranks.result("held", 15)
+    finally:
+        ranks.close()
+    assert train[0]["losses"] == train[1]["losses"] and np.isfinite(train[0]["losses"]).all()
+    assert len(train[0]["returns"]) == 2
+    for k, v in train[0]["params"].items():
+        np.testing.assert_array_equal(v, train[1]["params"][k])
+    state = TrainState.create(params)
+    state.optimizer = torch.optim.SGD(list(state.params.values()), lr=0.1)
+    step = make_train_step(lambda p, b: policy.reinforce_loss(p, b["obs"], b["actions"],
+                                                              b["returns"]))
+    state, loss = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for rec in held.values():
+        np.testing.assert_allclose(rec["loss"], float(loss), atol=1e-6)
+        for k, v in rec["params"].items():
+            np.testing.assert_allclose(v, state.params[k].detach().numpy(), atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("source", ["copy", "reference"])

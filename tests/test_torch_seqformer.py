@@ -182,11 +182,9 @@ def test_params_round_trip_and_init_layout(pos, n_kv_heads):
 
 
 def test_moe_params_are_refused_by_name():
-    """MoE params are no longer refused (the model takes them, dense and
-    routed, as the reference's); what stays refused by name is the
-    sequence-sharded SeqFormer step, which waits for ring attention."""
-    from blendjax_torch.parallel import make_seqformer_train_step
-
+    """MoE params are no longer refused: the model takes them, dense and
+    routed, as the reference's (the sequence-sharded step's MoE cases are in
+    ``test_torch_seqformer_sharded.py``)."""
     tree = jax.device_get(jseq.init(jax.random.PRNGKey(0), n_experts=4, **CFG))
     params = params_from_jax(tree, device="cpu")
     obs = np.random.default_rng(3).standard_normal((B, 8, OBS)).astype(np.float32)
@@ -199,8 +197,6 @@ def test_moe_params_are_refused_by_name():
         k: tuple(v.shape) for k, v in params.items()}
     with pytest.raises(ValueError, match="unknown moe_impl"):
         tseq.apply(params, _t(obs), moe_impl="sparse")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        make_seqformer_train_step(None, None)
 
 
 def test_train_flops_matches_reference():

@@ -32,7 +32,6 @@ from blendjax_torch.btt.prefetch import put_batch
 from blendjax_torch.models import detector as tdet
 from blendjax_torch.models.convert import params_from_jax
 from blendjax_torch.models.train import TrainState, make_train_step
-from blendjax_torch.parallel import make_seqformer_train_step
 from blendjax_torch.parallel.mesh import P, placements
 from helpers import torch_parallel_ranks
 from helpers.time_limit import time_limit
@@ -196,6 +195,4 @@ def test_placements_follow_the_spec_and_refusals_name_their_item():
     with pytest.raises(ValueError, match=r"batch of shape \(6, 3\) not shardable as "
                                          r"P\('data'\).*divisible by the mesh axes"):
         put_batch({"x": np.zeros((6, 3), np.float32)}, Sharding, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        make_seqformer_train_step(optax.adam(1e-3), None)
 

@@ -8,6 +8,7 @@ replay), with the graph stood in by the eager step it records."""
 
 import copy
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -247,6 +248,28 @@ def test_captured_step_bookkeeping(monkeypatch, counted_kernel):
         state, _ = step(state, small)
     assert events == ["warm", "warm", ("capture", ((1, 33, 48, 3), (1, 2, 2)))]
     assert len(step.graphs) == 1
+
+
+def test_capture_gate_holds_the_collector_off():
+    """While any capture is open Python's cyclic collector is off (a dead
+    cycle holding an old CUDA graph, collected in the capturing thread,
+    would destroy it mid-capture), and its state comes back once the last
+    capture closes."""
+    gate = train.CaptureGate()
+    assert gc.isenabled()
+    with gate.capturing():
+        assert not gc.isenabled()
+        with gate.capturing():
+            assert not gc.isenabled()
+        assert not gc.isenabled()  # one capture still open
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with gate.capturing():
+            pass
+        assert not gc.isenabled()  # a collector that was off stays off
+    finally:
+        gc.enable()
 
 
 def test_captured_step_recaptures_after_optimizer_load_state_dict(monkeypatch,

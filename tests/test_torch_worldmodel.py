@@ -29,6 +29,7 @@ from blendjax_torch.btt.launcher import BlenderLauncher
 from blendjax_torch.btt.prefetch import TorchStream, device_prefetch
 from blendjax_torch.models.convert import params_from_jax
 from blendjax_torch.models.train import TrainState
+from helpers.time_limit import time_limit
 
 HERE = Path(__file__).resolve().parent
 FAKE_BLENDER = HERE / "helpers" / "fake_blender.py"
@@ -167,11 +168,37 @@ def test_training_route_matches_the_example(attn):
     np.testing.assert_allclose(losses, jlosses, rtol=2e-2)
 
 
+@time_limit(180)
+def test_mesh_trains_ring_flash_on_two_ranks(monkeypatch):
+    """``--mesh 1,2,1 --attn ring_flash`` on 2 gloo ranks at a small size:
+    one producer behind the first rank, whose batches both ranks train on,
+    each on its half of the sequence; both print the same finite losses.
+    A ``--mesh`` whose product is not the world's size exits with the
+    reference's message."""
+    from helpers import torch_parallel_ranks
+    from helpers.torch_ranks import Ranks
+
+    ranks = Ranks(torch_parallel_ranks.worldmodel_mesh, 2,
+                  {"blender": str(FAKE_BLENDER), "port": _port_pair()})
+    try:
+        lines = ranks.result("ring_flash", 160)
+        wrong = ranks.result("wrong_size", 20)
+    finally:
+        ranks.close()
+    trained = [next(ln for ln in lines[r] if ln.startswith("trained ")) for r in (0, 1)]
+    assert trained[0] == trained[1] and trained[0].startswith("trained 3 batches; loss ")
+    assert all(np.isfinite(float(x)) for x in trained[0].split("loss ")[1].split(" -> "))
+    assert any(ln.startswith("stage timing:") for ln in lines[0])
+    assert not any(ln.startswith("stage timing:") for ln in lines[1])
+    assert wrong == {r: "mesh {'data': 2, 'seq': 2, 'model': 2} needs 8 devices, have 2"
+                     for r in (0, 1)}
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2,2,2"], "ROADMAP Queue 1, item 7"),
-    (["--attn", "ring_flash"], "ROADMAP Queue 1, item 7"),
+    (["--attn", "ring_flash"], "--attn ring_flash is a parallel scheme; pass --mesh"),
+    (["--attn", "ulysses"], "--attn ulysses is a parallel scheme; pass --mesh"),
 ])
-def test_options_not_ported_exit_with_their_roadmap_item(argv, match):
+def test_parallel_attn_without_mesh_is_refused(argv, match):
     with pytest.raises(SystemExit, match=match):
         worldmodel.main(argv)
 
