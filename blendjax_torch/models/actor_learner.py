@@ -85,8 +85,17 @@ The ranks stay in step: each update (and each replay update) starts only
 once every rank has its batch, and a rank that stops or fails stops them
 all.
 
-Not ported: ``pipeline_stages=`` (ROADMAP Queue 1, item 7, part 7d), which
-raises naming its item.
+**The MPMD pipeline learner (``pipeline_stages=``).**  The off-policy
+update runs on a stage fleet through a
+:class:`~blendjax_torch.parallel.mpmd.MpmdTrain` driver instead of the
+in-process replay step: its ``pg`` family computes the same
+importance-weighted loss, the advantage normalized over the whole batch on
+the host (float64, then float32), so equal microbatch means average to the
+learner's loss.  The fleet owns the parameters; the learner adopts them at
+construction and after every update, copying them into its state's own
+tensors (a captured step replays over them) inside the capture gate, and
+its actors sample from a snapshot of them.  Sampled batches go to stage 0
+as the sampler gathered them, with no stop on the learner's device.
 """
 
 from __future__ import annotations
@@ -109,14 +118,6 @@ from blendjax_torch.utils.device import resolve_device
 from blendjax_torch.utils.timing import StageTimer
 
 log = logging.getLogger("blendjax_torch")
-
-#: the reference's constructor arguments that the port refuses, with what
-#: each waits for
-_NOT_PORTED = {
-    "pipeline_stages": "the MPMD pipeline learner waits for the parallel "
-                       "layer's pipeline (ROADMAP Queue 1, item 7, part 7d)",
-}
-
 
 def _as_pools(pool):
     """One EnvPool, a sequence of them (one per fleet), a
@@ -223,8 +224,13 @@ class ActorLearner:
         ``batch_size``) must divide by the axis's size: each rank samples
         its share from its own buffer.
 
-    ``pipeline_stages=`` raises ``NotImplementedError`` naming its ROADMAP
-    item (see the module docstring).
+    pipeline_stages: MpmdTrain | None
+        The MPMD pipeline learner (module docstring): a driver over a stage
+        fleet of family ``'pg'`` whose ``d_in``/``d_out`` are ``obs_dim``/
+        ``num_actions``; discrete policies only, and not with ``mesh=``.
+    pipeline_microbatches: int | None
+        Microbatches per pipeline update; the fleet's stage count by
+        default.
     """
 
     def __init__(self, pool, obs_dim, num_actions, *, rollout_len=32,
@@ -233,12 +239,7 @@ class ActorLearner:
                  replay=None, replay_ratio=0, replay_batch=64, device="cuda",
                  checkpointer=None, hub=None, weight_bus=None, publish_every=1,
                  scenarios=None, curriculum=None, fanin_min_ready=None, mesh=None,
-                 **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"ActorLearner got an unexpected keyword argument {name!r}")
-            if value is not None:
-                raise NotImplementedError(f"ActorLearner({name}=...): {_NOT_PORTED[name]}")
+                 pipeline_stages=None, pipeline_microbatches=None):
         self.pools = _as_pools(pool)
         if num_fleets is not None and self.pools and num_fleets != len(self.pools):
             raise ValueError(
@@ -253,6 +254,25 @@ class ActorLearner:
         self.pipeline = bool(pipeline)
         self.action_map = action_map or (lambda a: list(np.asarray(a)))
         self.mesh = mesh
+        #: the MPMD pipeline learner's driver (module docstring)
+        self.pipeline_driver = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
+        if pipeline_stages is not None:
+            spec = pipeline_stages.spec
+            if mesh is not None:
+                raise ValueError("pipeline_stages= and mesh= are different parallel axes "
+                                 "of the learner; pass one")
+            if spec["family"] != "pg":
+                raise ValueError("pipeline_stages= needs an MpmdTrain with family='pg' (the "
+                                 f"learner's off-policy loss); got {spec['family']!r}")
+            if continuous:
+                raise ValueError("pipeline_stages= supports discrete policies only (the pg "
+                                 "stage loss is categorical)")
+            if (spec["d_in"], spec["d_out"]) != (obs_dim, num_actions):
+                raise ValueError(f"pipeline spec d_in/d_out ({spec['d_in']}, {spec['d_out']}) "
+                                 f"!= learner obs_dim/num_actions ({obs_dim}, {num_actions})")
+            if self.pipeline_microbatches is None:
+                self.pipeline_microbatches = spec["n_procs"]
         self._data_size, self._reduce = 1, None
         if mesh is not None:
             from blendjax_torch.parallel.podracer import data_sum
@@ -271,9 +291,16 @@ class ActorLearner:
         #: env-major fan-in path: any mesh, or more than one fleet
         self._use_fanin = mesh is not None or len(self.pools) > 1
         self._seed = seed
-        params = policy.init(torch.Generator(device=self.device).manual_seed(seed),
-                             obs_dim, num_actions, continuous=continuous,
-                             device=self.device)
+        if pipeline_stages is None:
+            params = policy.init(torch.Generator(device=self.device).manual_seed(seed),
+                                 obs_dim, num_actions, continuous=continuous,
+                                 device=self.device)
+        else:
+            # the stage fleet owns the parameters (restored from its own
+            # checkpoints across respawns): the learner's state takes their
+            # layout and values, not a second lineage from ``seed``
+            params = {k: torch.tensor(v, device=self.device)
+                      for k, v in pipeline_stages.gather_params().items()}
         if mesh is None:
             self.state = TrainState.create(params, lr=lr)
             make_step = make_train_step
@@ -331,6 +358,8 @@ class ActorLearner:
         #: the actors' sampling parameters: (a copy of state.params, the
         #: event after which the copy is complete, or None on the CPU)
         self._actor_params = self._snapshot()
+        if pipeline_stages is not None:
+            self.state.step = pipeline_stages.updates_done
         self._updates_done = 0
         self.weight_bus = weight_bus
         self.publish_every = max(1, int(publish_every))
@@ -674,12 +703,46 @@ class ActorLearner:
     def _to_device(self, arrays):
         return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
 
+    def _adopt_pipeline_params(self):
+        """Mirror the stage fleet's parameters into the learner's state: they
+        are copied into the state's own tensors in place (a captured step
+        replays over them), inside the capture gate.  The actors keep their
+        own snapshot until :meth:`_publish_params` swaps in one made after
+        the copy, so they never see a half-copied tree."""
+        fleet = self.pipeline_driver.gather_params()
+        with capture_gate.device_work(), torch.no_grad():
+            for k, v in fleet.items():
+                self.state.params[k].copy_(torch.tensor(v))
+        self.state.step = self.pipeline_driver.updates_done
+
+    def _pipeline_replay_update(self, obs, action, reward, is_weight):
+        """One off-policy update through the MPMD stage fleet: the advantage
+        normalized here over the whole batch (so the per-microbatch loss
+        means average to the learner's replay loss), the microbatched
+        records streamed through the pipeline, and the committed parameters
+        adopted."""
+        r = torch.from_numpy(np.array(reward, np.float64))
+        adv = policy.normalized_advantage(r)[0].float().numpy()
+        loss = self.pipeline_driver.update(
+            np.asarray(obs, np.float32),
+            {"action": np.asarray(action), "adv": adv,
+             "w": np.asarray(is_weight, np.float32)},
+            self.pipeline_microbatches,
+        )
+        self._adopt_pipeline_params()
+        return loss
+
     def _replay_step_and_refresh(self, batch, idx, reward):
         """The shared off-policy post-draw block (online tail AND
-        run_offline): one sampled update, the actors' snapshot, and the
+        run_offline): one sampled update (through the stage fleet in the
+        pipeline learner, on host arrays), the actors' snapshot, and the
         sampled rows' priorities refreshed from |advantage| under the batch
         baseline (the same signal the loss weights)."""
-        self.state, loss = self._replay_step(self.state, batch)
+        if self.pipeline_driver is not None:
+            loss = self._pipeline_replay_update(batch["obs"], batch["action"],
+                                                batch["reward"], batch["is_weight"])
+        else:
+            self.state, loss = self._replay_step(self.state, batch)
         self._publish_params()
         r = np.asarray(reward, np.float64)
         if self._reduce is None:
@@ -691,9 +754,12 @@ class ActorLearner:
         return float(loss)
 
     def _replay_update(self, data, idx, weights):
-        """One off-policy update from a host-side sampled batch."""
-        batch = self._to_device({"obs": data["obs"], "action": data["action"],
-                                 "reward": data["reward"], "is_weight": weights})
+        """One off-policy update from a host-side sampled batch (on the
+        device, or as it is for the pipeline learner's stage 0)."""
+        batch = {"obs": data["obs"], "action": data["action"], "reward": data["reward"],
+                 "is_weight": weights}
+        if self.pipeline_driver is None:
+            batch = self._to_device(batch)
         return self._replay_step_and_refresh(batch, idx, data["reward"])
 
     def _agree(self, flag):
@@ -730,8 +796,9 @@ class ActorLearner:
 
         Sampled batches are gathered straight into recycled
         :class:`~blendjax_torch.btt.arena.ArenaPool` buffers and staged
-        onto the device through ``device_prefetch`` (the replay timer
-        records its ``device_put`` and ``recycle`` stages); sampling batch
+        onto the device through ``device_prefetch``, whose ``device_put`` and
+        ``recycle`` stages the replay timer records (the pipeline learner
+        feeds them to its stage fleet as they are); sampling batch
         t+1 overlaps the update on batch t.  A prioritized buffer's draws
         therefore depend on how far the sampler runs ahead of the
         priority refreshes; a uniform buffer's depend only on its seed and
@@ -756,6 +823,27 @@ class ActorLearner:
                                          keys=("obs", "action", "reward"))
         losses = []
         t0 = time.perf_counter()
+        if self.pipeline_driver is not None:
+            # the pipeline learner: stage 0 takes the sampler's arena batches
+            # as they are, with no stop on the device.  The driver's bounded
+            # feed window and the bounded ArenaPool are one backpressure: a
+            # parked feed keeps its buffer checked out, and the sampler
+            # blocks on ``acquire``; each buffer is recycled once its
+            # update has left it
+            try:
+                for ab in gen:
+                    try:
+                        data = ab.data
+                        losses.append(self._replay_step_and_refresh(
+                            data, np.asarray(data["replay_idx"]), np.asarray(data["reward"])))
+                    finally:
+                        ab.recycle()
+                    if len(losses) >= num_updates:
+                        break
+            finally:
+                stop.set()
+                gen.close()
+            return self._offline_stats(losses, t0)
         sharding = None
         if self.mesh is not None:
             from blendjax_torch.parallel.mesh import data_sharding
@@ -779,6 +867,9 @@ class ActorLearner:
         finally:
             stop.set()
             it.close()
+        return self._offline_stats(losses, t0)
+
+    def _offline_stats(self, losses, t0):
         elapsed = time.perf_counter() - t0
         return {
             "updates": len(losses),

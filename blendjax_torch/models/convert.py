@@ -135,8 +135,13 @@ def _from_jax(arr):
 
 
 def _whole(t):
-    """``t`` whole: a DTensor gathered from its mesh."""
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    """``t`` whole: a DTensor gathered from its mesh
+    (:func:`blendjax_torch.parallel.sharding.gather_whole`)."""
+    if not isinstance(t, DTensor):
+        return t
+    from blendjax_torch.parallel.sharding import gather_whole
+
+    return gather_whole(t)
 
 
 def _copy_in(dst, arr):

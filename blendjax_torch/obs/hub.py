@@ -26,8 +26,7 @@ demand into one snapshot:
   process (a replay shard's ``telemetry`` RPC) and merge it like a local
   component; a fetch failure lands in ``remote_errors``, never raised.
 
-The reference also zero-fills its pipeline vocabulary, whose module is
-not ported yet (ROADMAP item 7).  Imports neither torch nor numpy.
+Imports neither torch nor numpy.
 """
 
 from __future__ import annotations
@@ -52,7 +51,8 @@ def _canonical_counters():
     return (timing.FLEET_EVENTS + timing.REPLAY_EVENTS
             + timing.SERVE_EVENTS + timing.GATEWAY_EVENTS
             + timing.WEIGHT_EVENTS + timing.SCENARIO_EVENTS
-            + timing.HA_EVENTS + timing.AUTOSCALE_EVENTS)
+            + timing.HA_EVENTS + timing.AUTOSCALE_EVENTS
+            + timing.PIPE_EVENTS)
 
 
 def _canonical_stages():
@@ -61,7 +61,8 @@ def _canonical_stages():
     return (timing.FEED_STAGES + timing.REPLAY_STAGES
             + timing.SERVE_STAGES + timing.GATEWAY_STAGES
             + timing.WEIGHT_STAGES + timing.SCENARIO_STAGES
-            + timing.HA_STAGES + timing.AUTOSCALE_STAGES)
+            + timing.HA_STAGES + timing.AUTOSCALE_STAGES
+            + timing.PIPE_STAGES)
 
 
 def _zero_stage():

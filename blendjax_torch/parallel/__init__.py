@@ -1,9 +1,10 @@
 """blendjax_torch.parallel — meshes over torch ranks, sharding rules and the
 sharded train steps, the multi-fleet actor-learner's segment fan-in and
-fleet sets, and attention across the sequence axis (ring, ring + flash,
+fleet sets, attention across the sequence axis (ring, ring + flash,
 zigzag and Ulysses, :mod:`ring_attention`, over the rank exchange of
-:mod:`p2p`).  The pipeline waits for ROADMAP Queue 1, item 7, part 7d.
-Attribute access is lazy."""
+:mod:`p2p`), and pipeline parallelism: the SPMD GPipe and 1F1B pipeline
+over a mesh axis (:mod:`pipeline`) and the MPMD stage processes
+(:mod:`mpmd`, :mod:`stage`).  Attribute access is lazy."""
 
 _LAZY = {
     "data_mesh": ("blendjax_torch.parallel.mesh", "data_mesh"),
@@ -29,6 +30,11 @@ _LAZY = {
     "ulysses_attention": ("blendjax_torch.parallel.ring_attention", "ulysses_attention"),
     "zigzag_flash_attention": ("blendjax_torch.parallel.ring_attention",
                                "zigzag_flash_attention"),
+    "make_pipeline": ("blendjax_torch.parallel.pipeline", "make_pipeline"),
+    "make_pipeline_train": ("blendjax_torch.parallel.pipeline", "make_pipeline_train"),
+    "microbatch": ("blendjax_torch.parallel.pipeline", "microbatch"),
+    "stack_stage_params": ("blendjax_torch.parallel.pipeline", "stack_stage_params"),
+    "unstack_stage_params": ("blendjax_torch.parallel.pipeline", "unstack_stage_params"),
 }
 
 __all__ = sorted(_LAZY)

@@ -124,6 +124,39 @@ def shard_pytree(tree, mesh, specs):
     return {k: place(v, specs[k]) for k, v in tree.items()}
 
 
+def gather_whole(t):
+    """``t`` whole, as a plain tensor on every rank of its mesh.
+
+    Each mesh dimension a DTensor is sharded over is gathered with c10d's
+    ``all_gather`` on that dimension's group and concatenated along the
+    placement's tensor dimension; a replicated DTensor gives its local
+    tensor, a plain tensor itself.  A collective where ``t`` is sharded,
+    so every rank of the mesh calls it.  DTensor's ``Shard`` cuts as
+    ``torch.chunk`` does, so shards can differ in length: each is padded to
+    the longest, gathered, then trimmed.  (DTensor's own ``full_tensor()``
+    goes through the functional all-gather, which torch 2.11's gloo
+    cannot run on CUDA tensors; c10d's ``all_gather`` can.)"""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    whole = t.to_local().detach()
+    for mesh_dim, placement in enumerate(t.placements):
+        if not placement.is_shard():
+            continue
+        dim, n = placement.dim, mesh.size(mesh_dim)
+        size = t.shape[dim]
+        chunk = -(-size // n)
+        lengths = [max(0, min(chunk, size - i * chunk)) for i in range(n)]
+        pad = list(whole.shape)
+        pad[dim] = chunk - whole.shape[dim]
+        padded = torch.cat([whole, whole.new_zeros(pad)], dim) if pad[dim] else whole
+        parts = [torch.empty_like(padded) for _ in range(n)]
+        dist.all_gather(parts, padded.contiguous(), group=mesh.get_group(mesh_dim))
+        whole = torch.cat([p.narrow(dim, 0, length) for p, length in zip(parts, lengths)],
+                          dim)
+    return whole
+
+
 class _ReplicatePlain(TorchFunctionMode):
     """Where a call mixes plain tensors with DTensors, the plain ones join
     ``mesh`` as replicated DTensors (``DTensor.from_local``, above

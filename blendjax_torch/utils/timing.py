@@ -21,8 +21,9 @@ complete, and its return to the pool), under the reference's names; the
 policy server records :data:`SERVE_STAGES`, the HA checkpointer
 :data:`HA_STAGES`, the replay service :data:`REPLAY_STAGES`, the
 weight bus :data:`WEIGHT_STAGES`, the scenario plane
-:data:`SCENARIO_STAGES`, the serve gateway :data:`GATEWAY_STAGES` and the
-autoscaler :data:`AUTOSCALE_STAGES`.  :meth:`StageTimer.snapshot` is the
+:data:`SCENARIO_STAGES`, the serve gateway :data:`GATEWAY_STAGES`, the
+autoscaler :data:`AUTOSCALE_STAGES` and the MPMD pipeline
+:data:`PIPE_STAGES`.  :meth:`StageTimer.snapshot` is the
 mergeable form the :class:`~blendjax_torch.obs.hub.TelemetryHub` folds.
 The chrome-trace export of ``blendjax.utils.timing`` is not ported.
 """
@@ -297,6 +298,59 @@ AUTOSCALE_STAGES = (
     "autoscale_tick", "autoscale_resize", "autoscale_drain",
     "autoscale_handoff",
 )
+
+#: Canonical MPMD-pipeline event names (see docs/pipeline.md).  Same
+#: contract as ``FLEET_EVENTS``: any ``EventCounters`` accepts them and
+#: the TelemetryHub zero-fills every name in every scrape.  The driver
+#: and each stage process count into their own sinks; the hub merge is
+#: the fleet view.
+#: ``pipe_updates`` — pipeline updates committed (stage side: SGD
+#: applied at the update boundary; driver side: full
+#: begin→feed→finish→commit rounds completed);
+#: ``pipe_microbatches`` — microbatch records processed (stage side:
+#: backward passes completed; driver side: microbatches fed);
+#: ``pipe_feed_parks`` — feed stalls: the bounded in-flight window was
+#: full, so the driver parked instead of allocating — the bubble
+#: schedule acting as backpressure on the arena feed;
+#: ``pipe_resends`` — in-flight activation/grad/target records re-sent
+#: under the SAME correlation id after a missed ack (peer death or shm
+#: demotion; the receiver's reply cache + ``(update, mb)`` dedup make
+#: the resend exactly-once);
+#: ``pipe_dup_records`` — duplicate records absorbed by that dedup (a
+#: resent record whose original did land);
+#: ``pipe_restarts`` — update attempts the driver abandoned and
+#: replayed after reconciling a changed fleet (a stage died
+#: mid-update);
+#: ``pipe_rollbacks`` — stage-side param rollbacks to an earlier
+#: committed boundary (checkpoint restore or rebuild-from-seed);
+#: ``pipe_driver_rollbacks`` — rollback commands the driver issued
+#: while reconciling stages to the lowest common applied update;
+#: ``pipe_stage_respawns`` — stage incarnation changes the driver
+#: observed at hello (the watchdog respawned a killed stage);
+#: ``pipe_ckpt_restores`` — stage param restores from the per-stage
+#: checkpoint cut (at process start or rollback);
+#: ``pipe_wire_bytes`` — payload bytes through a stage server's wire
+#: paths (both transports, both directions it counts).
+PIPE_EVENTS = (
+    "pipe_updates", "pipe_microbatches", "pipe_feed_parks",
+    "pipe_resends", "pipe_dup_records",
+    "pipe_restarts", "pipe_rollbacks", "pipe_driver_rollbacks",
+    "pipe_stage_respawns", "pipe_ckpt_restores", "pipe_wire_bytes",
+)
+
+#: Canonical MPMD-pipeline stage names (see docs/pipeline.md), the
+#: :class:`StageTimer` vocabulary the stage processes and the pipeline
+#: driver report under: ``pipe_fwd`` (one microbatch forward through a
+#: stage's owned layers), ``pipe_bwd`` (one microbatch backward — on
+#: the last stage this is the fused forward+loss+backward unit),
+#: ``pipe_apply`` (the SGD apply at an update commit), ``pipe_feed``
+#: (driver: pushing one microbatch pair into the pipeline, parks
+#: included), ``pipe_finish`` (driver: the grads-ready poll barrier
+#: after the last microbatch — the visible tail of the 1F1B bubble).
+PIPE_STAGES = (
+    "pipe_fwd", "pipe_bwd", "pipe_apply", "pipe_feed", "pipe_finish",
+)
+
 
 #: Process-wide default counter registry.  Component constructors take a
 #: ``counters=`` override for isolated accounting.

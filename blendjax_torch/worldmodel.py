@@ -218,19 +218,12 @@ def simulate_episode(rng, batch, T_steps=None, obs_dim=OBS_DIM):
 
 def _whole_params(state):
     """A mesh-trained state's parameters as whole plain tensors on every
-    rank (for the dream): a replicated parameter's local tensor; a sharded
-    one gathered, on the CPU only (torch 2.11's gloo cannot gather a sharded
-    DTensor on the card, ROADMAP Queue 3)."""
-    out = {}
-    for k, v in state.params.items():
-        if all(p.is_replicate() for p in v.placements):
-            out[k] = v.to_local().detach()
-        elif v.device.type == "cuda":
-            raise SystemExit("--dream after --mesh with tp > 1 gathers sharded parameters, "
-                             "which gloo cannot do on the card (ROADMAP Queue 3); pass tp 1")
-        else:
-            out[k] = v.full_tensor().detach()
-    return out
+    rank (for the dream): a replicated parameter's local tensor, a sharded
+    one gathered (:func:`blendjax_torch.parallel.sharding.gather_whole`,
+    every rank calling it in one order)."""
+    from blendjax_torch.parallel.sharding import gather_whole
+
+    return {k: gather_whole(v) for k, v in state.params.items()}
 
 
 def _train_on_mesh(args, attn):

@@ -326,6 +326,31 @@ Phases, each printing JSON lines:
               ``FleetSet`` of 2 cartpole producers through
               ``ActorLearner(mesh=)`` and ``control.train_reinforce(mesh=)``,
               env-steps/s and updates/s beside one process's.  No kernel.
+              The dp phase also gathers its TP state through
+              ``convert.train_state_arrays`` (c10d's all-gather): the arrays
+              must be the ranks' local shards put together, bit for bit.
+26. pipe    — pipeline parallelism (``PIPE``, ``MPMD``).  SPMD: 2 rank
+              processes on ``cuda:0`` over gloo, mesh ``{"pipe": 2}``
+              (``--pipe-rank``): ``tests/test_pipeline.py``'s residual stage
+              ``x + gelu(dense(x))`` at the flagship width, f32, 8
+              microbatches of 64 rows; ``make_pipeline``'s forward, then
+              ``make_pipeline_train`` with ``"gpipe"`` and ``"1f1b"``
+              (``in_proj`` 32 -> 1024, ``out_proj`` 1024 -> 8, MSE), each held
+              to one process's sequential autograd on the card, the
+              rotations counted (all host-staged) and ms per step beside the
+              sequential step's.  MPMD: ``StageFleet`` stage processes
+              on the card at ``benchmarks/pipeline_benchmark.py``'s setting
+              (3 stages, 6 layers, wire 64, d_in 32, d_out 8, batch 64, 8
+              microbatches, work_us 0): 4 updates each in the ``mse`` and
+              ``pg`` families held to full-model plain SGD on the card;
+              updates/s beside a 1-stage fleet's; the kill drill (the middle
+              stage SIGKILLed mid-update under ``FleetWatchdog(restart=True)``,
+              6 updates equal to the uninterrupted plain SGD run, no
+              ``/dev/shm`` object left); and ``ActorLearner(pipeline_stages=)``
+              over a 2-stage ``pg`` fleet at cartpole's dims, 3 offline
+              updates from a prioritized buffer, its state equal to the
+              fleet's parameters, its losses and the fleet's parameters held
+              to plain SGD on the batches it drew.  No kernel.
 
 Every kernel's launch count is zeroed just before the path that runs it
 (the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
@@ -333,7 +358,10 @@ decode kernel, the world-model stream for the flash kernels, and the ha
 phase's resumed steps for all four; the moe arms' turns for the flash
 kernels and each dp rank's stream and held steps for the decode kernel, and each ring
 rank's cases and flagship steps for the flash kernels) and read just after; a kernel a path
-never launched fails the run.  The line before the last holds every kernel's numbers; the last
+never launched fails the run.  The pipe phase launches none of them: its ``launches_by_path``
+entries, checked 0, count this process (``pipe``) and both SPMD ranks
+(``pipe_ranks``); its stage processes enroll no kernel wrapper, and their
+counts are not read.  The line before the last holds every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 without printing it, as does a host without CUDA or a directory without
 the ``blendjax_torch`` package beside this file.
@@ -349,6 +377,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import glob
 import json
 import logging
 import math
@@ -5685,7 +5714,7 @@ def dp_rank_main(spec):
     sys.path.insert(0, REPO)
     from blendjax_torch import btt, datagen
     from blendjax_torch.btt.prefetch import put_batch
-    from blendjax_torch.models import detector
+    from blendjax_torch.models import convert, detector
     from blendjax_torch.models.train import TrainState, make_train_step
     from blendjax_torch.ops import image
     from blendjax_torch.parallel import (
@@ -5784,7 +5813,32 @@ def dp_rank_main(spec):
                 "placements": {k: [repr(p) for p in v.placements]
                                for k, v in state.params.items()
                                if k.startswith(("fc", "head"))}}
+            if label == "tp":
+                out[label]["gather"] = tp_gather(state, shard_of)
             dist.barrier()
+
+        def tp_gather(state, shard_of):
+            """The TP state's parameters and Adam moments through
+            ``convert.train_state_arrays`` (c10d's all-gather,
+            ``sharding.gather_whole``): each whole array's share of this rank
+            must be bit-equal to its local shard, so the arrays are the
+            ranks' shards put together."""
+            stage("tp: gathering the state")
+            arrays = convert.train_state_arrays(state)
+            names = convert.jax_order(state.params)
+            adam = [state.optimizer.state[state.params[n]] for n in names]
+            tensors = ([state.params[n] for n in names] + [a["exp_avg"] for a in adam]
+                       + [a["exp_avg_sq"] for a in adam])
+            p = len(names)
+            leaves = list(arrays[:p]) + list(arrays[p + 1:3 * p + 1])
+            equal, sharded = True, 0
+            for t, arr in zip(tensors, leaves):
+                whole = torch.from_numpy(np.ascontiguousarray(convert._from_jax(arr)))
+                local = t.to_local().detach().cpu()
+                sharded += int(any(q.is_shard() for q in t.placements))
+                equal &= tuple(whole.shape) == tuple(t.shape) and torch.equal(
+                    shard_of(whole, t), local)
+            return {"leaves": len(leaves), "sharded": sharded, "bit_equal": bool(equal)}
 
         local = MAIN_SHAPE[0] // world
         stage("held dp")
@@ -5830,6 +5884,11 @@ def dp_phase(torch):
           "dp: both ranks saw one loss per step (the global batch's)")
     check(r0["dp"]["losses"] == r1["dp"]["losses"], "dp: the held losses agree across ranks")
     check(r0["tp"]["losses"] == r1["tp"]["losses"], "tp: the held losses agree across ranks")
+    for o in outs:
+        g = o["tp"]["gather"]
+        check(g["bit_equal"] and g["sharded"] >= 3,
+              f"tp rank {o['rank']}: the TP state's arrays through train_state_arrays (c10d "
+              f"all-gather) are the ranks' shards put together, bit for bit ({g})")
     for label in ("dp", "tp"):
         for o in outs:
             r = o[label]
@@ -6350,6 +6409,554 @@ def rl_dp_phase(torch):
           "rl_dp: train_reinforce's loss the same on both ranks")
 
 
+#: the pipe phase's SPMD leg: 2 rank processes on ``cuda:0`` over gloo, mesh
+#: ``{"pipe": 2}``; ``tests/test_pipeline.py``'s residual stage at the
+#: flagship width, f32 (TF32 off), ``microbatches`` of ``rows`` rows, an
+#: ``in_proj`` d_in -> d and an ``out_proj`` d -> d_out, MSE.  Held to one
+#: process's sequential autograd on the card: the forward within
+#: ``value_rtol`` of the largest reference value, the loss within
+#: ``loss_rtol``, each gradient within ``grad_rtol`` of its tensor's largest
+#: entry (the reference's rtol).  Both sides compute the same f32 products;
+#: the pipeline's per microbatch, the sequential forward's over the stacked
+#: microbatches, and the gradients' sums run in another order, so the gaps
+#: are f32 roundings of 1024-term dot products (about 1e-6 of a value).
+PIPE = dict(ranks=2, d=SEQ["d_model"], d_in=32, d_out=8, microbatches=8, rows=64,
+            value_rtol=1e-5, loss_rtol=1e-5, grad_rtol=1e-4, reps=5, timeout_s=240)
+#: the MPMD leg, at ``benchmarks/pipeline_benchmark.py:46-50,112-118``'s
+#: setting (lr 1e-3, seed 0, work_us 0): ``updates`` per family held to
+#: full-model plain SGD on the card within the reference's rtol/atol
+#: (``tests/test_mpmd.py:73-111``); ``rounds`` of ``window`` updates on the
+#: 3-stage and the 1-stage fleet in turns for updates/s; the kill drill's
+#: ``kill_updates`` with the middle stage SIGKILLed at ``kill_after``; the
+#: pipeline learner at cartpole's dims (obs 4, 2 actions, wire 64), its state
+#: within ``learner_rtol`` of the fleet's parameters, and its losses and the
+#: fleet's parameters within ``rtol``/``atol`` of plain SGD.  Once its fleet is warm
+#: (a stage's first records on the card take seconds), the drill's driver
+#: gives up on an update after ``finish_timeout_s``, the reference's test's.
+MPMD = dict(n_procs=3, n_layers=6, wire=64, d_in=32, d_out=8, batch=64, microbatches=8,
+            lr=1e-3, seed=0, work_us=0, updates=4, rounds=3, window=6, kill_updates=6,
+            kill_after=3, finish_timeout_s=10.0, rtol=1e-4, atol=1e-5, learner_updates=3,
+            learner_batch=64, learner_rtol=1e-6)
+
+
+def pipe_rank_main(spec):
+    """One rank of the pipe phase's SPMD leg (``python3 chip_smoke.py
+    --pipe-rank '<json>'``), on ``cuda:0`` in a gloo group with the other:
+    ``make_pipeline``'s forward, then ``make_pipeline_train`` with
+    ``"gpipe"`` and ``"1f1b"``, each held to the sequential model's autograd
+    on this rank; the rotations each made (``p2p.counts``) and its ms per
+    step, and the sequential step's ms (rank 0, the other rank waiting);
+    the K1-K4 launches it counted (``launches``: none expected).  Prints one
+    JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    cfg, stage = _rank_world(spec, "pipe", PIPE["timeout_s"])
+    from blendjax_torch.models.layers import dense_apply, dense_init, gelu, layer
+    from blendjax_torch.ops import flash_attention as flash
+    from blendjax_torch.ops import image
+    from blendjax_torch.parallel import (
+        make_mesh,
+        make_pipeline,
+        make_pipeline_train,
+        p2p,
+        stack_stage_params,
+    )
+
+    rank, world = cfg["rank"], cfg["world"]
+    out = {"rank": rank}
+    image.decode_frames_cuda.launches = 0
+    _zero_flash_counts(flash)
+    try:
+        mesh = make_mesh({"pipe": world})
+        stage("mesh made")
+        out["mesh"] = {"device_type": mesh.device_type, "device": torch.cuda.current_device()}
+        d, m, rows = PIPE["d"], PIPE["microbatches"], PIPE["rows"]
+        g = torch.Generator().manual_seed(11)
+
+        def dense(a, b):
+            return {k: v.cuda() for k, v in dense_init(a, b, generator=g, device="cpu").items()}
+
+        stages = [{f"fc.{k}": v for k, v in dense(d, d).items()} for _ in range(world)]
+        proj = (dense(PIPE["d_in"], d), dense(d, PIPE["d_out"]))
+        x = torch.randn((m, rows, d), generator=g).cuda()
+        xi = torch.randn((m, rows, PIPE["d_in"]), generator=g).cuda()
+        tgt = torch.randn((m, rows, PIPE["d_out"]), generator=g).cuda()
+        stacked = stack_stage_params(stages)
+
+        def stage_fn(p, h):
+            return h + gelu(dense_apply(layer(p, "fc"), h))
+
+        def mse(a, b):
+            return torch.mean((a - b) ** 2)
+
+        def gap(got, want):
+            return ((got - want).abs().max() / want.abs().max()).item()
+
+        def counted(fn):
+            p2p.reset_counts()
+            result = fn()
+            torch.cuda.synchronize()
+            return result, {k: p2p.counts[k] for k in ("rotate", "host_staged")}
+
+        y, counts = counted(lambda: make_pipeline(stage_fn, mesh)(stacked, x))
+        ref = x
+        for sp in stages:
+            ref = stage_fn(sp, ref)
+        out["forward"] = {"value_gap": gap(y, ref), "rotations": counts}
+        stage("forward held")
+
+        leaves = [*stages[rank].values(), *proj[0].values(), *proj[1].values()]
+        live = [v.detach().requires_grad_(True) for v in leaves]
+        n_stage = len(stages[rank])
+
+        def seq_grads():
+            sp = [dict(s) for s in stages]
+            sp[rank] = dict(zip(stages[rank], live[:n_stage]))
+            pe = dict(zip(proj[0], live[n_stage:n_stage + 2]))
+            po = dict(zip(proj[1], live[n_stage + 2:]))
+            losses = []
+            for i in range(m):
+                h = dense_apply(pe, xi[i])
+                for s in sp:
+                    h = stage_fn(s, h)
+                losses.append(mse(dense_apply(po, h), tgt[i]))
+            loss = torch.stack(losses).mean()
+            return loss, torch.autograd.grad(loss, live)
+
+        ref_loss, ref_grads = seq_grads()
+        for schedule in ("gpipe", "1f1b"):
+            train = make_pipeline_train(stage_fn, mse, mesh, schedule=schedule,
+                                        in_proj=dense_apply, out_proj=dense_apply)
+            (loss, (gs, gp)), counts = counted(lambda: train(stacked, proj, xi, tgt))
+            got = [gs[k][0] for k in stages[rank]] + list(gp[0].values()) + list(gp[1].values())
+            dist.barrier()
+            ms = _ms_median(torch, lambda: train(stacked, proj, xi, tgt), PIPE["reps"],
+                            barrier=dist.barrier)
+            out[schedule] = {
+                "loss": float(loss), "loss_gap": abs(float(loss) - float(ref_loss))
+                / abs(float(ref_loss)),
+                "grad_gap": max(gap(a, b) for a, b in zip(got, ref_grads)),
+                "rotations": counts, "step_ms": ms}
+            stage(f"{schedule} held")
+        dist.barrier()
+        if rank == 0:  # the other rank waits: one process on the card
+            out["sequential_step_ms"] = _ms_median(torch, seq_grads, PIPE["reps"])
+        dist.barrier()
+        out["sequential_loss"] = float(ref_loss)
+        out["launches"] = _pipe_launches(image, flash)
+    finally:
+        dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    stage("done")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _mpmd_spec(family, n_procs=MPMD["n_procs"], **kw):
+    from blendjax_torch.parallel.mpmd import normalize_spec
+
+    spec = dict(family=family, d_in=MPMD["d_in"], wire=MPMD["wire"], d_out=MPMD["d_out"],
+                n_layers=MPMD["n_layers"], n_procs=n_procs, lr=MPMD["lr"], seed=MPMD["seed"])
+    spec.update(kw)
+    return normalize_spec(spec)
+
+
+def mpmd_batches(np, spec, k, seed, batch=MPMD["batch"]):
+    """``k`` seeded whole batches (x, target record) of ``batch`` rows for
+    the spec's family (``pg``: a normalized advantage, importance weights
+    in [0.5, 1.5]).  ``tests/test_torch_mpmd.py`` draws its batches here."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        x = rng.standard_normal((batch, spec["d_in"])).astype(np.float32)
+        if spec["family"] == "mse":
+            tgt = {"y": rng.standard_normal((batch, spec["d_out"])).astype(np.float32)}
+        else:
+            r = rng.standard_normal(batch)
+            tgt = {"action": rng.integers(0, spec["d_out"], batch).astype(np.int32),
+                   "adv": ((r - r.mean()) / (r.std() + 1e-6)).astype(np.float32),
+                   "w": rng.uniform(0.5, 1.5, batch).astype(np.float32)}
+        out.append((x, tgt))
+    return out
+
+
+def mpmd_plain_sgd(torch, spec, batches, m, device="cuda"):
+    """Full-model SGD on ``device`` with the stages' arithmetic, from
+    ``build_full_params(spec)``: per-microbatch mean losses, gradients
+    summed over microbatches, ``p - lr*g/m``.  Returns the parameters as
+    numpy and the losses.  ``tests/test_torch_mpmd.py`` holds the stage
+    fleets to it on the CPU."""
+    from blendjax_torch.models.layers import dense_apply, layer
+    from blendjax_torch.parallel.mpmd import build_full_params, make_loss_fn
+    from blendjax_torch.parallel.pipeline import microbatch
+
+    loss_fn = make_loss_fn(spec["family"])
+    params = build_full_params(spec, device)
+    losses = []
+    for x, tgt in batches:
+        xs, tgts = microbatch(x, m), microbatch(tgt, m)
+        gsum, lsum = None, 0.0
+        for i in range(m):
+            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            h = torch.tensor(xs[i], device=device)
+            for j in range(spec["n_layers"] + 1):
+                h = torch.tanh(dense_apply(layer(p, f"layers.{j}"), h))
+            loss = loss_fn(dense_apply(layer(p, "out"), h),
+                           {k: torch.tensor(v[i], device=device) for k, v in tgts.items()})
+            g = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+            lsum += float(loss.detach())
+            gsum = g if gsum is None else {k: gsum[k] + g[k] for k in g}
+        with torch.no_grad():
+            params = {k: v - spec["lr"] * gsum[k] / m for k, v in params.items()}
+        losses.append(lsum / m)
+    return {k: v.cpu().numpy() for k, v in params.items()}, losses
+
+
+def _mpmd_gaps(np, got, want, losses, ref_losses):
+    """The largest excess over the reference's limits (<= 0: within), and
+    the raw gaps."""
+    excess = max(float(np.max(np.abs(got[k] - want[k]) - MPMD["atol"]
+                              - MPMD["rtol"] * np.abs(want[k]))) for k in want)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    return {"param_excess": excess, "loss_gap": loss_gap, "keys_equal": sorted(got) == sorted(want),
+            "param_max_abs_diff": max(float(np.max(np.abs(got[k] - want[k]))) for k in want)}
+
+
+def _mpmd_updates(driver, batches, m):
+    driver.hello_all()
+    return [float(driver.update(x, tgt, m)) for x, tgt in batches]
+
+
+def _mpmd_rates(driver, single, batch, m):
+    """``MPMD['rounds']`` windows of ``MPMD['window']`` updates on each
+    driver in turns; updates/s per window."""
+    rates = {"mpmd": [], "single": []}
+    x, tgt = batch
+    for r in range(MPMD["rounds"]):
+        order = (("mpmd", driver), ("single", single))
+        for name, d in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            for _ in range(MPMD["window"]):
+                d.update(x, tgt, m)
+            rates[name].append(MPMD["window"] / (time.perf_counter() - t0))
+    return rates
+
+
+def kill_mid_update(fleet, idx, update, out):
+    """SIGKILL stage ``idx`` of ``fleet`` once it is inside ``update`` (its
+    ``stage_info`` says so); ``out["kill_info"]`` is that last answer.
+    ``tests/test_torch_mpmd.py``'s drill kills its stage here too."""
+    import zmq
+
+    from blendjax_torch import wire
+
+    sock = zmq.Context.instance().socket(zmq.DEALER)
+    sock.setsockopt(zmq.LINGER, 0)
+    sock.connect(fleet.addresses[idx])
+    try:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            msg = {"cmd": "stage_info"}
+            mid = wire.stamp_message_id(msg)
+            wire.send_message_dealer(sock, msg)
+            if not sock.poll(1000, zmq.POLLIN):
+                continue
+            reply = wire.recv_message_dealer(sock)
+            if reply.get(wire.BTMID_KEY) == mid and reply.get("current") == update:
+                os.kill(fleet.launch_info.processes[idx].pid, signal.SIGKILL)
+                out["kill_info"] = {k: reply[k] for k in ("applied", "current", "bwd_done")}
+                return
+    finally:
+        sock.close(0)
+
+
+def _mpmd_kill_drill(fleet, driver, batches, m, done):
+    """The SIGKILL drill on ``fleet`` (stages checkpointing every commit),
+    after its first ``done`` updates (the warm-up, taken with the other
+    fleets'): the middle stage killed inside the next update under
+    ``FleetWatchdog(restart=True)``, then the rest of ``batches``; a last
+    ``hello_all`` sees every incarnation."""
+    from blendjax_torch.btt.watchdog import FleetWatchdog
+
+    t0 = time.perf_counter()
+    update_s, rec = [], {}
+    driver.finish_timeout_s = MPMD["finish_timeout_s"]
+    with FleetWatchdog(fleet, interval=0.25, restart=True) as wd:
+        killer = threading.Thread(target=kill_mid_update,
+                                  args=(fleet, 1, driver.updates_done + 1, rec))
+        killer.start()
+        for x, tgt in batches[len(done):]:
+            t1 = time.perf_counter()
+            done.append(float(driver.update(x, tgt, m)))
+            update_s.append(time.perf_counter() - t1)
+        killer.join(timeout=30)
+        driver.hello_all()
+        got = driver.gather_params()
+        infos = driver.stage_infos()
+        deadline = time.monotonic() + 10
+        while not wd.deaths and time.monotonic() < deadline:
+            time.sleep(0.1)
+        deaths = [d[0] for d in wd.deaths]
+    return {"losses": done, "params": got, "seconds": time.perf_counter() - t0,
+            "update_s": update_s, "deaths": deaths, "applied": [i["applied"] for i in infos],
+            "kill_info": rec.get("kill_info"),
+            "respawned_restores": infos[1]["counters"].get("pipe_ckpt_restores", 0),
+            "counters": driver.counters.snapshot()}
+
+
+def _pipe_learner(np, torch):
+    """``ActorLearner(pipeline_stages=)`` over a 2-stage ``pg`` fleet of
+    stage threads on the card at cartpole's dims: ``run_offline`` from a
+    seeded prioritized ``ReplayBuffer`` (priorities off uniform, so the
+    importance weights are off 1; rewards off mean 0 and std 1).  The
+    learner's state against the fleet's; the losses and the fleet's
+    parameters against plain SGD on the batches the learner drew, their
+    advantage normalized here."""
+    from blendjax_torch.models.actor_learner import ActorLearner
+    from blendjax_torch.parallel.mpmd import MpmdTrain, start_stage_threads
+    from blendjax_torch.replay import ReplayBuffer
+
+    spec = _mpmd_spec("pg", n_procs=2, d_in=4, d_out=2, n_layers=2)
+    rng = np.random.default_rng(5)
+    buf = ReplayBuffer(1024, seed=0)
+    for _ in range(512):
+        buf.append({"obs": rng.standard_normal(4).astype(np.float32),
+                    "action": int(rng.integers(0, 2)),
+                    "reward": float(1.0 + 2.0 * rng.standard_normal())})
+    buf.update_priorities(np.arange(512), rng.uniform(0.1, 2.0, 512))
+    drawn = []
+    with start_stage_threads(spec) as handle:
+        driver = MpmdTrain(handle.addresses, spec)
+        try:
+            driver.hello_all()
+            al = ActorLearner(None, 4, 2, replay=buf, pipeline_stages=driver)
+            update = al._pipeline_replay_update
+
+            def recorded(*batch):  # (obs, action, reward, is_weight), off the arena
+                drawn.append([np.array(a) for a in batch])
+                return update(*batch)
+
+            al._pipeline_replay_update = recorded
+            stats = al.run_offline(num_updates=MPMD["learner_updates"],
+                                   batch_size=MPMD["learner_batch"])
+            fleet = driver.gather_params()
+            infos = driver.stage_infos()
+        finally:
+            driver.close()
+    batches = []
+    for obs, action, reward, w in drawn:
+        r = reward.astype(np.float64)
+        batches.append((obs, {"action": action, "w": w,
+                              "adv": ((r - r.mean()) / (r.std() + 1e-6)).astype(np.float32)}))
+    want, ref_losses = mpmd_plain_sgd(torch, spec, batches, al.pipeline_microbatches)
+    state = {k: v.detach().cpu().numpy() for k, v in al.state.params.items()}
+    return {"updates": stats["updates"], "losses": stats["losses"], "step": al.state.step,
+            "device": str(al.device), "stage_devices": [i["device"] for i in infos],
+            "keys_equal": sorted(state) == sorted(fleet),
+            "param_max_rel_diff": max(float(np.max(np.abs(state[k] - fleet[k])
+                                                   / np.maximum(np.abs(fleet[k]), 1e-30)))
+                                      for k in fleet),
+            "snapshot_equal": all(np.array_equal(al._actor_params[0][k].cpu().numpy(), fleet[k])
+                                  for k in fleet),
+            "weights_off_one": all(not np.allclose(w, 1.0) for *_, w in drawn),
+            "plain": {"losses": ref_losses,
+                      **_mpmd_gaps(np, fleet, want, stats["losses"], ref_losses)}}
+
+
+def _pipe_mpmd(torch):
+    """The MPMD leg (``MPMD``): 4 fleets of stage processes on the card
+    booted together (mse, pg, 1-stage, the drill's), then the checks in
+    turn."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from blendjax_torch.parallel.mpmd import MpmdTrain, StageFleet
+
+    m = MPMD["microbatches"]
+    specs = {"mse": _mpmd_spec("mse"), "pg": _mpmd_spec("pg"), "single": _mpmd_spec("mse", 1),
+             "kill": _mpmd_spec("mse")}
+    tmp = tempfile.mkdtemp(prefix="bjx-pipe-")
+    rec = {}
+    try:
+        with contextlib.ExitStack() as stack:
+            fleets = {k: StageFleet(spec, work_us=MPMD["work_us"],
+                                    ckpt_dir=os.path.join(tmp, "ck") if k == "kill" else None)
+                      for k, spec in specs.items()}
+            bases = [b for b in fleets["kill"].shm_bases if b]
+            for f in fleets.values():
+                stack.callback(f.close)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(fleets)) as pool:
+                for fut in [pool.submit(f.__enter__) for f in fleets.values()]:
+                    fut.result()
+            rec["boot_s"] = time.perf_counter() - t0
+            drivers = {k: MpmdTrain(fleets[k].addresses, specs[k]) for k in ("mse", "pg", "single")}
+            for d in drivers.values():
+                stack.callback(d.close)
+
+            def checked(family):
+                """The family's held updates (the fleet's first: each stage's
+                first records pay its CUDA warm-up, off the rates' clock)."""
+                spec = specs[family]
+                batches = mpmd_batches(np, spec, MPMD["updates"], seed=1)
+                t0 = time.perf_counter()
+                losses = _mpmd_updates(drivers[family], batches, m)
+                seconds = time.perf_counter() - t0
+                want, ref_losses = mpmd_plain_sgd(torch, spec, batches, m)
+                infos = drivers[family].stage_infos()
+                return {"losses": losses, "plain_losses": ref_losses, "seconds": seconds,
+                        "applied": [i["applied"] for i in infos],
+                        "devices": [i["device"] for i in infos],
+                        "restarts": drivers[family].counters.get("pipe_restarts"),
+                        **_mpmd_gaps(np, drivers[family].gather_params(), want, losses,
+                                     ref_losses)}
+
+            # the warm-up updates under the driver's default finish timeout
+            drill = MpmdTrain(fleets["kill"].addresses, specs["kill"])
+            stack.callback(drill.close)
+            drill_batches = mpmd_batches(np, specs["kill"], MPMD["kill_updates"], seed=3)
+            drill_losses = []
+
+            def drill_warm():
+                drill.hello_all()
+                for x, tgt in drill_batches[:MPMD["kill_after"]]:
+                    drill_losses.append(float(drill.update(x, tgt, m)))
+
+            # every fleet's first updates at once (their stages' warm-ups overlap)
+            with ThreadPoolExecutor(4) as pool:
+                futs = {f: pool.submit(checked, f) for f in ("mse", "pg")}
+                warm = [pool.submit(_mpmd_updates, drivers["single"],
+                                    mpmd_batches(np, specs["single"], 1, seed=2), m),
+                        pool.submit(drill_warm)]
+                for family, fut in futs.items():
+                    rec[family] = fut.result()
+                for fut in warm:
+                    fut.result()
+            rates = _mpmd_rates(drivers["mse"], drivers["single"],
+                                mpmd_batches(np, specs["mse"], 1, seed=2)[0], m)
+            rec["rates"] = rates
+            rec["pipe_mpmd_x"] = statistics.median(
+                a / b for a, b in zip(rates["mpmd"], rates["single"]))
+            rec["driver_counters"] = drivers["mse"].counters.snapshot()
+            rec["driver_stages_ms"] = drivers["mse"].timer.summary()
+            result = _mpmd_kill_drill(fleets["kill"], drill, drill_batches, m, drill_losses)
+            want, ref_losses = mpmd_plain_sgd(torch, specs["kill"], drill_batches, m)
+            got = result.pop("params")
+            rec["kill"] = {**result, "plain_losses": ref_losses,
+                           **_mpmd_gaps(np, got, want, result["losses"], ref_losses)}
+        rec["kill"]["leaked_shm"] = [p for b in bases for p in glob.glob(f"/dev/shm/{b}*")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec["learner"] = _pipe_learner(np, torch)
+    rec["learner"]["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _pipe_launches(image, flash):
+    return {"decode_u8": image.decode_frames_cuda.launches,
+            **{n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}}
+
+
+def pipe_phase(torch, image, flash):
+    """The ``pipe`` phase: the SPMD leg in 2 rank processes
+    (:func:`pipe_rank_main`), then the MPMD leg and the pipeline learner in
+    this process (:func:`_pipe_mpmd`).  Returns the K1-K4 launches it
+    counted, ``(here, ranks)``: in this process (the MPMD drivers, the
+    learner's stage threads, the references) and in both SPMD ranks, none
+    expected.  The stage processes' counts are not read: a stage process
+    enrolls no kernel wrapper (``tests/test_torch_mpmd.py`` checks that
+    one imports no ``blendjax_torch.ops`` module)."""
+    before = _pipe_launches(image, flash)
+    t0 = time.perf_counter()
+    port = _port_block(1)
+    outs = _spawn_ranks("--pipe-rank", [{"rank": r, "world": PIPE["ranks"], "port": port}
+                                        for r in range(PIPE["ranks"])], PIPE["timeout_s"], "pipe")
+    spmd_s = time.perf_counter() - t0
+    r0 = outs[0]
+    emit({"phase": "pipe_spmd", "config": PIPE, "seconds": spmd_s,
+          "mesh": r0["mesh"], "ranks": outs,
+          "gpipe_step_ms": r0["gpipe"]["step_ms"], "1f1b_step_ms": r0["1f1b"]["step_ms"],
+          "sequential_step_ms": r0["sequential_step_ms"]})
+    check(r0["mesh"]["device_type"] == "cuda", "pipe: the mesh is on the card")
+    for o in outs:
+        r = o["rank"]
+        check(o["forward"]["value_gap"] <= PIPE["value_rtol"],
+              f"pipe rank {r}: make_pipeline's forward within {PIPE['value_rtol']} of the "
+              f"sequential model's largest value ({o['forward']['value_gap']:.3g})")
+        m, n = PIPE["microbatches"], PIPE["ranks"]
+        # GPipe: one rotation a forward tick, and the backward of each but the
+        # last (whose output nothing reads); 1F1B: two a tick
+        for schedule, rotations in (("gpipe", 2 * (m + n - 1) - 1), ("1f1b", 2 * (m + 2 * n - 2))):
+            h = o[schedule]
+            check(h["loss_gap"] <= PIPE["loss_rtol"] and h["grad_gap"] <= PIPE["grad_rtol"],
+                  f"pipe rank {r}: {schedule}'s loss and gradients held to sequential "
+                  f"autograd ({h['loss_gap']:.3g} <= {PIPE['loss_rtol']}, "
+                  f"{h['grad_gap']:.3g} <= {PIPE['grad_rtol']})")
+            rot = h["rotations"]
+            check(rot["rotate"] == rotations and rot["host_staged"] == rot["rotate"],
+                  f"pipe rank {r}: {schedule} made {rotations} rotations, each staged through "
+                  f"the host ({rot})")
+        check(o["forward"]["rotations"]["rotate"] == PIPE["microbatches"] + PIPE["ranks"] - 1,
+              f"pipe rank {r}: the forward rotated once a tick ({o['forward']['rotations']})")
+    check(outs[0]["gpipe"]["loss"] == outs[1]["gpipe"]["loss"]
+          and outs[0]["1f1b"]["loss"] == outs[1]["1f1b"]["loss"],
+          "pipe: both ranks return one loss")
+
+    t1 = time.perf_counter()
+    rec = _pipe_mpmd(torch)
+    rec["seconds"] = time.perf_counter() - t1
+    emit({"phase": "pipe_mpmd", "config": MPMD, **{k: v for k, v in rec.items()}})
+    for family in ("mse", "pg"):
+        f = rec[family]
+        check(f["keys_equal"] and f["param_excess"] <= 0 and f["loss_gap"] <= MPMD["rtol"],
+              f"pipe {family}: {MPMD['updates']} MPMD updates held to plain SGD on the card "
+              f"(rtol {MPMD['rtol']}, atol {MPMD['atol']}; params {f['param_max_abs_diff']:.3g}, "
+              f"losses {f['loss_gap']:.3g})")
+        check(f["restarts"] == 0 and f["applied"] == [MPMD["updates"]] * MPMD["n_procs"],
+              f"pipe {family}: no restart, every stage applied {MPMD['updates']} commits "
+              f"({f['applied']})")
+        check(all(dev.startswith("cuda") for dev in f["devices"]),
+              f"pipe {family}: every stage on the card ({f['devices']})")
+    k = rec["kill"]
+    check(k["kill_info"] is not None and k["kill_info"]["current"] == MPMD["kill_after"] + 1,
+          f"pipe kill: the middle stage was killed inside update {MPMD['kill_after'] + 1} "
+          f"({k['kill_info']})")
+    check(k["deaths"] == [1] and k["counters"].get("pipe_stage_respawns", 0) >= 1
+          and k["respawned_restores"] >= 1,
+          f"pipe kill: the middle stage died, was respawned and restored its cut ({k['deaths']}, "
+          f"{k['counters']}, restores {k['respawned_restores']})")
+    check(k["keys_equal"] and k["param_excess"] <= 0 and k["loss_gap"] <= MPMD["rtol"]
+          and k["applied"] == [MPMD["kill_updates"]] * MPMD["n_procs"],
+          f"pipe kill: {MPMD['kill_updates']} updates equal the uninterrupted plain SGD run "
+          f"(params {k['param_max_abs_diff']:.3g}, losses {k['loss_gap']:.3g}, applied "
+          f"{k['applied']})")
+    check(not k["leaked_shm"], f"pipe kill: no /dev/shm object left ({k['leaked_shm']})")
+    a = rec["learner"]
+    check(a["updates"] == MPMD["learner_updates"] and a["step"] == MPMD["learner_updates"]
+          and a["keys_equal"] and a["param_max_rel_diff"] <= MPMD["learner_rtol"]
+          and a["snapshot_equal"] and a["device"].startswith("cuda")
+          and all(dev.startswith("cuda") for dev in a["stage_devices"]),
+          f"pipe learner: ActorLearner(pipeline_stages=)'s state equals its fleet's parameters "
+          f"after {MPMD['learner_updates']} updates ({a})")
+    p = a["plain"]
+    check(a["weights_off_one"] and p["keys_equal"] and p["param_excess"] <= 0
+          and p["loss_gap"] <= MPMD["rtol"],
+          f"pipe learner: its losses and its fleet's parameters held to plain SGD on the "
+          f"batches it drew, importance weights off 1 (rtol {MPMD['rtol']}, atol "
+          f"{MPMD['atol']}; params {p['param_max_abs_diff']:.3g}, losses {p['loss_gap']:.3g})")
+    launched = {n: v - before[n] for n, v in _pipe_launches(image, flash).items()}
+    ranks = {n: sum(o["launches"][n] for o in outs) for n in launched}
+    check(not any(launched.values()) and not any(ranks.values()),
+          f"pipe: the phase launched no K1-K4 here ({launched}) or in its ranks ({ranks})")
+    emit({"phase": "pipe_seconds", "spmd": spmd_s, "mpmd": rec["seconds"],
+          "seconds": time.perf_counter() - t0})
+    return launched, ranks
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -6441,6 +7048,7 @@ def main():
     dp_launches = dp_phase(torch)
     ring_launches, ring_routes = ring_phase(torch)
     rl_dp_phase(torch)
+    pipe_launches, pipe_rank_launches = pipe_phase(torch, image, flash)
     emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t_parallel})
 
     kernels = [{
@@ -6454,7 +7062,9 @@ def main():
                              "densityopt": densityopt_launches,
                              "infer_int8": infer_launches,
                              "ha_resume": ha_launches["decode_u8"],
-                             "dp_ranks": dp_launches},
+                             "dp_ranks": dp_launches,
+                             "pipe": pipe_launches["decode_u8"],
+                             "pipe_ranks": pipe_rank_launches["decode_u8"]},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
@@ -6486,7 +7096,9 @@ def main():
             "launches_by_path": {"worldmodel_stream": flash_launches[kname],
                                  "ha_resume": ha_launches[kname],
                                  "moe": moe_launches[kname],
-                                 "ring_ranks": ring_launches[kname]},
+                                 "ring_ranks": ring_launches[kname],
+                                 "pipe": pipe_launches[kname],
+                                 "pipe_ranks": pipe_rank_launches[kname]},
             "max_abs_err": flash_errs[kname],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -6513,4 +7125,6 @@ if __name__ == "__main__":
         sys.exit(ring_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--rl-dp-rank"]:
         sys.exit(rl_dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--pipe-rank"]:
+        sys.exit(pipe_rank_main(sys.argv[2]))
     sys.exit(main())

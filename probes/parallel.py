@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""The moe, dp, ring and rl_dp phases of ``chip_smoke.py`` alone, without
-the smoke's other phases.  Needs one CUDA card.
+"""The moe, dp, ring, rl_dp and pipe phases of ``chip_smoke.py`` alone,
+without the smoke's other phases.  Needs one CUDA card.
 
-    python3 probes/parallel.py [moe] [dp] [ring] [rl_dp]
+    python3 probes/parallel.py [moe] [dp] [ring] [rl_dp] [pipe]
 
 Builds the kernels (``ops/_build.py``: K1 for the dp ranks' losses, K2-K4
-for the MoE flagship), then runs ``chip_smoke.moe_phase`` (the flagship
+for the MoE flagship and the ring; not for ``pipe`` alone, which launches
+none), then runs ``chip_smoke.moe_phase`` (the flagship
 SeqFormer with 8 experts, top-2: the routed arms with sort and scatter
 dispatch and the dense mixture, each 8 Adam steps eager and captured in
 turns through K2-K4; sort against scatter on the card; the card against
@@ -18,8 +19,11 @@ windowed schemes through K2-K4 against one process's kernels on the whole
 sequence, the f32 plain ring, the flagship SeqFormer's ring_flash step) and
 ``chip_smoke.rl_dp_phase`` (2 rank processes over ``{"data": 2}``, each
 owning 2 cartpole producers: the held sharded update, ``ActorLearner(mesh=)``
-and ``train_reinforce(mesh=)``), printing the card's name and power limit,
-the versions, and the phases' JSON lines.  With no argument all four run.
+and ``train_reinforce(mesh=)``) and ``chip_smoke.pipe_phase`` (the SPMD
+GPipe and 1F1B pipeline in 2 rank processes over ``{"pipe": 2}``, the MPMD
+stage fleets, the kill drill and the pipeline learner), printing the card's
+name and power limit, the versions, and the phases' JSON lines.  With no
+argument all five run.
 Exits nonzero on a failed check, as the smoke does.
 """
 
@@ -37,7 +41,7 @@ from blendjax_torch import worldmodel  # noqa: E402
 from blendjax_torch.btb import pendulum  # noqa: E402
 from blendjax_torch.models import seqformer  # noqa: E402
 from blendjax_torch.models.train import TrainState  # noqa: E402
-from blendjax_torch.ops import _build  # noqa: E402
+from blendjax_torch.ops import _build, image  # noqa: E402
 from blendjax_torch.ops import flash_attention as flash  # noqa: E402
 
 if not torch.cuda.is_available():
@@ -48,10 +52,11 @@ card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=c
                       capture_output=True, text=True).stdout.strip()
 print(card, sys.version.split()[0], torch.__version__, torch.version.cuda, flush=True)
 cs.CARD = card
-phases = sys.argv[1:] or ["moe", "dp", "ring", "rl_dp"]
+phases = sys.argv[1:] or ["moe", "dp", "ring", "rl_dp", "pipe"]
 t0 = time.perf_counter()
-_build.load_library()
-cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+if set(phases) - {"rl_dp", "pipe"}:
+    _build.load_library()
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
 if "moe" in phases:
     launched, routes = cs.moe_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
     cs.emit({"phase": "moe_launches", **launched, "launches_by_route": routes})
@@ -62,4 +67,10 @@ if "ring" in phases:
     cs.emit({"phase": "ring_launches", **launched, "launches_by_route": routes})
 if "rl_dp" in phases:
     cs.rl_dp_phase(torch)
+if "pipe" in phases:
+    from blendjax_torch.native import ring
+
+    ring.build_library()  # the stages' ShmRPC rings, built first as the smoke does
+    here, ranks = cs.pipe_phase(torch, image, flash)
+    cs.emit({"phase": "pipe_launches", **here, "ranks": ranks})
 cs.emit({"phase": "probe_seconds", "seconds": time.perf_counter() - t0})

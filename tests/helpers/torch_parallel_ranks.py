@@ -528,3 +528,284 @@ def control_mesh(rank, world, args, report):
     state, loss = step(state, {k: torch.from_numpy(v[rows]) for k, v in held["batch"].items()})
     report("held", {"loss": float(loss),
                     "params": {k: _np(v.to_local()) for k, v in state.params.items()}})
+
+
+def _pipe_stage_fn():
+    import torch
+
+    from blendjax_torch.models.layers import dense_apply, gelu, layer
+
+    def stage_fn(p, x):
+        return x + gelu(dense_apply(layer(p, "fc"), x, dtype=torch.float32))
+
+    return stage_fn
+
+
+def _mse(pred, tgt):
+    import torch
+
+    return torch.mean((pred - tgt) ** 2)
+
+
+def _t(arr):
+    import torch
+
+    return torch.tensor(np.asarray(arr, np.float32))
+
+
+def _run_case(report, case, mesh, fn):
+    """Report ``fn()`` for ``case`` on the ranks of ``mesh`` (None on the
+    others), or the error it raised."""
+    if mesh is None:
+        report(case, None)
+        return
+    try:
+        rec = fn()
+    except Exception as exc:  # noqa: BLE001 - a refused case reports its error
+        rec = {"error": f"{type(exc).__name__}: {exc}"}
+    report(case, rec)
+
+
+def pipeline_cases(rank, world, args, report):
+    """The port's side of ``tests/test_pipeline.py``'s 13 cases on 8 ranks:
+    the meshes ``{"pipe": 4}`` (ranks 0-3), ``{"pipe": 2, "data": 4}``,
+    ``{"pipe": 2}`` (ranks 0-1) and ``{"pipe": 1, "data": 8}``; each case
+    reports this rank's outputs, its row of the stacked gradients, and the
+    projections' gradients."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from blendjax_torch.models.convert import params_from_jax
+    from blendjax_torch.models.layers import dense_apply, layer
+    from blendjax_torch.parallel import (
+        make_mesh,
+        make_pipeline,
+        make_pipeline_train,
+        stack_stage_params,
+    )
+    from blendjax_torch.parallel.mesh import P, placements
+
+    stage_fn = _pipe_stage_fn()
+    pipe4 = make_mesh({"pipe": 4}, devices=range(4), device="cpu")
+    dp = make_mesh({"pipe": 2, "data": 4}, device="cpu")
+    pipe2 = make_mesh({"pipe": 2}, devices=range(2), device="cpu")
+    tiny = make_mesh({"pipe": 1, "data": 8}, device="cpu")
+
+    def stacked(key):
+        return stack_stage_params([params_from_jax(s, device="cpu") for s in args[key]])
+
+    def fwd(m):
+        y = make_pipeline(stage_fn, pipe4)(stacked("stages4"), _t(args["x"][m]))
+        return {"y": _np(y)}
+
+    for m in (4, 7):
+        _run_case(report, ("fwd", m), pipe4, lambda m=m: fwd(m))
+
+    def grad():
+        st = {k: v.clone().requires_grad_(True) for k, v in stacked("stages4").items()}
+        apply = make_pipeline(stage_fn, pipe4)
+        (apply(st, _t(args["x"][4])) ** 2).sum().backward()
+        me = pipe4.get_local_rank("pipe")
+        return {"row": me, "w": _np(st["fc.w"].grad[me]),
+                "other_rows_zero": bool((st["fc.w"].grad.sum(dim=(1, 2)) != 0).sum() == 1)}
+
+    _run_case(report, "grad", pipe4, grad)
+
+    def data_parallel():
+        x = _t(args["x_dp"])
+        d = dp.get_local_rank("data")
+        rows = x.shape[1] // 4
+        xs = DTensor.from_local(x[:, d * rows:(d + 1) * rows], dp,
+                                placements(dp, P(None, "data")), run_check=False)
+        y = make_pipeline(stage_fn, dp, x_spec=P(None, "data"))(stacked("stages2"), xs)
+        return {"rows": [d * rows, (d + 1) * rows], "y": _np(y.to_local()),
+                "placements": [repr(p) for p in y.placements]}
+
+    _run_case(report, "dp", dp, data_parallel)
+    _run_case(report, "wrong_count", pipe4,
+              lambda: make_pipeline(stage_fn, pipe4)(stacked("stages2"), torch.zeros(4, 3, 16)))
+
+    def learns():
+        learn = args["learn"]
+        params = {**{f"stages.{k}": v for k, v in stacked("stages4").items()},
+                  **{f"head.{k}": _t(v) for k, v in learn["head"].items()}}
+        params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        apply = make_pipeline(stage_fn, pipe4)
+        opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+        x, y = _t(learn["x"]), _t(learn["y"])
+        losses = []
+        for _ in range(15):
+            opt.zero_grad()
+            h = apply({"fc.w": params["stages.fc.w"], "fc.b": params["stages.fc.b"]}, x)
+            loss = torch.mean((dense_apply(layer(params, "head"), h, dtype=torch.float32)
+                               - y) ** 2)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return {"losses": losses}
+
+    _run_case(report, "learn", pipe4, learns)
+
+    def proj(pp):
+        return ({"w": _t(pp[0]["w"])}, {"w": _t(pp[1]["w"])})
+
+    def mm(pp, x):
+        return x @ pp["w"]
+
+    def train(mesh, case, sched):
+        stages, pp, x, tgt = case
+        st = stack_stage_params([params_from_jax(s, device="cpu") for s in stages])
+        fn = make_pipeline_train(stage_fn, _mse, mesh, schedule=sched, in_proj=mm,
+                                 out_proj=mm)
+        loss, (gs, gp) = fn(st, proj(pp), _t(x), _t(tgt))
+        return {"loss": float(loss), "row": mesh.get_local_rank("pipe"),
+                "stage_grads": {k: _np(v[0]) for k, v in gs.items()},
+                "proj_grads": [{k: _np(v) for k, v in g.items()} for g in gp]}
+
+    for sched in ("gpipe", "1f1b"):
+        for m in (4, 7):
+            _run_case(report, ("train", sched, m), pipe4,
+                      lambda s=sched, m=m: train(pipe4, args["train"][m], s))
+
+    def converges():
+        stages, pp, x, tgt = args["converge"]
+        params = {**{f"stages.{k}": v for k, v in
+                     stack_stage_params([params_from_jax(s, device="cpu")
+                                         for s in stages]).items()},
+                  **{f"proj.{i}.w": _t(p["w"]) for i, p in enumerate(pp)}}
+        params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        opt = torch.optim.Adam(list(params.values()), lr=3e-2)
+        fn = make_pipeline_train(stage_fn, _mse, pipe2, schedule="1f1b", in_proj=mm,
+                                 out_proj=mm)
+        me = pipe2.get_local_rank("pipe")
+        losses = []
+        for _ in range(20):
+            st = {k[len("stages."):]: v.detach() for k, v in params.items()
+                  if k.startswith("stages.")}
+            loss, (gs, gp) = fn(st, ({"w": params["proj.0.w"].detach()},
+                                     {"w": params["proj.1.w"].detach()}), _t(x), _t(tgt))
+            for k, g in gs.items():
+                full = torch.zeros_like(params[f"stages.{k}"])
+                full[me] = g[0]
+                params[f"stages.{k}"].grad = full
+            for i, g in enumerate(gp):
+                params[f"proj.{i}.w"].grad = g["w"].clone()
+            opt.step()
+            losses.append(float(loss))
+        return {"losses": losses}
+
+    _run_case(report, "converge", pipe2, converges)
+    _run_case(report, "tiny", tiny, lambda: make_pipeline_train(stage_fn, _mse, tiny))
+
+
+def _array_loss_fn(spec):
+    """The family loss over the packed array target of
+    ``tests/test_1f1b_numerics.py``: pg's ``(action, adv, w)`` ride as the
+    last axis's channels."""
+    from blendjax_torch.parallel.mpmd import reference_pieces
+
+    loss_fn = reference_pieces(spec)[3]
+    if spec["family"] == "mse":
+        return lambda pred, t: loss_fn(pred, {"y": t})
+    return lambda pred, t: loss_fn(pred, {"action": t[..., 0].long(), "adv": t[..., 1],
+                                          "w": t[..., 2]})
+
+
+def _ref_params(stacked, proj):
+    stacked = {k: _t(v) for k, v in stacked.items()}
+    return stacked, tuple({k: _t(v) for k, v in p.items()} for p in proj)
+
+
+def onef1b_cases(rank, world, args, report):
+    """The port's side of ``tests/test_1f1b_numerics.py`` on ``{"pipe":
+    4}``: the 1F1B step of :func:`reference_pieces`' factoring at M = N and
+    2N, for both families, on the JAX package's parameters."""
+    from blendjax_torch.parallel import make_mesh, make_pipeline_train
+    from blendjax_torch.parallel.mpmd import reference_pieces
+
+    mesh = make_mesh({"pipe": 4}, device="cpu")
+    for key, case in args.items():
+        spec = case["spec"]
+        in_proj, stage_fn, out_proj, _ = reference_pieces(spec)
+
+        def run(case=case, spec=spec, in_proj=in_proj, stage_fn=stage_fn, out_proj=out_proj):
+            stacked, proj = _ref_params(case["stacked"], case["proj"])
+            fn = make_pipeline_train(stage_fn, _array_loss_fn(spec), mesh, schedule="1f1b",
+                                     in_proj=in_proj, out_proj=out_proj)
+            loss, (gs, gp) = fn(stacked, proj, _t(case["x"]), _t(case["tgt"]))
+            return {"loss": float(loss), "row": mesh.get_local_rank("pipe"),
+                    "stage_grads": {k: _np(v[0]) for k, v in gs.items()},
+                    "proj_grads": [{k: _np(v) for k, v in g.items()} for g in gp]}
+
+        _run_case(report, key, mesh, run)
+
+
+def mpmd_lock(rank, world, args, report):
+    """The port's in-process reference for ``tests/test_mpmd.py``'s lock:
+    ``make_pipeline_train('1f1b')`` over ``{"pipe": 2}`` plus SGD, from the
+    port's ``build_full_params(spec)``, on the given batches; reports the
+    losses and this rank's final stage row and projections."""
+    from blendjax_torch.parallel import make_mesh, make_pipeline_train, microbatch
+    from blendjax_torch.parallel.mpmd import build_full_params, reference_pieces
+    from blendjax_torch.parallel.mpmd import reference_stacked
+
+    spec, m = args["spec"], args["m"]
+    in_proj, stage_fn, out_proj, loss_fn = reference_pieces(spec)
+    mesh = make_mesh({"pipe": spec["n_procs"]}, device="cpu")
+    train = make_pipeline_train(stage_fn, lambda pred, y: loss_fn(pred, {"y": y}), mesh,
+                                schedule="1f1b", in_proj=in_proj, out_proj=out_proj)
+    stacked, proj = reference_stacked(build_full_params(spec), spec)
+    me = mesh.get_local_rank("pipe")
+    losses = []
+    for x, tgt in args["batches"]:
+        loss, (gs, gp) = train(stacked, proj, _t(microbatch(x, m)),
+                               _t(microbatch(tgt["y"], m)))
+        losses.append(float(loss))
+        stacked = {k: v.clone() for k, v in stacked.items()}
+        for k, g in gs.items():
+            stacked[k][me] -= spec["lr"] * g[0]
+        proj = tuple({k: p[k] - spec["lr"] * g[k] for k in p} for p, g in zip(proj, gp))
+    report("lock", {"losses": losses, "row": me,
+                    "stacked": {k: _np(v[me]) for k, v in stacked.items()},
+                    "proj": [{k: _np(v) for k, v in p.items()} for p in proj]})
+
+
+def gather_cases(rank, world, args, report):
+    """A ``{"model": 2}`` tensor-parallel state whose sharded dimensions do
+    not split evenly (7 features over 2 ranks): one Adam step, then its
+    arrays through ``convert.train_state_arrays`` (c10d's all-gather, by
+    ``sharding.gather_whole``) and through DTensor's ``full_tensor()``."""
+    import torch
+
+    from blendjax_torch.models import convert
+    from blendjax_torch.parallel import detector_rules, make_mesh, make_sharded_train_step
+    from blendjax_torch.parallel.sharding import gather_whole
+
+    mesh = make_mesh({"model": 2}, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    params = {"fc.w": torch.randn(5, 7, generator=g), "fc.b": torch.randn(7, generator=g),
+              "head.w": torch.randn(7, 3, generator=g), "head.b": torch.randn(3, generator=g)}
+
+    def loss_fn(p, batch):
+        h = torch.tanh(batch["x"] @ p["fc.w"] + p["fc.b"])
+        return torch.mean((h @ p["head.w"] + p["head.b"] - batch["y"]) ** 2)
+
+    init, step = make_sharded_train_step(loss_fn, mesh, rules=detector_rules(), lr=1e-2)
+    state = init(params)
+    batch = {"x": torch.randn(4, 5, generator=g), "y": torch.randn(4, 3, generator=g)}
+    state, _ = step(state, batch)
+    arrays = convert.train_state_arrays(state)
+    names = convert.jax_order(state.params)
+    adam = [state.optimizer.state[state.params[n]] for n in names]
+    full = ([_np(state.params[n].full_tensor()) for n in names]
+            + [_np(s["exp_avg"].full_tensor()) for s in adam]
+            + [_np(s["exp_avg_sq"].full_tensor()) for s in adam])
+    p = len(names)
+    report("gather", {
+        "names": names,
+        "placements": {n: [repr(q) for q in state.params[n].placements] for n in names},
+        "local_shapes": {n: tuple(state.params[n].to_local().shape) for n in names},
+        "helper": [np.asarray(a) for a in arrays[:p] + arrays[p + 1:3 * p + 1]],
+        "full_tensor": full,
+        "whole": {n: _np(gather_whole(state.params[n])) for n in names},
+        "count": int(arrays[p]), "step": int(arrays[-1])})

@@ -402,14 +402,42 @@ def mesh_ranks():
 
 @pytest.mark.parametrize("name, item", [("mesh", None), ("pipeline_stages", "item 7")])
 def test_not_ported_arguments_name_their_roadmap_item(name, item, mesh_ranks):
-    """``pipeline_stages=`` still names its item (7d); ``mesh=`` is ported:
+    """Both arguments are ported (the ids keep their old names).  ``mesh=``:
     on 2 ranks one sharded update runs, the ranks hold one replica of the
     parameters (and their actors' snapshot is its local copy), and a mesh
-    with no 'data' axis is refused."""
+    with no 'data' axis is refused.  ``pipeline_stages=`` (item 7d): a
+    2-stage ``pg`` fleet of stage threads on the CPU takes one update from
+    the replay, and the learner's state and snapshot are the fleet's
+    committed parameters."""
     ActorLearner(None, D, A, device="cpu", **{name: None})  # the default is accepted
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            ActorLearner(None, D, A, device="cpu", **{name: object()})
+        from blendjax_torch.parallel.mpmd import MpmdTrain, normalize_spec, start_stage_threads
+
+        spec = normalize_spec({"family": "pg", "d_in": D, "wire": 8, "d_out": A,
+                               "n_layers": 2, "n_procs": 2, "seed": 1})
+        rng = np.random.default_rng(0)
+        buf = ReplayBuffer(64, seed=0)
+        for _ in range(32):
+            buf.append({"obs": rng.standard_normal(D).astype(np.float32),
+                        "action": int(rng.integers(0, A)), "reward": float(rng.standard_normal())})
+        with start_stage_threads(spec, device="cpu") as handle:
+            driver = MpmdTrain(handle.addresses, spec)
+            try:
+                driver.hello_all()
+                al = ActorLearner(None, D, A, device="cpu", replay=buf, pipeline_stages=driver)
+                before = {k: v.clone() for k, v in al.state.params.items()}
+                stats = al.run_offline(num_updates=1, batch_size=16)
+                fleet = driver.gather_params()
+                infos = driver.stage_infos()
+            finally:
+                driver.close()
+        assert stats["updates"] == 1 and np.isfinite(stats["losses"][0])
+        assert al.state.step == 1 and [i["applied"] for i in infos] == [1, 1]
+        assert sorted(al.state.params) == sorted(fleet)
+        for k, v in fleet.items():
+            np.testing.assert_array_equal(al.state.params[k].detach().numpy(), v)
+            np.testing.assert_array_equal(al._actor_params[0][k].numpy(), v)
+        assert any(not torch.equal(before[k], al.state.params[k]) for k in fleet)
         return
     out = mesh_ranks.result("actor_learner", 100)
     for rec in out.values():

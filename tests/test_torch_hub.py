@@ -277,15 +277,17 @@ def test_gateway_and_autoscale_vocabularies_zero_filled_in_a_scrape():
         assert snap["stages"][stage]["count"] == 0, stage
         assert (f'blendjax_stage_latency_seconds{{stage="{stage}",'
                 'quantile="0.99"} 0') in prom, stage
-    # the reference's canonical order, less its pipeline vocabulary (item 7)
-    ref_counters = [n for n in (jtiming.FLEET_EVENTS + jtiming.REPLAY_EVENTS
-                                + jtiming.SERVE_EVENTS + jtiming.GATEWAY_EVENTS
-                                + jtiming.WEIGHT_EVENTS + jtiming.SCENARIO_EVENTS
-                                + jtiming.HA_EVENTS + jtiming.AUTOSCALE_EVENTS)]
-    ref_stages = [n for n in (jtiming.FEED_STAGES + jtiming.REPLAY_STAGES
-                              + jtiming.SERVE_STAGES + jtiming.GATEWAY_STAGES
-                              + jtiming.WEIGHT_STAGES + jtiming.SCENARIO_STAGES
-                              + jtiming.HA_STAGES + jtiming.AUTOSCALE_STAGES)]
+    # the reference's canonical order, its pipeline vocabulary included
+    ref_counters = list(jtiming.FLEET_EVENTS + jtiming.REPLAY_EVENTS
+                        + jtiming.SERVE_EVENTS + jtiming.GATEWAY_EVENTS
+                        + jtiming.WEIGHT_EVENTS + jtiming.SCENARIO_EVENTS
+                        + jtiming.HA_EVENTS + jtiming.AUTOSCALE_EVENTS
+                        + jtiming.PIPE_EVENTS)
+    ref_stages = list(jtiming.FEED_STAGES + jtiming.REPLAY_STAGES
+                      + jtiming.SERVE_STAGES + jtiming.GATEWAY_STAGES
+                      + jtiming.WEIGHT_STAGES + jtiming.SCENARIO_STAGES
+                      + jtiming.HA_STAGES + jtiming.AUTOSCALE_STAGES
+                      + jtiming.PIPE_STAGES)
     assert list(port_hub._canonical_counters()) == ref_counters
     assert list(port_hub._canonical_stages()) == ref_stages
 
@@ -322,7 +324,7 @@ def test_tuples_are_the_references():
                  "WEIGHT_EVENTS", "WEIGHT_STAGES", "SERVE_EVENTS", "SERVE_STAGES",
                  "HA_EVENTS", "HA_STAGES", "SCENARIO_EVENTS", "SCENARIO_STAGES",
                  "GATEWAY_EVENTS", "GATEWAY_STAGES", "AUTOSCALE_EVENTS",
-                 "AUTOSCALE_STAGES"):
+                 "AUTOSCALE_STAGES", "PIPE_EVENTS", "PIPE_STAGES"):
         from blendjax_torch.utils import timing
 
         assert getattr(timing, name) == getattr(jtiming, name), name
