@@ -107,6 +107,15 @@ class RemoteIterableDataset:
         self.item_transform = item_transform or _identity
         self.counters = counters if counters is not None else fleet_counters
 
+    def enable_recording(self, fname):
+        """Record while streaming (``record_path_prefix``); set before
+        iteration starts."""
+        self.record_path_prefix = fname
+
+    def stream_length(self, max_items):
+        """Set the artificial dataset length (``max_items``)."""
+        self.max_items = max_items
+
     def __iter__(self):
         wi = _torch_worker_info()
         if wi is not None:

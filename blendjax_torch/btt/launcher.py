@@ -263,6 +263,15 @@ class BlenderLauncher:
         logger.info("Respawned instance %d as pid %d", idx, new.pid)
         return new
 
+    def assert_alive(self):
+        """Raise RuntimeError if any launched process has exited (a no-op
+        before the launch)."""
+        if self.launch_info is None:
+            return
+        codes = [p.poll() for p in self.launch_info.processes]
+        if any(c is not None for c in codes):
+            raise RuntimeError(f"Blender instance(s) died; exit codes {codes}")
+
     def wait(self):
         """Block until every launched process terminates."""
         for p in self.launch_info.processes:

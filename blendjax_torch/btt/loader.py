@@ -51,6 +51,10 @@ class BatchLoader:
         its bytes are consumed (the device feed does this once the copy
         to the card has completed).  Pool exhaustion backpressures the
         workers.
+    timer: StageTimer | None
+        Where the workers record ``scatter``/``collate``/``arena_wait`` and
+        the consumer ``recv`` (a fresh timer when None); pass
+        ``StageTimer(trace=True)`` for a per-thread timeline.
     """
 
     def __init__(
@@ -62,6 +66,7 @@ class BatchLoader:
         drop_last=True,
         gate=None,
         arena_pool=None,
+        timer=None,
     ):
         if num_workers < 1:
             raise ValueError("num_workers must be >= 1")
@@ -72,7 +77,7 @@ class BatchLoader:
         self.drop_last = drop_last
         self.gate = gate
         self.arena_pool = arena_pool
-        self.timer = StageTimer()
+        self.timer = timer or StageTimer()
         self._queue = queue.Queue(maxsize=2)
         self._stop = threading.Event()
         self._threads = []
@@ -92,6 +97,16 @@ class BatchLoader:
                     "dropped. Lower batch_size/num_workers or pass "
                     "drop_last=False."
                 )
+
+    def __len__(self):
+        """Batches this shard's workers yield, each worker taking
+        ``max_items // (num_workers * num_shards)`` items."""
+        _, num_shards = self.shard
+        per_worker = self.dataset.max_items // (self.num_workers * num_shards)
+        n, rem = divmod(per_worker, self.batch_size)
+        if not self.drop_last and rem:
+            n += 1
+        return n * self.num_workers
 
     # -- worker machinery ---------------------------------------------------
 

@@ -442,7 +442,11 @@ class TorchStream:
     staged (e.g. a cast to float16 that halves the copy).
     ``stream.timer.summary()`` exposes the per-stage feed times (recv /
     scatter / arena_wait / device_put / recycle on the arena path, recv /
-    collate / device_put on the collate path).
+    collate / device_put on the collate path), and
+    ``stream.duty_cycle(name)`` the share of wall time in a stage.  Pass
+    ``timer=StageTimer(trace=True)`` to keep a per-thread timeline of the
+    feed (the workers, the prefetch thread, and whatever the caller
+    records, such as its ``step``) for ``timer.export_chrome_trace``.
 
     ``arena='auto'`` (default) assembles batches into recycled arena
     buffers (:mod:`blendjax_torch.btt.arena`) whenever the dataset
@@ -465,6 +469,7 @@ class TorchStream:
         transfer_gate="auto",
         transform=None,
         arena="auto",
+        timer=None,
     ):
         from blendjax_torch.btt.loader import BatchLoader
 
@@ -480,10 +485,21 @@ class TorchStream:
             drop_last=drop_last,
             gate=self.gate,
             arena_pool=self.arena_pool,
+            timer=timer,
         )
         self.prefetch = prefetch
         self.transform = transform
         self.timer = self.loader.timer
+
+    def __len__(self):
+        return len(self.loader)
+
+    def duty_cycle(self, name):
+        """Fraction of wall time since the timer's last reset spent in
+        stage ``name`` (:meth:`StageTimer.duty_cycle`): ``device_put`` for
+        the feed's copy share, a caller-recorded ``step`` for the train
+        loop's."""
+        return self.timer.duty_cycle(name)
 
     def __iter__(self):
         return device_prefetch(

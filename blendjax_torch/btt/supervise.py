@@ -262,6 +262,13 @@ class FleetSupervisor:
 
     # -- stream verification --------------------------------------------------
 
+    def attach_replay(self, buffer):
+        """Report ``buffer`` (a :class:`blendjax_torch.replay.ReplayBuffer`
+        or :class:`~blendjax_torch.replay.ShardedReplay`) in :meth:`health`
+        and heal it: the constructor's ``replay=``, for a buffer made after
+        the supervisor."""
+        self.replay = buffer
+
     def add_health_check(self, name, fn):
         """Register ``fn() -> bool`` evaluated by :meth:`health` and
         required by :meth:`await_healthy` — e.g. a dataset-stream remap

@@ -11,10 +11,13 @@ _EXPORTS = {
     "make_span": ("blendjax_torch.obs.spans", "make_span"),
     "now_us": ("blendjax_torch.obs.spans", "now_us"),
     "span_trace": ("blendjax_torch.obs.spans", "span_trace"),
+    "export_chrome_trace": ("blendjax_torch.obs.spans", "export_chrome_trace"),
+    "load_chrome_trace": ("blendjax_torch.obs.spans", "load_chrome_trace"),
     "TelemetryHub": ("blendjax_torch.obs.hub", "TelemetryHub"),
     "scrape_socket": ("blendjax_torch.obs.hub", "scrape_socket"),
     "FlightRecorder": ("blendjax_torch.obs.flight", "FlightRecorder"),
     "flight_recorder": ("blendjax_torch.obs.flight", "flight_recorder"),
+    "default_postmortem_dir": ("blendjax_torch.obs.flight", "default_postmortem_dir"),
 }
 
 

@@ -67,6 +67,16 @@ class LatencyHistogram:
         if seconds > self.max_s:
             self.max_s = seconds
 
+    def add_many(self, seconds, k):
+        """``k`` events at the same duration in one update (the timer's
+        ``add_bulk``: pre-aggregated intervals carry only their mean, so
+        the bucket resolution is the mean's)."""
+        self.counts[bucket_index(seconds)] += k
+        self.n += k
+        self.sum_s += seconds * k
+        if seconds > self.max_s:
+            self.max_s = seconds
+
     def merge(self, other):
         """Fold ``other``'s counts into this histogram (buckets are
         position-aligned by construction)."""

@@ -127,6 +127,13 @@ class TelemetryHub:
             self._remotes[str(name)] = fetch
         return self
 
+    def unregister(self, name):
+        """Drop the component or remote registered under ``name`` (a no-op
+        for an unknown name)."""
+        with self._lock:
+            self._components.pop(str(name), None)
+            self._remotes.pop(str(name), None)
+
     # -- aggregation ---------------------------------------------------------
 
     def scrape(self):

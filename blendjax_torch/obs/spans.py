@@ -1,5 +1,5 @@
 """Cross-process trace spans over the wire's correlation ids, a copy of
-``blendjax.obs.spans`` without its chrome-trace export.
+``blendjax.obs.spans``.
 
 Every env RPC already carries a ``wire.BTMID_KEY`` correlation id; a
 tracing client (``EnvPool(trace=True)``) turns that id into a trace id:
@@ -10,7 +10,9 @@ tracing client (``EnvPool(trace=True)``) turns that id into a trace id:
   records its own recv->work->reply span and ships it back piggybacked on
   the reply (``wire.SPANS_KEY``);
 - the client ingests the piggybacked spans into its :class:`SpanRecorder`,
-  so one recorder holds both sides of every RPC on one timeline.
+  so one recorder holds both sides of every RPC on one timeline, and one
+  :func:`export_chrome_trace` call writes them as a single Perfetto /
+  ``chrome://tracing`` file where every pid has its own row.
 
 Timestamps are wall-clock epoch microseconds (``time.time_ns``), so spans
 recorded in different processes on one host align.  Pure stdlib:
@@ -19,10 +21,12 @@ producers run it inside Blender's embedded Python.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 
 
 def now_us():
@@ -67,6 +71,10 @@ class SpanRecorder:
         self._dropped = 0
 
     @property
+    def capacity(self):
+        return self._spans.maxlen
+
+    @property
     def dropped(self):
         with self._lock:
             return self._dropped
@@ -81,6 +89,15 @@ class SpanRecorder:
             if len(self._spans) == self._spans.maxlen:
                 self._dropped += 1
             self._spans.append(span)
+
+    @contextmanager
+    def span(self, name, *, trace=None, cat=None, args=None):
+        """Record the ``with`` block as one span."""
+        t0 = now_us()
+        try:
+            yield
+        finally:
+            self.record(make_span(name, t0, trace=trace, cat=cat, args=args))
 
     def ingest(self, spans):
         """Absorb spans shipped back by a remote peer (a reply's
@@ -98,3 +115,47 @@ class SpanRecorder:
     def snapshot(self):
         with self._lock:
             return list(self._spans)
+
+    def drain(self):
+        """Pop every recorded span."""
+        with self._lock:
+            out = list(self._spans)
+            self._spans.clear()
+            return out
+
+    def export_chrome_trace(self, path, extra=()):
+        """Write this recorder's spans, and those of each source in
+        ``extra`` (as :func:`export_chrome_trace` takes them), as one
+        chrome-tracing JSON; returns the event count."""
+        return export_chrome_trace(path, self.snapshot(), *extra)
+
+
+def export_chrome_trace(path, *span_sources):
+    """Merge span lists, :class:`SpanRecorder` instances and the paths of
+    earlier exported files into one chrome-tracing JSON at ``path``, events
+    sorted by ``(ts, pid)`` whatever order the sources came in.  Returns
+    the number of events written."""
+    events = []
+    for src in span_sources:
+        if src is None:
+            continue
+        if isinstance(src, SpanRecorder):
+            events.extend(src.snapshot())
+        elif isinstance(src, (str, os.PathLike)):
+            events.extend(load_chrome_trace(src))
+        else:
+            events.extend(src)
+    events.sort(key=lambda e: (e.get("ts", 0), e.get("pid", 0)))
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
+    return len(events)
+
+
+def load_chrome_trace(path):
+    """The events of a chrome-tracing JSON file, in its dict form
+    (``{"traceEvents": [...]}``) or its bare-array form."""
+    with open(path) as f:
+        doc = json.load(f)
+    if isinstance(doc, dict):
+        return list(doc.get("traceEvents", []))
+    return list(doc)

@@ -25,14 +25,21 @@ weight bus :data:`WEIGHT_STAGES`, the scenario plane
 autoscaler :data:`AUTOSCALE_STAGES` and the MPMD pipeline
 :data:`PIPE_STAGES`.  :meth:`StageTimer.snapshot` is the
 mergeable form the :class:`~blendjax_torch.obs.hub.TelemetryHub` folds.
-The chrome-trace export of ``blendjax.utils.timing`` is not ported.
+With ``StageTimer(trace=True)`` each interval is also kept, with its
+start and thread, in a bounded ring (:data:`DEFAULT_TRACE_CAP`; evictions
+counted in ``trace_dropped``), and :meth:`StageTimer.export_chrome_trace` writes the
+ring as Chrome trace-event JSON: the loader workers, the prefetch thread
+and the train loop on rows of their own, so feed stalls show as gaps.
+Pure stdlib, so producers and the torch-free services import it.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from contextlib import contextmanager
 
 from blendjax_torch.obs.histogram import LatencyHistogram
@@ -357,15 +364,42 @@ PIPE_STAGES = (
 fleet_counters = EventCounters()
 
 
+#: Bound on the ``trace=True`` event ring: 65,536 intervals hold
+#: hours of feed-stage tracing at typical batch rates in a few MB.  Beyond
+#: it the oldest events are dropped and counted in
+#: :attr:`StageTimer.trace_dropped` (the recent window is what a stall
+#: investigation wants).
+DEFAULT_TRACE_CAP = 65536
+
+
 class StageTimer:
     """Accumulates wall-clock time per named stage (thread-safe: stages are
-    recorded from loader workers and the prefetch thread concurrently)."""
+    recorded from loader workers and the prefetch thread concurrently).
 
-    def __init__(self):
+    Every :meth:`add` also lands in a
+    :class:`~blendjax_torch.obs.histogram.LatencyHistogram`, so
+    :meth:`summary` reports p50/p90/p99/max per stage beside the means.
+    With ``trace=True`` every interval is also kept, with its start and its
+    thread, in a ring of :data:`DEFAULT_TRACE_CAP` events for
+    :meth:`export_chrome_trace`.
+    """
+
+    def __init__(self, trace=False):
         self._lock = threading.Lock()
-        self._total = defaultdict(float)
-        self._count = defaultdict(int)
-        self._hist = defaultdict(LatencyHistogram)
+        self._trace = bool(trace)
+        self._trace_cap = DEFAULT_TRACE_CAP
+        self.reset()
+
+    def reset(self):
+        """Forget every stage and event; wall time and trace timestamps
+        count from now."""
+        with self._lock:
+            self._total = defaultdict(float)
+            self._count = defaultdict(int)
+            self._hist = defaultdict(LatencyHistogram)
+            self._events = deque(maxlen=self._trace_cap)
+            self._trace_dropped = 0
+            self._start = time.perf_counter()
 
     @contextmanager
     def stage(self, name):
@@ -373,17 +407,59 @@ class StageTimer:
         try:
             yield
         finally:
-            self.add(name, time.perf_counter() - t0)
+            self.add(name, time.perf_counter() - t0, _t0=t0)
 
-    def add(self, name, seconds):
+    def add(self, name, seconds, _t0=None):
         with self._lock:
             self._total[name] += seconds
             self._count[name] += 1
             self._hist[name].add(seconds)
+            if self._trace:
+                start = _t0 if _t0 is not None else time.perf_counter() - seconds
+                if len(self._events) == self._trace_cap:
+                    self._trace_dropped += 1
+                self._events.append((name, start, seconds, threading.get_ident()))
+
+    def add_bulk(self, name, total_seconds, count):
+        """Accumulate ``count`` pre-aggregated intervals in one locked
+        update.  Not traced (an aggregate has no start), and the histogram
+        entries land at the aggregate's mean."""
+        if count <= 0:
+            return
+        with self._lock:
+            self._total[name] += total_seconds
+            self._count[name] += count
+            self._hist[name].add_many(total_seconds / count, count)
+
+    @property
+    def wall_s(self):
+        """Seconds since the last :meth:`reset`."""
+        return time.perf_counter() - self._start
+
+    def total_s(self, name):
+        with self._lock:
+            return self._total.get(name, 0.0)
 
     def count(self, name):
         with self._lock:
             return self._count.get(name, 0)
+
+    def mean_ms(self, name):
+        with self._lock:
+            c = self._count.get(name, 0)
+            return (self._total[name] / c) * 1e3 if c else 0.0
+
+    def duty_cycle(self, name):
+        """Fraction of wall time since the last reset spent inside ``name``."""
+        wall = self.wall_s
+        with self._lock:
+            return self._total.get(name, 0.0) / wall if wall > 0 else 0.0
+
+    @property
+    def trace_dropped(self):
+        """Trace events evicted from the bounded ring (oldest first)."""
+        with self._lock:
+            return self._trace_dropped
 
     def percentiles(self, name):
         """``{"p50_ms","p90_ms","p99_ms","max_ms"}`` for a stage (zeros
@@ -428,3 +504,22 @@ class StageTimer:
                    "hist": rec["hist"].to_dict()}
             for name, rec in self.snapshot().items()
         }
+
+    def export_chrome_trace(self, path):
+        """Write the traced intervals as Chrome trace-event JSON
+        (``chrome://tracing``, Perfetto): one ``ph: "X"`` event each, ``ts``
+        and ``dur`` in microseconds from the last :meth:`reset`, one row
+        (``tid``) per thread.  Returns the event count; raises RuntimeError
+        unless the timer was built with ``trace=True``."""
+        if not self._trace:
+            raise RuntimeError("tracing is off; construct StageTimer(trace=True)")
+        with self._lock:
+            events = list(self._events)
+            origin = self._start
+        pid = os.getpid()
+        out = [{"name": name, "ph": "X", "pid": pid, "tid": tid,
+                "ts": (start - origin) * 1e6, "dur": dur * 1e6}
+               for name, start, dur, tid in events]
+        with open(path, "w") as f:
+            json.dump({"traceEvents": out, "displayTimeUnit": "ms"}, f)
+        return len(out)

@@ -57,6 +57,33 @@ Phases, each printing JSON lines:
               ``serve_wire_bytes`` per arm; every client's wire checked
               (``tcp``, ``shm`` with no demotion), one seeded episode's
               predictions bit-equal between the arms.
+5d. obs     — the measurement plane (``OBS``).  ``obs_feed``: the datagen
+              stream of 5b (2 producers, arena, full width) through
+              ``TorchStream(timer=StageTimer(trace=True))`` into the
+              captured detector step (K1 in the loss), each loss folded
+              into a ``fence_chain``; the feed's chrome trace exported and
+              read back: every event complete and inside the timer's wall
+              time, ``recv``/``scatter``/``device_put``/``recycle``/``step``
+              all there with their counts, nothing dropped, at least 3
+              thread rows, ``duty_cycle("step")`` the step events over the
+              wall time, K1 launched once a step; ``steady`` reads the
+              trace over the replayed steps alone (no boot, no capture).
+              ``obs_fence``: ``fences_valid`` true at the card's
+              bf16 peak and false at 1 FLOP/s (the implied TFLOP/s beside
+              the peak); ``fold`` returning before a 50 ms spin ends and
+              ``sync`` after it; 32 captured detector steps billed by a
+              ``fence_chain`` and by ``torch.cuda.synchronize`` in turns,
+              the medians within 5%, every window at least its CUDA-event
+              time; ``value_fence`` of the parameters on the card equal to
+              the CPU's (1e-6).  ``obs_spans``: ``launch_env_pool(trace=True,
+              pipeline_depth=2)`` over 2 cartpole producers, the MLP policy
+              sampling on the card, 24 steps lockstep and async in turns;
+              the pool's spans merged with a second recorder's file by
+              ``export_chrome_trace`` and read back by ``load_chrome_trace``
+              (equal to the snapshots sorted by ``(ts, pid)``): at least 3
+              pids, at least 20 correlation ids with both sides, each
+              producer span inside its client span within 2 ms; ``drain``
+              empties the recorder.
 6. flash    — the flash-attention forward, dQ and dK/dV kernels against
               their plain passes on the card, case by case (the flagship
               shape in bf16, f32 causal and not, f32 at head dim 128 and
@@ -353,7 +380,8 @@ Phases, each printing JSON lines:
               to plain SGD on the batches it drew.  No kernel.
 
 Every kernel's launch count is zeroed just before the path that runs it
-(the datagen stream, each shm turn of the transport phase, the densityopt loop and the int8 inference for the
+(the datagen stream, each shm turn of the transport phase, the obs phase's
+traced feed (``obs_feed``), the densityopt loop and the int8 inference for the
 decode kernel, the world-model stream for the flash kernels, and the ha
 phase's resumed steps for all four; the moe arms' turns for the flash
 kernels and each dp rank's stream and held steps for the decode kernel, and each ring
@@ -1070,6 +1098,291 @@ def stream_ab_phase(torch, btt, datagen, image):
         arm["items_per_s"].append(rec["items_per_s"])
         arm["median_step_ms"].append(rec["median_step_ms"])
     emit({"phase": "stream_ab_summary", "items_per_turn": AB_ITEMS, "arms": summary})
+
+
+# -- the measurement plane ------------------------------------------------------------
+
+#: the obs phase (:func:`obs_phase`): items through the traced feed, captured
+#: steps per billed window and the arms in turns, the traced pool's steps,
+#: the spin ``fold`` must not wait for, and the limits
+OBS = dict(items=256, producers=2, batch=8, window_steps=32,
+           window_arms=("synchronize", "fence", "fence", "synchronize"),
+           pool_envs=2, pool_steps=24, spin_cycles=120_000_000, spin_ms=50.0,
+           fold_limit_ms=5.0, window_rtol=0.05, value_rtol=1e-6, nest_us=2000,
+           min_tids=3, min_pids=3, min_pairs=20)
+#: the feed stages the traced feed must show, each on the thread that ran it
+OBS_STAGES = ("recv", "scatter", "device_put", "recycle", "step")
+
+
+def _obs_feed(torch, btt, datagen, image, tmp):
+    """The traced feed at full width: 2 ``frames.blend.py`` producers ->
+    ``RemoteIterableDataset`` (no per-item transform) ->
+    ``TorchStream(transform=<batch-level>, arena='auto',
+    timer=StageTimer(trace=True))`` -> the captured detector step (K1 in the
+    loss), each step's loss folded into a ``fence_chain`` and the chain
+    synced at the end.  The exported trace is read back and held to the
+    timer.  The timer's own duty cycles and percentiles span the whole run,
+    the producers' boot and the step's warm-ups and capture included; the
+    record's ``steady`` block reads the trace over the replayed steps only
+    (:func:`_steady_state`).  Returns (K1 launches, the record)."""
+    from blendjax_torch.models.train import WARMUP_STEPS, make_train_step
+    from blendjax_torch.utils.fence import fence_chain
+    from blendjax_torch.utils.timing import StageTimer
+
+    _fake_blender()
+    timer = StageTimer(trace=True)
+    state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(datagen.make_loss())
+    chain = fence_chain()
+    with btt.BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT),
+                             num_instances=OBS["producers"], named_sockets=["DATA"],
+                             start_port=_port_block(OBS["producers"]), background=True,
+                             seed=0) as bl:
+        ds = btt.RemoteIterableDataset(bl.launch_info.addresses["DATA"],
+                                       max_items=OBS["items"])
+        with btt.TorchStream(ds, batch_size=OBS["batch"], num_workers=OBS["producers"],
+                             device="cuda", transform=datagen.item_transform,
+                             timer=timer) as stream:
+            check(stream.arena_pool is not None, "obs: the traced feed takes the arena")
+            batches = len(stream)
+            image.decode_frames_cuda.launches = 0
+            steps = 0
+            for batch in stream:
+                with timer.stage("step"):
+                    check(tuple(batch["image"].shape) == MAIN_SHAPE, "obs feed batch")
+                    _, loss = step(state, batch)
+                    chain.fold(loss)
+                steps += 1
+                if steps == WARMUP_STEPS + 1:  # the eager warm-ups and the capture
+                    steady_from = timer.wall_s
+            loss_sum = chain.sync()
+            steady_to = timer.wall_s
+            launches = image.decode_frames_cuda.launches
+            w0 = timer.wall_s
+            duty = stream.duty_cycle("step")
+            w1 = timer.wall_s
+    path = os.path.join(tmp, "feed_trace.json")
+    n = timer.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    check(n == len(events) > 0, "obs: the feed trace holds every exported event")
+    check(all(e["ph"] == "X" and e["dur"] > 0 and 0 <= e["ts"] <= w1 * 1e6 for e in events),
+          "obs: every feed event complete, with a duration, inside the timer's wall time")
+    names = {e["name"] for e in events}
+    counts = {k: sum(e["name"] == k for e in events) for k in sorted(names)}
+    check(set(OBS_STAGES) <= names, f"obs: the feed trace shows {OBS_STAGES} ({sorted(names)})")
+    check(all(counts[k] == timer.count(k) for k in counts),
+          "obs: each stage's events equal its count")
+    check(timer.trace_dropped == 0, "obs: no feed event dropped")
+    tids = {e["tid"] for e in events}
+    check(len(tids) >= OBS["min_tids"], f"obs: {len(tids)} thread rows in the feed trace")
+    step_s = sum(e["dur"] for e in events if e["name"] == "step") * 1e-6
+    check(math.isclose(step_s, timer.total_s("step"), rel_tol=1e-6),
+          "obs: the step events sum to the step stage's total")
+    check(0 < duty <= 1 and step_s / w1 - 1e-6 <= duty <= step_s / w0 + 1e-6,
+          "obs: duty_cycle('step') is the step events over the wall time")
+    check(steps == batches == OBS["items"] // OBS["batch"], "obs: the feed delivered every batch")
+    check(math.isfinite(loss_sum), "obs: the folded losses are finite")
+    check(launches == steps, f"obs: the traced feed decoded once a step ({launches} for {steps})")
+    summary = timer.summary()
+    return launches, {
+        "batches": steps, "events": n, "tids": len(tids), "event_counts": counts,
+        "p50_ms": {k: summary[k]["p50_ms"] for k in sorted(summary)},
+        "duty_cycle": {k: timer.duty_cycle(k) for k in sorted(summary)},
+        "wall_s": w1, "trace_dropped": timer.trace_dropped, "loss_sum": loss_sum,
+        "steady": _steady_state(events, steady_from, steady_to),
+        "launches": {"decode_u8": launches}}
+
+
+def _steady_state(events, t0, t1):
+    """The feed trace over ``[t0, t1]`` seconds of the timer's clock (the
+    replayed steps): the window's length, and per stage the events that
+    start in it, their exact median duration and the stage's time inside
+    the window over its length (a stage on two threads can exceed 1)."""
+    lo, hi = t0 * 1e6, t1 * 1e6
+    out = {"window_s": t1 - t0, "stages": {}}
+    for name in sorted({e["name"] for e in events}):
+        own = [e for e in events if e["name"] == name]
+        inside = [e["dur"] for e in own if lo <= e["ts"] < hi]
+        busy = sum(max(0.0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo)) for e in own)
+        out["stages"][name] = {"count": len(inside),
+                               "p50_ms": statistics.median(inside) / 1e3 if inside else None,
+                               "duty_cycle": busy / (hi - lo)}
+    return out
+
+
+def _obs_fences(torch, datagen, flops_peak):
+    """``fences_valid`` at the card's bf16 peak and at 1 FLOP/s; ``fold``
+    against an enqueued spin; captured detector steps on batches on the
+    card billed by a ``fence_chain`` and by ``torch.cuda.synchronize`` in
+    turns (:data:`OBS`'s ``window_arms``), each window beside the steps'
+    CUDA-event time; ``value_fence`` of the parameters on the card against
+    the CPU's."""
+    from blendjax_torch.models.train import WARMUP_STEPS, make_train_step
+    from blendjax_torch.utils.fence import fence_chain, fences_valid, value_fence
+
+    ok, valid = fences_valid(flops_peak)
+    bad, invalid = fences_valid(1.0)
+    check(ok, f"obs: synchronize is a real fence at the card's bf16 peak ({valid})")
+    check(not bad, "obs: fences_valid refuses a 1 FLOP/s peak")
+
+    x = torch.ones(1024, device="cuda")
+    warm = fence_chain()  # loads the fold's kernels before the spin
+    warm.fold(x * 2)
+    warm.sync()
+    chain = fence_chain()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t_start = time.perf_counter()
+    ev0.record()
+    torch.cuda._sleep(OBS["spin_cycles"])
+    ev1.record()
+    y = x * 2  # ordered after the spin
+    t0 = time.perf_counter()
+    chain.fold(y)
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    got = chain.sync()
+    sync_ms = (time.perf_counter() - t_start) * 1e3
+    spin_ms = ev0.elapsed_time(ev1)
+    check(spin_ms >= OBS["spin_ms"], f"obs: the spin ran {spin_ms:.1f} ms")
+    check(fold_ms < OBS["fold_limit_ms"], f"obs: fold returned in {fold_ms:.3f} ms, not waiting")
+    check(sync_ms >= spin_ms and got == 2.0, "obs: sync returned after the spin's end")
+
+    dg = torch.Generator(device="cuda").manual_seed(1)
+    target = torch.rand((MAIN_SHAPE[0], 8, 2), generator=dg, device="cuda")
+    batches = [{"image": torch.randint(0, 256, MAIN_SHAPE, dtype=torch.uint8, device="cuda",
+                                       generator=dg), "xy": target} for _ in range(8)]
+    state = datagen.make_state(torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(datagen.make_loss())
+    for i in range(WARMUP_STEPS + 1):  # the eager warm-ups and the capture
+        state, _ = step(state, batches[i % len(batches)])
+    windows = []
+    for arm in OBS["window_arms"]:
+        chain = fence_chain()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(OBS["window_steps"]):
+            state, loss = step(state, batches[i % len(batches)])
+            if arm == "fence":
+                chain.fold(loss)
+        end.record()
+        if arm == "fence":
+            chain.sync()
+        else:
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        windows.append({"arm": arm, "window_ms": host_ms, "event_ms": start.elapsed_time(end)})
+    check(len(step.graphs) == 1, "obs: one captured graph over the windows")
+    medians = {arm: statistics.median(w["window_ms"] for w in windows if w["arm"] == arm)
+               for arm in ("fence", "synchronize")}
+    gap = abs(medians["fence"] / medians["synchronize"] - 1)
+    check(gap <= OBS["window_rtol"], f"obs: fenced and synchronized windows within "
+          f"{OBS['window_rtol']:.0%} ({medians})")
+    check(all(w["window_ms"] >= w["event_ms"] for w in windows),
+          "obs: every window at least its steps' CUDA-event time")
+    card = value_fence(state.params)
+    cpu = value_fence({k: v.detach().cpu() for k, v in state.params.items()})
+    check(math.isclose(card, cpu, rel_tol=OBS["value_rtol"]),
+          f"obs: value_fence on the card {card!r} and on the CPU {cpu!r}")
+    return {
+        "fences_valid": {"ok": ok, "min_s": valid["min_s"],
+                         "implied_tflop_per_s": valid["implied_flops_per_sec"] / 1e12,
+                         "peak_tflop_per_s": flops_peak / 1e12,
+                         "at_1_flop_per_s_ok": bad},
+        "fold": {"spin_ms": spin_ms, "fold_ms": fold_ms, "sync_ms": sync_ms},
+        "windows": windows, "window_medians_ms": medians, "window_gap": gap,
+        "steps_per_window": OBS["window_steps"],
+        "value_fence": {"card": card, "cpu": cpu}}
+
+
+def _obs_pool(torch, btt, control, policy, tmp):
+    """The traced RL pool: ``launch_env_pool(trace=True, pipeline_depth=2)``
+    over 2 cartpole producers, the MLP policy sampling on the card; lockstep
+    ``step`` and ``step_async``/``step_wait_full`` alternated, each step's
+    sampling recorded in a second recorder.  The pool's spans and the
+    second recorder's file are merged by ``export_chrome_trace`` and read
+    back by ``load_chrome_trace``."""
+    import numpy as np
+
+    from blendjax_torch.obs import SpanRecorder, export_chrome_trace, load_chrome_trace
+    from blendjax_torch.obs.spans import span_trace
+
+    _fake_blender()
+    os.environ["BLENDJAX_FAKE_BPY"] = "1"
+    params = policy.init(torch.Generator(device="cuda").manual_seed(1), 3, 2, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    learner = SpanRecorder()
+    with btt.launch_env_pool(scene="", script=str(control.SCRIPT),
+                             num_instances=OBS["pool_envs"], background=True,
+                             start_port=_port_block(OBS["pool_envs"]), seed=0,
+                             real_time=False, pipeline_depth=2, trace=True) as pool:
+        obs, _ = pool.reset()
+        for i in range(OBS["pool_steps"]):
+            with learner.span("policy", trace=f"step{i}", cat="learner"):
+                obs_t = torch.as_tensor(np.asarray(obs, np.float32), device="cuda")
+                with torch.no_grad():
+                    actions, _ = policy.sample_action(params, gen, obs_t)
+                forces = control._forces(actions)
+            if i % 2 == 0:
+                obs, rew, *_ = pool.step(forces)
+            else:
+                pool.step_async(forces)
+                obs, rew, *_ = pool.step_wait_full()
+            check(_finite_transitions(obs, rew), "obs: pool transitions finite")
+        second = os.path.join(tmp, "learner_spans.json")
+        learner.export_chrome_trace(second)
+        merged = os.path.join(tmp, "merged_spans.json")
+        n = export_chrome_trace(merged, pool.spans, second)
+        want = sorted(pool.spans.snapshot() + learner.snapshot(),
+                      key=lambda e: (e.get("ts", 0), e.get("pid", 0)))
+        spans = pool.spans.drain()
+        check(len(pool.spans) == 0, "obs: drain() left the pool's recorder empty")
+    loaded = load_chrome_trace(merged)
+    check(n == len(loaded) and loaded == want,
+          "obs: the merged file reads back as the snapshots sorted by (ts, pid)")
+    pids = {e["pid"] for e in loaded}
+    check(len(pids) >= OBS["min_pids"], f"obs: {len(pids)} pids in the merged span trace")
+    by_trace = {}
+    for s in spans:
+        if span_trace(s) is not None:
+            by_trace.setdefault(span_trace(s), []).append(s)
+    pairs, worst_us = 0, 0
+    for group in by_trace.values():
+        client = [s for s in group if s.get("cat") == "envpool"]
+        producer = [s for s in group if s.get("cat") == "producer"]
+        if not (client and producer):
+            continue
+        pairs += 1
+        c, p = client[0], producer[0]
+        out_us = max(c["ts"] - p["ts"], p["ts"] + p["dur"] - c["ts"] - c["dur"], 0)
+        worst_us = max(worst_us, out_us)
+        check(p["pid"] != c["pid"] and out_us <= OBS["nest_us"],
+              f"obs: producer span {out_us} us outside its client span")
+    check(pairs >= OBS["min_pairs"], f"obs: {pairs} correlation ids carry both sides")
+    return {"spans": n, "pids": len(pids), "pairs": pairs, "worst_outside_us": worst_us,
+            "steps": OBS["pool_steps"]}
+
+
+def obs_phase(torch, btt, datagen, image, control, policy, flops_peak):
+    """The measurement plane on the card: the traced feed at full width
+    (:func:`_obs_feed`), the fences (:func:`_obs_fences`) and the traced RL
+    pool (:func:`_obs_pool`).  The feed's ``StageTimer`` trace (perf_counter
+    from its reset) and the pool's spans (epoch microseconds) are two
+    files, as the reference keeps them.  Returns the feed's K1 launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bjx-obs-") as tmp:
+        launches, feed = _obs_feed(torch, btt, datagen, image, tmp)
+        emit({"phase": "obs_feed", "card": CARD, **feed})
+        fences = _obs_fences(torch, datagen, flops_peak)
+        emit({"phase": "obs_fence", "card": CARD, **fences})
+        pool = _obs_pool(torch, btt, control, policy, tmp)
+        emit({"phase": "obs_spans", "card": CARD, **pool})
+    emit({"phase": "obs", "card": CARD, "seconds": time.perf_counter() - t0})
+    return launches
 
 
 # -- the same-host transports ------------------------------------------------------
@@ -7019,6 +7332,7 @@ def main():
     stream_ab_phase(torch, btt, datagen, image)
     shm_launches = transport_phase(torch, btt, datagen, image, seqformer, serve)
     check(shm_launches >= 1, "the shm datagen path launched decode_u8")
+    obs_launches = obs_phase(torch, btt, datagen, image, control, policy, flops_peak)
     flash_errs = flash_phase(torch, flash)
     with smi_window("flash_time"):
         flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
@@ -7055,9 +7369,10 @@ def main():
         "name": "decode_u8", "route": "cuda",
         "source": "blendjax_torch/ops/csrc/decode.cu",
         "replaces": "blendjax/ops/image.py:69",
-        "launches": (decode_launches + shm_launches + densityopt_launches + infer_launches
-                     + ha_launches["decode_u8"] + dp_launches),
+        "launches": (decode_launches + obs_launches + shm_launches + densityopt_launches
+                     + infer_launches + ha_launches["decode_u8"] + dp_launches),
         "launches_by_path": {"datagen_stream": decode_launches,
+                             "obs_feed": obs_launches,
                              "datagen_shm": shm_launches,
                              "densityopt": densityopt_launches,
                              "infer_int8": infer_launches,

@@ -374,3 +374,58 @@ def test_prometheus_text_equals_the_reference():
         assert ref_snap["counters"][name] == value, name
     for stage, rec in snap["stages"].items():
         assert ref_snap["stages"][stage] == rec, stage
+
+
+def test_unregister_drops_components_and_remotes():
+    """``TelemetryHub.unregister`` removes a component's and a remote's
+    contributions from the next scrape (an unknown name is a no-op), as the
+    reference's."""
+    snaps = {}
+    for label, hub_cls in (("port", TelemetryHub), ("ref", JTelemetryHub)):
+        hub = hub_cls()
+        counters = EventCounters()
+        counters.incr("retries", 3)
+        hub.register("fleet0", counters=counters)
+        hub.register_remote("shard0", lambda: {"counters": {"retries": 2}, "stages": {}})
+        before = hub.scrape()["counters"]["retries"]
+        hub.unregister("shard0")
+        after_remote = hub.scrape()
+        hub.unregister("fleet0")
+        hub.unregister("never")
+        after = hub.scrape()
+        snaps[label] = (before, after_remote["counters"]["retries"],
+                        sorted(after_remote["components"]), after["counters"]["retries"],
+                        sorted(after["components"]))
+    assert snaps["port"] == snaps["ref"] == (5, 3, ["fleet0"], 0, [])
+
+
+def test_flight_recorder_ring_and_dump(tmp_path):
+    from blendjax_torch.obs.flight import FlightRecorder
+
+    fr = FlightRecorder(capacity=4)
+    for i in range(7):
+        fr.note("retry", target=f"env{i}", attempt=i)
+    assert len(fr) == 4 and fr.dropped == 3
+    path = fr.dump(str(tmp_path / "pm.json"), reason="unit", extra={"target": "env6"})
+    doc = json.loads(open(path).read())
+    assert doc["format"] == "blendjax.postmortem/1"
+    assert doc["reason"] == "unit"
+    assert doc["events_dropped"] == 3
+    assert [e["target"] for e in doc["events"]] == ["env3", "env4", "env5", "env6"]
+    assert all(re.fullmatch(r"[0-9a-f]{12}", e["digest"]) for e in doc["events"])
+    assert doc["extra"]["target"] == "env6"
+
+
+def test_flight_dump_default_dir_env(tmp_path, monkeypatch):
+    from blendjax_torch.obs import default_postmortem_dir
+    from blendjax_torch.obs.flight import FlightRecorder
+
+    fr = FlightRecorder()
+    fr.note("quarantine", target="env0")
+    monkeypatch.delenv("BJX_POSTMORTEM_DIR", raising=False)
+    assert default_postmortem_dir() is None
+    assert fr.dump(reason="nowhere") is None  # skipped, not scattered into cwd
+    monkeypatch.setenv("BJX_POSTMORTEM_DIR", str(tmp_path))
+    path = fr.dump(reason="via env!")
+    assert path is not None and path.startswith(str(tmp_path))
+    assert "via-env" in os.path.basename(path)

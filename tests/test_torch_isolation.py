@@ -115,6 +115,45 @@ def test_producer_side_imports_without_torch():
     assert _run(code) == []
 
 
+def test_measurement_plane_imports_without_torch(tmp_path):
+    """``blendjax_torch.utils`` (its lazy names included), ``utils.timing``,
+    ``utils.fence`` and ``obs.spans`` import without torch: a traced timer
+    and a span recorder export their chrome traces, and the fences import
+    torch only when one is called."""
+    code = (
+        "import json, sys\n"
+        "import blendjax_torch.utils as u, blendjax_torch.utils.timing\n"
+        "import blendjax_torch.utils.fence, blendjax_torch.obs.spans\n"
+        "from blendjax_torch.obs import export_chrome_trace, load_chrome_trace, SpanRecorder\n"
+        "u.value_fence, u.fence_chain, u.fences_valid, u.save_pytree\n"
+        "t = u.StageTimer(trace=True)\n"
+        "with t.stage('recv'): pass\n"
+        f"assert t.export_chrome_trace({str(tmp_path / 't.json')!r}) == 1\n"
+        "r = SpanRecorder()\n"
+        "with r.span('x'): pass\n"
+        f"assert export_chrome_trace({str(tmp_path / 's.json')!r}, r) == 1\n"
+        f"assert len(load_chrome_trace({str(tmp_path / 's.json')!r})) == 1\n"
+        "assert u.value_fence([1.0, None]) == 0.0  # no array leaf: no torch\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))))\n"
+    )
+    assert _run(code) == []
+
+
+def test_fences_run_without_jax():
+    """The fences run on torch alone: neither JAX nor the JAX package is
+    imported by a fence over a tree, a chain, or the self-check."""
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "from blendjax_torch.utils.fence import value_fence, fence_chain, fences_valid\n"
+        "assert value_fence({'a': torch.ones(2), 'b': [np.full(3, 2.0)]}) == 3.0\n"
+        "c = fence_chain(device='cpu'); c.fold(torch.ones(4)); assert c.sync() == 1.0\n"
+        "fences_valid(1e18, device='cpu')\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "                        or m == 'blendjax' or m.startswith('blendjax.'))))\n"
+    )
+    assert _run(code) == []
+
+
 @pytest.mark.parametrize("module", ["blendjax_torch.replay.service",
                                     "blendjax_torch.weights.bus",
                                     "blendjax_torch.serve.gateway",

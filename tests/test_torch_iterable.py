@@ -106,3 +106,24 @@ def test_map_adapter_matches_reference(tmp_path):
         assert g.keys() == w.keys()
         for k in g:
             np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]))
+
+
+def test_recording_replay_roundtrip(tmp_path):
+    """``tests/test_dataset.py::test_recording_replay_roundtrip`` on the
+    port: ``enable_recording`` before iteration, the replay equal to the
+    live items; ``stream_length`` sets ``max_items`` as the reference's."""
+    prefix = str(tmp_path / "rec")
+    with ProducerFleet(num_producers=1) as fleet:
+        ds = RemoteIterableDataset(fleet.addresses, max_items=100)
+        ds.stream_length(6)
+        ref = JRemoteIterableDataset(fleet.addresses, max_items=100)
+        ref.stream_length(6)
+        assert ds.max_items == ref.max_items == 6
+        ds.enable_recording(prefix)
+        assert ds.record_path_prefix == prefix and not ds.supports_batched_stream()
+        live = list(ds.stream())
+    replay = FileDataset(prefix)
+    assert len(replay) == 6
+    for i in range(6):
+        np.testing.assert_array_equal(replay[i]["image"], live[i]["image"])
+        assert replay[i]["frameid"] == live[i]["frameid"]

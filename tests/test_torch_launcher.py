@@ -166,3 +166,21 @@ def test_launch_cli_app(fake_blender, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_assert_alive_detects_death(fake_blender):
+    """``tests/test_launcher.py::test_assert_alive_detects_death``: a
+    producer that publishes once and exits fails ``assert_alive``, a live
+    one passes it."""
+    with BlenderLauncher(scene="", script=str(datagen.FRAMES_SCRIPT), num_instances=1,
+                         named_sockets=["DATA"], start_port=_free_block(1), seed=0,
+                         background=True, instance_args=[SMALL]) as bl:
+        _drain(bl.launch_info.addresses["DATA"], 1)
+        bl.assert_alive()
+    with BlenderLauncher(scene="", script=EXIT_SCRIPT, num_instances=1,
+                         named_sockets=["DATA"], start_port=_free_block(1), seed=0,
+                         background=True) as bl:
+        _drain(bl.launch_info.addresses["DATA"], 1)
+        bl.wait()  # the producer publishes once, then exits
+        with pytest.raises(RuntimeError, match="exit codes"):
+            bl.assert_alive()

@@ -223,3 +223,28 @@ def test_supervisor_shm_stream_heals_after_kill(fake_blender):
                 assert h["checks"] == {"stream": True}
             finally:
                 it.close()
+
+
+def test_supervisor_health_reports_replay():
+    """``tests/test_replay.py::test_supervisor_health_reports_replay`` on
+    the port, with its attach-after-construction path
+    (``attach_replay``)."""
+    from blendjax_torch.replay import ReplayBuffer
+    from blendjax_torch.utils.timing import REPLAY_EVENTS
+
+    launcher = types.SimpleNamespace(launch_info=None)
+    counters = EventCounters()
+    buf = ReplayBuffer(8, seed=0, counters=counters)
+    sup = FleetSupervisor(launcher, pool=None, counters=counters, replay=buf)
+    h = sup.health()
+    for name in REPLAY_EVENTS:
+        assert h[name] == 0  # zero-filled before any event
+    for i in range(4):
+        buf.append({"obs": np.full(3, i, np.float32), "reward": np.float32(i)})
+    h = sup.health()
+    assert h["replay_appends"] == 4
+    assert h["replay"]["size"] == 4 and h["replay"]["capacity"] == 8
+    sup2 = FleetSupervisor(launcher, pool=None, counters=counters)
+    assert "replay" not in sup2.health()
+    sup2.attach_replay(buf)
+    assert sup2.replay is buf and sup2.health()["replay"]["size"] == 4
