@@ -17,6 +17,12 @@ Attention is pluggable: ``apply(..., attn_fn=...)`` takes any
 :func:`blendjax_torch.ops.flash_attention.make_flash_attention` gives the
 flash kernels.
 
+The forward opens the regions of :mod:`blendjax_torch.obs.regions`
+(``seqformer.io``, ``seqformer.attention``, ``seqformer.mlp``, and
+``seqformer.norm`` inside them) while a profiler records, so that a
+profile can say which of them launched each kernel; otherwise each costs
+one check.  :func:`decode_step` opens none.
+
 The inference path: :func:`init_cache` (a batch-uniform position, or one
 per row for serving), :func:`decode_step` (one position through a ring
 KV cache) and :func:`rollout` (one teacher-forced prefill, then the
@@ -48,6 +54,7 @@ from blendjax_torch.models.layers import (
     gelu,
     rope_table,
 )
+from blendjax_torch.obs.regions import region
 from blendjax_torch.ops.quant import maybe_quantized_einsum
 from blendjax_torch.parallel.ring_attention import full_attention
 from blendjax_torch.utils.device import resolve_device
@@ -104,6 +111,12 @@ def _ln_apply(p, x):
     var = x32.var(-1, keepdim=True, correction=0)
     out = (x32 - mu) * torch.rsqrt(var + 1e-6)
     return (out * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def _norm(p, x):
+    """:func:`_ln_apply` in the ``seqformer.norm`` region."""
+    with region("seqformer.norm"):
+        return _ln_apply(p, x)
 
 
 def _moe_init(n_experts, d, d_ff, generator, device):
@@ -241,27 +254,31 @@ def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
     t = obs.shape[1]
     auxs = []
     use_rope = "pos" not in tree
-    x = _dense_mq(tree["embed"], obs.to(compute_dtype), compute_dtype)
-    if use_rope:
-        cos, sin = rope_table(torch.arange(pos_offset, pos_offset + t, device=obs.device),
-                              _wq_head_dim(blocks))
-    else:
-        x = x + tree["pos"][pos_offset:pos_offset + t].to(compute_dtype)[None]
-    for blk in blocks:
-        h = _ln_apply(blk["ln1"], x)
-        q, k, v = (_proj_mq(blk[n], h, "btd,dhk->bthk", compute_dtype)
-                   for n in ("wq", "wk", "wv"))
+    with region("seqformer.io"):
+        x = _dense_mq(tree["embed"], obs.to(compute_dtype), compute_dtype)
         if use_rope:
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-        if kv_sink is not None:
-            kv_sink.append((k, v))
-        a = attn_fn(q, k, v)
-        x = x + _proj_mq(blk["wo"], a, "bthk,hkd->btd", compute_dtype)
-        x = x + _mlp(blk, _ln_apply(blk["ln2"], x), compute_dtype, moe_impl, moe_k,
-                     moe_capacity_factor, moe_dispatch, auxs, token_mean)
-    x = _ln_apply(tree["ln_f"], x)
-    return _dense_mq(tree["head"], x, torch.float32), auxs
+            cos, sin = rope_table(torch.arange(pos_offset, pos_offset + t, device=obs.device),
+                                  _wq_head_dim(blocks))
+        else:
+            x = x + tree["pos"][pos_offset:pos_offset + t].to(compute_dtype)[None]
+    for blk in blocks:
+        with region("seqformer.attention"):
+            h = _norm(blk["ln1"], x)
+            q, k, v = (_proj_mq(blk[n], h, "btd,dhk->bthk", compute_dtype)
+                       for n in ("wq", "wk", "wv"))
+            if use_rope:
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+            if kv_sink is not None:
+                kv_sink.append((k, v))
+            a = attn_fn(q, k, v)
+            x = x + _proj_mq(blk["wo"], a, "bthk,hkd->btd", compute_dtype)
+        with region("seqformer.mlp"):
+            x = x + _mlp(blk, _norm(blk["ln2"], x), compute_dtype, moe_impl, moe_k,
+                         moe_capacity_factor, moe_dispatch, auxs, token_mean)
+    x = _norm(tree["ln_f"], x)
+    with region("seqformer.io"):
+        return _dense_mq(tree["head"], x, torch.float32), auxs
 
 
 def apply(params, obs, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl="dense",
@@ -287,10 +304,11 @@ def loss_fn(params, batch, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl=
     pred, auxs = _forward(params, batch["obs"], attn_fn, compute_dtype, moe_impl, moe_k,
                           moe_capacity_factor, moe_dispatch, pos_offset=pos_offset,
                           token_mean=token_mean)
-    err = pred - batch["target"].to(torch.float32)
-    loss = torch.mean(err * err)
-    if auxs and moe_aux_weight:
-        loss = loss + moe_aux_weight * sum(a["aux_loss"] for a in auxs) / len(auxs)
+    with region("seqformer.io"):
+        err = pred - batch["target"].to(torch.float32)
+        loss = torch.mean(err * err)
+        if auxs and moe_aux_weight:
+            loss = loss + moe_aux_weight * sum(a["aux_loss"] for a in auxs) / len(auxs)
     return loss
 
 
@@ -319,7 +337,9 @@ def episode_loss_fn(params, batch, **kwargs):
     D)}``, sliced into obs/target on the device.  An episode that rode the
     wire as float16 gives f32 targets made from f16 values, as the
     reference measures."""
-    return loss_fn(params, make_episode_batch(batch["episode"]), **kwargs)
+    with region("seqformer.io"):
+        batch = make_episode_batch(batch["episode"])
+    return loss_fn(params, batch, **kwargs)
 
 
 def train_flops(batch_size, seq_len, obs_dim, d_model, n_heads, n_layers, d_ff=None,

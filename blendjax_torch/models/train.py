@@ -33,6 +33,16 @@ raises; nothing falls back to the eager step.  The kernels' launch
 counters (:mod:`blendjax_torch.utils.launches`) go on counting at every
 replay.  The eval step is captured the same way, under ``torch.no_grad()``.
 
+The train step names its parts for a profiler
+(:mod:`blendjax_torch.obs.regions`): ``train.zero_grad``,
+``train.backward`` and ``train.adam`` around the optimizer's and
+autograd's calls, and on every call of a captured step its host dispatch:
+``train.guard`` (the address checks and the batch signature),
+``train.copy_inputs``, ``train.replay`` (the graph's launch) and
+``train.output`` (the loss's clone).  Each range costs one check while no
+profiler is recording; a replay runs no Python, so the ranges add nothing
+to the captured graph.  The eval step opens none.
+
 With parameters on the CPU both steps run eagerly: that is the device the
 caller asked for, and there is no CUDA graph on a CPU.  ``capture=False``
 runs them eagerly on the card too (an explicit choice, used to hold the
@@ -53,6 +63,7 @@ from dataclasses import dataclass
 import torch
 from torch.distributed.tensor import DTensor
 
+from blendjax_torch.obs.regions import region
 from blendjax_torch.utils import launches
 
 #: eager steps a batch signature runs (on a side stream) before its capture:
@@ -170,10 +181,14 @@ def _optimizer_tensors(optimizer):
 class Captured:
     """The captured graphs of one step function, keyed by batch signature
     (the train and eval steps', and the policy server's per-bucket decode
-    tick)."""
+    tick).  With a ``name`` each call's host dispatch opens the region
+    ranges ``<name>.guard``, ``.copy_inputs``, ``.replay`` and ``.output``
+    (:func:`blendjax_torch.obs.regions.region`)."""
 
-    def __init__(self):
+    def __init__(self, name=None):
         self.graphs = {}  # signature -> _Graph
+        self._ranges = [name and f"{name}.{part}"
+                        for part in ("guard", "copy_inputs", "replay", "output")]
         self._warm = {}  # signature -> eager warm-up steps run
         self._bound = None  # (bound, made) as _pinned_down at the last call
         #: graphs captured so far, recaptures included
@@ -186,18 +201,20 @@ class Captured:
         key to each tensor the step creates on its first run (Adam's
         state), which may appear between calls but, once there, must stay
         the tensor the graphs were captured over."""
-        now, created = _pinned_down(bound), _pinned_down(made or {})
-        if self._bound is not None:
-            old, old_made = self._bound
-            if now.keys() != old.keys() or _moved(old, now) or _moved(old_made, created):
-                # rebound state: the graphs hold the old addresses
-                self.graphs.clear()
-                self._warm.clear()
-        self._bound = now, created
-        device = next(x for x in bound.values() if isinstance(x, torch.Tensor)).device
-        leaves = list(_leaves(batch))
-        sig = tuple((p, tuple(t.shape), t.dtype) for p, t in leaves)
-        entry = self.graphs.get(sig)
+        guard, copy_inputs, replay, output = self._ranges
+        with region(guard):
+            now, created = _pinned_down(bound), _pinned_down(made or {})
+            if self._bound is not None:
+                old, old_made = self._bound
+                if now.keys() != old.keys() or _moved(old, now) or _moved(old_made, created):
+                    # rebound state: the graphs hold the old addresses
+                    self.graphs.clear()
+                    self._warm.clear()
+            self._bound = now, created
+            device = next(x for x in bound.values() if isinstance(x, torch.Tensor)).device
+            leaves = list(_leaves(batch))
+            sig = tuple((p, tuple(t.shape), t.dtype) for p, t in leaves)
+            entry = self.graphs.get(sig)
         if entry is None:
             done = self._warm.get(sig, 0)
             if done < WARMUP_STEPS:
@@ -205,12 +222,15 @@ class Captured:
                 return _on_side_stream(run, batch, leaves, device)
             entry = self.graphs[sig] = _capture(run, batch, leaves, device)
             self.captures += 1
-        for (_, src), dst in zip(leaves, entry.inputs):
-            dst.copy_(src, non_blocking=True)
-        entry.graph.replay()
-        launches.add(entry.launches)
-        # the next replay overwrites the static output
-        return entry.output.clone()
+        with region(copy_inputs):
+            for (_, src), dst in zip(leaves, entry.inputs):
+                dst.copy_(src, non_blocking=True)
+        with region(replay):
+            entry.graph.replay()
+            launches.add(entry.launches)
+        with region(output):
+            # the next replay overwrites the static output
+            return entry.output.clone()
 
 
 def _on_side_stream(run, batch, leaves, device):
@@ -316,14 +336,17 @@ def make_train_step(loss_fn, capture=None):
     ``loss_fn(params, batch) -> scalar``; ``loss`` is detached.  Captured
     on the card, eager on the CPU (see the module docstring); the step's
     graphs, by batch signature, are in ``step.graphs``."""
-    graphs = Captured()
+    graphs = Captured("train")
 
     def step(state, batch):
         def run(b):
-            state.optimizer.zero_grad(set_to_none=True)
+            with region("train.zero_grad"):
+                state.optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(state.params, b)
-            loss.backward()
-            state.optimizer.step()
+            with region("train.backward"):
+                loss.backward()
+            with region("train.adam"):
+                state.optimizer.step()
             return loss.detach()
 
         if _captures(capture, state.params.values()):

@@ -1,5 +1,6 @@
 """blendjax_torch.obs — telemetry building blocks: latency histograms,
-cross-process trace spans, the flight recorder and the telemetry hub.
+cross-process trace spans, profiler region ranges, the flight recorder
+and the telemetry hub.
 
 Import-light (PEP 562 lazy attributes): producers inside Blender's
 embedded Python import ``blendjax_torch.obs.spans`` alone.
