@@ -9,7 +9,8 @@ reference's pytree (``blocks.0.wq.w``), so
 checkpoint across unchanged.  The attention projections are head-major,
 ``wq/wk/wv`` (d, H, Dh) and ``wo`` (H, Dh, d).  Compute runs in
 ``compute_dtype`` (bf16 by default) over f32 parameters, with layer norms
-and the head in f32.
+and the head in f32; on the card each layer norm is one kernel forward and
+one backward (:mod:`blendjax_torch.ops.layer_norm`).
 
 Attention is pluggable: ``apply(..., attn_fn=...)`` takes any
 ``(q, k, v) -> out`` on (B, T, H, Dh) tensors; the default is
@@ -44,6 +45,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from blendjax_torch.models import moe
 from blendjax_torch.models.layers import (
@@ -55,6 +57,7 @@ from blendjax_torch.models.layers import (
     rope_table,
 )
 from blendjax_torch.obs.regions import region
+from blendjax_torch.ops import layer_norm
 from blendjax_torch.ops.quant import maybe_quantized_einsum
 from blendjax_torch.parallel.ring_attention import full_attention
 from blendjax_torch.utils.device import resolve_device
@@ -105,12 +108,13 @@ def _ln_init(d, device):
 
 def _ln_apply(p, x):
     """LayerNorm in f32 with eps 1e-6 and the population variance, cast
-    back to ``x``'s dtype."""
-    x32 = x.to(torch.float32)
-    mu = x32.mean(-1, keepdim=True)
-    var = x32.var(-1, keepdim=True, correction=0)
-    out = (x32 - mu) * torch.rsqrt(var + 1e-6)
-    return (out * p["scale"] + p["bias"]).to(x.dtype)
+    back to ``x``'s dtype: the kernels of :mod:`blendjax_torch.ops.layer_norm`
+    on a plain CUDA tensor, the composition of tensor ops on a CPU tensor
+    and on a DTensor (no kernel wrapper takes one)."""
+    scale, bias = p["scale"], p["bias"]
+    if x.is_cuda and not any(isinstance(t, DTensor) for t in (x, scale, bias)):
+        return layer_norm.LayerNorm.apply(x, scale, bias)
+    return layer_norm.layer_norm_fwd_plain(x, scale, bias)[0]
 
 
 def _norm(p, x):

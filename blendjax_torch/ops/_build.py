@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 #: every kernel source of the port, under ``csrc/``
 SOURCES = ["decode.cu", "flash_fwd.cu", "flash_fwd_tc.cu", "flash_bwd.cu",
-           "flash_bwd_tc.cu"]
+           "flash_bwd_tc.cu", "layer_norm_fwd.cu", "layer_norm_bwd.cu"]
 
 _lock = threading.Lock()
 _library = None

@@ -98,6 +98,16 @@ Phases, each printing JSON lines:
               bound; each also on the CUDA-core route (``previous_ms``).
               nvidia-smi samples the SM clock, power and temperature
               beside this window and the decode timing.
+7b. layer_norm — K5, the layer norm's forward and backward kernels,
+              against their plain passes (``LN_CASES``: the benchmark's
+              (131,072, 1,024) bf16 rows, a decode step's 16, (4,096, 128)
+              f32 and one case of each other kind of instance), the
+              backward's outputs bit-equal over two runs; each pass's time
+              beside its byte bound, its plain pass and ``F.layer_norm``
+              (``layer_norm_time``, for comparison only); and one capture of
+              a seqformer_big train step counted by the kernels' launch
+              counters: 13 of each a replay (``layer_norm_engaged``).
+              ``probes/layer_norm.py`` runs this phase alone.
 8. seqformer — the flagship SeqFormer (8 layers, d_model 1024, 8 heads,
               T=512, batch 8) takes 8 Adam(1e-4) steps through the flash
               kernels on seeded float16 episodes on the card, eager and
@@ -345,7 +355,13 @@ Phases, each printing JSON lines:
               against the plain full attention (2e-5, 5e-4); then the
               flagship SeqFormer (``SEQ``'s widths) takes 4 Adam(1e-4)
               ``ring_flash`` steps through ``make_seqformer_train_step``,
-              each rank on its T/2 shard, against one process's eager steps.
+              each rank on its T/2 shard, against one process's eager steps
+              (:func:`ring_flagship`; every layer norm of the sharded steps
+              counted through K5).  A flagship outside ``RING``'s limits
+              fails the run after the last phase, so that the phases after
+              this one still run and report; ``probes/ring_norm.py`` runs
+              the flagship check on several seeds with K5 and with the
+              plain norm.
 25. rl_dp   — 2 rank processes on ``cuda:0``, mesh ``{"data": 2}``
               (``--rl-dp-rank``): one seeded rollout split 4/2 (rank 1's rows
               padded) through one sharded ``ActorLearner`` update against
@@ -386,7 +402,12 @@ decode kernel, the world-model stream for the flash kernels, and the ha
 phase's resumed steps for all four; the moe arms' turns for the flash
 kernels and each dp rank's stream and held steps for the decode kernel, and each ring
 rank's cases and flagship steps for the flash kernels) and read just after; a kernel a path
-never launched fails the run.  The pipe phase launches none of them: its ``launches_by_path``
+never launched fails the run.  K5's two counters are read around each phase that runs
+the SeqFormer in this process (transport's server, seqformer, worldmodel, serve,
+serve_small, dream, ha, flywheel, serve_fleet's replays, moe) and in the ring ranks'
+sharded steps, each printed as a ``layer_norm_launches`` line and listed by path in the
+kernels line; a path with no forward launch, or a training path with no backward one,
+fails the run.  The pipe phase launches none of them: its ``launches_by_path``
 entries, checked 0, count this process (``pipe``) and both SPMD ranks
 (``pipe_ranks``); its stage processes enroll no kernel wrapper, and their
 counts are not read.  The line before the last holds every kernel's numbers; the last
@@ -443,6 +464,7 @@ SEQ = dict(batch=8, seq_len=512, obs_dim=32, d_model=1024, n_heads=8, n_layers=8
 FLASH_SHAPE = (SEQ["batch"], SEQ["seq_len"], SEQ["n_heads"],
                SEQ["d_model"] // SEQ["n_heads"])  # (B, T, H, Dh)
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")  # each counted by route too
+LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
 #: the card's name and power limit as nvidia-smi prints them, and its HBM
 #: rate (set by main)
 CARD = None
@@ -2056,6 +2078,230 @@ def _zero_flash_counts(flash):
 def _route_counts(flash):
     """The flash kernels' launches by route ("tc", "f32")."""
     return {n: dict(getattr(flash, n + "_cuda").launches_by_route) for n in FLASH_KERNELS}
+
+
+# -- K5: the layer norm kernels ------------------------------------------------
+
+#: (label, (rows, d), dtype): the benchmark cells' rows at d_model 1024, a
+#: serving decode step's, a small model's in f32, then one case of each
+#: other kind of kernel instance (one element a lane and padded chunk slots
+#: at d 96, the widest rows at d 4096 and 4064; the other widths the port's
+#: models use, 32 and 64)
+LN_CASES = [
+    ("train", (131072, 1024), "bfloat16"),
+    ("decode", (16, 1024), "bfloat16"),
+    ("small f32", (4096, 128), "float32"),
+    ("d 32 f32", (300, 32), "float32"),
+    ("d 64 bf16", (7, 64), "bfloat16"),
+    ("d 96 bf16", (301, 96), "bfloat16"),
+    ("d 4096 bf16", (33, 4096), "bfloat16"),
+    ("d 4064 f32", (9, 4064), "float32"),
+]
+#: the cases timed (:func:`layer_norm_time_phase`)
+LN_TIME_CASES = LN_CASES[:3]
+#: absolute floor of the bf16 limits (:func:`_ln_err`)
+LN_ATOL = 1e-5
+#: relative limits of f32 outputs: the forward's mean and variance and the
+#: backward's two row means are f32 sums taken in another order than the
+#: plain pass's, a few ulps of each row's terms
+LN_RTOL = {"y": 1e-5, "mean": 1e-5, "rstd": 1e-5, "dx": 5e-5}
+#: the column sums' limit, a share of the sum of the terms' magnitudes (f32
+#: sums of the same terms in another order): the largest share read on an
+#: H100 is 2.4e-7 (d 4064, 9 rows); one row left out of the train case's
+#: 131,072 reads about 8e-6, one block's partial row far more
+LN_SUM_RTOL = 1e-6
+#: the seqformer_big train step whose capture the norm kernels' counters
+#: read (the benchmark's widths and T, batch 4)
+LN_STEP = dict(batch=4, obs_dim=32, d_model=1024, n_heads=16, n_layers=6, d_ff=4096)
+
+
+def _ln_inputs(torch, g, shape, dtype):
+    """x (mean 0.5, std 2), dy, and scale and bias near 1 and 0, on the card."""
+    rows, d = shape
+    dt = getattr(torch, dtype)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dt)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dt)
+    scale = 1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(d, generator=g, device="cuda")
+    return x, dy, scale, bias
+
+
+def _ln_err(torch, got, want, rtol):
+    """Max abs error of a kernel output against the plain pass's, and
+    whether it is within its limit: rtol * (1 + |want|) for f32, and for
+    bf16 LN_ATOL plus two bf16 ulps of the plain value (one for a rounding
+    that falls the other way after the f32 sums' reordering, one for a
+    binade crossed)."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        allowed = LN_ATOL + 2 * bf16_ulp(torch, want)
+        limit = f"{LN_ATOL} + 2 bf16 ulps"
+    else:
+        allowed, limit = rtol * (1 + want.float().abs()), f"rtol={rtol}"
+    ok = bool((err <= allowed).all()) and bool(torch.isfinite(got).all())
+    return {"max_abs_err": err.max().item(), "limit": limit, "ok": ok}
+
+
+def _ln_sum_err(got, want, magnitude):
+    """A column sum against the plain pass's, within LN_SUM_RTOL of the sum
+    of its terms' magnitudes."""
+    err = (got - want).abs()
+    ok = bool((err <= LN_SUM_RTOL * magnitude + 1e-6).all())
+    return {"max_abs_err": err.max().item(),
+            "max_share": (err / magnitude.clamp_min(1e-30)).max().item(),
+            "limit": f"{LN_SUM_RTOL} x sum |terms|", "ok": ok}
+
+
+def layer_norm_phase(torch, ln):
+    """K5 against its plain passes on the same card inputs, the backward of
+    each from the kernel's statistics; the backward's outputs bit-equal
+    over two runs.  Returns the train case's largest errors."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    errs = {}
+    for label, shape, dtype in LN_CASES:
+        x, dy, scale, bias = _ln_inputs(torch, g, shape, dtype)
+        y, mean, rstd = ln.layer_norm_fwd_cuda(x, scale, bias)
+        want = ln.layer_norm_fwd_plain(x, scale, bias)
+        grads = ln.layer_norm_bwd_cuda(dy, x, mean, rstd, scale)
+        again = ln.layer_norm_bwd_cuda(dy, x, mean, rstd, scale)
+        dx_p, ds_p, db_p = ln.layer_norm_bwd_plain(dy, x, mean, rstd, scale)
+        torch.cuda.synchronize()
+        xhat = (x.float() - mean[:, None]) * rstd[:, None]
+        res = {name: _ln_err(torch, a, w, LN_RTOL[name])
+               for name, a, w in zip(("y", "mean", "rstd"), (y, mean, rstd), want)}
+        # rounding flips y's last bit either way; a bias would move the mean
+        gap = y.float() - want[0].float()
+        res["y"].update(differ_share=(gap != 0).float().mean().item(),
+                        mean_signed_err=gap.double().mean().item(),
+                        mean_abs=want[0].float().abs().double().mean().item())
+        res["dx"] = _ln_err(torch, grads[0], dx_p, LN_RTOL["dx"])
+        res["dscale"] = _ln_sum_err(grads[1], ds_p, (dy.float() * xhat).abs().sum(0))
+        res["dbias"] = _ln_sum_err(grads[2], db_p, dy.float().abs().sum(0))
+        repeat = all(torch.equal(a, b) for a, b in zip(grads, again))
+        ok = all(r["ok"] for r in res.values()) and repeat
+        emit({"phase": "layer_norm", "case": label, "shape": list(shape), "dtype": dtype,
+              "errors": res, "backward_bit_equal_over_two_runs": repeat, "ok": ok})
+        check(ok, f"layer norm {label}")
+        if label == "train":
+            errs = {"fwd": max(res[k]["max_abs_err"] for k in ("y", "mean", "rstd")),
+                    "bwd": max(res[k]["max_abs_err"] for k in ("dx", "dscale", "dbias"))}
+        del x, dy, y, mean, rstd, want, grads, again, dx_p, xhat, gap
+    torch.cuda.empty_cache()
+    return errs
+
+
+LN_LIBRARY_CALLS = {
+    "fwd": "F.layer_norm(x, (d,), scale, bias, eps)",
+    "bwd": "torch.autograd.grad of that call (dx, dscale and dbias together)",
+}
+
+
+def _ln_library_times(torch, ln, x, dy, scale, bias, flush):
+    """:data:`LN_LIBRARY_CALLS` as CUDA graph replays (autograd's host work
+    outside the window), ms: ``{"fwd", "bwd", "mixed"}``, where ``mixed``
+    says whether the call took the f32 scale and bias with the narrower x
+    (else they are cast to x's dtype).  Timed for comparison only: the port
+    never calls it."""
+    import torch.nn.functional as F
+
+    d = x.shape[-1]
+    try:
+        F.layer_norm(x, (d,), scale, bias, ln.EPS)
+        w, b, mixed = scale, bias, True
+    except RuntimeError:  # no mixed-dtype kernel for these inputs
+        w, b, mixed = scale.to(x.dtype), bias.to(x.dtype), False
+    xg, wg, bg = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the backward runs on its forward's stream
+        out = F.layer_norm(xg, (d,), wg, bg, ln.EPS)
+    calls = {"fwd": lambda: F.layer_norm(x, (d,), w, b, ln.EPS),
+             "bwd": lambda: torch.autograd.grad(out, (xg, wg, bg), dy, retain_graph=True)}
+    replays = {k: graph_replay(torch, fn, side) for k, fn in calls.items()}
+    torch.cuda.current_stream().wait_stream(side)
+    times = {k: time_ms(torch, replays[k], reps=20, flush=flush) for k in calls}
+    return {**times, "mixed": mixed}
+
+
+def layer_norm_time_phase(torch, ln, hbm):
+    """Each pass of K5 at :data:`LN_TIME_CASES` beside its bound (the least
+    bytes over the card's bandwidth: x and y, or x, dy and dx, once each,
+    the statistics, scale, bias and their gradients), its plain pass and
+    the library call.  Returns the records by (case, pass)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timing = {}
+    for label, shape, dtype in LN_TIME_CASES:
+        rows, d = shape
+        x, dy, scale, bias = _ln_inputs(torch, g, shape, dtype)
+        _, mean, rstd = ln.layer_norm_fwd_cuda(x, scale, bias)
+        elt = x.element_size()
+        nbytes = {"fwd": 2 * rows * d * elt + 2 * rows * 4 + 2 * d * 4,
+                  "bwd": 3 * rows * d * elt + 2 * rows * 4 + 3 * d * 4}
+        runs = {
+            "fwd": (lambda: ln.layer_norm_fwd_cuda(x, scale, bias),
+                    lambda: ln.layer_norm_fwd_plain(x, scale, bias)),
+            "bwd": (lambda: ln.layer_norm_bwd_cuda(dy, x, mean, rstd, scale),
+                    lambda: ln.layer_norm_bwd_plain(dy, x, mean, rstd, scale)),
+        }
+        library = _ln_library_times(torch, ln, x, dy, scale, bias, flush)
+        for name, (kernel, plain) in runs.items():
+            ms = time_ms(torch, kernel, reps=20, flush=flush)
+            rec = {"phase": "layer_norm_time", "kernel": f"layer_norm_{name}", "case": label,
+                   "shape": list(shape), "dtype": dtype, "bytes": nbytes[name],
+                   "ms": ms, "ms_clean_l2": time_ms(torch, kernel, reps=20, flush=flush,
+                                                    clean=True),
+                   "plain_ms": time_ms(torch, plain, reps=10, flush=flush),
+                   "library_ms": library[name], "library_call": LN_LIBRARY_CALLS[name],
+                   "library_mixed_dtypes": library["mixed"],
+                   "bound_ms": nbytes[name] / hbm * 1e3, "bound_by": "bytes"}
+            rec["bound_share"] = rec["bound_ms"] / ms
+            rec["gb_per_s"] = nbytes[name] / (ms * 1e-3) / 1e9
+            emit(rec)
+            timing[(label, name)] = rec
+        del x, dy, mean, rstd
+    del flush
+    torch.cuda.empty_cache()
+    return timing
+
+
+def layer_norm_engagement(torch, ln, seqformer, worldmodel, pendulum, TrainState):
+    """A seqformer_big train step (:data:`LN_STEP`) through its eager
+    warm-ups, its capture and replays: every call adds 2 x n_layers + 1
+    launches to each norm kernel's counter, and the capture recorded that
+    many a replay.  Returns the counts a replay."""
+    import functools
+
+    import numpy as np
+
+    from blendjax_torch.models.train import make_train_step
+
+    cfg = {k: v for k, v in LN_STEP.items() if k != "batch"}
+    state = TrainState.create(seqformer.init(
+        torch.Generator(device="cuda").manual_seed(0), max_len=SEQ["seq_len"], device="cuda",
+        **cfg), lr=SEQ["lr"])
+    step = make_train_step(functools.partial(
+        seqformer.episode_loss_fn, attn_fn=worldmodel.make_attn("flash", SEQ["seq_len"])))
+    batch = _episodes(torch, pendulum, np.random.default_rng(0), LN_STEP["batch"])
+    fns = {"layer_norm_fwd": ln.layer_norm_fwd_cuda, "layer_norm_bwd": ln.layer_norm_bwd_cuda}
+    per_call = []
+    for _ in range(5):
+        before = {k: fn.launches for k, fn in fns.items()}
+        state, loss = step(state, batch)
+        float(loss)
+        per_call.append({k: fn.launches - before[k] for k, fn in fns.items()})
+    per_replay = {k: sum(n for gr in step.graphs.values() for f, n, _ in gr.launches if f is fn)
+                  for k, fn in fns.items()}
+    norms = 2 * LN_STEP["n_layers"] + 1
+    emit({"phase": "layer_norm_engaged", "config": LN_STEP, "per_call": per_call,
+          "per_replay": per_replay, "norms": norms})
+    check(per_replay == {k: norms for k in fns},
+          f"layer norm: one capture launches {norms} of each norm kernel a replay")
+    check(all(c == {k: norms for k in fns} for c in per_call),
+          f"layer norm: every train call adds {norms} launches of each norm kernel")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return per_replay
 
 
 def _device_profile(torch, run_step, steps, median_ms, phase, form, on_active=None):
@@ -6216,11 +6462,11 @@ def dp_phase(torch):
     return sum(rec["decode_u8_by_rank"])
 
 
-def _spawn_ranks(flag, specs, timeout_s, label):
-    """Run ``python3 chip_smoke.py <flag> '<spec>'`` once per spec, the
-    ranks of one gloo world on ``cuda:0``; returns each rank's last stdout
-    line, parsed.  A rank that fails or overstays fails the phase with its
-    stderr's tail."""
+def _spawn_ranks(flag, specs, timeout_s, label, script=__file__):
+    """Run ``python3 <script> <flag> '<spec>'`` (this file by default) once
+    per spec, the ranks of one gloo world on ``cuda:0``; returns each rank's
+    last stdout line, parsed.  A rank that fails or overstays fails the
+    phase with its stderr's tail."""
     import tempfile
 
     logs = tempfile.mkdtemp(prefix=f"bjx-{label}-")
@@ -6231,7 +6477,7 @@ def _spawn_ranks(flag, specs, timeout_s, label):
         with open(os.path.join(logs, f"{rank}.out"), "w") as out, \
                 open(os.path.join(logs, f"{rank}.err"), "w") as err:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), flag, json.dumps(spec)],
+                [sys.executable, os.path.abspath(script), flag, json.dumps(spec)],
                 stdout=out, stderr=err, cwd=REPO, start_new_session=True))
     t0 = time.perf_counter()
     try:
@@ -6327,6 +6573,119 @@ def _ms_median(torch, fn, reps, barrier=None):
     return statistics.median(times)
 
 
+def ring_flagship(torch, mesh, cols, seed=0):
+    """The flagship SeqFormer's ``RING["steps"]`` ring_flash Adam steps on
+    this rank's ``cols`` of the sequence against one process's eager steps
+    on the whole sequence, from the parameters ``seqformer.init`` draws
+    from ``seed`` and episodes drawn from ``seed``; both sides run in this
+    rank process, so a patch of the model applies to both.  Returns the
+    record :func:`ring_phase` checks, with the flash kernels' launches and
+    the layer norm kernels' (K5) in the sharded steps."""
+    import functools
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from blendjax_torch.btb import pendulum
+    from blendjax_torch.models import seqformer
+    from blendjax_torch.models.train import TrainState, make_train_step
+    from blendjax_torch.ops import flash_attention as flash
+    from blendjax_torch.ops import layer_norm as ln
+    from blendjax_torch.parallel import make_seqformer_train_step
+
+    s = mesh.get_local_rank("seq")
+    wcfg = {k: SEQ[k] for k in ("obs_dim", "d_model", "n_heads", "n_layers")}
+    init = seqformer.init(torch.Generator(device="cuda").manual_seed(seed),
+                          max_len=SEQ["seq_len"], device="cuda", **wcfg)
+    rng = np.random.default_rng(seed)
+    episodes = [_episodes(torch, pendulum, rng, SEQ["batch"])["episode"]
+                for _ in range(RING["steps"])]
+    batches = [seqformer.make_episode_batch(ep) for ep in episodes]
+    init_sharded, step, sharding = make_seqformer_train_step(
+        mesh, lr=SEQ["lr"], attn_impl="ring_flash")
+    from blendjax_torch.btt.prefetch import put_batch
+
+    state = init_sharded({k: x.clone() for k, x in init.items()})
+    names = list(init)
+    _zero_flash_counts(flash)
+    ln_before = {n: getattr(ln, n + "_cuda").launches for n in LN_KERNELS}
+    losses, step_ms, step_grads = [], [], []
+    for batch in batches:
+        local = put_batch({k: x[:, cols].contiguous() for k, x in batch.items()}, sharding)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, local)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_grads.append([state.params[k].grad.to_local().clone() for k in names])
+    torch.cuda.synchronize()
+    launched = {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}
+    routes = _route_counts(flash)
+    ln_launched = {n: getattr(ln, n + "_cuda").launches - ln_before[n] for n in LN_KERNELS}
+    try:  # the sharded step runs eager: a capture request raises
+        make_train_step(lambda p, x: p["head.b"].sum(), capture=True)(state, {})
+        capture = "ran"
+    except RuntimeError as exc:
+        capture = str(exc)
+    ref_losses, ref_ms = [], []
+    for turn in range(RING["ranks"]):  # each rank's reference alone on the card
+        dist.barrier()
+        if turn != s:
+            continue
+        ref = TrainState.create({k: x.clone() for k, x in init.items()}, lr=SEQ["lr"])
+        loss_fn = functools.partial(
+            seqformer.loss_fn, attn_fn=flash.make_flash_attention(
+                causal=True, block_q="auto", block_kv="auto"))
+        ref_step = make_train_step(loss_fn, capture=False)
+        wells, first_gap, first_norm, worst = [True] * len(names), 0.0, 0.0, None
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, value = ref_step(ref, batch)
+            ref_losses.append(float(value))
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            for j, k in enumerate(names):
+                g = ref.params[k].grad
+                gap = (step_grads[i][j] - g).abs()
+                if i == 0:
+                    first_gap += float(gap.square().sum())
+                    first_norm += float(g.square().sum())
+                    rel = (gap.max() / g.abs().max()).item()
+                    if worst is None or rel > worst[1]:
+                        worst = (k, rel, g.abs().max().item())
+                wells[j] = wells[j] & (g.abs() >= RING["grad_margin"] * gap)
+        torch.cuda.synchronize()
+        gaps = [(state.params[k].to_local() - ref.params[k].detach()).abs() for k in names]
+        well_gap = max(gp[w].max().item() if w.any() else 0.0
+                       for gp, w in zip(gaps, wells))
+        well_share = sum(int(w.sum()) for w in wells) / sum(w.numel() for w in wells)
+        gaps = torch.cat([gp.reshape(-1) for gp in gaps])
+    del step_grads
+    dist.barrier()
+    return {
+        "seed": seed, "losses": losses, "single_losses": ref_losses, "step_ms": step_ms,
+        "single_step_ms": ref_ms, "launches": launched, "launches_by_route": routes,
+        "ln_launches": ln_launched, "capture": capture,
+        "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+        "first_grad_err": math.sqrt(first_gap / first_norm),
+        "first_grad_worst_tensor": {"name": worst[0], "max_gap_over_max": worst[1],
+                                    "max_abs_grad": worst[2]},
+        "param_max_abs_diff_where_well": well_gap, "well_share": well_share,
+        "param_max_abs_diff": gaps.max().item(),
+        "param_p999_abs_diff": torch.quantile(gaps[::97].float(), 0.999).item(),
+        "param_median_abs_diff": gaps[::97].median().item(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def ring_flagship_ok(fl):
+    """Whether a :func:`ring_flagship` record is within :data:`RING`'s
+    limits."""
+    return (fl["loss_max_rel_diff"] <= RING["loss_rtol"]
+            and fl["first_grad_err"] <= RING["grad_rtol"]
+            and fl["param_max_abs_diff_where_well"] <= RING["param_atol"]
+            and fl["well_share"] >= RING["well_share"])
+
+
 def ring_rank_main(spec):
     """One rank of the ring phase (``python3 chip_smoke.py --ring-rank
     '<json>'``): the bf16 flash schemes on this rank's half of the flagship
@@ -6337,16 +6696,12 @@ def ring_rank_main(spec):
     one JSON line."""
     import functools
 
-    import numpy as np
     import torch
     import torch.distributed as dist
 
     cfg, stage = _rank_world(spec, "ring", RING["timeout_s"])
-    from blendjax_torch.btb import pendulum
-    from blendjax_torch.models import seqformer
-    from blendjax_torch.models.train import TrainState, make_train_step
     from blendjax_torch.ops import flash_attention as flash
-    from blendjax_torch.parallel import make_mesh, make_ring_attention, make_seqformer_train_step
+    from blendjax_torch.parallel import make_mesh, make_ring_attention
     from blendjax_torch.parallel import p2p
     from blendjax_torch.parallel.ring_attention import full_attention
 
@@ -6413,85 +6768,7 @@ def ring_rank_main(spec):
         del q, k, v, do, bf
 
         stage("flagship ring_flash step")
-        wcfg = {k: SEQ[k] for k in ("obs_dim", "d_model", "n_heads", "n_layers")}
-        init = seqformer.init(torch.Generator(device="cuda").manual_seed(0),
-                              max_len=SEQ["seq_len"], device="cuda", **wcfg)
-        rng = np.random.default_rng(0)
-        episodes = [_episodes(torch, pendulum, rng, SEQ["batch"])["episode"]
-                    for _ in range(RING["steps"])]
-        batches = [seqformer.make_episode_batch(ep) for ep in episodes]
-        init_sharded, step, sharding = make_seqformer_train_step(
-            mesh, lr=SEQ["lr"], attn_impl="ring_flash")
-        from blendjax_torch.btt.prefetch import put_batch
-
-        state = init_sharded({k: x.clone() for k, x in init.items()})
-        names = list(init)
-        _zero_flash_counts(flash)
-        losses, step_ms, step_grads = [], [], []
-        for batch in batches:
-            local = put_batch({k: x[:, cols].contiguous() for k, x in batch.items()}, sharding)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss = step(state, local)
-            losses.append(float(loss))
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            step_grads.append([state.params[k].grad.to_local().clone() for k in names])
-        torch.cuda.synchronize()
-        launched = {n: getattr(flash, n + "_cuda").launches for n in FLASH_KERNELS}
-        routes = _route_counts(flash)
-        try:  # the sharded step runs eager: a capture request raises
-            make_train_step(lambda p, x: p["head.b"].sum(), capture=True)(state, {})
-            capture = "ran"
-        except RuntimeError as exc:
-            capture = str(exc)
-        ref_losses, ref_ms = [], []
-        for turn in range(RING["ranks"]):  # each rank's reference alone on the card
-            dist.barrier()
-            if turn != s:
-                continue
-            ref = TrainState.create({k: x.clone() for k, x in init.items()}, lr=SEQ["lr"])
-            loss_fn = functools.partial(
-                seqformer.loss_fn, attn_fn=flash.make_flash_attention(
-                    causal=True, block_q="auto", block_kv="auto"))
-            ref_step = make_train_step(loss_fn, capture=False)
-            wells, first_gap, first_norm, worst = [True] * len(names), 0.0, 0.0, None
-            for i, batch in enumerate(batches):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ref, value = ref_step(ref, batch)
-                ref_losses.append(float(value))
-                ref_ms.append((time.perf_counter() - t0) * 1e3)
-                for j, k in enumerate(names):
-                    g = ref.params[k].grad
-                    gap = (step_grads[i][j] - g).abs()
-                    if i == 0:
-                        first_gap += float(gap.square().sum())
-                        first_norm += float(g.square().sum())
-                        rel = (gap.max() / g.abs().max()).item()
-                        if worst is None or rel > worst[1]:
-                            worst = (k, rel, g.abs().max().item())
-                    wells[j] = wells[j] & (g.abs() >= RING["grad_margin"] * gap)
-            torch.cuda.synchronize()
-            gaps = [(state.params[k].to_local() - ref.params[k].detach()).abs() for k in names]
-            well_gap = max(gp[w].max().item() if w.any() else 0.0
-                           for gp, w in zip(gaps, wells))
-            well_share = sum(int(w.sum()) for w in wells) / sum(w.numel() for w in wells)
-            gaps = torch.cat([gp.reshape(-1) for gp in gaps])
-        del step_grads
-        dist.barrier()
-        out["flagship"] = {
-            "losses": losses, "single_losses": ref_losses, "step_ms": step_ms,
-            "single_step_ms": ref_ms, "launches": launched, "launches_by_route": routes,
-            "capture": capture,
-            "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
-            "first_grad_err": math.sqrt(first_gap / first_norm),
-            "first_grad_worst_tensor": {"name": worst[0], "max_gap_over_max": worst[1],
-                                        "max_abs_grad": worst[2]},
-            "param_max_abs_diff_where_well": well_gap, "well_share": well_share,
-            "param_max_abs_diff": gaps.max().item(),
-            "param_p999_abs_diff": torch.quantile(gaps[::97].float(), 0.999).item(),
-            "param_median_abs_diff": gaps[::97].median().item(),
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out["flagship"] = ring_flagship(torch, mesh, cols)
     finally:
         dist.destroy_process_group()
     faulthandler.cancel_dump_traceback_later()
@@ -6503,7 +6780,11 @@ def ring_rank_main(spec):
 def ring_phase(torch):
     """The ``ring`` phase: :func:`ring_rank_main` in 2 rank processes.
     Checks every case on both ranks; returns the flash kernels' launches and
-    launches by route that both ranks made."""
+    launches by route that both ranks made, the layer norm kernels'
+    launches in both ranks' sharded flagship steps, and the messages of the
+    flagship steps that fell outside :data:`RING`'s limits, for the caller
+    to fail on once its other phases have run (the loss limit lies within
+    the spread of rounding over seeds: ``probes/ring_norm.py``)."""
     t0 = time.perf_counter()
     port = _port_block(1)
     outs = _spawn_ranks("--ring-rank", [{"rank": r, "world": RING["ranks"], "port": port}
@@ -6518,6 +6799,8 @@ def ring_phase(torch):
     emit(rec)
     launched = {n: 0 for n in FLASH_KERNELS}
     routes = {n: {"tc": 0, "f32": 0} for n in FLASH_KERNELS}
+    ln_launched = {n: 0 for n in LN_KERNELS}
+    flagship_failures = []
     for o in outs:
         r = o["rank"]
         for label, *_ in RING_CASES:
@@ -6545,18 +6828,22 @@ def ring_phase(torch):
               f"{f['grad_err']:.3g}")
         fl = o["flagship"]
         check(all(math.isfinite(x) for x in fl["losses"]), f"ring flagship rank {r}: finite")
-        check(fl["loss_max_rel_diff"] <= RING["loss_rtol"]
-              and fl["first_grad_err"] <= RING["grad_rtol"]
-              and fl["param_max_abs_diff_where_well"] <= RING["param_atol"]
-              and fl["well_share"] >= RING["well_share"],
-              f"ring flagship rank {r}: {RING['steps']} ring_flash steps within "
-              f"{RING['loss_rtol']} (losses, relative) and {RING['grad_rtol']} (the first "
-              f"step's gradient, in norm, relative) of one process's, the parameters "
-              f"within {RING['param_atol']} where every gradient is within "
-              f"1/{RING['grad_margin']} of its own, on at least {RING['well_share']} of them: "
-              f"{fl['loss_max_rel_diff']:.3g}, {fl['first_grad_err']:.3g}, "
-              f"{fl['param_max_abs_diff_where_well']:.3g} on {fl['well_share']:.3g}")
+        if not ring_flagship_ok(fl):
+            flagship_failures.append(
+                f"ring flagship rank {r}: {RING['steps']} ring_flash steps within "
+                f"{RING['loss_rtol']} (losses, relative) and {RING['grad_rtol']} (the first "
+                f"step's gradient, in norm, relative) of one process's, the parameters "
+                f"within {RING['param_atol']} where every gradient is within "
+                f"1/{RING['grad_margin']} of its own, on at least {RING['well_share']} of them: "
+                f"{fl['loss_max_rel_diff']:.3g}, {fl['first_grad_err']:.3g}, "
+                f"{fl['param_max_abs_diff_where_well']:.3g} on {fl['well_share']:.3g}")
         check("cannot capture" in fl["capture"], f"ring flagship rank {r}: eager, no capture")
+        norms = (2 * SEQ["n_layers"] + 1) * RING["steps"]
+        check(all(fl["ln_launches"][n] == norms for n in LN_KERNELS),
+              f"ring flagship rank {r}: every layer norm of the sharded steps through K5, "
+              f"{norms} forward and backward ({fl['ln_launches']})")
+        for n in LN_KERNELS:
+            ln_launched[n] += fl["ln_launches"][n]
         for n in FLASH_KERNELS:
             check(fl["launches"][n] >= SEQ["n_layers"] * RING["steps"]
                   and fl["launches_by_route"][n]["tc"] == fl["launches"][n],
@@ -6565,7 +6852,7 @@ def ring_phase(torch):
             routes[n]["tc"] += fl["launches_by_route"][n]["tc"]
     check(outs[0]["flagship"]["losses"] == outs[1]["flagship"]["losses"],
           "ring flagship: one loss per step on both ranks")
-    return launched, routes
+    return launched, routes, ln_launched, flagship_failures
 
 
 #: the rl_dp phase: 2 rank processes on ``cuda:0``, mesh {"data": 2}, each
@@ -7284,6 +7571,7 @@ def main():
     from blendjax_torch.models.train import TrainState
     from blendjax_torch.ops import _build, image, quant
     from blendjax_torch.ops import flash_attention as flash
+    from blendjax_torch.ops import layer_norm as ln
 
     global CARD, HBM_RATE
 
@@ -7298,7 +7586,7 @@ def main():
     print(card, flush=True)
     CARD = card
     emit({"card": card})
-    emit({"kernels": ["decode_u8"] + list(FLASH_KERNELS)})
+    emit({"kernels": ["decode_u8"] + list(FLASH_KERNELS) + list(LN_KERNELS)})
     name = card.split(",")[0]
     hbm, flops_peak = peak_rate(HBM_PEAK, name), peak_rate(BF16_PEAK, name)
     HBM_RATE = hbm
@@ -7325,42 +7613,67 @@ def main():
         print(ring_build["error"], file=sys.stderr)
     check("library" in ring_build, "the native ring built")
 
+    # K5's launches in each phase that runs the SeqFormer in this process
+    ln_by_path = {}
+
+    @contextlib.contextmanager
+    def ln_path(name):
+        before = {n: getattr(ln, n + "_cuda").launches for n in LN_KERNELS}
+        yield
+        ln_by_path[name] = {n: getattr(ln, n + "_cuda").launches - before[n]
+                            for n in LN_KERNELS}
+        emit({"phase": "layer_norm_launches", "path": name, **ln_by_path[name]})
+
     with smi_window("kernel"):
         timing = kernel_phase(torch, image, hbm)
     train_phase(torch, datagen, detector, image)
     decode_launches = stream_phase(torch, btt, datagen, image)
     stream_ab_phase(torch, btt, datagen, image)
-    shm_launches = transport_phase(torch, btt, datagen, image, seqformer, serve)
+    with ln_path("transport_serve"):
+        shm_launches = transport_phase(torch, btt, datagen, image, seqformer, serve)
     check(shm_launches >= 1, "the shm datagen path launched decode_u8")
     obs_launches = obs_phase(torch, btt, datagen, image, control, policy, flops_peak)
     flash_errs = flash_phase(torch, flash)
     with smi_window("flash_time"):
         flash_timing = flash_time_phase(torch, flash, hbm, flops_peak)
-    seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
-    flash_launches, flash_routes, wm_state = worldmodel_phase(torch, btt, worldmodel, flash)
+    ln_errs = layer_norm_phase(torch, ln)
+    with smi_window("layer_norm_time"):
+        ln_timing = layer_norm_time_phase(torch, ln, hbm)
+    ln_per_replay = layer_norm_engagement(torch, ln, seqformer, worldmodel, pendulum,
+                                          TrainState)
+    with ln_path("seqformer"):
+        seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
+    with ln_path("worldmodel_stream"):
+        flash_launches, flash_routes, wm_state = worldmodel_phase(torch, btt, worldmodel, flash)
     rl_rates = rl_phase(torch, btt, control, policy)
     al_rates = actor_learner_phase(torch, btt, control, rl_rates)
     with smi_window("densityopt"):
         densityopt_launches = densityopt_phase(torch, btt, image)
     check(densityopt_launches >= 1, "the densityopt path launched decode_u8")
     quant_phase(torch, quant, layers)
-    with smi_window("serve"):
+    with smi_window("serve"), ln_path("serve"):
         serve_phase(torch, seqformer, serve, SERVE, "serve")
-    serve_phase(torch, seqformer, serve, SERVE_SMALL, "serve_small")
-    dream_phase(torch, seqformer, worldmodel, quant, pendulum, wm_state)
+    with ln_path("serve_small"):
+        serve_phase(torch, seqformer, serve, SERVE_SMALL, "serve_small")
+    with ln_path("dream"):
+        dream_phase(torch, seqformer, worldmodel, quant, pendulum, wm_state)
     del wm_state
     infer_launches = infer_int8_phase(torch, btt, datagen, image)
-    ha_launches = ha_phase(torch, btt, control, datagen, image, seqformer, flash, worldmodel,
-                           pendulum)
+    with ln_path("ha_resume"):
+        ha_launches = ha_phase(torch, btt, control, datagen, image, seqformer, flash,
+                               worldmodel, pendulum)
     replay_service_phase(torch)
-    flywheel_phase(torch, btt, control, seqformer, serve, al_rates)
+    with ln_path("flywheel_swap"):
+        flywheel_phase(torch, btt, control, seqformer, serve, al_rates)
     scenario_phase(torch, btt)
-    serve_fleet_phase(torch, serve)
+    with ln_path("serve_fleet_replay"):
+        serve_fleet_phase(torch, serve)
     t_parallel = time.perf_counter()
-    moe_launches, moe_routes = moe_phase(torch, seqformer, flash, worldmodel, pendulum,
-                                         TrainState)
+    with ln_path("moe"):
+        moe_launches, moe_routes = moe_phase(torch, seqformer, flash, worldmodel, pendulum,
+                                             TrainState)
     dp_launches = dp_phase(torch)
-    ring_launches, ring_routes = ring_phase(torch)
+    ring_launches, ring_routes, ln_by_path["ring_ranks"], ring_failures = ring_phase(torch)
     rl_dp_phase(torch)
     pipe_launches, pipe_rank_launches = pipe_phase(torch, image, flash)
     emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t_parallel})
@@ -7421,7 +7734,28 @@ def main():
             "previous_ms": rec["previous_ms"],
             "previous_source": f"blendjax_torch/ops/csrc/{previous_src}",
         })
+    for kname in LN_KERNELS:
+        rec = ln_timing[("train", kname[len("layer_norm_"):])]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"blendjax_torch/ops/csrc/{kname}.cu",
+            "replaces": "none (XLA fuses blendjax/models/seqformer.py::_ln_apply)",
+            "launches": sum(c[kname] for c in ln_by_path.values()),
+            "launches_by_path": {"seqformer_big_replay": ln_per_replay[kname],
+                                 **{path: c[kname] for path, c in ln_by_path.items()}},
+            "max_abs_err": ln_errs[kname[len("layer_norm_"):]],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "ms_clean_l2": rec["ms_clean_l2"],
+        })
     emit({"kernels": kernels})
+    # every path that runs the SeqFormer on the card took K5: the training
+    # paths forward and backward, the served and dreamed ones forward
+    for path, c in ln_by_path.items():
+        trains = path in ("seqformer", "worldmodel_stream", "ha_resume", "moe", "ring_ranks")
+        check(c["layer_norm_fwd"] >= 1 and (c["layer_norm_bwd"] >= 1 or not trains),
+              f"{path}: the SeqFormer's layer norms went through K5 ({c})")
+    check(not ring_failures, "; ".join(ring_failures))
     emit({"phase": "smoke_seconds", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

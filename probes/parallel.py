@@ -63,8 +63,9 @@ if "moe" in phases:
 if "dp" in phases:
     cs.emit({"phase": "dp_launches", "decode_u8": cs.dp_phase(torch)})
 if "ring" in phases:
-    launched, routes = cs.ring_phase(torch)
-    cs.emit({"phase": "ring_launches", **launched, "launches_by_route": routes})
+    launched, routes, ln_launched, ring_failures = cs.ring_phase(torch)
+    cs.emit({"phase": "ring_launches", **launched, "launches_by_route": routes,
+             "layer_norm": ln_launched})
 if "rl_dp" in phases:
     cs.rl_dp_phase(torch)
 if "pipe" in phases:
@@ -74,3 +75,5 @@ if "pipe" in phases:
     here, ranks = cs.pipe_phase(torch, image, flash)
     cs.emit({"phase": "pipe_launches", **here, "ranks": ranks})
 cs.emit({"phase": "probe_seconds", "seconds": time.perf_counter() - t0})
+if "ring" in phases:
+    cs.check(not ring_failures, "; ".join(ring_failures))
