@@ -36,6 +36,24 @@ Where the port differs from the reference in mechanism, and why:
   87 of a 130 ms flagship step on an H100.  The scatter path's
   ``index_add`` has distinct destinations but for the sentinel, which is
   discarded.  A captured step stays bit-equal to an eager one.
+
+**DeepSeekMoE** (:func:`deepseek_moe_apply`; DeepSeek-V3, arXiv
+2412.19437, eqs. 12-16, as Moonlight-16B-A3B configures it) is a layer of
+its own beside the top-k mixture, which keeps its behaviour: sigmoid
+scores in f32 over all routed experts, the top ``k`` chosen on score plus
+a balancing bias that decides only the choice, weights from the unbiased
+scores normalised over the chosen and scaled, SwiGLU experts without
+biases, and shared experts that every token takes.  The layer is told
+which experts it holds (one card's share under expert parallelism) and
+routes over all of them; it computes its held experts' part of the result
+and drops no assignment: the held rows go into one arena whose bound is
+every held assignment the tokens can make (:func:`arena_rows`), grouped by
+expert, and the expert products are torch's grouped matrix products over
+the per-expert row ends, which stay on the device (:func:`grouped_mm`), so
+their work follows the rows actually routed.  :class:`Balance` holds the
+balancing biases and the layer's device counters, and its ``update`` is
+the auxiliary-loss-free bias step that the train step runs once a step
+(:func:`blendjax_torch.models.train.make_train_step`'s ``balance``).
 """
 
 from __future__ import annotations
@@ -43,8 +61,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from blendjax_torch.models.layers import dense_apply, gelu
+from blendjax_torch.obs.regions import region
 
 
 def expert_capacity(n_tokens, n_experts, k, capacity_factor):
@@ -216,3 +236,182 @@ def moe_apply_topk(p, x, dtype, k=2, capacity_factor=1.25, dispatch="sort",
         fraction = token_mean(fraction)
     aux = {"aux_loss": aux_loss, "dispatch_fraction": fraction}
     return y.reshape(b, t, d), aux
+
+
+# -- DeepSeekMoE ----------------------------------------------------------------
+
+
+def arena_rows(n_tokens, k, held):
+    """The held share's arena bound: every held assignment ``n_tokens``
+    tokens can make (a token takes an expert once, so at most ``min(k,
+    held)`` of the held ones).  No routing overflows it."""
+    return n_tokens * min(k, held)
+
+
+def grouped_mm(x, w, ends):
+    """``y[rows of e] = x[rows of e] @ w[e]`` over the arena ``x`` (R, K),
+    expert ``e`` owning rows ``ends[e - 1]`` to ``ends[e]`` of it, with ``w``
+    (E, K, N) cast to ``x``'s dtype: torch's grouped matrix product
+    (``torch._grouped_mm``), differentiable in ``x`` and ``w``, its
+    problem sizes read on the device.  Rows past ``ends[-1]`` are neither
+    read nor written, in the output or in ``x``'s gradient: they hold
+    whatever their allocation held, and the callers read none of them."""
+    return torch._grouped_mm(x, w.to(x.dtype), offs=ends)
+
+
+def sigmoid_topk(scores, bias, k):
+    """DeepSeek-V3's choice: the ``k`` experts of largest ``scores + bias``
+    (lower expert id first among equal values, as :func:`_topk_gates`
+    breaks ties), and their weights from the unbiased scores, normalised
+    over the chosen: ``(idx (n, k), weights (n, k))``, weights before the
+    routed scaling factor."""
+    _, idx = torch.sort(scores + bias, dim=-1, descending=True, stable=True)
+    idx = idx[:, :k]
+    chosen = scores.gather(1, idx)
+    return idx, chosen / chosen.sum(-1, keepdim=True)
+
+
+def sequence_balance_loss(scores, idx, batch, k):
+    """DeepSeek-V3's sequence-wise balance loss (eqs. 17-20) without its
+    weight alpha, averaged over the batch's sequences: ``sum_i f_i P_i`` with
+    ``f_i = E / (k T) * (choices of expert i in the sequence)`` and ``P_i``
+    the sequence's mean of the scores normalised over all experts."""
+    n, e = scores.shape
+    t = n // batch
+    chosen = torch.zeros_like(scores).scatter_(1, idx, 1.0)
+    f = chosen.reshape(batch, t, e).sum(1) * (e / (k * t))
+    p = (scores / scores.sum(-1, keepdim=True)).reshape(batch, t, e).mean(1)
+    return (f * p).sum(-1).mean()
+
+
+class Balance:
+    """The balancing state of a model's DeepSeekMoE layers, on the device:
+    per layer the bias over all routed experts (f32, not a gradient leaf)
+    and the step's load, and the counters that are read only after a run:
+    rows per held expert (summed over every forward),
+    the largest max/mean load over all experts at an update, the largest
+    held share of a forward (its held rows over ``k * n * held / experts``),
+    the last sequence-wise balance loss, and the updates made.
+
+    :meth:`update` is auxiliary-loss-free balancing (DeepSeek-V3, section
+    2.1.2): ``b_i += gamma * sign(mean load - load_i)`` from the loads the
+    forwards since the last update counted over all routed experts, then
+    the loads start again.  Nothing is read back to the host."""
+
+    def __init__(self, layers, n_experts, held, gamma, device):
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.gamma = gamma
+        self.layers = {name: {"bias": zeros(n_experts), "load": zeros(n_experts),
+                              "rows": zeros(held, dtype=torch.int64),
+                              "max_over_mean": zeros(), "max_held_share": zeros(),
+                              "balance_loss": zeros()}
+                       for name in layers}
+        self.updates = zeros(dtype=torch.int64)
+
+    def tensors(self):
+        """``{name: tensor}``: every buffer, for a captured step's address
+        checks."""
+        out = {f"{layer}.{k}": v for layer, bufs in self.layers.items() for k, v in bufs.items()}
+        out["updates"] = self.updates
+        return out
+
+    @torch.no_grad()
+    def update(self):
+        for bufs in self.layers.values():
+            load = bufs["load"]
+            mean = load.mean()
+            bufs["bias"].add_(torch.sign(mean - load), alpha=self.gamma)
+            torch.maximum(bufs["max_over_mean"], load.max() / mean.clamp_min(1e-30),
+                          out=bufs["max_over_mean"])
+            load.zero_()
+        self.updates.add_(1)
+
+    def read(self):
+        """The counters as host numbers (synchronises): per layer the rows
+        of each held expert, the largest max/mean load
+        and held share, the last balance loss, and the spread (max - min)
+        of the bias."""
+        out = {}
+        for name, b in self.layers.items():
+            out[name] = {"rows": [int(x) for x in b["rows"].tolist()],
+                         "max_over_mean": float(b["max_over_mean"]),
+                         "max_held_share": float(b["max_held_share"]),
+                         "balance_loss": float(b["balance_loss"]),
+                         "bias_spread": float(b["bias"].max() - b["bias"].min())}
+        return {"layers": out, "updates": int(self.updates)}
+
+
+def _swiglu(p, x, dtype):
+    """``w2(silu(w1 x) * w3 x)`` over (.., d) ``x``, bias-free (d, f) /
+    (f, d) weights."""
+    h1 = x.to(dtype) @ p["w1"].to(dtype)
+    h3 = x.to(dtype) @ p["w3"].to(dtype)
+    return (F.silu(h1) * h3) @ p["w2"].to(dtype)
+
+
+def _held_dispatch(idx, weights, first, held, rows):
+    """The held share's arena from the choices (n, k): for each of the
+    ``rows`` arena rows the token it reads (``n`` where none: the zero row)
+    and its gate weight (0 where none), the held experts' (held,) int32 row
+    ends (the ``ends`` of :func:`grouped_mm`) and the rows each took.  The
+    assignments sorted by expert, each expert's in token order, put the
+    held ones first, and ``rows`` from :func:`arena_rows` holds them all."""
+    n, k = idx.shape
+    local = idx - first
+    flat = torch.where((local >= 0) & (local < held), local, held).reshape(-1)
+    counts = torch.zeros(held + 1, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    order = torch.argsort(flat, stable=True)[:rows]
+    is_held = flat[order] < held
+    tok = torch.where(is_held, order // k, n)
+    w = torch.where(is_held, weights.reshape(-1)[order], 0.0)
+    return tok, w, torch.cumsum(counts[:held], 0).to(torch.int32), counts[:held]
+
+
+def deepseek_moe_apply(p, x, dtype, k, scale, first, n_experts, state=None, batch=1):
+    """The DeepSeekMoE layer's forward over the normed (n, d) ``x``:
+    ``sum_shared FFN_s(x) + sum_(chosen and held) g_i FFN_i(x)``.
+
+    ``p``: ``gate`` ({'w': (d, n_experts)}, all routed experts), the held
+    experts' ``w1``/``w3`` (held, d, f) and ``w2`` (held, f, d), and
+    ``shared`` ({'w1', 'w3', 'w2'}, the shared experts as one SwiGLU).  The
+    held experts are ids ``first`` to ``first + held - 1``.  ``scale`` is
+    the routed scaling factor.  ``state`` (one layer of
+    :class:`Balance`) gives the bias and takes the load and the counters;
+    without it the bias is 0.  ``batch`` sequences make up the rows, for
+    the sequence-wise balance loss.  Returns ``(y (n, d) in dtype,
+    {'balance_loss', 'rows'})``.
+
+    The arena's rows past the routed ones are never computed (:func:`grouped_mm`):
+    what they hold reaches only the zero row ``n`` of the combine, which is
+    cut off, and their gradients only that row of the gather's."""
+    n, d = x.shape
+    held = p["w1"].shape[0]
+    with region("seqformer.router"):
+        scores = torch.sigmoid(x.to(torch.float32) @ p["gate"]["w"])
+        bias = state["bias"] if state is not None else torch.zeros_like(scores[0])
+        idx, weights = sigmoid_topk(scores, bias, k)
+        balance_loss = sequence_balance_loss(scores, idx, batch, k)
+        rows = arena_rows(n, k, held)
+        tok, w, ends, counts = _held_dispatch(idx, weights * scale, first, held, rows)
+        xa = torch.cat([x.to(dtype), x.new_zeros((1, d), dtype=dtype)]).index_select(0, tok)
+        if state is not None:
+            with torch.no_grad():
+                state["load"].scatter_add_(0, idx.reshape(-1),
+                                           torch.ones(idx.numel(), device=idx.device))
+                state["rows"].add_(counts)
+                torch.maximum(state["max_held_share"], counts.sum() * n_experts / (n * k * held),
+                              out=state["max_held_share"])
+                state["balance_loss"].copy_(balance_loss.detach())
+    with region("seqformer.experts"):
+        act = F.silu(grouped_mm(xa, p["w1"], ends)) * grouped_mm(xa, p["w3"], ends)
+        out = grouped_mm(act * w[:, None].to(dtype), p["w2"], ends)
+    with region("seqformer.shared"):
+        shared = _swiglu(p["shared"], x, dtype)
+    with region("seqformer.combine"):
+        routed = torch.zeros((n + 1, d), dtype=torch.float32, device=x.device)
+        routed = routed.index_add(0, tok, out.to(torch.float32))[:n]
+        y = shared + routed.to(dtype)
+    return y, {"balance_loss": balance_loss, "rows": counts}

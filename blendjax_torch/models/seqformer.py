@@ -38,6 +38,19 @@ The optional mixture-of-experts MLP (``init(n_experts=...)``: a block's
 has two apply-time modes over the same parameters: ``moe_impl='dense'``
 (every expert on every token, gate-weighted) and ``moe_impl='topk'``
 (routed, capacity-bounded: :mod:`blendjax_torch.models.moe`).
+
+The DeepSeek-V3 block (``init(mla=...)``; the params then hold
+``blocks.i.wkv_a``): multi-head latent attention without query
+compression (DeepSeek-V2, arXiv 2405.04434, section 2.1: q (H, Dnope +
+Drope), a shared compressed kv latent under its own RMSNorm and one
+rotary key for all heads, expanded to per-head keys and values, attention
+over q/k of Dnope + Drope and v of Dv through the flash kernels), RMSNorm
+(K5's RMS mode on the card), a dense SwiGLU MLP in the first
+``n_dense`` blocks and the DeepSeekMoE layer
+(:func:`blendjax_torch.models.moe.deepseek_moe_apply`) in the rest, and an
+RMSNorm ``ln_f``; no biases inside the blocks.  Its settings at apply time
+are one ``arch`` dict (:func:`_forward_mla`).  The decode path
+(:func:`decode_step`, :func:`rollout`) does not take it.
 """
 
 from __future__ import annotations
@@ -123,6 +136,17 @@ def _norm(p, x):
         return _ln_apply(p, x)
 
 
+def _rms(p, x, eps):
+    """RMSNorm in f32 cast back to ``x``'s dtype, in the ``seqformer.norm``
+    region: K5's RMS mode on a plain CUDA tensor, the plain composition
+    on a CPU tensor and on a DTensor."""
+    with region("seqformer.norm"):
+        scale = p["scale"]
+        if x.is_cuda and not any(isinstance(t, DTensor) for t in (x, scale)):
+            return layer_norm.RMSNorm.apply(x, scale, eps)
+        return layer_norm.rms_norm_fwd_plain(x, scale, eps)[0]
+
+
 def _moe_init(n_experts, d, d_ff, generator, device):
     """An expert-stacked MLP: the gate (d, e), ``w1`` (e, d, d_ff), ``w2``
     (e, d_ff, d), He-normal, zero biases."""
@@ -181,7 +205,7 @@ def _drop_free(params, moe_k, moe_capacity_factor):
 
 def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
          n_experts=0, max_len=1024, n_kv_heads=None, pos_encoding="learned",
-         device="cuda"):
+         device="cuda", mla=None):
     """SeqFormer params as a flat dict of f32 tensors on ``device``, drawn
     from ``generator`` (which must live on ``device``).
 
@@ -189,7 +213,11 @@ def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
     ``pos_encoding='rope'`` replaces the learned position table with
     rotary embeddings on q/k (the params then have no ``pos``).
     ``n_experts > 0`` gives each block an ``moe`` (gate, w1, b1, w2, b2) in
-    place of its ``mlp``."""
+    place of its ``mlp``.  ``mla`` (a dict of :func:`init_mla`'s sizes)
+    gives the DeepSeek-V3 blocks instead; ``d_ff``, ``n_experts``,
+    ``max_len``, ``n_kv_heads`` and ``pos_encoding`` then do not apply."""
+    if mla is not None:
+        return init_mla(generator, obs_dim, d_model, n_heads, n_layers, device=device, **mla)
     device = resolve_device(device)
     d_ff = d_ff or 4 * d_model
     if d_model % n_heads:
@@ -240,9 +268,129 @@ def init(generator, obs_dim=8, d_model=64, n_heads=4, n_layers=2, d_ff=None,
     return params
 
 
+def init_mla(generator, obs_dim, d_model, n_heads, n_layers, *, kv_lora_rank,
+             qk_nope_head_dim, qk_rope_head_dim, v_head_dim, n_dense, dense_ff, moe_ff,
+             n_routed, n_shared, device="cuda"):
+    """The DeepSeek-V3 blocks' params (module docstring) as a flat dict of
+    f32 tensors: ``n_dense`` blocks with a dense SwiGLU of ``dense_ff``,
+    then DeepSeekMoE blocks whose router scores ``n_routed`` experts and
+    which hold ``moe.w1``/``w3``/``w2`` of the held experts (as many as
+    the router's outputs unless the caller cuts the arrays to its share)
+    and the ``n_shared`` shared experts as one SwiGLU of ``n_shared *
+    moe_ff``.  Matrices are normal(1/sqrt(fan in)), the embedding and the
+    head He-normal with zero biases, norm scales 1."""
+    device = resolve_device(device)
+    h, dq = n_heads, qk_nope_head_dim + qk_rope_head_dim
+
+    def normal(*shape, fan_in):
+        return torch.randn(shape, generator=generator, device=device) / math.sqrt(fan_in)
+
+    def ones(n):
+        return torch.ones((n,), device=device)
+
+    def swiglu(prefix, d_in, f, *lead):
+        return {f"{prefix}.w1": normal(*lead, d_in, f, fan_in=d_in),
+                f"{prefix}.w3": normal(*lead, d_in, f, fan_in=d_in),
+                f"{prefix}.w2": normal(*lead, f, d_in, fan_in=f)}
+
+    params = {f"embed.{k}": v for k, v in dense_init(obs_dim, d_model, generator=generator,
+                                                     device=device).items()}
+    for i in range(n_layers):
+        blk = f"blocks.{i}"
+        params.update({
+            f"{blk}.attn_norm.scale": ones(d_model),
+            f"{blk}.wq.w": normal(d_model, h, dq, fan_in=d_model),
+            f"{blk}.wkv_a.w": normal(d_model, kv_lora_rank + qk_rope_head_dim, fan_in=d_model),
+            f"{blk}.kv_norm.scale": ones(kv_lora_rank),
+            f"{blk}.wkv_b.w": normal(kv_lora_rank, h, qk_nope_head_dim + v_head_dim,
+                                     fan_in=kv_lora_rank),
+            f"{blk}.wo.w": normal(h, v_head_dim, d_model, fan_in=h * v_head_dim),
+            f"{blk}.mlp_norm.scale": ones(d_model),
+        })
+        if i < n_dense:
+            params.update(swiglu(f"{blk}.mlp", d_model, dense_ff))
+        else:
+            params[f"{blk}.moe.gate.w"] = normal(d_model, n_routed, fan_in=d_model)
+            params.update(swiglu(f"{blk}.moe", d_model, moe_ff, n_routed))
+            params.update(swiglu(f"{blk}.moe.shared", d_model, n_shared * moe_ff))
+    params["ln_f.scale"] = ones(d_model)
+    params.update({f"head.{k}": v for k, v in dense_init(d_model, obs_dim, generator=generator,
+                                                         device=device).items()})
+    return params
+
+
+def _is_mla(tree):
+    """Whether nested params hold the DeepSeek-V3 blocks (latent attention)."""
+    return "wkv_a" in tree.get("blocks", {}).get("0", {})
+
+
+def _refuse_mla(tree, what):
+    if _is_mla(tree):
+        raise ValueError(f"{what} does not take latent attention (MLA) params: the decode "
+                         "path of the DeepSeek-V3 blocks is not ported; train and evaluate "
+                         "them through loss_fn / episode_loss_fn with arch=")
+
+
+def _mla(blk, x, attn_fn, cos, sin, compute_dtype, arch):
+    """Multi-head latent attention of one block on the residual (B, T, d)
+    ``x``, its RMSNorm included: (B, T, d)."""
+    eps = arch["norm_eps"]
+    h = _rms(blk["attn_norm"], x, eps)
+    wkv_b = blk["wkv_b"]["w"]
+    nope = wkv_b.shape[-1] - blk["wo"]["w"].shape[1]
+    q = torch.einsum("btd,dhk->bthk", h, blk["wq"]["w"].to(compute_dtype))
+    kv_a = h @ blk["wkv_a"]["w"].to(compute_dtype)
+    rank = wkv_b.shape[0]
+    c = _rms(blk["kv_norm"], kv_a[..., :rank], arch["kv_norm_eps"])
+    kv = torch.einsum("btc,chk->bthk", c, wkv_b.to(compute_dtype))
+    k_rope = apply_rope(kv_a[..., None, rank:], cos, sin)
+    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], cos, sin)], dim=-1)
+    k = torch.cat([kv[..., :nope], k_rope.expand(*kv.shape[:3], k_rope.shape[-1])], dim=-1)
+    a = attn_fn(q, k, kv[..., nope:])
+    return torch.einsum("bthk,hkd->btd", a, blk["wo"]["w"].to(compute_dtype))
+
+
+def _forward_mla(tree, obs, attn_fn, compute_dtype, arch):
+    """The DeepSeek-V3 blocks' forward (module docstring): returns
+    (prediction, the DeepSeekMoE layers' aux records).  ``arch``:
+    ``norm_eps`` (the block norms and ``ln_f``), ``kv_norm_eps`` (the
+    latent's), ``rope_theta``, ``moe_k`` (experts a token),
+    ``moe_scale`` (the routed scaling factor), ``moe_experts`` (the
+    router's outputs), ``moe_first`` (the first held expert's id) and
+    ``balance`` (a :class:`blendjax_torch.models.moe.Balance` or None)."""
+    blocks = _blocks(tree)
+    b, t = obs.shape[:2]
+    balance = arch.get("balance")
+    auxs = []
+    with region("seqformer.io"):
+        x = _dense_mq(tree["embed"], obs.to(compute_dtype), compute_dtype)
+        # the rotary part: wkv_a's outputs past the latent
+        rope_dim = blocks[0]["wkv_a"]["w"].shape[-1] - blocks[0]["kv_norm"]["scale"].shape[0]
+        cos, sin = rope_table(torch.arange(t, device=obs.device), rope_dim,
+                              base=float(arch["rope_theta"]))
+    for i, blk in enumerate(blocks):
+        with region("seqformer.attention"):
+            x = x + _mla(blk, x, attn_fn, cos, sin, compute_dtype, arch)
+        with region("seqformer.mlp"):
+            h = _rms(blk["mlp_norm"], x, arch["norm_eps"])
+            if "moe" not in blk:
+                x = x + moe._swiglu(blk["mlp"], h, compute_dtype)
+                continue
+            state = balance.layers[f"blocks.{i}"] if balance is not None else None
+            y, aux = moe.deepseek_moe_apply(
+                blk["moe"], h.reshape(b * t, -1), compute_dtype, arch["moe_k"],
+                arch["moe_scale"], arch["moe_first"], arch["moe_experts"], state=state,
+                batch=b)
+            auxs.append(aux)
+            x = x + y.reshape(b, t, -1)
+    x = _rms(tree["ln_f"], x, arch["norm_eps"])
+    with region("seqformer.io"):
+        return _dense_mq(tree["head"], x, torch.float32), auxs
+
+
 def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
              moe_capacity_factor=1.25, moe_dispatch="sort", kv_sink=None, pos_offset=0,
-             token_mean=None):
+             token_mean=None, arch=None):
     """The shared forward: returns (prediction, the routed MoE layers' aux
     records).  ``kv_sink`` (a list) collects each layer's (k, v), rotated:
     :func:`rollout`'s prefill fills its caches from one teacher-forced
@@ -254,6 +402,11 @@ def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
             return full_attention(q, k, v, causal=True)
 
     tree = _nest(params)
+    if _is_mla(tree):
+        if arch is None:
+            raise ValueError("params with latent attention (blocks.0.wkv_a) need arch=, the "
+                             "DeepSeek-V3 block's settings")
+        return _forward_mla(tree, obs, attn_fn, compute_dtype, arch)
     blocks = _blocks(tree)
     t = obs.shape[1]
     auxs = []
@@ -286,32 +439,38 @@ def _forward(params, obs, attn_fn, compute_dtype, moe_impl="dense", moe_k=2,
 
 
 def apply(params, obs, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl="dense",
-          moe_k=2, moe_capacity_factor=1.25, moe_dispatch="sort"):
+          moe_k=2, moe_capacity_factor=1.25, moe_dispatch="sort", arch=None):
     """Forward pass: (B, T, obs_dim) -> (B, T, obs_dim) f32 next-obs
     prediction.  ``attn_fn(q, k, v) -> out`` on (B, T, H, Dh) tensors;
     defaults to causal :func:`full_attention`.  ``moe_impl``: 'dense'
     evaluates every expert, 'topk' routes each token to ``moe_k`` experts
-    under a capacity bound (:mod:`blendjax_torch.models.moe`)."""
+    under a capacity bound (:mod:`blendjax_torch.models.moe`).  ``arch``:
+    the DeepSeek-V3 blocks' settings (:func:`_forward_mla`)."""
     return _forward(params, obs, attn_fn, compute_dtype, moe_impl, moe_k,
-                    moe_capacity_factor, moe_dispatch)[0]
+                    moe_capacity_factor, moe_dispatch, arch=arch)[0]
 
 
 def loss_fn(params, batch, attn_fn=None, compute_dtype=torch.bfloat16, moe_impl="dense",
             moe_k=2, moe_capacity_factor=1.25, moe_aux_weight=0.0, moe_dispatch="sort",
-            pos_offset=0, token_mean=None):
+            pos_offset=0, token_mean=None, arch=None):
     """MSE next-observation loss over ``batch = {'obs': (B,T,D), 'target':
     (B,T,D)}``; the target is compared in f32.  With ``moe_impl='topk'``
     and ``moe_aux_weight`` the mean over layers of the load-balance loss is
     added, weighted.  ``pos_offset`` and ``token_mean`` serve a sequence
     shard's loss (:func:`_forward`; the sequence-sharded step,
-    :func:`blendjax_torch.parallel.sharding.make_seqformer_train_step`)."""
+    :func:`blendjax_torch.parallel.sharding.make_seqformer_train_step`).
+    ``arch`` takes the DeepSeek-V3 blocks (:func:`_forward_mla`); their
+    DeepSeekMoE layers' sequence-wise balance losses are added, summed over
+    the layers and weighted by ``arch['balance_alpha']``."""
     pred, auxs = _forward(params, batch["obs"], attn_fn, compute_dtype, moe_impl, moe_k,
                           moe_capacity_factor, moe_dispatch, pos_offset=pos_offset,
-                          token_mean=token_mean)
+                          token_mean=token_mean, arch=arch)
     with region("seqformer.io"):
         err = pred - batch["target"].to(torch.float32)
         loss = torch.mean(err * err)
-        if auxs and moe_aux_weight:
+        if arch is not None and auxs:
+            loss = loss + arch["balance_alpha"] * sum(a["balance_loss"] for a in auxs)
+        elif auxs and moe_aux_weight:
             loss = loss + moe_aux_weight * sum(a["aux_loss"] for a in auxs) / len(auxs)
     return loss
 
@@ -386,6 +545,7 @@ def init_cache(params, batch_size, dtype=torch.bfloat16, length=None, per_row=Fa
     positions, which :func:`_attn_one` masks).  The batch-uniform position
     is a Python int."""
     tree = _nest(params)
+    _refuse_mla(tree, "init_cache")
     if length is None:
         if "pos" not in tree:
             raise ValueError("rope models have no max_len; pass the decode horizon "
@@ -468,6 +628,7 @@ def decode_step(params, cache, obs_t, compute_dtype=torch.bfloat16, moe_impl="de
     capacity that depends on how many tokens share the call would make the
     incremental decode disagree with the full-sequence forward."""
     tree = _nest(params)
+    _refuse_mla(tree, "decode_step")
     if moe_impl == "topk":
         moe_capacity_factor = _drop_free(params, moe_k, moe_capacity_factor)
     blocks = _blocks(tree)
@@ -558,6 +719,7 @@ def rollout(params, prefix, n_steps, compute_dtype=torch.bfloat16, moe_impl="den
     :func:`decode_step` runs ``n_steps - 1`` times; under a ``window`` the
     cache is a ring of ``window`` slots.  Routed MoE layers route drop-free
     in both phases."""
+    _refuse_mla(_nest(params), "rollout")
     b, t0, _ = prefix.shape
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")

@@ -36,7 +36,8 @@ replay.  The eval step is captured the same way, under ``torch.no_grad()``.
 The train step names its parts for a profiler
 (:mod:`blendjax_torch.obs.regions`): ``train.zero_grad``,
 ``train.backward`` and ``train.adam`` around the optimizer's and
-autograd's calls, and on every call of a captured step its host dispatch:
+autograd's calls, ``train.balance`` around the routing biases' update,
+and on every call of a captured step its host dispatch:
 ``train.guard`` (the address checks and the batch signature),
 ``train.copy_inputs``, ``train.replay`` (the graph's launch) and
 ``train.output`` (the loss's clone).  Each range costs one check while no
@@ -331,11 +332,17 @@ def _capture(run, batch, leaves, device):
     return _Graph(graph, inputs, output.detach(), per_replay)
 
 
-def make_train_step(loss_fn, capture=None):
+def make_train_step(loss_fn, capture=None, balance=None):
     """Build ``step(state, batch) -> (state, loss)`` for
     ``loss_fn(params, batch) -> scalar``; ``loss`` is detached.  Captured
     on the card, eager on the CPU (see the module docstring); the step's
-    graphs, by batch signature, are in ``step.graphs``."""
+    graphs, by batch signature, are in ``step.graphs``.
+
+    ``balance`` (a :class:`blendjax_torch.models.moe.Balance` whose layers
+    ``loss_fn``'s DeepSeekMoE layers route with) has its ``update`` run
+    once a step after Adam, outside autograd: the routing biases' step
+    from the loads the forward counted, on the device and, on the card,
+    inside the captured graph."""
     graphs = Captured("train")
 
     def step(state, batch):
@@ -347,10 +354,15 @@ def make_train_step(loss_fn, capture=None):
                 loss.backward()
             with region("train.adam"):
                 state.optimizer.step()
+            if balance is not None:
+                with region("train.balance"):
+                    balance.update()
             return loss.detach()
 
         if _captures(capture, state.params.values()):
             bound = {("param", k): v for k, v in state.params.items()}
+            if balance is not None:
+                bound.update({("balance", k): v for k, v in balance.tensors().items()})
             bound["optimizer"] = state.optimizer
             loss = graphs(run, batch, bound, made=_optimizer_tensors(state.optimizer))
         else:

@@ -50,11 +50,16 @@ import sys
 
 #: the model's regions: the innermost range around an op names its region
 MODEL = ("seqformer.norm", "seqformer.attention", "seqformer.mlp", "seqformer.io")
-#: the train step's regions around its optimizer and backward calls
-STEP = ("train.zero_grad", "train.backward", "train.adam")
+#: the DeepSeekMoE layer's regions, inside ``seqformer.mlp``: the gate, the
+#: sigmoid, the top-k choice and the dispatch; the held experts' grouped
+#: products and SwiGLU; the shared experts; the combine
+MOE = ("seqformer.router", "seqformer.experts", "seqformer.shared", "seqformer.combine")
+#: the train step's regions around its optimizer and backward calls, and
+#: the routing biases' update
+STEP = ("train.zero_grad", "train.backward", "train.adam", "train.balance")
 #: the captured step's host dispatch, one range each on every call
 DISPATCH = ("train.guard", "train.copy_inputs", "train.replay", "train.output")
-NAMES = frozenset(MODEL + STEP + DISPATCH)
+NAMES = frozenset(MODEL + MOE + STEP + DISPATCH)
 #: the entry of :func:`place` for replayed operations the table has not
 UNPLACED = "unplaced"
 

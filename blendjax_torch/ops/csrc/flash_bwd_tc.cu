@@ -37,6 +37,14 @@
 //   runs through a two-stage ring, so the next tile loads while this one
 //   computes.  2 x 16 KB resident + 2 x 32 KB ring = 96 KB at D = 128:
 //   two blocks per SM.
+// - MLA's heads (q/k 192, v 128; DeepSeek-V2 section 2.1) take the same
+//   kernels with DV = 128 beside D = 192: S (S^T) runs over three 64-column
+//   chunks, dP (dP^T) over two; dQ and dK accumulate 192 columns (one
+//   m64n192k16 a k step), dV 128.  3 x (24 + 16) KB + 1 KB = 121 KB: one
+//   block per SM.  There dkv forms dS before it issues dV += P^T dO, and
+//   issues both products together, so that P's and dS's fragments and the
+//   S^T and dP^T accumulators are not all live beside 160 accumulator
+//   registers.
 // - P and dS enter their products as two bf16 terms, x = hi + lo with
 //   hi = bf16_rn(x) and lo = bf16_rn(x - hi), both into one f32
 //   accumulator.  Each operand then keeps about 16 significant bits
@@ -68,16 +76,16 @@ __device__ __forceinline__ float prob(float s, float scale, float lse) {
   return exp2f(fmaf(s, scale, -lse) * kLog2e);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t tc_smem() {
-  // two resident tiles and a two-stage ring of two tiles, plus 1 KB to
-  // align the swizzled chunks to 1024 B
-  return 6 * sizeof(bf16) * kRows * padded<D>() + 1024;
+  // two resident tiles and a two-stage ring of two tiles (one D wide and
+  // one DV wide each time), plus 1 KB to align the swizzled chunks to 1024 B
+  return 3 * sizeof(bf16) * kRows * (padded<D>() + padded<DV>()) + 1024;
 }
 
 // -- dQ ------------------------------------------------------------------------
 
-template <typename TOut, int D>
+template <typename TOut, int D, int DV>
 __global__ void __launch_bounds__(kWG, 1)
 flash_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -87,12 +95,15 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr int DP = padded<D>();
   constexpr int NC = DP / 64;
   constexpr int TILE = kRows * DP;
-  constexpr uint32_t kPair = 2 * TILE * sizeof(bf16);  // bytes of two tiles
+  constexpr int DVP = padded<DV>();
+  constexpr int NCV = DVP / 64;
+  constexpr int PAIR = TILE + kRows * DVP;  // a D-wide and a DV-wide tile
+  constexpr uint32_t kPair = PAIR * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bars[3];  // resident Q/dO, ring stages 0 and 1
   bf16* sQ = aligned_base(smem_raw);
   bf16* sdO = sQ + TILE;
-  bf16* sK = sdO + TILE;  // stage s: sK + 2 s TILE, sV = that + TILE
+  bf16* sK = sQ + PAIR;  // stage s: sK + s PAIR, sV = that + TILE
 
   const int bh = blockIdx.x;
   const int num_q = (p.tq + kRows - 1) / kRows;
@@ -108,12 +119,12 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   if (tid == 0) {
     mbar_expect_tx(&bars[0], kPair);
     tma_tile<NC>(sQ, &q_map, &bars[0], r0, bh);
-    tma_tile<NC>(sdO, &do_map, &bars[0], r0, bh);
+    tma_tile<NCV>(sdO, &do_map, &bars[0], r0, bh);
     for (int s = 0; s < 2 && s < n; ++s) {
-      bf16* st = sK + 2 * s * TILE;
+      bf16* st = sK + s * PAIR;
       mbar_expect_tx(&bars[1 + s], kPair);
       tma_tile<NC>(st, &k_map, &bars[1 + s], (first + s) * kRows, bkv);
-      tma_tile<NC>(st + TILE, &v_map, &bars[1 + s], (first + s) * kRows, bkv);
+      tma_tile<NCV>(st + TILE, &v_map, &bars[1 + s], (first + s) * kRows, bkv);
     }
   }
 
@@ -136,7 +147,7 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < n; ++i) {
     const int s = i & 1;
     const int c0 = (first + i) * kRows;
-    const bf16* tK = sK + 2 * s * TILE;
+    const bf16* tK = sK + s * PAIR;
     const bf16* tV = tK + TILE;
     mbar_wait(&bars[1 + s], (i >> 1) & 1);
 
@@ -144,7 +155,7 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     wg_fence();
     gemm_nt<DP>(sc, sQ, tK);
     wg_commit();
-    gemm_nt<DP>(dp, sdO, tV);
+    gemm_nt<DVP>(dp, sdO, tV);
     wg_commit();
     wg_wait<1>();  // S has landed; dP is still on the tensor cores
     fence_regs(sc);
@@ -179,10 +190,10 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
     __syncthreads();  // every thread is done with stage s
     if (tid == 0 && i + 2 < n) {
-      bf16* st = sK + 2 * s * TILE;
+      bf16* st = sK + s * PAIR;
       mbar_expect_tx(&bars[1 + s], kPair);
       tma_tile<NC>(st, &k_map, &bars[1 + s], (first + i + 2) * kRows, bkv);
-      tma_tile<NC>(st + TILE, &v_map, &bars[1 + s], (first + i + 2) * kRows, bkv);
+      tma_tile<NCV>(st + TILE, &v_map, &bars[1 + s], (first + i + 2) * kRows, bkv);
     }
   }
 
@@ -191,7 +202,7 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // -- dK / dV -------------------------------------------------------------------
 
-template <typename TOut, int D>
+template <typename TOut, int D, int DV>
 __global__ void __launch_bounds__(kWG, 1)
 flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -202,12 +213,15 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr int DP = padded<D>();
   constexpr int NC = DP / 64;
   constexpr int TILE = kRows * DP;
-  constexpr uint32_t kPair = 2 * TILE * sizeof(bf16);
+  constexpr int DVP = padded<DV>();
+  constexpr int NCV = DVP / 64;
+  constexpr int PAIR = TILE + kRows * DVP;  // a D-wide and a DV-wide tile
+  constexpr uint32_t kPair = PAIR * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bars[3];  // resident K/V, ring stages 0 and 1
   bf16* sK = aligned_base(smem_raw);
   bf16* sV = sK + TILE;
-  bf16* sQ = sV + TILE;  // stage s: sQ + 2 s TILE, sdO = that + TILE
+  bf16* sQ = sK + PAIR;  // stage s: sQ + s PAIR, sdO = that + TILE
 
   const int bh = blockIdx.x;  // q head: the partial sums stay per q head
   const int c0 = blockIdx.y * kRows;  // tile 0 sees the most q rows
@@ -222,20 +236,24 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   if (tid == 0) {
     mbar_expect_tx(&bars[0], kPair);
     tma_tile<NC>(sK, &k_map, &bars[0], c0, bkv);
-    tma_tile<NC>(sV, &v_map, &bars[0], c0, bkv);
+    tma_tile<NCV>(sV, &v_map, &bars[0], c0, bkv);
     for (int s = 0; s < 2 && s < n; ++s) {
-      bf16* st = sQ + 2 * s * TILE;
+      bf16* st = sQ + s * PAIR;
       mbar_expect_tx(&bars[1 + s], kPair);
       tma_tile<NC>(st, &q_map, &bars[1 + s], (first + s) * kRows, bh);
-      tma_tile<NC>(st + TILE, &do_map, &bars[1 + s], (first + s) * kRows, bh);
+      tma_tile<NCV>(st + TILE, &do_map, &bars[1 + s], (first + s) * kRows, bh);
     }
   }
 
-  float acc_k[NC][32], acc_v[NC][32];
+  float acc_k[NC][32], acc_v[NCV][32];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
+    for (int i = 0; i < 32; ++i) acc_k[c][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCV; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_v[c][i] = 0.f;
 
   const float* lse_h = lse + static_cast<int64_t>(bh) * p.tq;
   const float* delta_h = delta + static_cast<int64_t>(bh) * p.tq;
@@ -243,7 +261,7 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < n; ++i) {
     const int s = i & 1;
     const int r0 = (first + i) * kRows;
-    const bf16* tQ = sQ + 2 * s * TILE;
+    const bf16* tQ = sQ + s * PAIR;
     const bf16* tdO = tQ + TILE;
 
     // the statistics of this thread's 16 q columns: r0 + 8j + 2t (+1)
@@ -262,7 +280,7 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     wg_fence();
     gemm_nt<DP>(st, sK, tQ);
     wg_commit();
-    gemm_nt<DP>(dpt, sV, tdO);
+    gemm_nt<DVP>(dpt, sV, tdO);
     wg_commit();
     wg_wait<1>();  // S^T has landed; dP^T is still on the tensor cores
     fence_regs(st);
@@ -280,27 +298,41 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
     uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
-    split_hi_lo(st, p_hi, p_lo);
-    wg_fence();
-    gemm_rn<NC>(acc_v, p_hi, p_lo, tdO);  // dV += P^T dO while dS is formed
-    wg_commit();
+    if constexpr (NC + NCV <= 4) {
+      split_hi_lo(st, p_hi, p_lo);
+      wg_fence();
+      gemm_rn<NCV>(acc_v, p_hi, p_lo, tdO);  // dV += P^T dO while dS is formed
+      wg_commit();
 
-    wg_wait<1>();  // dP^T has landed
-    fence_regs(dpt);
+      wg_wait<1>();  // dP^T has landed
+      fence_regs(dpt);
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
-      dpt[x] = st[x] * (dpt[x] - col_delta[2 * (x / 4) + x % 2]) * p.scale;
+      for (int x = 0; x < 32; ++x) {
+        dpt[x] = st[x] * (dpt[x] - col_delta[2 * (x / 4) + x % 2]) * p.scale;
+      }
+      split_hi_lo(dpt, ds_hi, ds_lo);
+      wg_fence();
+      gemm_rn<NC>(acc_k, ds_hi, ds_lo, tQ);
+      wg_commit();
+    } else {
+      wg_wait<0>();  // dP^T has landed
+      fence_regs(dpt);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        dpt[x] = st[x] * (dpt[x] - col_delta[2 * (x / 4) + x % 2]) * p.scale;
+      }
+      split_hi_lo(st, p_hi, p_lo);
+      split_hi_lo(dpt, ds_hi, ds_lo);
+      wg_fence();
+      gemm_rn<NCV>(acc_v, p_hi, p_lo, tdO);
+      gemm_rn<NC>(acc_k, ds_hi, ds_lo, tQ);
+      wg_commit();
     }
-    split_hi_lo(dpt, ds_hi, ds_lo);
-    wg_fence();
-    gemm_rn<NC>(acc_k, ds_hi, ds_lo, tQ);
-    wg_commit();
     wg_wait<0>();
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      fence_regs(acc_v[c]);
-      fence_regs(acc_k[c]);
-    }
+    for (int c = 0; c < NCV; ++c) fence_regs(acc_v[c]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(acc_k[c]);
     fence_regs(p_hi);
     fence_regs(p_lo);
     fence_regs(ds_hi);
@@ -308,29 +340,30 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
     __syncthreads();  // every thread is done with stage s
     if (tid == 0 && i + 2 < n) {
-      bf16* sq = sQ + 2 * s * TILE;
+      bf16* sq = sQ + s * PAIR;
       mbar_expect_tx(&bars[1 + s], kPair);
       tma_tile<NC>(sq, &q_map, &bars[1 + s], (first + i + 2) * kRows, bh);
-      tma_tile<NC>(sq + TILE, &do_map, &bars[1 + s], (first + i + 2) * kRows, bh);
+      tma_tile<NCV>(sq + TILE, &do_map, &bars[1 + s], (first + i + 2) * kRows, bh);
     }
   }
 
-  const int64_t koff = static_cast<int64_t>(bh) * p.tk * D;
-  store_tile<TOut, D, NC>(dk + koff, acc_k, c0, p.tk, w, g, t);
-  store_tile<TOut, D, NC>(dv + koff, acc_v, c0, p.tk, w, g, t);
+  const int64_t rows = static_cast<int64_t>(bh) * p.tk;
+  store_tile<TOut, D, NC>(dk + rows * D, acc_k, c0, p.tk, w, g, t);
+  store_tile<TOut, DV, NCV>(dv + rows * DV, acc_v, c0, p.tk, w, g, t);
 }
 
 }  // namespace
 }  // namespace bjx_flash
 
 // Plain C entry points, loaded with ctypes, with the arguments of
-// bjx_flash_dq / bjx_flash_dkv (flash_bwd.cu); in_kind must be 1 (bf16).
+// bjx_flash_dq / bjx_flash_dkv (flash_bwd.cu) and v's (and dout's) head dim
+// d_v after q's and k's d; in_kind must be 1 (bf16).
 // q, k, v and dout must be contiguous with 16-byte aligned bases (TMA).
 // Each launches on `stream` without synchronising and returns a
 // cudaError_t (0 on success).
 extern "C" int bjx_flash_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, int bh, int h_q,
-                               int h_kv, int tq, int tk, int d, float scale, int causal,
+                               int h_kv, int tq, int tk, int d, int d_v, float scale, int causal,
                                int window, int q_offset, int in_kind, int out_kind,
                                void* stream) {
   using namespace bjx_flash;
@@ -338,14 +371,16 @@ extern "C" int bjx_flash_dq_tc(const void* q, const void* k, const void* v, cons
   if (bh <= 0 || tq <= 0) return 0;
   const Problem p{h_q, h_kv, tq, tk, scale, causal, window, q_offset};
   Maps m;
-  cudaError_t err = make_maps(m, q, k, v, dout, bh, p, d);
+  cudaError_t err = make_maps(m, q, k, v, dout, bh, p, d, d_v);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (tq + kRows - 1) / kRows);
   auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch_tc(d, out_kind, [&](auto to, auto dc) {
+  return static_cast<int>(dispatch_tc(d, d_v, out_kind, [&](auto to, auto dc, auto dvc) {
     using TOut = typename decltype(to)::type;
     constexpr int D = decltype(dc)::value;
-    return launch<kWG>(flash_dq_tc_kernel<TOut, D>, grid, tc_smem<D>(), s, m.q, m.k, m.v, m.dout,
+    constexpr int DV = decltype(dvc)::value;
+    return launch<kWG>(flash_dq_tc_kernel<TOut, D, DV>, grid, tc_smem<D, DV>(), s, m.q, m.k,
+                     m.v, m.dout,
                      static_cast<const float*>(lse), static_cast<const float*>(delta),
                      static_cast<TOut*>(dq), p);
   }));
@@ -353,7 +388,7 @@ extern "C" int bjx_flash_dq_tc(const void* q, const void* k, const void* v, cons
 
 extern "C" int bjx_flash_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
-                                int h_q, int h_kv, int tq, int tk, int d, float scale,
+                                int h_q, int h_kv, int tq, int tk, int d, int d_v, float scale,
                                 int causal, int window, int q_offset, int in_kind, int out_kind,
                                 void* stream) {
   using namespace bjx_flash;
@@ -361,14 +396,16 @@ extern "C" int bjx_flash_dkv_tc(const void* q, const void* k, const void* v, con
   if (bh <= 0 || tk <= 0) return 0;
   const Problem p{h_q, h_kv, tq, tk, scale, causal, window, q_offset};
   Maps m;
-  cudaError_t err = make_maps(m, q, k, v, dout, bh, p, d);
+  cudaError_t err = make_maps(m, q, k, v, dout, bh, p, d, d_v);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (tk + kRows - 1) / kRows);
   auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch_tc(d, out_kind, [&](auto to, auto dc) {
+  return static_cast<int>(dispatch_tc(d, d_v, out_kind, [&](auto to, auto dc, auto dvc) {
     using TOut = typename decltype(to)::type;
     constexpr int D = decltype(dc)::value;
-    return launch<kWG>(flash_dkv_tc_kernel<TOut, D>, grid, tc_smem<D>(), s, m.q, m.k, m.v,
+    constexpr int DV = decltype(dvc)::value;
+    return launch<kWG>(flash_dkv_tc_kernel<TOut, D, DV>, grid, tc_smem<D, DV>(), s, m.q, m.k,
+                     m.v,
                      m.dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                      static_cast<TOut*>(dk), static_cast<TOut*>(dv), p);
   }));

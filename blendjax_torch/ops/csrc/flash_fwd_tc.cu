@@ -27,6 +27,10 @@
 //   tile loads while this one computes.  Ragged T and head dims 16 and 32
 //   are zero-filled by TMA.  16 KB + 2 x 32 KB + 1 KB = 81 KB at D = 128:
 //   two blocks per SM.
+// - MLA's heads (q/k 192, v 128; DeepSeek-V2 section 2.1) take the same
+//   kernel with DV = 128 beside D = 192: S = Q K^T runs over three 64-column
+//   chunks, P V and O over two.  24 KB + 2 x 40 KB + 1 KB = 105 KB: two
+//   blocks per SM still.
 // - S = Q K^T is wgmma m64n64k16 with both operands K-major in shared
 //   memory (gemm_nt).
 // - Online softmax in registers: each thread holds 2 rows x 16 columns of
@@ -56,11 +60,11 @@ namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, int DV>
 constexpr size_t fwd_tc_smem() {
   // the resident Q tile and a two-stage ring of K and V tiles, plus 1 KB
   // to align the swizzled chunks to 1024 B
-  return 5 * sizeof(bf16) * kRows * padded<D>() + 1024;
+  return sizeof(bf16) * kRows * (3 * padded<D>() + 2 * padded<DV>()) + 1024;
 }
 
 // The max over each of this thread's two rows across its quad.
@@ -72,7 +76,7 @@ __device__ __forceinline__ void quad_max(float (&x)[2]) {
   }
 }
 
-template <typename TOut, int D>
+template <typename TOut, int D, int DV>
 __global__ void __launch_bounds__(kWG, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -81,11 +85,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr int DP = padded<D>();
   constexpr int NC = DP / 64;
   constexpr int TILE = kRows * DP;
+  constexpr int NCV = padded<DV>() / 64;
+  constexpr int STAGE = TILE + kRows * padded<DV>();  // a K tile and a V tile
   constexpr uint32_t kTile = TILE * sizeof(bf16);
+  constexpr uint32_t kStage = STAGE * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bars[3];  // resident Q, ring stages 0 and 1
   bf16* sQ = aligned_base(smem_raw);
-  bf16* sK = sQ + TILE;  // stage s: sK + 2 s TILE, sV = that + TILE
+  bf16* sK = sQ + TILE;  // stage s: sK + s STAGE, sV = that + TILE
 
   const int bh = blockIdx.x;
   const int num_q = (p.tq + kRows - 1) / kRows;
@@ -102,19 +109,19 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_expect_tx(&bars[0], kTile);
     tma_tile<NC>(sQ, &q_map, &bars[0], r0, bh);
     for (int s = 0; s < 2 && s < n; ++s) {
-      bf16* st = sK + 2 * s * TILE;
-      mbar_expect_tx(&bars[1 + s], 2 * kTile);
+      bf16* st = sK + s * STAGE;
+      mbar_expect_tx(&bars[1 + s], kStage);
       tma_tile<NC>(st, &k_map, &bars[1 + s], (first + s) * kRows, bkv);
-      tma_tile<NC>(st + TILE, &v_map, &bars[1 + s], (first + s) * kRows, bkv);
+      tma_tile<NCV>(st + TILE, &v_map, &bars[1 + s], (first + s) * kRows, bkv);
     }
   }
 
   // the running max and this thread's part of the running sum of its two
   // rows, r0 + 16w + g and 8 below
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float acc[NC][32];
+  float acc[NCV][32];
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
+  for (int c = 0; c < NCV; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
 
@@ -122,7 +129,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < n; ++i) {
     const int s = i & 1;
     const int c0 = (first + i) * kRows;
-    const bf16* tK = sK + 2 * s * TILE;
+    const bf16* tK = sK + s * STAGE;
     const bf16* tV = tK + TILE;
     mbar_wait(&bars[1 + s], (i >> 1) & 1);
 
@@ -171,27 +178,27 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int x = 0; x < 32; ++x) l[(x % 4) / 2] += sc[x];
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NCV; ++c)
 #pragma unroll
       for (int x = 0; x < 32; ++x) acc[c][x] *= alpha[(x % 4) / 2];
     uint32_t p_hi[16], p_lo[16];
     split_hi_lo(sc, p_hi, p_lo);
 
     wg_fence();
-    gemm_rn<NC>(acc, p_hi, p_lo, tV);
+    gemm_rn<NCV>(acc, p_hi, p_lo, tV);
     wg_commit();
     wg_wait<0>();
 #pragma unroll
-    for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+    for (int c = 0; c < NCV; ++c) fence_regs(acc[c]);
     fence_regs(p_hi);
     fence_regs(p_lo);
 
     __syncthreads();  // every thread is done with stage s
     if (tid == 0 && i + 2 < n) {
-      bf16* st = sK + 2 * s * TILE;
-      mbar_expect_tx(&bars[1 + s], 2 * kTile);
+      bf16* st = sK + s * STAGE;
+      mbar_expect_tx(&bars[1 + s], kStage);
       tma_tile<NC>(st, &k_map, &bars[1 + s], (first + i + 2) * kRows, bkv);
-      tma_tile<NC>(st + TILE, &v_map, &bars[1 + s], (first + i + 2) * kRows, bkv);
+      tma_tile<NCV>(st + TILE, &v_map, &bars[1 + s], (first + i + 2) * kRows, bkv);
     }
   }
 
@@ -203,10 +210,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     safe[h] = l[h] == 0.f ? 1.f : l[h];
   }
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
+  for (int c = 0; c < NCV; ++c)
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc[c][x] /= safe[(x % 4) / 2];
-  store_tile<TOut, D, NC>(o + static_cast<int64_t>(bh) * p.tq * D, acc, r0, p.tq, w, g, t);
+  store_tile<TOut, DV, NCV>(o + static_cast<int64_t>(bh) * p.tq * DV, acc, r0, p.tq, w, g, t);
   if (t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -220,26 +227,28 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 }  // namespace bjx_flash
 
 // Plain C entry point, loaded with ctypes, with the arguments of
-// bjx_flash_fwd (flash_fwd.cu); in_kind must be 1 (bf16).  q, k and v must
-// be contiguous with 16-byte aligned bases (TMA).  Launches on `stream`
-// without synchronising and returns a cudaError_t (0 on success).
+// bjx_flash_fwd (flash_fwd.cu) and v's head dim d_v after q's and k's d;
+// in_kind must be 1 (bf16).  q, k and v must be contiguous with 16-byte
+// aligned bases (TMA).  Launches on `stream` without synchronising and
+// returns a cudaError_t (0 on success).
 extern "C" int bjx_flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int bh, int h_q, int h_kv, int tq, int tk, int d, float scale,
-                                int causal, int window, int q_offset, int in_kind, int out_kind,
-                                void* stream) {
+                                int bh, int h_q, int h_kv, int tq, int tk, int d, int d_v,
+                                float scale, int causal, int window, int q_offset, int in_kind,
+                                int out_kind, void* stream) {
   using namespace bjx_flash;
   if (in_kind != 1) return cudaErrorInvalidValue;
   if (bh <= 0 || tq <= 0) return 0;
   const Problem p{h_q, h_kv, tq, tk, scale, causal, window, q_offset};
   Maps m;
-  cudaError_t err = make_maps(m, q, k, v, nullptr, bh, p, d);
+  cudaError_t err = make_maps(m, q, k, v, nullptr, bh, p, d, d_v);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (tq + kRows - 1) / kRows);
   auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch_tc(d, out_kind, [&](auto to, auto dc) {
+  return static_cast<int>(dispatch_tc(d, d_v, out_kind, [&](auto to, auto dc, auto dvc) {
     using TOut = typename decltype(to)::type;
     constexpr int D = decltype(dc)::value;
-    return launch<kWG>(flash_fwd_tc_kernel<TOut, D>, grid, fwd_tc_smem<D>(), s, m.q, m.k, m.v,
-                       static_cast<TOut*>(o), static_cast<float*>(lse), p);
+    constexpr int DV = decltype(dvc)::value;
+    return launch<kWG>(flash_fwd_tc_kernel<TOut, D, DV>, grid, fwd_tc_smem<D, DV>(), s, m.q,
+                       m.k, m.v, static_cast<TOut*>(o), static_cast<float*>(lse), p);
   }));
 }

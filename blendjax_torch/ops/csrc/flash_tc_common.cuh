@@ -139,9 +139,31 @@ __device__ __forceinline__ void wgmma_rs128(float (&d0)[32], float (&d1)[32], co
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define BJX_REGS96                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "       \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "        \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "        \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "        \
+  "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "        \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+
+// [d0 d1 d2] (64 x 192, f32, three 64-column chunks) += A (64 x 16,
+// registers) * B (16 x 192, smem, MN-major, three swizzle atoms): MLA's
+// 192-wide q/k head dim in dQ and dK.
+__device__ __forceinline__ void wgmma_rs192(float (&d0)[32], float (&d1)[32], float (&d2)[32],
+                                            const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %101, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " BJX_REGS96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n\t}"
+      : BJX_ACC32(d0), BJX_ACC32(d1), BJX_ACC32(d2)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef BJX_ACC32
 #undef BJX_REGS32
 #undef BJX_REGS64
+#undef BJX_REGS96
 
 // d (+)= A B^T over DP columns of two K-major tiles (64 rows each).
 template <int DP>
@@ -155,15 +177,19 @@ __device__ __forceinline__ void gemm_nt(float (&d)[32], const bf16* a, const bf1
 
 // d[c] += A B for the register fragments A (64 x 64, split into hi and lo)
 // and B, a 64-row tile read MN-major; d[c] is B's column chunk c.  A head
-// dim of 128 takes one n128 product per k step, narrower ones one n64.
+// dim of 192 takes one n192 product per k step, 128 one n128, narrower
+// ones one n64.
 template <int NC>
 __device__ __forceinline__ void gemm_rn(float (&d)[NC][32], const uint32_t (&hi)[16],
                                         const uint32_t (&lo)[16], const bf16* b) {
-  static_assert(NC == 1 || NC == 2, "head dims up to 128");
+  static_assert(NC >= 1 && NC <= 3, "head dims up to 192");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db = desc_mnmajor(b + kk * 16 * 64);
-    if constexpr (NC == 2) {
+    if constexpr (NC == 3) {
+      wgmma_rs192(d[0], d[1], d[2], hi + 4 * kk, db);
+      wgmma_rs192(d[0], d[1], d[2], lo + 4 * kk, db);
+    } else if constexpr (NC == 2) {
       wgmma_rs128(d[0], d[1], hi + 4 * kk, db);
       wgmma_rs128(d[0], d[1], lo + 4 * kk, db);
     } else {
@@ -304,22 +330,31 @@ struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
-// The maps of q, k, v and, unless it is null (the forward), dout.
+// The maps of q and k (head dim d), v and, unless it is null (the
+// forward), dout (head dim dv).
 inline cudaError_t make_maps(Maps& m, const void* q, const void* k, const void* v,
-                             const void* dout, int bh, const Problem& p, int d) {
+                             const void* dout, int bh, const Problem& p, int d, int dv) {
   const int bkv = bh / p.h_q * p.h_kv;
   cudaError_t err;
   if ((err = make_map(&m.q, q, bh, p.tq, d)) != cudaSuccess) return err;
   if ((err = make_map(&m.k, k, bkv, p.tk, d)) != cudaSuccess) return err;
-  if ((err = make_map(&m.v, v, bkv, p.tk, d)) != cudaSuccess) return err;
-  return dout == nullptr ? cudaSuccess : make_map(&m.dout, dout, bh, p.tq, d);
+  if ((err = make_map(&m.v, v, bkv, p.tk, dv)) != cudaSuccess) return err;
+  return dout == nullptr ? cudaSuccess : make_map(&m.dout, dout, bh, p.tq, dv);
 }
 
-// Calls f(Tag<TOut>, integral_constant<D>) for the bf16-input instance that
-// matches; out_kind 0 = float32, 1 = bfloat16.
+// Calls f(Tag<TOut>, integral_constant<D>, integral_constant<DV>) for the
+// bf16-input instance that matches: one head dim of 16, 32, 64 or 128 for
+// q, k and v alike, or MLA's (q/k 192, v 128); out_kind 0 = float32, 1 =
+// bfloat16.
 template <typename F>
-cudaError_t dispatch_tc(int d, int out_kind, F&& f) {
-  return dispatch(d, 1, out_kind, [&](auto, auto to, auto dc) { return f(to, dc); });
+cudaError_t dispatch_tc(int d, int dv, int out_kind, F&& f) {
+  if (d == dv) {
+    return dispatch(d, 1, out_kind, [&](auto, auto to, auto dc) { return f(to, dc, dc); });
+  }
+  if (d != 192 || dv != 128) return cudaErrorInvalidValue;
+  return with_io<192>(1, out_kind, [&](auto, auto to, auto dc) {
+    return f(to, dc, std::integral_constant<int, 128>{});
+  });
 }
 
 }  // namespace bjx_flash

@@ -11,6 +11,9 @@
 // inputs give bit-identical gradients.  The grid is sized from the row
 // count, so a decode step's few rows make a few partial rows.
 //
+// The RMS mode (RMS = true): xhat = x * rstd, dx = rstd * (g - xhat *
+// mean(g * xhat)), dscale alone (one partial row a block).
+//
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md): 80% of the byte bound
 // at (131,072, 1,024) bf16.
 
@@ -21,7 +24,7 @@ namespace {
 
 constexpr int kSumGroups = 8;  // row groups of a partials block
 
-template <typename T, int V, int CB>
+template <typename T, int V, int CB, bool RMS>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_bwd_kernel(const void* dyv, const void* xv, const float* __restrict__ mean,
                       const float* __restrict__ rstd, const float* __restrict__ scale,
@@ -45,7 +48,7 @@ layer_norm_bwd_kernel(const void* dyv, const void* xv, const float* __restrict__
     Vec<T, V> xr[CB], dyr[CB];
     load_row<T, V, CB>(x + row * d, lane, chunks, xr);
     load_row<T, V, CB>(dy + row * d, lane, chunks, dyr);
-    const float mu = mean[row], rs = rstd[row];
+    const float mu = RMS ? 0.f : mean[row], rs = rstd[row];
     float sg = 0.f, sgx = 0.f;
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
@@ -55,13 +58,13 @@ layer_norm_bwd_kernel(const void* dyv, const void* xv, const float* __restrict__
         const float xh = (to_f32(xr[c].v[v]) - mu) * rs;
         const float dyf = to_f32(dyr[c].v[v]);
         const float gv = dyf * g[c][v];
-        sg += gv;
+        if constexpr (!RMS) sg += gv;
         sgx += gv * xh;
         ds[c][v] += dyf * xh;
-        db[c][v] += dyf;
+        if constexpr (!RMS) db[c][v] += dyf;
       }
     }
-    const float mg = warp_sum(sg) / d, mgx = warp_sum(sgx) / d;
+    const float mg = RMS ? 0.f : warp_sum(sg) / d, mgx = warp_sum(sgx) / d;
     T* out = dx + row * d;
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
@@ -78,9 +81,10 @@ layer_norm_bwd_kernel(const void* dyv, const void* xv, const float* __restrict__
   }
   // the block's column sums, warp 0's plus warp 1's plus ... in that order;
   // the last warp writes the block's partial rows (dscale, then dbias)
-  float* part = partial + static_cast<long long>(blockIdx.x) * 2 * d;
+  constexpr int kParts = RMS ? 1 : 2;
+  float* part = partial + static_cast<long long>(blockIdx.x) * kParts * d;
 #pragma unroll
-  for (int which = 0; which < 2; ++which) {
+  for (int which = 0; which < kParts; ++which) {
     for (int w = 0; w < kWarps; ++w) {
       if (warp == w) {
 #pragma unroll
@@ -102,9 +106,11 @@ layer_norm_bwd_kernel(const void* dyv, const void* xv, const float* __restrict__
 }
 
 // dscale[j] and dbias[j]: the blocks' partial rows summed in a fixed order.
-// A block owns 32 of the 2 * d columns of the (blocks, 2, d) partials; row
-// group r of it sums the partial rows r, r + kSumGroups, ... and group 0
-// then adds the groups in order.
+// A block owns 32 of the P * d columns of the (blocks, P, d) partials (P 2,
+// or 1 in the RMS mode, which has no dbias); row group r of it sums the
+// partial rows r, r + kSumGroups, ... and group 0 then adds the groups in
+// order.
+template <int P>
 __global__ void __launch_bounds__(32 * kSumGroups)
 layer_norm_partials_kernel(const float* __restrict__ partial, float* __restrict__ dscale,
                            float* __restrict__ dbias, int blocks, int d) {
@@ -114,7 +120,8 @@ layer_norm_partials_kernel(const float* __restrict__ partial, float* __restrict_
   const int col = blockIdx.x * 32 + lane;
   float s = 0.f;
 #pragma unroll 4
-  for (int p = grp; p < blocks; p += kSumGroups) s += partial[static_cast<long long>(p) * 2 * d + col];
+  for (int p = grp; p < blocks; p += kSumGroups)
+    s += partial[static_cast<long long>(p) * P * d + col];
   acc[grp][lane] = s;
   __syncthreads();
   if (grp != 0) return;
@@ -129,8 +136,33 @@ template <typename T, int V, int CB>
 struct Bwd {
   using Fn = void (*)(const void*, const void*, const float*, const float*, const float*,
                       void*, float*, long long, int);
-  static Fn kernel() { return &layer_norm_bwd_kernel<T, V, CB>; }
+  static Fn kernel() { return &layer_norm_bwd_kernel<T, V, CB, false>; }
 };
+
+template <typename T, int V, int CB>
+struct RmsBwd {
+  using Fn = typename Bwd<T, V, CB>::Fn;
+  static Fn kernel() { return &layer_norm_bwd_kernel<T, V, CB, true>; }
+};
+
+template <template <typename, int, int> class K, int P>
+int launch_bwd(const void* dy, const void* x, const void* mean, const void* rstd,
+               const void* scale, void* dx, void* partial, void* dscale, void* dbias,
+               long long rows, int d, int kind, int blocks, void* stream) {
+  int chunks = 0;
+  const auto fn = pick<K>(kind, d, &chunks);
+  if (fn == nullptr || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<float*>(partial);
+  fn<<<blocks, kThreads, 0, s>>>(dy, x, static_cast<const float*>(mean),
+                                 static_cast<const float*>(rstd),
+                                 static_cast<const float*>(scale), dx, part, rows, chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  layer_norm_partials_kernel<P><<<P * d / 32, 32 * kSumGroups, 0, s>>>(
+      part, static_cast<float*>(dscale), static_cast<float*>(dbias), blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 }  // namespace bjx_ln
@@ -146,6 +178,15 @@ extern "C" int bjx_layer_norm_bwd_blocks(int kind, int d, long long rows, int* b
   return static_cast<int>(grid_for(reinterpret_cast<const void*>(fn), rows, blocks));
 }
 
+// The same for the RMS mode's backward.
+extern "C" int bjx_rms_norm_bwd_blocks(int kind, int d, long long rows, int* blocks) {
+  using namespace bjx_ln;
+  int chunks = 0;
+  const auto fn = pick<RmsBwd>(kind, d, &chunks);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(grid_for(reinterpret_cast<const void*>(fn), rows, blocks));
+}
+
 // dx from dy and the forward's x, mean and rstd, on `blocks` blocks (from
 // bjx_layer_norm_bwd_blocks), then dscale and dbias from the blocks'
 // partial rows (`partial`: blocks x 2 x d f32 scratch).
@@ -153,18 +194,16 @@ extern "C" int bjx_layer_norm_bwd(const void* dy, const void* x, const void* mea
                                   const void* rstd, const void* scale, void* dx, void* partial,
                                   void* dscale, void* dbias, long long rows, int d, int kind,
                                   int blocks, void* stream) {
-  using namespace bjx_ln;
-  int chunks = 0;
-  const auto fn = pick<Bwd>(kind, d, &chunks);
-  if (fn == nullptr || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* part = static_cast<float*>(partial);
-  fn<<<blocks, kThreads, 0, s>>>(dy, x, static_cast<const float*>(mean),
-                                 static_cast<const float*>(rstd),
-                                 static_cast<const float*>(scale), dx, part, rows, chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  layer_norm_partials_kernel<<<2 * d / 32, 32 * kSumGroups, 0, s>>>(
-      part, static_cast<float*>(dscale), static_cast<float*>(dbias), blocks, d);
-  return static_cast<int>(cudaGetLastError());
+  return bjx_ln::launch_bwd<bjx_ln::Bwd, 2>(dy, x, mean, rstd, scale, dx, partial, dscale,
+                                            dbias, rows, d, kind, blocks, stream);
+}
+
+// The RMS mode: dx from dy and the forward's x and rstd, on `blocks` blocks
+// (from bjx_rms_norm_bwd_blocks), then dscale from the blocks' partial rows
+// (`partial`: blocks x d f32 scratch).
+extern "C" int bjx_rms_norm_bwd(const void* dy, const void* x, const void* rstd,
+                                const void* scale, void* dx, void* partial, void* dscale,
+                                long long rows, int d, int kind, int blocks, void* stream) {
+  return bjx_ln::launch_bwd<bjx_ln::RmsBwd, 1>(dy, x, nullptr, rstd, scale, dx, partial, dscale,
+                                               nullptr, rows, d, kind, blocks, stream);
 }

@@ -8,6 +8,10 @@
 // contraction into an FMA, as the separate tensor ops round.  The next
 // row's loads are issued before the current row's reductions.
 //
+// The RMS mode (RMS = true; RMSNorm, Zhang and Sennrich 2019, as
+// DeepSeek-V2/V3 and Moonlight use it): no mean and no bias, rstd =
+// rsqrt(mean(x^2) + eps), y = x * rstd * scale; the mean is not written.
+//
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md): 82% of the byte bound
 // at (131,072, 1,024) bf16, 168 registers a thread, 3 blocks an SM.
 
@@ -16,7 +20,7 @@
 namespace bjx_ln {
 namespace {
 
-template <typename T, int V, int CB>
+template <typename T, int V, int CB, bool RMS>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_fwd_kernel(const void* xv, const float* __restrict__ scale,
                       const float* __restrict__ bias, void* yv, float* __restrict__ mean,
@@ -30,7 +34,7 @@ layer_norm_fwd_kernel(const void* xv, const float* __restrict__ scale,
   if (first >= rows) return;
   float g[CB][V], b[CB][V];
   load_f32<V, CB>(scale, lane, chunks, g);
-  load_f32<V, CB>(bias, lane, chunks, b);
+  if constexpr (!RMS) load_f32<V, CB>(bias, lane, chunks, b);
   Vec<T, V> cur[CB];
   load_row<T, V, CB>(x + first * d, lane, chunks, cur);
   for (long long row = first; row < rows; row += step) {
@@ -45,7 +49,7 @@ layer_norm_fwd_kernel(const void* xv, const float* __restrict__ scale,
         f[c][v] = c < chunks ? to_f32(cur[c].v[v]) : 0.f;
         s += f[c][v];
       }
-    const float mu = warp_sum(s) / d;
+    const float mu = RMS ? 0.f : warp_sum(s) / d;
     float q = 0.f;
 #pragma unroll
     for (int c = 0; c < CB; ++c)
@@ -62,13 +66,17 @@ layer_norm_fwd_kernel(const void* xv, const float* __restrict__ scale,
       Vec<T, V> o;
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const float t = __fmul_rn(__fsub_rn(f[c][v], mu), rs);
-        o.v[v] = from_f32<T>(__fadd_rn(__fmul_rn(t, g[c][v]), b[c][v]));
+        if constexpr (RMS) {
+          o.v[v] = from_f32<T>(__fmul_rn(__fmul_rn(f[c][v], rs), g[c][v]));
+        } else {
+          const float t = __fmul_rn(__fsub_rn(f[c][v], mu), rs);
+          o.v[v] = from_f32<T>(__fadd_rn(__fmul_rn(t, g[c][v]), b[c][v]));
+        }
       }
       *reinterpret_cast<Vec<T, V>*>(out + (c * 32 + lane) * V) = o;
     }
     if (lane == 0) {
-      mean[row] = mu;
+      if constexpr (!RMS) mean[row] = mu;
       rstd[row] = rs;
     }
 #pragma unroll
@@ -80,8 +88,29 @@ template <typename T, int V, int CB>
 struct Fwd {
   using Fn = void (*)(const void*, const float*, const float*, void*, float*, float*,
                       long long, int, float);
-  static Fn kernel() { return &layer_norm_fwd_kernel<T, V, CB>; }
+  static Fn kernel() { return &layer_norm_fwd_kernel<T, V, CB, false>; }
 };
+
+template <typename T, int V, int CB>
+struct RmsFwd {
+  using Fn = typename Fwd<T, V, CB>::Fn;
+  static Fn kernel() { return &layer_norm_fwd_kernel<T, V, CB, true>; }
+};
+
+template <template <typename, int, int> class K>
+int launch_fwd(const void* x, const void* scale, const void* bias, void* y, void* mean,
+               void* rstd, long long rows, int d, float eps, int kind, void* stream) {
+  int chunks = 0, blocks = 0;
+  const auto fn = pick<K>(kind, d, &chunks);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0) return 0;
+  const cudaError_t err = grid_for(reinterpret_cast<const void*>(fn), rows, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<const float*>(scale), static_cast<const float*>(bias), y,
+      static_cast<float*>(mean), static_cast<float*>(rstd), rows, chunks, eps);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 }  // namespace bjx_ln
@@ -91,15 +120,13 @@ struct Fwd {
 extern "C" int bjx_layer_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
                                   void* mean, void* rstd, long long rows, int d, float eps,
                                   int kind, void* stream) {
-  using namespace bjx_ln;
-  int chunks = 0, blocks = 0;
-  const auto fn = pick<Fwd>(kind, d, &chunks);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows <= 0) return 0;
-  const cudaError_t err = grid_for(reinterpret_cast<const void*>(fn), rows, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fn<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<const float*>(scale), static_cast<const float*>(bias), y,
-      static_cast<float*>(mean), static_cast<float*>(rstd), rows, chunks, eps);
-  return static_cast<int>(cudaGetLastError());
+  return bjx_ln::launch_fwd<bjx_ln::Fwd>(x, scale, bias, y, mean, rstd, rows, d, eps, kind,
+                                         stream);
+}
+
+// The RMS mode: y and rstd from x (rows, d) and scale; no bias, no mean.
+extern "C" int bjx_rms_norm_fwd(const void* x, const void* scale, void* y, void* rstd,
+                                long long rows, int d, float eps, int kind, void* stream) {
+  return bjx_ln::launch_fwd<bjx_ln::RmsFwd>(x, scale, nullptr, y, nullptr, rstd, rows, d, eps,
+                                            kind, stream);
 }

@@ -23,7 +23,10 @@ launch raises; there is no fallback) and a CPU tensor to the plain pass.
 reference's ``custom_vjp``.
 
 The passes work on flat ``(batch*heads, T, D)`` tensors, as the
-reference's do.  Under grouped-query attention k/v carry fewer heads and
+reference's do.  v (and so O and dO) may have another head dim than q and
+k: multi-head latent attention (DeepSeek-V2, section 2.1) takes q/k 192
+and v 128, which the tensor-core kernels are instantiated for
+(:data:`KERNEL_SPLIT_DIMS`).  Under grouped-query attention k/v carry fewer heads and
 each q head reads its group's kv head (:func:`_kv_head_map`); the dK/dV
 pass then returns f32 partials per q head, which :class:`FlashAttention`
 folds onto the shared kv head.
@@ -47,8 +50,10 @@ from blendjax_torch.utils import launches
 
 _NEG = -1e30
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the CUDA kernels are instantiated for
+#: head dims the CUDA kernels are instantiated for, one for q, k and v alike
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: (q/k, v) head dims of the tensor-core kernels where v's differs
+KERNEL_SPLIT_DIMS = ((192, 128),)
 #: the kernels' route by input dtype: "tc" = tensor cores
 #: (``csrc/flash_{fwd,bwd}_tc.cu``), "f32" = f32 FMAs
 #: (``csrc/flash_{fwd,bwd}.cu``)
@@ -247,12 +252,14 @@ def _library():
     if not hasattr(lib, "_bjx_typed"):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         shape = [i, i, i, i, i, i, f, i, i, i, i, i, p]
+        # the tensor-core entries take v's head dim after q's
+        shape_tc = shape[:6] + [i] + shape[6:]
         lib.bjx_flash_fwd.argtypes = [p] * 5 + shape
-        lib.bjx_flash_fwd_tc.argtypes = [p] * 5 + shape
+        lib.bjx_flash_fwd_tc.argtypes = [p] * 5 + shape_tc
         lib.bjx_flash_dq.argtypes = [p] * 7 + shape
         lib.bjx_flash_dkv.argtypes = [p] * 8 + shape
-        lib.bjx_flash_dq_tc.argtypes = [p] * 7 + shape
-        lib.bjx_flash_dkv_tc.argtypes = [p] * 8 + shape
+        lib.bjx_flash_dq_tc.argtypes = [p] * 7 + shape_tc
+        lib.bjx_flash_dkv_tc.argtypes = [p] * 8 + shape_tc
         for fn in (lib.bjx_flash_fwd, lib.bjx_flash_dq, lib.bjx_flash_dkv,
                    lib.bjx_flash_fwd_tc, lib.bjx_flash_dq_tc, lib.bjx_flash_dkv_tc):
             fn.restype = ctypes.c_int
@@ -267,8 +274,9 @@ def _kernel_args(name, qf, kf, vf, out_dtype, heads, rest=()):
         raise ValueError(f"{name} needs CUDA tensors")
     if any(t.device != qf.device for t in tensors):
         raise ValueError(f"{name} needs all tensors on one device")
-    if qf.dim() != 3 or any(t.shape != qf.shape for t in rest):
-        raise ValueError(f"{name} needs flat (BH, T, D) q and dO of one shape")
+    if qf.dim() != 3 or vf.dim() != 3 or any(
+            t.shape != (*qf.shape[:2], vf.shape[-1]) for t in rest):
+        raise ValueError(f"{name} needs flat (BH, T, D) q and dO of q's rows and v's width")
     if qf.dtype not in _KINDS or any(t.dtype != qf.dtype for t in tensors):
         raise ValueError(
             f"{name} needs q, k, v (and dO) all float32 or all bfloat16, got "
@@ -276,10 +284,11 @@ def _kernel_args(name, qf, kf, vf, out_dtype, heads, rest=()):
         )
     if out_dtype not in _KINDS:
         raise ValueError(f"{name} outputs float32 or bfloat16, not {out_dtype}")
-    d = qf.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} has no kernel (one of {KERNEL_HEAD_DIMS})")
-    if kf.shape[-1] != d or vf.shape != kf.shape:
+    d, dv = qf.shape[-1], vf.shape[-1]
+    if d not in KERNEL_HEAD_DIMS and (d, dv) not in KERNEL_SPLIT_DIMS:
+        raise ValueError(f"{name}: head dim {d} has no kernel (one of {KERNEL_HEAD_DIMS}, "
+                         f"or q/k and v of {KERNEL_SPLIT_DIMS})")
+    if kf.shape[-1] != d or vf.shape[:2] != kf.shape[:2]:
         raise ValueError(f"{name}: k {tuple(kf.shape)} / v {tuple(vf.shape)} do not match q")
     h_q, h_kv = heads if heads else (1, 1)
     if h_q % h_kv or qf.shape[0] % h_q or qf.shape[0] * h_kv != kf.shape[0] * h_q:
@@ -290,9 +299,12 @@ def _kernel_args(name, qf, kf, vf, out_dtype, heads, rest=()):
     return _KINDS[qf.dtype], _KINDS[out_dtype], h_q, h_kv
 
 
-def _problem(qf, kf, h_q, h_kv, causal, scale, window, q_offset):
+def _problem(qf, kf, vf, h_q, h_kv, causal, scale, window, q_offset, route):
+    """The entry's problem arguments; the tensor-core route takes v's head
+    dim after q's."""
     bh, tq, d = qf.shape
-    return [bh, h_q, h_kv, tq, kf.shape[1], d, float(scale), int(bool(causal)),
+    dims = [d, vf.shape[-1]] if route == "tc" else [d]
+    return [bh, h_q, h_kv, tq, kf.shape[1], *dims, float(scale), int(bool(causal)),
             int(window or 0), int(q_offset)]
 
 
@@ -305,15 +317,19 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
-def kernel_route(dtype, d, route=None):
+def kernel_route(dtype, d, route=None, dv=None):
     """The kernel route the forward, dQ and dK/dV wrappers take for inputs
-    of ``dtype`` at head dim ``d``: by default "tc" for bfloat16 and "f32"
-    for float32, a dispatch on the dtype, not a fallback (what has no
-    kernel raises).  ``route="f32"`` asks for the CUDA-core kernels with
-    bf16 inputs too (they widen them on load), so that one process can time
-    both."""
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} has no kernel (one of {KERNEL_HEAD_DIMS})")
+    of ``dtype`` at head dim ``d`` (and v's ``dv``, ``d`` when None): by
+    default "tc" for bfloat16 and "f32" for float32, a dispatch on the
+    dtype, not a fallback (what has no kernel raises).  ``route="f32"``
+    asks for the CUDA-core kernels with bf16 inputs too (they widen them on
+    load), so that one process can time both.  Split head dims
+    (:data:`KERNEL_SPLIT_DIMS`) have tensor-core kernels only."""
+    dv = d if dv is None else dv
+    split = dv != d
+    if (split and (d, dv) not in KERNEL_SPLIT_DIMS) or (not split and d not in KERNEL_HEAD_DIMS):
+        raise ValueError(f"head dim {d} (v {dv}) has no kernel (one of {KERNEL_HEAD_DIMS}, "
+                         f"or q/k and v of {KERNEL_SPLIT_DIMS})")
     if dtype not in ROUTES:
         raise ValueError(f"the flash kernels take float32 or bfloat16, not {dtype}")
     route = route or ROUTES[dtype]
@@ -321,6 +337,8 @@ def kernel_route(dtype, d, route=None):
         raise ValueError(f"kernel route {route!r} is not 'tc' or 'f32'")
     if route == "tc" and dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core route takes bfloat16 inputs, not {dtype}")
+    if split and route != "tc":
+        raise ValueError(f"head dims {d}/{dv} have tensor-core kernels only (bfloat16)")
     return route
 
 
@@ -342,8 +360,8 @@ def _entry(name, tensors, route):
     """The C entry point of pass ``name`` ("fwd", "dq" or "dkv") on the
     route of :func:`kernel_route`, the route, and the input ``tensors`` (q
     first) as it reads them."""
-    qf = tensors[0]
-    route = kernel_route(qf.dtype, qf.shape[-1], route)
+    qf, vf = tensors[0], tensors[2]
+    route = kernel_route(qf.dtype, qf.shape[-1], route, vf.shape[-1])
     if route == "f32":
         return getattr(_library(), f"bjx_flash_{name}"), route, tensors
     tensors = tuple(_tma_ready(t) for t in tensors)
@@ -358,14 +376,14 @@ def flash_fwd_cuda(qf, kf, vf, causal, scale, out_dtype=None, window=None,
     route's."""
     out_dtype = out_dtype or qf.dtype
     kin, kout, h_q, h_kv = _kernel_args("flash_fwd_cuda", qf, kf, vf, out_dtype, heads)
-    bh, tq, d = qf.shape
-    of = torch.empty((bh, tq, d), dtype=out_dtype, device=qf.device)
+    bh, tq, _ = qf.shape
+    of = torch.empty((bh, tq, vf.shape[-1]), dtype=out_dtype, device=qf.device)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=qf.device)
     entry, route, (qf, kf, vf) = _entry("fwd", (qf, kf, vf), route)
     with torch.cuda.device(qf.device):
         err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(), lse.data_ptr(),
-            *_problem(qf, kf, h_q, h_kv, causal, scale, window, q_offset),
+            *_problem(qf, kf, vf, h_q, h_kv, causal, scale, window, q_offset, route),
             kin, kout, _stream(qf))
     _raise_on(err, "flash_fwd")
     flash_fwd_cuda.launches += 1
@@ -389,7 +407,7 @@ def flash_dq_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
         err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(),
-            *_problem(qf, kf, h_q, h_kv, causal, scale, window, q_offset),
+            *_problem(qf, kf, vf, h_q, h_kv, causal, scale, window, q_offset, route),
             kin, kout, _stream(qf))
     _raise_on(err, "flash_dq")
     flash_dq_cuda.launches += 1
@@ -409,13 +427,13 @@ def flash_dkv_cuda(qf, kf, vf, dof, lse, delta, causal, scale, out_dtype=None,
     bh, _, d = qf.shape
     lse, delta = _rows_f32(lse, qf), _rows_f32(delta, qf)
     dk = torch.empty((bh, kf.shape[1], d), dtype=out_dtype, device=qf.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((bh, kf.shape[1], vf.shape[-1]), dtype=out_dtype, device=qf.device)
     entry, route, (qf, kf, vf, dof) = _entry("dkv", (qf, kf, vf, dof), route)
     with torch.cuda.device(qf.device):
         err = entry(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_problem(qf, kf, h_q, h_kv, causal, scale, window, q_offset),
+            *_problem(qf, kf, vf, h_q, h_kv, causal, scale, window, q_offset, route),
             kin, kout, _stream(qf))
     _raise_on(err, "flash_dkv")
     flash_dkv_cuda.launches += 1
@@ -495,7 +513,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         qf, kf, vf, of, lse = ctx.saved_tensors
-        (b, t, h, d), causal, scale, block_q, block_kv, window = ctx.meta
+        (b, _, h, _), causal, scale, block_q, block_kv, window = ctx.meta
         h_kv = kf.shape[0] // b
         heads = (h, h_kv) if h_kv != h else None
         dof = _flat(g.to(qf.dtype))
@@ -510,7 +528,8 @@ class FlashAttention(torch.autograd.Function):
             tk = kf.shape[1]
 
             def fold(x, dt):
-                return x.reshape(b, h_kv, h // h_kv, tk, d).sum(2).reshape(-1, tk, d).to(dt)
+                w = x.shape[-1]
+                return x.reshape(b, h_kv, h // h_kv, tk, w).sum(2).reshape(-1, tk, w).to(dt)
 
             dk, dv = fold(dk, kf.dtype), fold(dv, vf.dtype)
         return (_unflat(dq, b, h), _unflat(dk, b, h_kv), _unflat(dv, b, h_kv),

@@ -3,6 +3,13 @@ the population variance, the result cast back to the input's dtype), as one
 hand-written CUDA kernel forward and one backward (K5, ``csrc/layer_norm_fwd.cu``
 and ``csrc/layer_norm_bwd.cu``).
 
+The RMS mode (RMSNorm: no mean, no bias, ``y = x * rsqrt(mean(x^2) +
+eps) * scale``, the norms of MLA and DeepSeekMoE blocks) runs on the same
+kernels, forward and backward: :func:`rms_norm_fwd_plain`,
+:func:`rms_norm_fwd_cuda`, :func:`rms_norm_bwd_plain`,
+:func:`rms_norm_bwd_cuda` and :class:`RMSNorm`, with the eps the caller
+gives (the LayerNorm keeps 1e-6).
+
 Two passes, each with a plain PyTorch version and a CUDA kernel for
 Hopper:
 
@@ -97,8 +104,12 @@ def _library():
         lib.bjx_layer_norm_fwd.argtypes = [p] * 6 + [ll, i, f, i, p]
         lib.bjx_layer_norm_bwd_blocks.argtypes = [i, i, ll, ctypes.POINTER(i)]
         lib.bjx_layer_norm_bwd.argtypes = [p] * 9 + [ll, i, i, i, p]
+        lib.bjx_rms_norm_fwd.argtypes = [p] * 4 + [ll, i, f, i, p]
+        lib.bjx_rms_norm_bwd_blocks.argtypes = [i, i, ll, ctypes.POINTER(i)]
+        lib.bjx_rms_norm_bwd.argtypes = [p] * 7 + [ll, i, i, i, p]
         for fn in (lib.bjx_layer_norm_fwd, lib.bjx_layer_norm_bwd_blocks,
-                   lib.bjx_layer_norm_bwd):
+                   lib.bjx_layer_norm_bwd, lib.bjx_rms_norm_fwd, lib.bjx_rms_norm_bwd_blocks,
+                   lib.bjx_rms_norm_bwd):
             fn.restype = ctypes.c_int
         lib._bjx_ln_typed = True
     return lib
@@ -189,7 +200,79 @@ def layer_norm_bwd_cuda(dy, x, mean, rstd, scale):
     return dx, dscale, dbias
 
 
-for _fn in (layer_norm_fwd_cuda, layer_norm_bwd_cuda):
+def rms_norm_fwd_plain(x, scale, eps):
+    """(y in x's dtype, rstd (x.shape[:-1], f32)): x32 * rsqrt(mean(x32^2)
+    + eps) * scale, in f32."""
+    x32 = x.to(torch.float32)
+    rstd = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * rstd * scale).to(x.dtype), rstd.squeeze(-1)
+
+
+def rms_norm_bwd_plain(dy, x, rstd, scale):
+    """The closed-form backward of the RMS mode: with xhat = x * rstd and g
+    = dy * scale, dx = rstd * (g - xhat * mean(g * xhat)) in x's dtype, and
+    dscale = sum over rows of dy * xhat in f32."""
+    d = x.shape[-1]
+    x32, dy32 = x.reshape(-1, d).float(), dy.reshape(-1, d).float()
+    rs = rstd.reshape(-1, 1)
+    xhat = x32 * rs
+    g = dy32 * scale.float()
+    dx = rs * (g - xhat * (g * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype).reshape(x.shape), (dy32 * xhat).sum(0)
+
+
+def rms_norm_fwd_cuda(x, scale, eps):
+    """Launch the forward kernel in its RMS mode; same contract as
+    :func:`rms_norm_fwd_plain`.  :attr:`launches` counts launches."""
+    x2 = _rows(x, "rms_norm_fwd_cuda")
+    rows, d = x2.shape
+    scale = _param(scale, x, d, "rms_norm_fwd_cuda")
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return y, rstd
+    with torch.cuda.device(x.device):
+        err = _library().bjx_rms_norm_fwd(x2.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                                          rstd.data_ptr(), rows, d, float(eps), KINDS[x.dtype],
+                                          _stream(x))
+    _raise_on(err, "rms_norm_fwd")
+    rms_norm_fwd_cuda.launches += 1
+    return y, rstd
+
+
+def rms_norm_bwd_cuda(dy, x, rstd, scale):
+    """Launch the backward kernel in its RMS mode and its partial sums (one
+    launch counted); same contract as :func:`rms_norm_bwd_plain`.
+    :attr:`launches` counts launches."""
+    x2 = _rows(x, "rms_norm_bwd_cuda")
+    rows, d = x2.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rms_norm_bwd_cuda: dy {tuple(dy.shape)} {dy.dtype} does not "
+                         f"match x {tuple(x.shape)} {x.dtype}")
+    dy2 = _rows(dy, "rms_norm_bwd_cuda")
+    if rstd.dtype != torch.float32 or rstd.device != x.device or rstd.numel() != rows:
+        raise ValueError(f"rms_norm_bwd_cuda: rstd must be float32 with {rows} values on "
+                         f"{x.device}")
+    rstd = rstd.reshape(rows).contiguous()
+    scale = _param(scale, x, d, "rms_norm_bwd_cuda")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dscale.zero_()
+    kind, blocks = KINDS[x.dtype], ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        _raise_on(_library().bjx_rms_norm_bwd_blocks(kind, d, rows, ctypes.byref(blocks)),
+                  "rms_norm_bwd")
+        partial = torch.empty((blocks.value, d), dtype=torch.float32, device=x.device)
+        err = _library().bjx_rms_norm_bwd(
+            dy2.data_ptr(), x2.data_ptr(), rstd.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr(), rows, d, kind, blocks.value, _stream(x))
+    _raise_on(err, "rms_norm_bwd")
+    rms_norm_bwd_cuda.launches += 1
+    return dx, dscale
+
+
+for _fn in (layer_norm_fwd_cuda, layer_norm_bwd_cuda, rms_norm_fwd_cuda, rms_norm_bwd_cuda):
     launches.counted(_fn)
 del _fn
 
@@ -209,3 +292,20 @@ class LayerNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, mean, rstd, scale = ctx.saved_tensors
         return layer_norm_bwd_cuda(dy.to(x.dtype), x, mean, rstd, scale)
+
+
+class RMSNorm(torch.autograd.Function):
+    """x (..., d), scale (d,) -> y (..., d) in x's dtype, through the
+    kernels' RMS mode: CUDA tensors only (a CPU tensor takes
+    :func:`rms_norm_fwd_plain`, which autograd differentiates)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        y, rstd = rms_norm_fwd_cuda(x, scale, eps)
+        ctx.save_for_backward(x, rstd, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, rstd, scale = ctx.saved_tensors
+        return (*rms_norm_bwd_cuda(dy.to(x.dtype), x, rstd, scale), None)

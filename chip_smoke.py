@@ -108,6 +108,31 @@ Phases, each printing JSON lines:
               a seqformer_big train step counted by the kernels' launch
               counters: 13 of each a replay (``layer_norm_engaged``).
               ``probes/layer_norm.py`` runs this phase alone.
+7c. mla_kernels — K2-K4 at latent attention's head dims (q/k 192, v
+              128) against their plain passes (``MLA_FLASH_CASES``: causal,
+              ragged T, a window, and non-causal; and one head of the
+              Moonlight step's (8, 8192, 16) at T 8192), and K5's RMS mode
+              against its plain passes (``RMS_CASES``: the Moonlight step's
+              block rows (65,536, 2,048) and latent rows (65,536, 512) in
+              bf16, and small f32 and bf16 ones), its backward bit-equal
+              over two runs; the held experts' grouped products (torch's,
+              forward, input and weight gradients) against a bf16 product
+              an expert at unbalanced counts (``grouped``); each kernel's
+              time (CUDA events after a clean flush, and the profiler's
+              device time) beside its bound at the step's shapes, and the
+              grouped products' at balanced routing (``mla_kernels_time``).
+7d. moonlight_step — Moonlight-16B-A3B's block as one card of its
+              8-card expert-parallel deployment trains it (``MOONLIGHT``:
+              MLA, 1 dense and 4 DeepSeekMoE layers, experts 0-7 of 64, batch
+              4 x T 8192 of pendulum episodes): the first forward's loss
+              against the float32 reference's (``portbench/reference/
+              mla_moe.py``) on one sequence; then ``MOONLIGHT['steps']``
+              steps of the captured train step with the bias step, launch
+              counters read around them (K2-K4 and K5's RMS mode, every
+              launch on the tensor cores, the counts a step as the model
+              has them); the routing counters, the step's time and the peak
+              memory, and one replay's device time by kernel class.
+              ``probes/mla_kernels.py`` runs 7c and 7d alone.
 8. seqformer — the flagship SeqFormer (8 layers, d_model 1024, 8 heads,
               T=512, batch 8) takes 8 Adam(1e-4) steps through the flash
               kernels on seeded float16 episodes on the card, eager and
@@ -2263,6 +2288,516 @@ def layer_norm_time_phase(torch, ln, hbm):
     del flush
     torch.cuda.empty_cache()
     return timing
+
+
+# -- MLA's K2-K4 instance and K5's RMS mode ------------------------------------
+
+#: (label, (B, T, H), causal, window): K2-K4 at q/k 192, v 128 against the
+#: plain passes (which hold a full f32 score matrix, hence the sizes)
+MLA_FLASH_CASES = [
+    ("mla causal", (2, 1024, 4), True, None),
+    ("mla T 1000", (1, 1000, 2), True, None),
+    ("mla window 300", (1, 1024, 2), True, 300),
+    ("mla non-causal T 200", (1, 200, 2), False, None),
+]
+#: q/k and v head dims of latent attention (Moonlight-16B-A3B)
+MLA_DIMS = (192, 128)
+#: the Moonlight cell's attention: (B, T, H) causal, timed
+MLA_TIME_SHAPE = (8, 8192, 16)
+#: (label, (rows, d), dtype): K5's RMS mode against its plain passes; the
+#: first two are the Moonlight cell's block and latent norms
+RMS_CASES = [
+    ("block", (65536, 2048), "bfloat16"),
+    ("latent", (65536, 512), "bfloat16"),
+    ("small f32", (4096, 128), "float32"),
+    ("d 96 bf16", (301, 96), "bfloat16"),
+]
+#: the RMS eps of the cases (Moonlight's rms_norm_eps)
+RMS_EPS = 1e-5
+
+
+def _device_us_per_call(torch, fn, flush, reps=10):
+    """The device time in us of all the kernels one call of ``fn`` launches
+    (a backward and its partial sums together), from torch.profiler over
+    ``reps`` calls, each after a clean flush: each kernel named in a
+    profile of three calls of ``fn`` alone (so not the flush's fill, cast
+    and reduction) counts at its median duration, as many times as it runs
+    a call.  Medians, because the profiler now and then loses a prefix of a
+    window's device records; NaN when it recorded none of ``fn``'s."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def device(prof):
+        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as alone:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    per_call = {name: max(1, round(n / 3))
+                for name, n in collections.Counter(e.name for e in device(alone)).items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            flush.sum()
+            fn()
+            torch.cuda.synchronize()
+    times = collections.defaultdict(list)
+    for e in device(prof):
+        if e.name in per_call:
+            times[e.name].append(e.time_range.elapsed_us())
+    if not times or set(times) != set(per_call):
+        return float("nan")
+    return sum(statistics.median(t) * per_call[name] for name, t in times.items())
+
+
+def _mla_flash_work(b, t, h, elt):
+    """FLOPs over the causal pairs and least bytes of each flash kernel at
+    latent attention's head dims (q/k 192, v 128), every tensor at its
+    own width."""
+    dq, dv = MLA_DIMS
+    pairs = b * h * t * (t + 1) // 2
+    wq, wv, rows = b * h * t * dq * elt, b * h * t * dv * elt, b * h * t * 4
+    return {"flash_fwd": (2 * pairs * (dq + dv), 2 * wq + 2 * wv + rows),
+            "flash_dq": (2 * pairs * (2 * dq + dv), 3 * wq + 2 * wv + 2 * rows),
+            "flash_dkv": (2 * pairs * (2 * dq + 2 * dv), 3 * wq + 3 * wv + 2 * rows)}
+
+
+def _mla_flash_inputs(torch, g, b, t, h):
+    dq, dv = MLA_DIMS
+
+    def rnd(d):
+        return torch.randn((b * h, t, d), generator=g, device="cuda").to(torch.bfloat16)
+
+    return rnd(dq), rnd(dq), rnd(dv), rnd(dv)
+
+
+def _mla_flash_check(torch, flash, label, inputs, shape, causal, window, scale):
+    """K2-K4 on card inputs (B*H, T, D) against their plain passes, held to
+    :func:`_compare`'s limits: the largest error by kernel."""
+    qf, kf, vf, dof = inputs
+    of, lse = flash.flash_fwd_plain(qf, kf, vf, causal, scale, window=window)
+    delta = (dof.float() * of.float()).sum(-1, keepdim=True)
+    bwd = (qf, kf, vf, dof, lse, delta, causal, scale)
+    pairs = {
+        "flash_fwd": (flash.flash_fwd_cuda(qf, kf, vf, causal, scale, window=window),
+                      (of, lse), False),
+        "flash_dq": ((flash.flash_dq_cuda(*bwd, window=window),),
+                     (flash.flash_dq_plain(*bwd, window=window),), True),
+        "flash_dkv": (flash.flash_dkv_cuda(*bwd, window=window),
+                      flash.flash_dkv_plain(*bwd, window=window), True),
+    }
+    torch.cuda.synchronize()
+    errs = {}
+    for name, (got, want, grad) in pairs.items():
+        shapes_ok = all(a.shape == w.shape for a, w in zip(got, want))
+        results = [_compare(torch, a, w, grad, False) for a, w in zip(got, want)]
+        ok = shapes_ok and all(r[1] for r in results)
+        errs[name] = max(r[0] for r in results)
+        emit({"phase": "mla_flash", "kernel": name, "case": label, "shape": list(shape),
+              "head_dims": list(MLA_DIMS), "causal": causal, "window": window,
+              "max_abs_err": errs[name], "limit": " / ".join(r[2] for r in results),
+              "ok": ok})
+        check(ok, f"{name} {label}")
+    return errs
+
+
+def mla_flash_phase(torch, flash):
+    """K2-K4 at (192, 128) against their plain passes on the same card
+    inputs (:data:`MLA_FLASH_CASES`), held to :func:`_compare`'s limits.
+    Returns the largest error by kernel."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = {}
+    for label, (b, t, h), causal, window in MLA_FLASH_CASES:
+        inputs = _mla_flash_inputs(torch, g, b, t, h)
+        errs = _mla_flash_check(torch, flash, label, inputs, (b, t, h), causal, window,
+                                1.0 / math.sqrt(MLA_DIMS[0]))
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in errs.items()}
+        del inputs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _mla_head_check(torch, flash, inputs, scale):
+    """K2-K4 on one head of the timed inputs at T 8192, causal, against
+    their plain passes (whose f32 score matrix is 256 MiB at this T)."""
+    _mla_flash_check(torch, flash, "T 8192 head", inputs, (1, inputs[0].shape[1], 1), True,
+                     None, scale)
+    torch.cuda.empty_cache()
+
+
+def rms_norm_phase(torch, ln):
+    """K5's RMS mode against its plain passes on the same card inputs
+    (:data:`RMS_CASES`), the backward from the kernel's rstd, its outputs
+    bit-equal over two runs; the limits of :func:`layer_norm_phase`.
+    Returns the largest error of each pass over the cases."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for label, shape, dtype in RMS_CASES:
+        x, dy, scale, _ = _ln_inputs(torch, g, shape, dtype)
+        y, rstd = ln.rms_norm_fwd_cuda(x, scale, RMS_EPS)
+        want = ln.rms_norm_fwd_plain(x, scale, RMS_EPS)
+        grads = ln.rms_norm_bwd_cuda(dy, x, rstd, scale)
+        again = ln.rms_norm_bwd_cuda(dy, x, rstd, scale)
+        dx_p, ds_p = ln.rms_norm_bwd_plain(dy, x, rstd, scale)
+        torch.cuda.synchronize()
+        xhat = x.float() * rstd[:, None]
+        res = {name: _ln_err(torch, a, w, LN_RTOL[name])
+               for name, a, w in zip(("y", "rstd"), (y, rstd), want)}
+        res["dx"] = _ln_err(torch, grads[0], dx_p, LN_RTOL["dx"])
+        res["dscale"] = _ln_sum_err(grads[1], ds_p, (dy.float() * xhat).abs().sum(0))
+        repeat = all(torch.equal(a, b) for a, b in zip(grads, again))
+        ok = all(r["ok"] for r in res.values()) and repeat
+        emit({"phase": "rms_norm", "case": label, "shape": list(shape), "dtype": dtype,
+              "errors": res, "backward_bit_equal_over_two_runs": repeat, "ok": ok})
+        check(ok, f"rms norm {label}")
+        worst = {"fwd": max(worst["fwd"], res["y"]["max_abs_err"], res["rstd"]["max_abs_err"]),
+                 "bwd": max(worst["bwd"], res["dx"]["max_abs_err"],
+                            res["dscale"]["max_abs_err"])}
+        del x, dy, y, rstd, want, grads, again, dx_p, xhat
+    torch.cuda.empty_cache()
+    return worst
+
+
+#: the Moonlight step's held experts under balanced routing: rows an
+#: expert, experts held, d_model, expert width
+GROUPED_SHAPE = (6144, 8, 2048, 1408)
+#: rows an expert of the grouped products' check: unbalanced, one empty
+GROUPED_COUNTS = (700, 0, 1, 5000, 129, 128, 64, 3000)
+
+
+def grouped_phase(torch, moe):
+    """The held experts' grouped products (``moe.grouped_mm``: forward, and
+    through autograd the input and weight gradients) against a bf16
+    product an expert at :data:`GROUPED_COUNTS` rows, both projections'
+    widths, within 2e-2 of each output's largest magnitude (a few bf16
+    ulps of its largest term).  Returns the largest error by product."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    _, e, d, f = GROUPED_SHAPE
+    worst = {"grouped_fwd": 0.0, "grouped_dx": 0.0, "grouped_dw": 0.0}
+    ends = torch.cumsum(torch.tensor(GROUPED_COUNTS, device="cuda"), 0).to(torch.int32)
+    used = int(ends[-1])
+    for k, n in ((d, f), (f, d)):
+        # 300 arena rows past the routed ones, never read
+        x = torch.randn(used + 300, k, generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn(e, k, n, generator=g, device="cuda") / math.sqrt(k)
+        dy = torch.randn(used, n, generator=g, device="cuda").to(torch.bfloat16)
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        y = moe.grouped_mm(x, w, ends)[:used]
+        dx, dw = torch.autograd.grad(y, (x, w), dy)
+        wb, xd = w.detach().to(torch.bfloat16), x.detach()
+        errs = {name: 0.0 for name in worst}
+        at = 0
+        for i, end in enumerate(ends.tolist()):
+            if end > at:
+                for name, got, want in (("grouped_fwd", y[at:end], xd[at:end] @ wb[i]),
+                                        ("grouped_dx", dx[at:end], dy[at:end] @ wb[i].T),
+                                        ("grouped_dw", dw[i], xd[at:end].T @ dy[at:end])):
+                    err = float((got.float() - want.float()).abs().max()
+                                / want.float().abs().max())
+                    errs[name] = max(errs[name], err if math.isfinite(err) else math.inf)
+            at = end
+        empty = float(dw[1].abs().max())
+        ok = all(v <= 2e-2 for v in errs.values()) and empty == 0
+        emit({"phase": "grouped", "k": k, "n": n, "counts": list(GROUPED_COUNTS),
+              "rel_err": errs, "empty_expert_dw": empty, "limit": 2e-2, "ok": ok})
+        check(ok, f"grouped products at ({k}, {n})")
+        worst = {name: max(worst[name], errs[name]) for name in worst}
+        del x, w, dy, y, dx, dw, wb, xd
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _grouped_time(torch, moe, flush, hbm, flops_peak):
+    """The grouped products at :data:`GROUPED_SHAPE` (forward x W1, the
+    input gradient through W1^T, the weight gradient, each a call of
+    ``torch._grouped_mm`` over the row ends as ``moe.grouped_mm`` makes
+    it), each beside its bound and a bf16 product an expert (``plain_ms``),
+    in an arena of 6 rows a token (the drop-free bound at 65,536 tokens),
+    8x the rows routed: the work follows the routed rows.  Returns the
+    records by product."""
+    rows, e, d, f = GROUPED_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(8)
+    n = rows * e
+    ends = (torch.arange(1, e + 1, device="cuda") * rows).to(torch.int32)
+    x = torch.randn(8 * n, d, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(e, d, f, generator=g, device="cuda") / math.sqrt(d)).to(torch.bfloat16)
+    dy = torch.randn(8 * n, f, generator=g, device="cuda").to(torch.bfloat16)
+    wt = w.transpose(-2, -1)
+    runs = {
+        "grouped_fwd": (lambda: torch._grouped_mm(x, w, offs=ends),
+                        lambda: [x[i * rows:(i + 1) * rows] @ w[i] for i in range(e)],
+                        (n * d + e * d * f + n * f) * 2),
+        "grouped_dx": (lambda: torch._grouped_mm(dy, wt, offs=ends),
+                       lambda: [dy[i * rows:(i + 1) * rows] @ wt[i] for i in range(e)],
+                       (n * f + e * d * f + n * d) * 2),
+        "grouped_dw": (lambda: torch._grouped_mm(x.t(), dy, offs=ends),
+                       lambda: [x[i * rows:(i + 1) * rows].t() @ dy[i * rows:(i + 1) * rows]
+                                for i in range(e)], (n * d + n * f + e * d * f) * 2),
+    }
+    out = {}
+    for name, (fn, plain, nbytes) in runs.items():
+        flops = 2 * n * d * f
+        by_ops, by_bytes = flops / flops_peak * 1e3, nbytes / hbm * 1e3
+        rec = {"phase": "mla_kernels_time", "kernel": name, "shape": list(GROUPED_SHAPE),
+               "arena_rows": 8 * n, "flops": flops, "bytes": nbytes,
+               "ms_clean_l2": time_ms(torch, fn, reps=20, flush=flush, clean=True),
+               "profiled_us": _device_us_per_call(torch, fn, flush, reps=20),
+               "plain_ms": time_ms(torch, plain, reps=10, flush=flush, clean=True),
+               "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+        rec["bound_share"] = rec["bound_ms"] / rec["ms_clean_l2"]
+        rec["bound_share_profiled"] = rec["bound_ms"] / (rec["profiled_us"] * 1e-3)
+        emit(rec)
+        out[name] = rec
+    del x, w, dy, wt
+    return out
+
+
+def mla_kernels_time_phase(torch, flash, ln, moe, hbm, flops_peak):
+    """K2-K4 at :data:`MLA_TIME_SHAPE`, K5's RMS mode at the first two
+    :data:`RMS_CASES` and the grouped products at :data:`GROUPED_SHAPE`:
+    each kernel's median CUDA-event time after a clean flush and its device
+    time in the profiler, beside its bound (the larger of FLOPs over the
+    bf16 peak and bytes over HBM's rate); the plain pass's time where it
+    fits (flash at one row of the batch).  Before the times, K2-K4 on one
+    head of :data:`MLA_TIME_SHAPE`'s inputs at T 8192 against their plain
+    passes (``mla_flash``, case ``T 8192 head``).  Returns the records by
+    kernel name."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, t, h = MLA_TIME_SHAPE
+    qf, kf, vf, dof = _mla_flash_inputs(torch, g, b, t, h)
+    scale = 1.0 / math.sqrt(MLA_DIMS[0])
+    of, lse = flash.flash_fwd_cuda(qf, kf, vf, True, scale)
+    delta = (dof.float() * of.float()).sum(-1, keepdim=True)
+    bwd = (qf, kf, vf, dof, lse, delta, True, scale)
+    _mla_head_check(torch, flash, [x[:1] for x in (qf, kf, vf, dof)], scale)
+    # the plain passes at one row of the batch and 2,048 steps
+    small = [x[:h, :2048].contiguous() for x in (qf, kf, vf, dof)]
+    s_of, s_lse = flash.flash_fwd_plain(*small[:3], True, scale)
+    s_bwd = (*small, s_lse, (small[3].float() * s_of.float()).sum(-1, keepdim=True), True, scale)
+    runs = {"flash_fwd": (lambda: flash.flash_fwd_cuda(qf, kf, vf, True, scale),
+                          lambda: flash.flash_fwd_plain(*small[:3], True, scale)),
+            "flash_dq": (lambda: flash.flash_dq_cuda(*bwd), lambda: flash.flash_dq_plain(*s_bwd)),
+            "flash_dkv": (lambda: flash.flash_dkv_cuda(*bwd),
+                          lambda: flash.flash_dkv_plain(*s_bwd))}
+    work = _mla_flash_work(b, t, h, 2)
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        flops, nbytes = work[name]
+        by_ops, by_bytes = flops / flops_peak * 1e3, nbytes / hbm * 1e3
+        rec = {"phase": "mla_kernels_time", "kernel": name, "shape": [b, t, h],
+               "head_dims": list(MLA_DIMS), "causal": True, "flops": flops, "bytes": nbytes,
+               "ms": time_ms(torch, kernel, reps=10, flush=flush),
+               "ms_clean_l2": time_ms(torch, kernel, reps=10, flush=flush, clean=True),
+               "profiled_us": _device_us_per_call(torch, kernel, flush),
+               "plain_ms": time_ms(torch, plain, reps=5, flush=flush),
+               "plain_shape": [1, 2048, h], "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+        rec["bound_share"] = rec["bound_ms"] / rec["ms_clean_l2"]
+        rec["bound_share_profiled"] = rec["bound_ms"] / (rec["profiled_us"] * 1e-3)
+        emit(rec)
+        out[name] = rec
+    del qf, kf, vf, dof, of, lse, delta, bwd, small, s_of, s_lse, s_bwd
+    torch.cuda.empty_cache()
+    for label, shape, dtype in RMS_CASES[:2]:
+        rows, d = shape
+        x, dy, scale, _ = _ln_inputs(torch, g, shape, dtype)
+        _, rstd = ln.rms_norm_fwd_cuda(x, scale, RMS_EPS)
+        elt = x.element_size()
+        nbytes = {"fwd": 2 * rows * d * elt + rows * 4 + d * 4,
+                  "bwd": 3 * rows * d * elt + rows * 4 + 2 * d * 4}
+        runs = {"fwd": (lambda: ln.rms_norm_fwd_cuda(x, scale, RMS_EPS),
+                        lambda: ln.rms_norm_fwd_plain(x, scale, RMS_EPS)),
+                "bwd": (lambda: ln.rms_norm_bwd_cuda(dy, x, rstd, scale),
+                        lambda: ln.rms_norm_bwd_plain(dy, x, rstd, scale))}
+        for name, (kernel, plain) in runs.items():
+            rec = {"phase": "mla_kernels_time", "kernel": f"rms_norm_{name}", "case": label,
+                   "shape": list(shape), "dtype": dtype, "bytes": nbytes[name],
+                   "ms": time_ms(torch, kernel, reps=20, flush=flush),
+                   "ms_clean_l2": time_ms(torch, kernel, reps=20, flush=flush, clean=True),
+                   "profiled_us": _device_us_per_call(torch, kernel, flush, reps=20),
+                   "plain_ms": time_ms(torch, plain, reps=10, flush=flush),
+                   "bound_ms": nbytes[name] / hbm * 1e3, "bound_by": "bytes"}
+            rec["bound_share"] = rec["bound_ms"] / rec["ms_clean_l2"]
+            rec["bound_share_profiled"] = rec["bound_ms"] / (rec["profiled_us"] * 1e-3)
+            emit(rec)
+            out.setdefault(f"rms_norm_{name}", rec)  # the block norm's rows
+        del x, dy, rstd
+    out.update(_grouped_time(torch, moe, flush, hbm, flops_peak))
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+#: Moonlight-16B-A3B (huggingface.co/moonshotai/Moonlight-16B-A3B,
+#: config.json) as one card of an 8-card expert-parallel deployment trains
+#: it: every width as published, 5 of its 27 layers (the dense one and four
+#: DeepSeekMoE ones), experts 0-7 of the router's 64 held, 8,192-step
+#: sequences; batch 4, so that each held expert sees half its load under
+#: the deployment (batch 8 does not fit the drop-free arena's activations)
+MOONLIGHT = {
+    "obs_dim": 32, "d_model": 2048, "n_heads": 16, "n_layers": 5, "held": 8, "batch": 4,
+    "seq_len": 8192, "steps": 6, "lr": 1e-4, "gamma": 1e-3,
+    "mla": {"kv_lora_rank": 512, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+            "v_head_dim": 128, "n_dense": 1, "dense_ff": 11264, "moe_ff": 1408,
+            "n_routed": 64, "n_shared": 2},
+    "arch": {"norm_eps": 1e-5, "kv_norm_eps": 1e-6, "rope_theta": 50000, "moe_k": 6,
+             "moe_scale": 2.446, "moe_experts": 64, "moe_first": 0, "balance_alpha": 1e-4},
+}
+#: the first forward's loss on one sequence against the float32
+#: reference's, relative: bf16 products over five layers (a few 1e-3)
+MOONLIGHT_LOSS_RTOL = 1e-2
+#: substrings of the device kernels' names by class, first match wins
+#: (portbench/harness/kernel_classes.json's, with the norms and the grouped
+#: products apart; torch's grouped product is a CUTLASS kernel)
+STEP_CLASSES = (("flash", ("flash_",)), ("norm", ("layer_norm_",)),
+                ("grouped", ("Group", "group")),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "gemv", "sm90_",
+                          "splitKreduce")))
+
+
+def _moonlight_reference_cfg(m):
+    """The Moonlight step's settings under the reference's keys."""
+    mla, arch = m["mla"], m["arch"]
+    return {"qk_nope_head_dim": mla["qk_nope_head_dim"],
+            "qk_rope_head_dim": mla["qk_rope_head_dim"], "kv_lora_rank": mla["kv_lora_rank"],
+            "kv_norm_eps": arch["kv_norm_eps"], "rope_theta": arch["rope_theta"],
+            "rms_norm_eps": arch["norm_eps"], "num_hidden_layers": m["n_layers"],
+            "first_k_dense_replace": mla["n_dense"], "router_experts": arch["moe_experts"],
+            "n_routed_experts": m["held"], "first_held_expert": arch["moe_first"],
+            "num_experts_per_tok": arch["moe_k"], "routed_scaling_factor": arch["moe_scale"],
+            "balance_alpha": arch["balance_alpha"]}
+
+
+def _replay_by_class(torch, replay):
+    """One call of ``replay`` under torch.profiler: the device time and
+    kernel count by :data:`STEP_CLASSES` class, the busy time, and the ten
+    kernels of most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    classes = {}
+    for name, (us, n) in by_name.items():
+        cls = next((c for c, keys in STEP_CLASSES if any(k in name for k in keys)), "other")
+        ms0, n0 = classes.get(cls, (0.0, 0))
+        classes[cls] = (ms0 + us / 1e3, n0 + n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"busy_ms": sum(us for us, _ in by_name.values()) / 1e3,
+            "by_class": {c: {"ms": ms, "kernels": n} for c, (ms, n) in classes.items()},
+            "top": [{"name": name[:160], "ms": us / 1e3, "kernels": n}
+                    for name, (us, n) in top]}
+
+
+def moonlight_step_phase(torch, seqformer, flash, ln, pendulum, TrainState):
+    """Phase 7d (module docstring).  Returns the launches of K2-K4 and K5's
+    RMS mode by kernel over the steps."""
+    import numpy as np
+
+    from blendjax_torch.models import moe
+    from blendjax_torch.models.train import make_train_step
+    from portbench.reference import mla_moe as ref
+
+    t0 = time.perf_counter()
+    m, mla = MOONLIGHT, MOONLIGHT["mla"]
+    layers = [f"blocks.{i}" for i in range(mla["n_dense"], m["n_layers"])]
+    params = seqformer.init(torch.Generator(device="cuda").manual_seed(0),
+                            obs_dim=m["obs_dim"], d_model=m["d_model"], n_heads=m["n_heads"],
+                            n_layers=m["n_layers"], device="cuda", mla=mla)
+    for key in [k for k in params if k.rsplit(".", 1)[-1] in ("w1", "w3", "w2")
+                and ".moe." in k and ".shared." not in k]:
+        params[key] = params[key][:m["held"]].clone()  # this card's experts
+    torch.cuda.empty_cache()
+    ep = pendulum.simulate_episode(np.random.default_rng(0), m["batch"], m["seq_len"],
+                                   m["obs_dim"])
+    batch = {"episode": torch.from_numpy(ep).to(torch.float16).cuda()}
+    attn = flash.make_flash_attention(causal=True, block_q="auto", block_kv="auto")
+
+    def loss_fn(p, b, arch):
+        return seqformer.episode_loss_fn(p, b, compute_dtype=torch.bfloat16, attn_fn=attn,
+                                         arch=arch)
+
+    # the first forward on one sequence against the float32 reference
+    one = {"episode": batch["episode"][:1]}
+    with torch.no_grad():
+        got = float(loss_fn(params, one, dict(m["arch"], balance=None)))
+        want = float(ref.episode_loss(params, one["episode"], _moonlight_reference_cfg(m),
+                                      {k: torch.zeros(mla["n_routed"], device="cuda")
+                                       for k in layers})[0])
+    gap = abs(got - want) / abs(want)
+    emit({"phase": "moonlight_reference", "loss": got, "reference_loss": want,
+          "rel_gap": gap, "limit": MOONLIGHT_LOSS_RTOL, "ok": gap <= MOONLIGHT_LOSS_RTOL})
+
+    balance = moe.Balance(layers, mla["n_routed"], m["held"], m["gamma"], "cuda")
+    arch = dict(m["arch"], balance=balance)
+    step = make_train_step(lambda p, b: loss_fn(p, b, arch), balance=balance)
+    state = TrainState.create(params, lr=m["lr"])
+    fns = {"flash_fwd": flash.flash_fwd_cuda, "flash_dq": flash.flash_dq_cuda,
+           "flash_dkv": flash.flash_dkv_cuda, "rms_norm_fwd": ln.rms_norm_fwd_cuda,
+           "rms_norm_bwd": ln.rms_norm_bwd_cuda, "layer_norm_fwd": ln.layer_norm_fwd_cuda,
+           "layer_norm_bwd": ln.layer_norm_bwd_cuda}
+    routes = {k: dict(fns[k].launches_by_route) for k in FLASH_KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: fn.launches for k, fn in fns.items()}
+    losses, step_ms = [], []
+    for _ in range(m["steps"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, batch)
+        end.record()
+        losses.append(float(loss))
+        step_ms.append(start.elapsed_time(end))
+    launched = {k: fn.launches - before[k] for k, fn in fns.items()}
+    by_route = {k: {r: n - routes[k][r] for r, n in fns[k].launches_by_route.items()}
+                for k in FLASH_KERNELS}
+    per_replay = {k: sum(n for gr in step.graphs.values() for f, n, _ in gr.launches
+                         if f is fn) for k, fn in fns.items()}
+    # a step: K2-K4 once a layer; the RMS norms two a block, the latent's
+    # and ln_f, forward and backward
+    want_step = {"flash_fwd": m["n_layers"], "flash_dq": m["n_layers"],
+                 "flash_dkv": m["n_layers"], "rms_norm_fwd": 3 * m["n_layers"] + 1,
+                 "rms_norm_bwd": 3 * m["n_layers"] + 1, "layer_norm_fwd": 0,
+                 "layer_norm_bwd": 0}
+    counters = balance.read()
+    n_tok = m["batch"] * m["seq_len"]
+    expected_rows = n_tok * m["arch"]["moe_k"] * m["held"] / mla["n_routed"]
+    rec = {"phase": "moonlight_step", "config": {k: v for k, v in m.items() if k != "arch"},
+           "losses": losses, "step_ms": step_ms, "replay_ms": sorted(step_ms[3:]),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launched, "launches_by_route": by_route, "per_replay": per_replay,
+           "per_step": want_step, "arena_rows": moe.arena_rows(n_tok, m["arch"]["moe_k"],
+                                                                m["held"]),
+           "held_rows_a_forward": {layer: sum(c["rows"]) / m["steps"]
+                                   for layer, c in counters["layers"].items()},
+           "expected_held_rows": expected_rows, "counters": counters,
+           "seconds": time.perf_counter() - t0}
+    rec["replay"] = _replay_by_class(torch, lambda: step(state, batch))
+    emit(rec)
+    check(gap <= MOONLIGHT_LOSS_RTOL, "the Moonlight step's first loss against the reference")
+    check(all(math.isfinite(x) for x in losses), "the Moonlight step's losses are finite")
+    check(launched == {k: n * m["steps"] for k, n in want_step.items()},
+          f"the Moonlight step launched {launched}, {want_step} a step")
+    check(per_replay == want_step, f"the Moonlight capture launches {want_step} a replay")
+    check(all(r["f32"] == 0 for r in by_route.values()),
+          "every Moonlight flash launch on the tensor cores")
+    check(counters["updates"] == m["steps"], "one bias step a train step")
+    del state, step, batch, params, balance
+    torch.cuda.empty_cache()
+    return launched
 
 
 def layer_norm_engagement(torch, ln, seqformer, worldmodel, pendulum, TrainState):
@@ -7567,7 +8102,7 @@ def main():
     sys.path.insert(0, REPO)
     from blendjax_torch import btt, control, datagen, serve, worldmodel
     from blendjax_torch.btb import pendulum
-    from blendjax_torch.models import detector, layers, policy, seqformer
+    from blendjax_torch.models import detector, layers, moe, policy, seqformer
     from blendjax_torch.models.train import TrainState
     from blendjax_torch.ops import _build, image, quant
     from blendjax_torch.ops import flash_attention as flash
@@ -7586,7 +8121,8 @@ def main():
     print(card, flush=True)
     CARD = card
     emit({"card": card})
-    emit({"kernels": ["decode_u8"] + list(FLASH_KERNELS) + list(LN_KERNELS)})
+    emit({"kernels": ["decode_u8"] + list(FLASH_KERNELS) + list(LN_KERNELS)
+          + ["rms_norm_fwd", "rms_norm_bwd"]})
     name = card.split(",")[0]
     hbm, flops_peak = peak_rate(HBM_PEAK, name), peak_rate(BF16_PEAK, name)
     HBM_RATE = hbm
@@ -7641,6 +8177,14 @@ def main():
         ln_timing = layer_norm_time_phase(torch, ln, hbm)
     ln_per_replay = layer_norm_engagement(torch, ln, seqformer, worldmodel, pendulum,
                                           TrainState)
+    mla_flash_errs = mla_flash_phase(torch, flash)
+    rms_errs = rms_norm_phase(torch, ln)
+    grouped_phase(torch, moe)
+    with smi_window("mla_kernels_time"):
+        mla_timing = mla_kernels_time_phase(torch, flash, ln, moe, hbm, flops_peak)
+    with smi_window("moonlight_step"):
+        moonlight_launches = moonlight_step_phase(torch, seqformer, flash, ln, pendulum,
+                                                  TrainState)
     with ln_path("seqformer"):
         seqformer_phase(torch, seqformer, flash, worldmodel, pendulum, TrainState)
     with ln_path("worldmodel_stream"):
@@ -7708,13 +8252,15 @@ def main():
                 "flash_dkv": ("flash_bwd_tc.cu", "flash_bwd.cu", 296)}
     for kname, (src, previous_src, line) in replaces.items():
         rec = flash_timing[kname]
+        # the Moonlight step's launches are all on the tensor cores (its check)
         by_route = {route: (flash_routes[kname].get(route, 0)
                             + ha_launches["flash_routes"][kname].get(route, 0)
                             + moe_routes[kname].get(route, 0)
-                            + ring_routes[kname].get(route, 0))
+                            + ring_routes[kname].get(route, 0)
+                            + (moonlight_launches[kname] if route == "tc" else 0))
                     for route in ("tc", "f32")}
         launched = (flash_launches[kname] + ha_launches[kname] + moe_launches[kname]
-                    + ring_launches[kname])
+                    + ring_launches[kname] + moonlight_launches[kname])
         check(sum(by_route.values()) == launched,
               f"{kname}: every launch of the line counted on a route ({by_route}, {launched})")
         kernels.append({
@@ -7724,6 +8270,7 @@ def main():
             "launches_by_path": {"worldmodel_stream": flash_launches[kname],
                                  "ha_resume": ha_launches[kname],
                                  "moe": moe_launches[kname],
+                                 "moonlight_step": moonlight_launches[kname],
                                  "ring_ranks": ring_launches[kname],
                                  "pipe": pipe_launches[kname],
                                  "pipe_ranks": pipe_rank_launches[kname]},
@@ -7733,6 +8280,10 @@ def main():
             "ms_clean_l2": rec["ms_clean_l2"], "launches_by_route": by_route,
             "previous_ms": rec["previous_ms"],
             "previous_source": f"blendjax_torch/ops/csrc/{previous_src}",
+            "mla": {"head_dims": list(MLA_DIMS), "shape": list(MLA_TIME_SHAPE),
+                    "max_abs_err": mla_flash_errs[kname],
+                    **{k: mla_timing[kname][k] for k in (
+                        "ms", "ms_clean_l2", "profiled_us", "bound_ms", "bound_by")}},
         })
     for kname in LN_KERNELS:
         rec = ln_timing[("train", kname[len("layer_norm_"):])]
@@ -7747,6 +8298,19 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "ms_clean_l2": rec["ms_clean_l2"],
+        })
+    # K5's RMS mode: the Moonlight step's norms, nothing else runs them
+    for kname in ("rms_norm_fwd", "rms_norm_bwd"):
+        rec = mla_timing[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"blendjax_torch/ops/csrc/layer_norm_{kname[-3:]}.cu",
+            "replaces": "none (the JAX package has no RMSNorm)",
+            "launches": moonlight_launches[kname],
+            "launches_by_path": {"moonlight_step": moonlight_launches[kname]},
+            "max_abs_err": rms_errs[kname[-3:]], "shape": rec["shape"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "ms_clean_l2": rec["ms_clean_l2"],
         })
     emit({"kernels": kernels})
     # every path that runs the SeqFormer on the card took K5: the training

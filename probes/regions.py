@@ -21,7 +21,9 @@ a parent commit's copy to compare with).  Then:
    SHA-1, and the first replay's names in ``<out>/<tag>.<workload>.names.json``), the
    longest idle gaps by host op, and, with ranges and a table, ``split``'s
    time a step by region and class, what it could not place, and the host
-   time a step in the ``train.*`` dispatch ranges.
+   time a step in the ``train.*`` dispatch ranges; a program with
+   ``counters()`` (the DeepSeekMoE layers' ``moe.Balance``) has them read
+   after the idle-card steps.
 3. Five steps each on an idle card under the profiler: the dispatch
    ranges' host time when no launch waits for room in the queue; ten with
    no profiler, each call's host time; and the host time of entering and
@@ -293,6 +295,8 @@ for _ in range(10):
     host.append((time.perf_counter() - t0) * 1e3)
 torch.cuda.synchronize()
 out["call_host_ms"] = statistics.median(host)
+if hasattr(prog, "counters"):
+    out["counters"] = prog.counters()  # the DeepSeekMoE layers' (moe.Balance.read)
 if has_ranges:
     region = sys.modules["blendjax_torch.obs.regions"].region
     n = 1_000_000
